@@ -1,0 +1,2 @@
+from repro_torch.checkpoint.bridge import (  # noqa: F401
+    params_from_flat, read_params_npz)

@@ -1,0 +1,55 @@
+"""Architecture registry of the PyTorch port: ``--arch <id>`` resolves here.
+
+The config dataclasses in ``base.py`` are copies of the JAX package's, field
+for field, so ``dataclasses.asdict`` of a JAX config rebuilds the same config
+here. This slice of the port covers the dense ``qwen3-8b`` family only.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import (  # noqa: F401  (re-exported)
+    AttentionConfig,
+    LinformerConfig,
+    MLPConfig,
+    MoEConfig,
+    ModelConfig,
+    RWKVConfig,
+    SSMConfig,
+)
+
+# arch id (public, dashed) -> module name
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen3-8b": "qwen3_8b",
+}
+
+
+def _module(arch_id: str):
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; the PyTorch port "
+                       f"covers {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    """Full published config for an architecture."""
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    """Reduced same-family config for CPU tests."""
+    return _module(arch_id).SMOKE
+
+
+def config_from_dict(d: Dict) -> ModelConfig:
+    """Rebuild a ModelConfig from ``dataclasses.asdict`` output (of this
+    package's config or of the JAX package's identical dataclass)."""
+    d = dict(d)
+    att = dict(d.pop("attention"))
+    att["linformer"] = LinformerConfig(**att["linformer"])
+    return ModelConfig(
+        attention=AttentionConfig(**att), mlp=MLPConfig(**d.pop("mlp")),
+        moe=MoEConfig(**d.pop("moe")), ssm=SSMConfig(**d.pop("ssm")),
+        rwkv=RWKVConfig(**d.pop("rwkv")), **d)

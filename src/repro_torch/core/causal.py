@@ -1,0 +1,127 @@
+"""Blockwise-causal Linformer attention: the plain PyTorch reference forms.
+
+Counterpart of ``repro/core/causal.py``. The convolutional projection
+(kernel = stride = c) compresses each c-token block into r slots, so a query
+at position t (block n = t // c) attends
+
+  * exactly and causally within its own block (positions n·c .. t), and
+  * the r compressed slots of every block strictly before n.
+
+These functions are the parity oracle of the port (``backend="reference"``)
+and mirror the JAX reference einsum for einsum, cast point for cast point:
+scores in fp32, masks as ``NEG_INF`` on the fp32 scores (never ``-inf``, so
+a row whose every entry is masked stays finite), softmax output cast to the
+query dtype before the value product.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _common(*xs: torch.Tensor):
+    """Cast operands to their promoted dtype (JAX promotes mixed operands of
+    an einsum implicitly; torch.einsum requires one dtype)."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x.to(dt) for x in xs]
+
+
+def compress_blocks(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """(B, nb, c, Hkv, Dh) × (c, r)|(Hkv, c, r) -> (B, nb, r, Hkv, Dh)."""
+    if W.ndim == 2:
+        return torch.einsum("bnchd,cr->bnrhd", x, W.to(x.dtype))
+    return torch.einsum("bnchd,hcr->bnrhd", x, W.to(x.dtype))
+
+
+def blockwise_causal_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    E: torch.Tensor,
+    F: torch.Tensor,
+    *,
+    block_size: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Training/prefill-parallel form.
+
+    q: (B,S,H,Dh); k,v: (B,S,Hkv,Dh); E,F: (c,r) or (Hkv,c,r); S % c == 0.
+    Returns (B,S,H,Dh). Materializes the (…, S, c + nb·r) joint score
+    tensor: fine at serving prefill lengths."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    c = block_size
+    if S % c != 0:
+        raise ValueError(f"S={S} must be a multiple of block_size={c}")
+    nb = S // c
+    r = E.shape[-1]
+    scale = scale if scale is not None else Dh ** -0.5
+
+    kb = k.reshape(B, nb, c, Hkv, Dh)
+    vb = v.reshape(B, nb, c, Hkv, Dh)
+    qb = q.reshape(B, nb, c, Hkv, G, Dh)
+
+    kbar = compress_blocks(kb, E)                       # (B,nb,r,Hkv,Dh)
+    vbar = compress_blocks(vb, F)
+
+    # local: exact causal attention within each block
+    s_loc = torch.einsum("bnchgd,bnkhd->bhgnck", qb, kb).float() * scale
+    causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    s_loc = s_loc.masked_fill(~causal, NEG_INF)
+
+    # global: compressed slots of strictly-previous blocks
+    s_glob = torch.einsum("bnchgd,bmrhd->bhgncmr", qb, kbar).float() * scale
+    blk = torch.arange(nb, device=q.device)
+    blk_vis = blk[:, None] > blk[None, :]               # (n_q, m_kv)
+    s_glob = s_glob.masked_fill(~blk_vis[:, None, :, None], NEG_INF)
+    s_glob = s_glob.reshape(*s_glob.shape[:-2], nb * r)
+
+    # joint softmax over [own block | compressed prefix]
+    s = torch.cat([s_loc, s_glob], dim=-1)              # (B,Hkv,G,nb,c,c+nb*r)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    p_loc, p_glob = p[..., :c], p[..., c:]
+
+    out = torch.einsum("bhgnck,bnkhd->bnchgd", p_loc, vb)
+    vbar_flat = vbar.reshape(B, nb * r, Hkv, Dh)
+    out = out + torch.einsum("bhgncm,bmhd->bnchgd", p_glob, vbar_flat)
+    return out.reshape(B, S, H, Dh)
+
+
+def masked_decode_attention(
+    q_t: torch.Tensor,        # (B, 1, H, Dh)
+    raw_k: torch.Tensor,      # (B, c, Hkv, Dh) — raw ring buffer
+    raw_v: torch.Tensor,
+    comp_k: torch.Tensor,     # (B, M, Hkv, Dh) — compressed slots
+    comp_v: torch.Tensor,
+    loc_ok: torch.Tensor,     # (B, c) bool — attendable ring positions
+    glob_ok: torch.Tensor,    # (B, M) bool — attendable compressed slots
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Reference single-token decode attention over [raw ring | compressed
+    slots] with per-row validity masks. Pure attention math: ring writes
+    and block folds live in core/cache.py, dispatch in parallel/plan.py."""
+    B, c, Hkv, Dh = raw_k.shape
+    H = q_t.shape[2]
+    G = H // Hkv
+    qg = q_t.reshape(B, Hkv, G, Dh)
+    qk, rk = _common(qg, raw_k)
+    s_loc = torch.einsum("bhgd,bkhd->bhgk", qk, rk).float() * scale
+    s_loc = s_loc.masked_fill(~loc_ok[:, None, None, :], NEG_INF)
+    qk, ck = _common(qg, comp_k)
+    s_glob = torch.einsum("bhgd,bmhd->bhgm", qk, ck).float() * scale
+    s_glob = s_glob.masked_fill(~glob_ok[:, None, None, :], NEG_INF)
+
+    s = torch.cat([s_loc, s_glob], dim=-1)
+    p = torch.softmax(s, dim=-1).to(q_t.dtype)
+    p_loc, rv = _common(p[..., :c], raw_v)
+    out = torch.einsum("bhgk,bkhd->bhgd", p_loc, rv)
+    p_glob, cv = _common(p[..., c:], comp_v)
+    out = out + torch.einsum("bhgm,bmhd->bhgd", p_glob, cv)
+    return out.reshape(B, 1, H, Dh)

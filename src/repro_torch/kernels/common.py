@@ -1,0 +1,150 @@
+"""Shared kernel-wrapper plumbing: device resolution, layout moves, the
+backend table, and the fail-fast shape guards of the CUDA kernels.
+
+Counterpart of ``repro/kernels/common.py``. The TPU package bounded its
+kernels by VMEM budgets; here the guards are derived from what the CUDA
+kernels in ``csrc/`` accept: the head dims they are instantiated for, whole
+blocks (``S % c == 0``), ``M == nb·r`` compressed slots, and the shared
+memory a thread block may use on the H100. The tile constants below must
+match the ``.cu`` sources.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+import torch
+
+# AttentionConfig.backend -> (route for CPU tensors, route for CUDA tensors).
+# "kernel" goes through kernels/ops.py, whose wrappers launch the CUDA kernel
+# for a CUDA tensor and run the kernel's plain twin for a CPU tensor;
+# "plain" goes to the reference forms in core/causal.py.
+BACKEND_ROUTES: Dict[str, Tuple[str, str]] = {
+    "auto": ("kernel", "kernel"),
+    "fused": ("unavailable", "kernel"),
+    "reference": ("plain", "plain"),
+}
+
+# Shared memory one thread block may use on an H100 (227 KB); above 48 KB
+# only as dynamic shared memory after cudaFuncSetAttribute.
+MAX_SMEM_PER_BLOCK = 232448
+
+# csrc/blockwise_causal_attn.cu: head dims the kernel is instantiated for,
+# its key tile, and the pitch of its probability tile.
+BCA_HEAD_DIMS = (16, 32, 64, 128)
+BCA_TILE_K = 64
+BCA_P_PITCH = BCA_TILE_K + 16
+
+# csrc/decode_attn.cu: key tile and head-dim ceiling.
+DECODE_TILE = 64
+DECODE_MAX_HEAD_DIM = 256
+
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def resolve_device(device: Union[str, torch.device, None] = "cuda"
+                   ) -> torch.device:
+    """The device an entry point runs on. CUDA is the default; asking for it
+    on a machine without a card raises instead of silently using the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch versions")
+    return dev
+
+
+def backend_route(backend: str, is_cuda: bool) -> str:
+    """Route of one attention call: "kernel" or "plain" (see BACKEND_ROUTES)."""
+    try:
+        cpu_route, cuda_route = BACKEND_ROUTES[backend]
+    except KeyError:
+        raise ValueError(f"unknown attention backend {backend!r}; expected "
+                         f"one of {sorted(BACKEND_ROUTES)}") from None
+    route = cuda_route if is_cuda else cpu_route
+    if route == "unavailable":
+        raise ValueError(
+            f"backend={backend!r} needs CUDA tensors: the CUDA kernels "
+            "cannot run on the CPU (use 'auto' or 'reference')")
+    return route
+
+
+def to_kernel_layout(x: torch.Tensor) -> torch.Tensor:   # (B,S,H,D) -> (B,H,S,D)
+    return x.movedim(2, 1)
+
+
+def from_kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(1, 2)
+
+
+def bca_query_tile(block_size: int) -> int:
+    """Query rows per thread block of the blockwise kernel: a tile never
+    straddles two attention blocks, so it must divide c."""
+    if block_size % 64 == 0:
+        return 64
+    if block_size % 16 == 0:
+        return 16
+    raise ValueError(
+        f"block_size={block_size}: the CUDA blockwise-causal kernel needs "
+        "a multiple of 16 (query tiles of 16 or 64 rows)")
+
+
+def bca_smem_bytes(block_q: int, head_dim: int) -> int:
+    return 4 * ((block_q + 2 * BCA_TILE_K) * (head_dim + 1)
+                + block_q * BCA_P_PITCH)
+
+
+def check_blockwise_shapes(*, seq: int, block_size: int, block_slots: int,
+                           slots: int, head_dim: int) -> None:
+    """Fail fast on shapes csrc/blockwise_causal_attn.cu does not take."""
+    if head_dim not in BCA_HEAD_DIMS:
+        raise ValueError(f"head_dim={head_dim}: the CUDA blockwise-causal "
+                         f"kernel is built for head dims {BCA_HEAD_DIMS}")
+    if seq % block_size != 0:
+        raise ValueError(
+            f"S={seq} must be a multiple of block_size={block_size}")
+    if slots != (seq // block_size) * block_slots:
+        raise ValueError(f"M={slots} compressed slots, expected "
+                         f"(S/c)·r = {(seq // block_size) * block_slots}")
+    smem = bca_smem_bytes(bca_query_tile(block_size), head_dim)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"blockwise-causal tile needs {smem} B of shared "
+                         f"memory, above {MAX_SMEM_PER_BLOCK}")
+
+
+def decode_smem_bytes(group: int, head_dim: int) -> int:
+    return 4 * (2 * group * head_dim + 2 * DECODE_TILE * (head_dim + 1)
+                + group * DECODE_TILE + 3 * group)
+
+
+def check_decode_shapes(*, group: int, head_dim: int) -> None:
+    """Fail fast on shapes csrc/decode_attn.cu does not take."""
+    if head_dim > DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim={head_dim} above the decode kernel's "
+                         f"{DECODE_MAX_HEAD_DIM}")
+    smem = decode_smem_bytes(group, head_dim)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"decode tile for G={group}, Dh={head_dim} needs "
+                         f"{smem} B of shared memory, above "
+                         f"{MAX_SMEM_PER_BLOCK}")
+
+
+def kernel_dtype_code(*xs: torch.Tensor) -> int:
+    """The kernels' dtype code; every operand must share one dtype."""
+    dt = xs[0].dtype
+    if any(x.dtype != dt for x in xs):
+        raise TypeError("kernel operands must share one dtype, got "
+                        f"{sorted({str(x.dtype) for x in xs})}")
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
+    return KERNEL_DTYPES[dt]
+
+
+def check_operands(*xs: torch.Tensor) -> None:
+    """Every operand on one device, innermost dim contiguous."""
+    dev = xs[0].device
+    for x in xs:
+        if x.device != dev:
+            raise ValueError(f"operands on {x.device} and {dev}")
+        if x.stride(-1) != 1:
+            raise ValueError("kernel operands need a contiguous last dim, "
+                             f"got strides {tuple(x.stride())}")

@@ -1,0 +1,146 @@
+"""Attention block: QKV/output projections and the blockwise-causal
+Linformer attention (prefill and decode).
+
+Counterpart of ``repro/models/attention.py`` for
+``kind="linformer_causal"``. The attention math dispatches through an
+:class:`AttentionPlan` (parallel/plan.py); this module never branches on
+backend strings.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import causal as causal_lib
+from repro_torch.models import layers as L
+from repro_torch.parallel import plan as plan_lib
+
+
+def _check_kind(cfg: AttentionConfig) -> None:
+    if cfg.kind != "linformer_causal":
+        raise ValueError("the PyTorch port covers kind='linformer_causal' "
+                         f"only, got {cfg.kind!r}")
+
+
+def _qkv(params: Dict, x: torch.Tensor, cfg: AttentionConfig,
+         positions: Optional[torch.Tensor]
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = L.rms_norm(params["q_norm"], q)
+        k = L.rms_norm(params["k_norm"], k)
+    if cfg.use_rope:
+        pos = positions if positions is not None \
+            else torch.arange(S, device=x.device)
+        q = L.apply_rope(q, pos, cfg.rope_theta)
+        k = L.apply_rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _resolve_ef(params: Dict, shared_lin: Optional[Dict],
+                cfg: AttentionConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E, F) of one layer. Layerwise sharing uses the one E for K and V."""
+    if cfg.linformer.sharing == "layerwise":
+        if shared_lin is None:
+            raise ValueError("layerwise sharing needs the shared E")
+        E = shared_lin["E"]
+        return E, E
+    lp = params["lin"]
+    return lp["E"], lp.get("F", lp["E"])
+
+
+def apply_attention(
+    params: Dict,
+    x: torch.Tensor,
+    cfg: AttentionConfig,
+    *,
+    shared_lin: Optional[Dict] = None,
+    positions: Optional[torch.Tensor] = None,
+    cache_entry: Optional[Dict[str, torch.Tensor]] = None,
+    plan: Optional[plan_lib.AttentionPlan] = None,
+) -> torch.Tensor:
+    """Full-sequence attention (prefill). x: (B, S, D).
+
+    With `cache_entry` — this layer's slices of a decode cache — also fills
+    the cache from the SAME k/v (single-pass prefill, no second forward)."""
+    _check_kind(cfg)
+    B, S, _ = x.shape
+    plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
+    q, k, v = _qkv(params, x, cfg, positions)
+    E, F = _resolve_ef(params, shared_lin, cfg)
+    out = plan.causal_attention(q, k, v, E, F,
+                                block_size=cfg.linformer.block_size,
+                                block_slots=cfg.linformer.block_slots,
+                                scale=cfg.head_dim ** -0.5)
+    out = out.reshape(B, S, -1) @ params["wo"]
+    if cache_entry is not None:
+        _entry_from_kv(k, v, cfg, (E, F), cache_entry)
+    return out
+
+
+def _entry_from_kv(k, v, cfg: AttentionConfig, ef,
+                   entry: Dict[str, torch.Tensor]) -> None:
+    """Fill one layer's zero-initialized decode-cache slices (comp_k
+    (B, M, Hkv, Dh), ...) from prefilled k/v (rope applied): the first nb·r
+    slots take the compressed blocks; the ring stays empty at t = S."""
+    B, S, Hkv, Dh = k.shape
+    E, F = ef
+    c = cfg.linformer.block_size
+    r = cfg.linformer.block_slots
+    if S % c != 0:
+        raise ValueError(f"prefill length {S} not a multiple of block {c}")
+    nb = S // c
+    M = entry["comp_k"].shape[1]
+    if nb * r > M:
+        raise ValueError(f"prefill of {S} tokens needs {nb * r} compressed "
+                         f"slots, the cache holds {M}")
+    for name, x, W in (("comp_k", k, E), ("comp_v", v, F)):
+        comp = causal_lib.compress_blocks(x.reshape(B, nb, c, Hkv, Dh), W)
+        entry[name][:, :nb * r] = comp.reshape(B, nb * r, Hkv, Dh)
+
+
+def apply_attention_decode(
+    params: Dict,
+    x_t: torch.Tensor,                 # (B, 1, D)
+    layer_cache: Dict[str, torch.Tensor],
+    t: torch.Tensor,                   # (B,) int32 current positions
+    cfg: AttentionConfig,
+    *,
+    shared_lin: Optional[Dict] = None,
+    plan: Optional[plan_lib.AttentionPlan] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode step against the layer's cache (updated in place).
+    Each row decodes at its own position t[b]: rope, cache write and mask
+    are all per row."""
+    _check_kind(cfg)
+    plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
+    positions = t[:, None]                                   # (B, 1)
+    q, k, v = _qkv(params, x_t, cfg, positions=positions)
+    E, F = _resolve_ef(params, shared_lin, cfg)
+    out, new_cache = cache_lib.compressed_decode_attention(
+        q, k, v, layer_cache, E, F, t, plan=plan)
+    B = x_t.shape[0]
+    return out.reshape(B, 1, -1) @ params["wo"], new_cache
+
+
+def decode_cache_spec(cfg: AttentionConfig, *, num_layers: int, batch: int,
+                      max_seq: int, dtype=torch.bfloat16):
+    """{leaf: (shape, dtype)} of this attention kind's decode cache."""
+    _check_kind(cfg)
+    return cache_lib.compressed_cache_spec(
+        num_layers=num_layers, batch=batch, max_seq=max_seq,
+        block_size=cfg.linformer.block_size,
+        block_slots=cfg.linformer.block_slots,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, dtype=dtype)

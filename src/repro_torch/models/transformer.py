@@ -1,0 +1,241 @@
+"""Dense decoder LM (qwen3-style): RMSNorm, RoPE, qk-norm, GQA, SwiGLU, with
+blockwise-causal Linformer attention.
+
+Counterpart of the dense half of ``repro/models/transformer.py``. Parameters
+are nested dicts of tensors laid out exactly like the JAX package's pytree
+with scanned (stacked) layers: every leaf under ``layers`` carries a leading
+layer axis, e.g. ``layers/attn/wq`` (L, d, H·Dh). Layer i runs on views
+``a[i]`` of the stacked leaves.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import linformer as lin_lib
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers as L
+from repro_torch.parallel import plan as plan_lib
+
+# init kinds of param_spec
+_ONES, _ZEROS, _EMBED, _DENSE, _LIN = "ones", "zeros", "embed", "dense", "lin"
+# core/linformer.py parameter groups -> their place in the params tree
+_LIN_GROUPS = {"shared": "shared/lin", "per_layer": "layers/attn/lin"}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.moe.num_experts or cfg.embedding_inputs \
+            or cfg.frontend_embed_len or not cfg.scan_layers:
+        raise ValueError(
+            f"config {cfg.name!r}: the PyTorch port covers the dense family "
+            "with token inputs and stacked layers only")
+
+
+def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """Flat {"/"-joined key: (shape, init kind)}, keyed exactly like the JAX
+    package's checkpoints (checkpoint/checkpointer.py ``_flatten``)."""
+    _check_family(cfg)
+    a, d, nl = cfg.attention, cfg.d_model, cfg.num_layers
+    H, Hkv, Dh = a.num_heads, a.num_kv_heads, a.head_dim
+    spec: Dict[str, Tuple[Tuple[int, ...], str]] = {
+        "embed/tok": ((cfg.padded_vocab_size, d), _EMBED)}
+    if not a.use_rope:
+        raise ValueError("learned positions are not ported; use_rope=True")
+    lin = lin_lib.linformer_param_shapes(a, num_layers=nl)
+    for name, shape in lin.get("shared", {}).items():
+        spec[f"{_LIN_GROUPS['shared']}/{name}"] = (shape, _LIN)
+    spec["layers/ln1/scale"] = ((nl, d), _ONES)
+    spec["layers/ln2/scale"] = ((nl, d), _ONES)
+    spec["layers/attn/wq"] = ((nl, d, H * Dh), _DENSE)
+    spec["layers/attn/wk"] = ((nl, d, Hkv * Dh), _DENSE)
+    spec["layers/attn/wv"] = ((nl, d, Hkv * Dh), _DENSE)
+    spec["layers/attn/wo"] = ((nl, H * Dh, d), _DENSE)
+    if a.qkv_bias:
+        for n, w in (("bq", H), ("bk", Hkv), ("bv", Hkv)):
+            spec[f"layers/attn/{n}"] = ((nl, w * Dh), _ZEROS)
+    if a.qk_norm:
+        spec["layers/attn/q_norm/scale"] = ((nl, Dh), _ONES)
+        spec["layers/attn/k_norm/scale"] = ((nl, Dh), _ONES)
+    for name, shape in lin.get("per_layer", {}).items():
+        spec[f"{_LIN_GROUPS['per_layer']}/{name}"] = (shape, _LIN)
+    ff = cfg.mlp.d_ff
+    spec["layers/mlp/w_in"] = ((nl, d, ff), _DENSE)
+    spec["layers/mlp/w_out"] = ((nl, ff, d), _DENSE)
+    if cfg.mlp.activation == "swiglu":
+        spec["layers/mlp/w_gate"] = ((nl, d, ff), _DENSE)
+    spec["final_norm/scale"] = ((d,), _ONES)
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ((d, cfg.padded_vocab_size), _DENSE)
+    return spec
+
+
+def nest(flat: Dict[str, torch.Tensor]) -> Dict:
+    """{"a/b/c": x} -> {"a": {"b": {"c": x}}}."""
+    out: Dict = {}
+    for key, val in flat.items():
+        node = out
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return out
+
+
+def layer_slice(tree: Dict, i: int) -> Dict:
+    """Views of layer i of a stacked-layer subtree."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+                device: torch.device) -> Dict:
+    """Random parameters with the JAX package's distributions (fan-in
+    scaled normal weights, N(0, 0.02) embeddings, unit norm scales, E/F
+    N(0, 1/r)), drawn from `generator` (on `device`). The values differ
+    from the JAX init: parity tests bridge JAX weights instead."""
+    dt = torch_dtype(cfg.dtype)
+    flat = {}
+    for key, (shape, kind) in param_spec(cfg).items():
+        if kind in (_ONES, _ZEROS):
+            fill = 1.0 if kind == _ONES else 0.0
+            flat[key] = torch.full(shape, fill, dtype=dt, device=device)
+        elif kind != _LIN:
+            std = 0.02 if kind == _EMBED else shape[-2] ** -0.5
+            w = torch.randn(shape, generator=generator, device=device)
+            flat[key] = w.mul_(std).to(dt)
+    lin = lin_lib.init_linformer_params(generator, cfg.attention,
+                                        num_layers=cfg.num_layers,
+                                        device=device, dtype=dt)
+    for group, leaves in lin.items():
+        for name, w in leaves.items():
+            flat[f"{_LIN_GROUPS[group]}/{name}"] = w
+    return nest(flat)
+
+
+def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                shared_lin: Optional[Dict],
+                cache_entry: Optional[Dict] = None,
+                plan: plan_lib.AttentionPlan) -> torch.Tensor:
+    h = attn_lib.apply_attention(params["attn"], L.rms_norm(params["ln1"], x),
+                                 cfg.attention, shared_lin=shared_lin,
+                                 cache_entry=cache_entry, plan=plan)
+    x = x + h
+    return x + L.apply_mlp(params["mlp"], L.rms_norm(params["ln2"], x),
+                           cfg.mlp)
+
+
+def apply_block_decode(params: Dict, x_t: torch.Tensor, layer_cache: Dict,
+                       t: torch.Tensor, cfg: ModelConfig, *,
+                       shared_lin: Optional[Dict],
+                       plan: plan_lib.AttentionPlan) -> torch.Tensor:
+    h, _ = attn_lib.apply_attention_decode(
+        params["attn"], L.rms_norm(params["ln1"], x_t), layer_cache, t,
+        cfg.attention, shared_lin=shared_lin, plan=plan)
+    x_t = x_t + h
+    return x_t + L.apply_mlp(params["mlp"], L.rms_norm(params["ln2"], x_t),
+                             cfg.mlp)
+
+
+def logits_from_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor
+                       ) -> torch.Tensor:
+    x = L.rms_norm(params["final_norm"], x)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"]["tok"].T
+    return x @ head
+
+
+def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device: torch.device) -> Dict:
+    spec = attn_lib.decode_cache_spec(cfg.attention,
+                                      num_layers=cfg.num_layers,
+                                      batch=batch, max_seq=max_seq,
+                                      dtype=dtype)
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in spec.items()}
+
+
+def _layer_caches(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in cache.items() if k != "lengths"}
+
+
+def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
+            return_cache: bool = False, cache_max_seq: Optional[int] = None,
+            cache_dtype=torch.bfloat16,
+            plan: Optional[plan_lib.AttentionPlan] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Full-sequence forward. Returns (logits (B, S, V), aux, cache|None).
+
+    With return_cache=True the sequence length must be a multiple of the
+    Linformer block size; the cache is built in the same pass (the config's
+    single_pass_cache) and positioned at t = S, ready for decode_step."""
+    if return_cache and not cfg.single_pass_cache:
+        raise ValueError("only the single-pass prefill cache is ported")
+    plan = plan if plan is not None \
+        else plan_lib.resolve_attention_plan(cfg.attention)
+    tokens = batch["tokens"]
+    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    B, S, _ = x.shape
+    shared_lin = params.get("shared", {}).get("lin")
+    cache = None
+    if return_cache:
+        cache = init_cache(cfg, batch=B,
+                           max_seq=cache_max_seq or cfg.max_seq_len,
+                           dtype=cache_dtype, device=x.device)
+    for i in range(cfg.num_layers):
+        x = apply_block(layer_slice(params["layers"], i), x, cfg,
+                        shared_lin=shared_lin,
+                        cache_entry=(_layer_caches(cache, i)
+                                     if cache is not None else None),
+                        plan=plan)
+    logits = logits_from_hidden(params, cfg, x)
+    if cache is not None:
+        cache["lengths"].fill_(S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, cache
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict, *,
+                plan: Optional[plan_lib.AttentionPlan] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. tokens: (B, 1). Row b decodes at
+    cache["lengths"][b]. Returns (logits (B, 1, V), cache): the cache
+    leaves are updated in place; the returned dict carries a new
+    ``lengths`` = old + 1."""
+    plan = plan if plan is not None \
+        else plan_lib.resolve_attention_plan(cfg.attention)
+    t = cache["lengths"]
+    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    shared_lin = params.get("shared", {}).get("lin")
+    for i in range(cfg.num_layers):
+        x = apply_block_decode(layer_slice(params["layers"], i), x,
+                               _layer_caches(cache, i), t, cfg,
+                               shared_lin=shared_lin, plan=plan)
+    logits = logits_from_hidden(params, cfg, x)
+    return logits, {**cache, "lengths": t + 1}
+
+
+def param_bytes(params: Dict) -> int:
+    total = 0
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            if isinstance(v, dict):
+                stack.append(v)
+            else:
+                total += v.numel() * v.element_size()
+    return total
+
+
+def cache_nbytes(spec: Dict) -> int:
+    return sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+               for shape, dt in spec.values())

@@ -1,0 +1,90 @@
+"""Attention execution plan, single device.
+
+Counterpart of the single-device half of ``repro/parallel/plan.py``: ONE
+place decides how attention executes, so call sites (models/attention.py,
+core/cache.py, the serving engine) never branch on backend strings. The
+knob is the JAX package's ``AttentionConfig.backend``:
+
+* ``"auto"`` (default): the CUDA kernels for CUDA tensors, their plain twins
+  for CPU tensors (through kernels/ops.py);
+* ``"fused"``: the CUDA kernels; raises for CPU tensors;
+* ``"reference"``: the plain reference forms of core/causal.py, on any
+  device (the parity oracle).
+
+The multi-device plans (tensor and sequence parallelism) come with the
+multi-GPU slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.core import causal as causal_lib
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.common import backend_route
+
+
+def decode_biases(loc_ok: torch.Tensor, glob_ok: torch.Tensor):
+    """Boolean validity masks -> the decode kernel's additive fp32 biases
+    (0 attendable, NEG_INF masked)."""
+    zero = torch.zeros((), dtype=torch.float32, device=loc_ok.device)
+    neg = torch.full((), causal_lib.NEG_INF, dtype=torch.float32,
+                     device=loc_ok.device)
+    return torch.where(loc_ok, zero, neg), torch.where(glob_ok, zero, neg)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """Execution plan for the attention forms of one config."""
+
+    backend: str = "auto"            # AttentionConfig.backend knob
+
+    def __post_init__(self):
+        backend_route(self.backend, True)     # raises on an unknown knob
+
+    def uses_kernels(self, x: torch.Tensor) -> bool:
+        """Whether a call on `x` goes through kernels/ops.py (True) or the
+        plain reference forms (False); raises for "fused" on the CPU."""
+        return backend_route(self.backend, x.is_cuda) != "plain"
+
+    def causal_attention(self, q, k, v, E, F, *, block_size: int,
+                         block_slots: int, scale: float) -> torch.Tensor:
+        """Full-sequence blockwise-causal attention (prefill).
+        q (B, S, H, Dh); k/v (B, S, Hkv, Dh); E/F (c, r) or (Hkv, c, r)."""
+        if not self.uses_kernels(q):
+            return causal_lib.blockwise_causal_attention(
+                q, k, v, E, F, block_size=block_size, scale=scale)
+        return kernel_ops.fused_blockwise_causal_attention(
+            q, k, v, E, F, block_size=block_size, block_slots=block_slots,
+            scale=scale)
+
+    def decode_attention(self, q_t, raw_k, raw_v, comp_k, comp_v, loc_ok,
+                         glob_ok, *, scale: float) -> torch.Tensor:
+        """Single-token decode attention over [raw ring | compressed slots]
+        with per-row validity masks. q_t (B, 1, H, Dh); raw_* (B, c, Hkv,
+        Dh); comp_* (B, M, Hkv, Dh); loc_ok (B, c) / glob_ok (B, M) bool."""
+        if not self.uses_kernels(q_t):
+            return causal_lib.masked_decode_attention(
+                q_t, raw_k, raw_v, comp_k, comp_v, loc_ok, glob_ok,
+                scale=scale)
+        bias_loc, bias_glob = decode_biases(loc_ok, glob_ok)
+        return kernel_ops.fused_decode_attention(
+            q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
+            scale=scale)
+
+
+def resolve_attention_plan(acfg: AttentionConfig) -> AttentionPlan:
+    """The plan of one attention config."""
+    return AttentionPlan(backend=acfg.backend)
+
+
+def as_plan(plan: Union[AttentionPlan, str, None]) -> AttentionPlan:
+    """Normalize a plan-or-backend-string; None means the reference plan
+    (as in the JAX package)."""
+    if isinstance(plan, AttentionPlan):
+        return plan
+    return AttentionPlan(backend=plan or "reference")
+

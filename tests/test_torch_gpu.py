@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`; each test asks the `cuda` fixture for the card and skips
+without one, so every pytest worker collects the same tests. Run on a
+machine with an H100 from the repo root (tests/conftest.py imports JAX,
+which the port does not need):
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: fp32 1e-4 absolute (summation order); bf16
+|kernel - plain| <= 2^-8·max|v| + 2^-7·|plain| elementwise (the plain
+version rounds each probability to bf16 before the value product, as the
+TPU kernel did, where the kernel keeps it in fp32; each output is rounded
+once to bf16)."""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.causal import NEG_INF, compress_blocks
+from repro_torch.kernels import blockwise_causal_attn as bca
+from repro_torch.kernels import linformer_attn as la
+from repro_torch.models import model as tmodel
+from repro_torch.serving import ServingEngine
+
+pytestmark = pytest.mark.gpu
+
+
+def _assert_close(out, ref, values):
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        bound = torch.full_like(diff, 1e-4)
+    else:
+        vmax = max(v.float().abs().max().item() for v in values)
+        bound = 2 ** -8 * vmax + 2 ** -7 * ref.float().abs()
+    assert (diff <= bound).all(), diff.max().item()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+    E = torch.randn(c, r, generator=g, device=dev) * r ** -0.5
+    nb = S // c
+    kbar = compress_blocks(k.reshape(B, nb, c, Hkv, Dh), E)
+    vbar = compress_blocks(v.reshape(B, nb, c, Hkv, Dh), E)
+    tk = lambda x: x.movedim(2, 1)  # noqa: E731  model -> kernel layout
+    return (tk(q), tk(k), tk(v), tk(kbar.reshape(B, nb * r, Hkv, Dh)),
+            tk(vbar.reshape(B, nb * r, Hkv, Dh)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 2, 64, 16, 4, 16),
+                                   (1, 32, 8, 1024, 256, 16, 128)],
+                         ids=["smoke", "full"])
+def test_blockwise_kernel_matches_plain(cuda, dtype, shape):
+    B, H, Hkv, S, c, r, Dh = shape
+    args = _bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, cuda)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    n0 = bca.blockwise_causal_attn.launches
+    out = bca.blockwise_causal_attn(*args, **kw)
+    torch.cuda.synchronize()
+    assert bca.blockwise_causal_attn.launches == n0 + 1
+    ref = bca.blockwise_causal_attn_plain(*args, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_close(out, ref, (args[2], args[4]))
+
+
+def _decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev).to(dtype)
+    ring = [torch.randn(B, c, Hkv, Dh, generator=g,
+                        device=dev).to(dtype).movedim(2, 1)
+            for _ in range(2)]
+    slots = [torch.randn(B, M, Hkv, Dh, generator=g,
+                         device=dev).to(dtype).movedim(2, 1)
+             for _ in range(2)]
+    t = torch.randint(0, (M // r) * c, (B,), generator=g, device=dev)
+    t[0] = 0                                     # pos 0, no visible slot
+    if B > 1:
+        t[1] = c - 1                             # pos c-1, no visible slot
+    bl = torch.where(torch.arange(c, device=dev)[None] <= (t % c)[:, None],
+                     0.0, NEG_INF)
+    bg = torch.where(torch.arange(M, device=dev)[None] < (t // c * r)[:, None],
+                     0.0, NEG_INF)
+    return (q, *ring, *slots, bl.float(), bg.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 2, 2, 16, 24, 4, 16),
+                                   (4, 8, 4, 256, 256, 16, 128)],
+                         ids=["smoke", "full"])
+def test_decode_kernel_matches_plain(cuda, dtype, shape):
+    B, Hkv, G, c, M, r, Dh = shape
+    args = _decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, cuda)
+    n0 = la.decode_attn.launches
+    out = la.decode_attn(*args, scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert la.decode_attn.launches == n0 + 1
+    ref = la.decode_attn_plain(*args, scale=Dh ** -0.5)
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_close(out, ref, (args[2], args[4]))
+
+
+def test_smoke_serving_through_kernels_matches_reference(cuda):
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device=cuda)
+    prompts = [[5 + i] * n for i, n in enumerate([8, 19, 35, 48])]
+    outs = {}
+    for backend in ("auto", "reference"):
+        eng = ServingEngine(params, cfg, max_seq=96, device=cuda,
+                            cache_dtype=torch.float32, decode_chunk=4,
+                            attention_backend=backend)
+        n_bca = bca.blockwise_causal_attn.launches
+        n_dec = la.decode_attn.launches
+        outs[backend] = eng.serve(prompts, 20, max_batch=3)
+        launched = (bca.blockwise_causal_attn.launches > n_bca,
+                    la.decode_attn.launches > n_dec)
+        assert launched == ((True, True) if backend == "auto"
+                            else (False, False))
+    assert outs["auto"] == outs["reference"]
