@@ -9,26 +9,43 @@ error; none catches its own failure:
 1. require a CUDA card and print `nvidia-smi`'s name and power limit;
 2. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source),
    printing the build time and the -Xptxas -v register / shared-memory lines;
-3. hold each kernel against its plain PyTorch version on the card, in fp32
-   and bf16, at a small edge-case shape and at full width (qwen3-8b:
-   c=256, r=16, Dh=128, H=32, Hkv=8; prefill S=1024; decode B=4, M=256);
-4. time each kernel at full width in bf16 with CUDA events (inputs rotated
-   through more than the 50 MB L2 cache), beside its plain version, one
-   PyTorch library call computing the same function, and the least time
-   the card could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s);
-5. serve 8 requests through full-width, 36-layer qwen3-8b (random bf16
-   weights from a seeded generator, bf16 cache, max_seq 4096, max_batch 4,
-   decode_chunk 16), prompts of k·256+j tokens, with the kernels' launch
-   counters reset just before and read just after;
-6. at full width with 2 layers in fp32, serve 2 requests with the kernels
-   (backend "auto") and with the plain reference: prefill logits within
-   the stated tolerance, first 16 greedy tokens identical.
+3. [check] hold each kernel against its plain PyTorch version on the card,
+   in fp32 and bf16, at small edge-case shapes and at full width (qwen3-8b:
+   c=256, r=16, Dh=128, H=32, Hkv=8): the blockwise forward at S=1024 and
+   decode at B=4, M=256; the residual-emitting forward and the backward at
+   the train step's shapes (B=2, S=4096), plus a backward with per-row
+   start blocks;
+4. [time] time each kernel at full width in bf16 with CUDA events (inputs
+   rotated through more than the 50 MB L2 cache), beside its plain version,
+   one PyTorch library call computing the same function, and the least
+   time the card could take (bytes over 3.35 TB/s or flops over
+   989 TFLOP/s); the training kernels at the train step's shapes (B=2,
+   S=4096);
+5. [serve] serve 8 requests through full-width, 36-layer qwen3-8b (random
+   bf16 weights from a seeded generator, bf16 cache, max_seq 4096,
+   max_batch 4, decode_chunk 16), prompts of k·256+j tokens, with the
+   kernels' launch counters reset just before and read just after; then a
+   torch.profiler breakdown of one prefill and one decode chunk;
+6. [parity] at full width with 2 layers in fp32, serve 2 requests with the
+   kernels (backend "auto") and with the plain reference: prefill logits
+   within the stated tolerance, first 16 greedy tokens identical;
+7. [train] 4 steps of the Trainer on full-width qwen3-8b cut to 8 layers
+   (bf16, remat "full", seq 4096, global batch 2, synthetic corpus seed
+   0), launch counters reset just before and read just after: each step's
+   loss, grad norm, ms and tokens/s, peak memory; then one more step timed
+   alone and under torch.profiler;
+8. [train-parity] at full width with 2 layers in fp32 (B=1, S=1024), one
+   train step with the kernels and one with the plain reference from the
+   same parameters and batch: loss, every gradient leaf and the parameters
+   after AdamW within the stated tolerances.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,7 +59,20 @@ H100_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # product, where the kernel keeps it in fp32, and each output is rounded
 # once to bf16 (relative 2^-8).
 FP32_TOL = 1e-4
+# The residuals (m, denom) and the backward's outputs: kernel and plain
+# version compute in fp32 from the same inputs, summing up to G·S terms in
+# another order: 1e-4 of the tensor's largest entry; dq in bf16 adds
+# 2^-7·|plain| (the two fp32 values round to bf16 at most one step apart).
+GRAD_TOL = 1e-4
 LOGITS_TOL = 2e-3      # 2-layer fp32 prefill logits, kernels vs reference
+# [train-parity], kernels vs reference, fp32: loss relative; gradient leaf
+# relative norm error; parameters after one AdamW step: the norm of the
+# update difference over the update's. Adam's first step moves an entry by
+# about lr·sign(g), so the update differs only where the two routes round a
+# near-zero gradient entry to opposite signs (8.2e-5 measured on the H100).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_UPDATE_RTOL = 1e-3
 
 
 def log(msg):
@@ -83,6 +113,26 @@ def profile_kernels(fn):
     return sorted(out, key=lambda x: -x[2])
 
 
+def log_profile(name, wall, kernels, top=8):
+    """One profile's line: wall, device busy, launches, device time by
+    group (the port's kernels, GEMMs, everything else), the top kernels."""
+    busy = sum(t for _, _, t in kernels)
+    groups = {"port kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
+    for kname, _, t in kernels:
+        if "repro_torch" in kname:
+            groups["port kernels"] += t
+        elif any(w in kname for w in ("nvjet", "gemm", "cutlass", "xmma")):
+            groups["GEMMs"] += t
+        else:
+            groups["other"] += t
+    log(f"[profile] {name}: wall {1e3 * wall:.2f} ms, device busy "
+        f"{1e3 * busy:.2f} ms ({100 * busy / wall:.1f}%), "
+        f"{sum(n for _, n, _ in kernels)} kernel launches; "
+        + ", ".join(f"{g} {1e3 * t:.2f} ms" for g, t in groups.items()))
+    for kname, n, t in kernels[:top]:
+        log(f"    {1e3 * t:9.3f} ms {n:6d}x  {kname[:90]}")
+
+
 def bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed):
     import torch
     from repro_torch.core.causal import compress_blocks
@@ -117,6 +167,22 @@ def decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, seed, t):
     return (q, *kv, bl, bg)
 
 
+def offset_residuals(q, k, kbar, start, kw):
+    """(m, denom) of the offset form (visibility cut at n + start[b]),
+    from the joint scores."""
+    import torch
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    nb = q.shape[2] // kw["block_size"]
+    cut = torch.arange(nb, device=q.device)[None] + start.long()[:, None]
+    s_loc, s_glob = bca.joint_scores(q, k, kbar, cut, **kw)
+    m = torch.maximum(s_loc.amax(-1, keepdim=True),
+                      s_glob.amax(-1, keepdim=True))
+    d = (torch.exp(s_loc - m).sum(-1, keepdim=True)
+         + torch.exp(s_glob - m).sum(-1, keepdim=True))
+    return (m.reshape(q.shape[:3]).contiguous(),
+            d.reshape(q.shape[:3]).contiguous())
+
+
 def check(name, out, ref, dtype, values):
     """Hold a kernel's output against its plain version (see FP32_TOL);
     `values` are the value operands, whose magnitude scales the bf16
@@ -137,39 +203,42 @@ def check(name, out, ref, dtype, values):
     return err
 
 
-def main():
+def check_grad(name, out, ref):
+    """Hold a residual or a gradient against its plain version (see
+    GRAD_TOL). Returns the max absolute error."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this test "
-              "needs a CUDA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "src"))
-    import numpy as np
-    import torch.nn.functional as Fn
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import EOS
-    from repro_torch.kernels import blockwise_causal_attn as bca
-    from repro_torch.kernels import build
-    from repro_torch.kernels import linformer_attn as la
-    from repro_torch.models import model as tmodel
-    from repro_torch.models.transformer import param_bytes
-    from repro_torch.serving import ServingEngine
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    bound = GRAD_TOL * max(1.0, ref.float().abs().max().item())
+    if out.dtype == torch.bfloat16:
+        bound = bound + 2 ** -7 * ref.float().abs()
+    worst = (diff / bound).max().item()
+    log(f"  {name}: max |kernel - plain| = {err:.3e}, {worst:.2f} of its "
+        "bound")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: error {err} beyond its bound")
+    return err
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+
+def visible_pairs(S, c, r, start=0):
+    """Visible (row, key) pairs of one (batch, head): each row sees its own
+    block up to itself and the slots of the blocks before its own."""
+    return sum((t % c) + 1 + (t // c + start) * r for t in range(S))
+
+
+def card_line():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+    return smi.stdout.strip().splitlines()[0]
 
-    # -- 2. build ---------------------------------------------------------
+
+# -- phases -----------------------------------------------------------------
+
+
+def build_phase():
+    from repro_torch.kernels import build
     kl = build.library()
     log(f"[build] {kl.path.name}: {kl.build_seconds:.1f} s "
         f"({len(build.sources())} nvcc processes in parallel)")
@@ -178,16 +247,30 @@ def main():
                 or "spill" in line or line.startswith("=="):
             log(f"  {line.strip()}")
 
-    # -- 3. kernels against their plain versions --------------------------
+
+BCA_SHAPES = {"small": (2, 4, 2, 64, 16, 4, 16),
+              "full": (1, 32, 8, 1024, 256, 16, 128)}
+DEC_SHAPES = {"small": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 16 + 7, 95]),
+              "full": ((4, 8, 4, 256, 256, 16, 128),
+                       [0, 255, 256 * 5 + 100, 256 * 15 + 255])}
+# training kernels: (B, H, Hkv, S, c, r, Dh), per-row start blocks
+TRAIN_SHAPES = {"small": ((2, 4, 2, 32, 16, 4, 16), None),
+                "small-offset": ((2, 4, 2, 32, 16, 4, 16), [1, 3]),
+                "full": ((2, 32, 8, 4096, 256, 16, 128), None)}
+TRAIN_TIME_SHAPE = TRAIN_SHAPES["full"][0]      # the train step's shapes
+# [train]: depth cut, seq, global batch, steps; [train-parity]: seq
+TRAIN_RUN = dict(layers=8, seq=4096, batch=2, steps=4)
+TRAIN_PARITY_SEQ = 1024
+
+
+def check_phase(dev):
+    import torch
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    from repro_torch.kernels import linformer_attn as la
     log("[check] kernels vs plain versions")
     errs = {}
-    bca_shapes = {"small": (2, 4, 2, 64, 16, 4, 16),
-                  "full": (1, 32, 8, 1024, 256, 16, 128)}
-    dec_shapes = {"small": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 16 + 7, 95]),
-                  "full": ((4, 8, 4, 256, 256, 16, 128),
-                           [0, 255, 256 * 5 + 100, 256 * 15 + 255])}
     for dtype in (torch.float32, torch.bfloat16):
-        for size, (B, H, Hkv, S, c, r, Dh) in bca_shapes.items():
+        for size, (B, H, Hkv, S, c, r, Dh) in BCA_SHAPES.items():
             args = bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed=1)
             kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
             out = bca.blockwise_causal_attn(*args, **kw)
@@ -196,7 +279,7 @@ def main():
                 f"blockwise_causal_attn {size}", out,
                 bca.blockwise_causal_attn_plain(*args, **kw), dtype,
                 (args[2], args[4]))
-        for size, ((B, Hkv, G, c, M, r, Dh), t) in dec_shapes.items():
+        for size, ((B, Hkv, G, c, M, r, Dh), t) in DEC_SHAPES.items():
             args = decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, 2, t)
             out = la.decode_attn(*args, scale=Dh ** -0.5)
             torch.cuda.synchronize()
@@ -204,12 +287,79 @@ def main():
                 f"decode_attn {size}", out,
                 la.decode_attn_plain(*args, scale=Dh ** -0.5), dtype,
                 (args[2], args[4]))
+        for size, (shape, start) in TRAIN_SHAPES.items():
+            errs.update(check_training_kernels(size, shape, start, dtype,
+                                               dev))
+    return errs
 
-    # -- 4. timing at full width, bf16 ------------------------------------
+
+def check_training_kernels(size, shape, start, dtype, dev):
+    """Kernel 1r (out, m, denom) and kernel 2 (dq, dk_loc, dv_loc, dk̄, dv̄)
+    against their plain twins; dk̄/dv̄ of slots no row sees must be exact
+    zeros."""
+    import torch
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    B, H, Hkv, S, c, r, Dh = shape
+    q, k, v, kb, vb = bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed=3)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    errs, sb = {}, None
+    tag = f"{size} {str(dtype)[6:]}"
+    if start is None:
+        out, m, d = bca.blockwise_causal_attn(q, k, v, kb, vb,
+                                              return_residuals=True, **kw)
+        torch.cuda.synchronize()
+        ro, rm, rd = bca.blockwise_causal_attn_plain(
+            q, k, v, kb, vb, return_residuals=True, **kw)
+        errs["res", size, dtype] = check(
+            f"blockwise_causal_attn(residuals) {size}", out, ro, dtype,
+            (v, vb))
+        check_grad(f"  m {tag}", m, rm)
+        check_grad(f"  denom {tag}", d, rd)
+        if not torch.equal(bca.blockwise_causal_attn(q, k, v, kb, vb, **kw),
+                           out):
+            raise AssertionError("the plain and residual forms differ")
+        m, d = rm, rd
+        nb0 = torch.zeros(B, device=dev)
+    else:
+        # a full slot buffer: slots of earlier chunks, then this chunk's
+        sb = torch.tensor(start, dtype=torch.int32, device=dev)
+        g = torch.Generator(device=dev).manual_seed(4)
+        kb, vb = (torch.cat([torch.randn(B, Hkv, max(start) * r, Dh,
+                                         generator=g, device=dev).to(dtype),
+                             x], 2) for x in (kb, vb))
+        m, d = offset_residuals(q, k, kb, sb, kw)
+        nb0 = sb
+    g = torch.Generator(device=dev).manual_seed(5)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    got = bca.blockwise_causal_attn_bwd(q, k, v, kb, vb, m, d, do,
+                                        start_blocks=sb, **kw)
+    torch.cuda.synchronize()
+    want = bca.blockwise_causal_attn_bwd_plain(q, k, v, kb, vb, m, d, do,
+                                               start_blocks=sb, **kw)
+    errs["bwd", size, dtype] = max(
+        check_grad(f"blockwise_causal_attn_bwd {name} {tag}", g_, w)
+        for name, g_, w in zip(("dq", "dk_loc", "dv_loc", "dkbar", "dvbar"),
+                               got, want))
+    slot_blk = torch.arange(kb.shape[2], device=dev) // r
+    invisible = slot_blk[None] >= (nb0[:, None] + S // c - 1)
+    zeros = all(bool(torch.all(g_.movedim(1, 2)[invisible] == 0))
+                for g_ in got[3:])
+    log(f"  blockwise_causal_attn_bwd {tag}: {int(invisible.sum())} "
+        f"invisible slot rows, exact zeros in dkbar/dvbar: {zeros}")
+    if not zeros:
+        raise AssertionError("nonzero gradient on a slot no row sees")
+    return errs
+
+
+def time_phase(dev, errs):
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    from repro_torch.kernels import linformer_attn as la
     log("[time] full width, bf16, L2-cold inputs")
     bf16 = torch.bfloat16
     records = []
-    B, H, Hkv, S, c, r, Dh = bca_shapes["full"]
+    B, H, Hkv, S, c, r, Dh = BCA_SHAPES["full"]
     n_sets = 4                                    # 4 x ~22 MB > 50 MB L2
     sets = [bca_inputs(B, H, Hkv, S, c, r, Dh, bf16, dev, seed=10 + i)
             for i in range(n_sets)]
@@ -217,14 +367,8 @@ def main():
     ms = time_ms(lambda i: bca.blockwise_causal_attn(*sets[i], **kw), n_sets)
     plain_ms = time_ms(
         lambda i: bca.blockwise_causal_attn_plain(*sets[i], **kw), n_sets)
-    nb, M = S // c, (S // c) * r
-    rows = torch.arange(S)
-    visible = ((rows % c) + 1 + (rows // c) * r).sum().item()   # per (b, h)
-    mask = torch.zeros(S, S + M, dtype=torch.bool, device=dev)
-    mask[:, :S] = ((rows[:, None] // c == rows[None, :] // c)
-                   & (rows[None, :] <= rows[:, None])).to(dev)
-    mask[:, S:] = (torch.arange(M)[None, :] // r
-                   < (rows // c)[:, None]).to(dev)
+    M = (S // c) * r
+    mask = joint_mask(S, c, r, dev)
     G = H // Hkv
     lib_sets = [(q, torch.cat([k, kb], 2).repeat_interleave(G, 1),
                  torch.cat([v, vb], 2).repeat_interleave(G, 1))
@@ -236,7 +380,7 @@ def main():
         - bca.blockwise_causal_attn(*sets[0], **kw).float()).abs().max()
     nbytes = 2 * (2 * B * H * S * Dh + 2 * B * Hkv * S * Dh
                   + 2 * B * Hkv * M * Dh)
-    flops = 4 * Dh * visible * B * H
+    flops = 4 * Dh * visible_pairs(S, c, r) * B * H
     records.append(dict(
         name="blockwise_causal_attn", route="cuda",
         source="src/repro_torch/csrc/blockwise_causal_attn.cu",
@@ -249,7 +393,7 @@ def main():
         f"sdpa {lib_ms:.4f} ms (sdpa vs kernel {lib_err.item():.2e})")
     del sets, lib_sets
 
-    (B, Hkv, G, c, M, r, Dh), _ = dec_shapes["full"]
+    (B, Hkv, G, c, M, r, Dh), _ = DEC_SHAPES["full"]
     t_rows = [300, 1000, 2300, 4000]                # mixed pos and blk
     n_sets = 16                                     # 16 x 4 MB > 50 MB L2
     sets = [decode_inputs(B, Hkv, G, c, M, r, Dh, bf16, dev, 20 + i, t_rows)
@@ -282,6 +426,7 @@ def main():
         f"t={t_rows}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms")
     del sets, lib_sets
+    records += time_training_kernels(dev, errs)
     for rec in records:
         t_bytes = rec.pop("bytes") / H100_BYTES_PER_S
         t_flops = rec.pop("flops") / H100_FLOPS[str(bf16)]
@@ -290,9 +435,126 @@ def main():
         log(f"  {rec['name']}: bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), kernel at "
             f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
+    return records
 
-    # -- 5. serve at full width, 36 layers, bf16 --------------------------
-    cfg = get_config("qwen3-8b")
+
+def joint_mask(S, c, r, dev):
+    """(S, S + M) boolean mask over [keys | slots]: own block causally,
+    slots of earlier blocks."""
+    import torch
+    M = (S // c) * r
+    rows = torch.arange(S)
+    mask = torch.zeros(S, S + M, dtype=torch.bool)
+    mask[:, :S] = ((rows[:, None] // c == rows[None, :] // c)
+                   & (rows[None, :] <= rows[:, None]))
+    mask[:, S:] = torch.arange(M)[None, :] // r < (rows // c)[:, None]
+    return mask.to(dev)
+
+
+def time_training_kernels(dev, errs):
+    """Kernels 1r and 2 at the train step's shapes, bf16: the residual
+    forward beside the SDPA forward, the backward beside one SDPA backward
+    (torch.autograd.grad on a saved graph, the forward untimed)."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    bf16 = torch.bfloat16
+    B, H, Hkv, S, c, r, Dh = TRAIN_TIME_SHAPE
+    G, M = H // Hkv, (S // c) * r
+    n_sets = 2                                     # 2 x ~100 MB > 50 MB L2
+    sets = [bca_inputs(B, H, Hkv, S, c, r, Dh, bf16, dev, seed=30 + i)
+            for i in range(n_sets)]
+    g = torch.Generator(device=dev).manual_seed(40)
+    dos = [torch.randn(s[0].shape, generator=g, device=dev).to(bf16)
+           for s in sets]
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    res_ms = time_ms(lambda i: bca.blockwise_causal_attn(
+        *sets[i], return_residuals=True, **kw), n_sets)
+    res_plain_ms = time_ms(lambda i: bca.blockwise_causal_attn_plain(
+        *sets[i], return_residuals=True, **kw), n_sets, iters=5)
+    resid = [bca.blockwise_causal_attn(*s, return_residuals=True, **kw)[1:]
+             for s in sets]
+    bwd_ms = time_ms(lambda i: bca.blockwise_causal_attn_bwd(
+        *sets[i], *resid[i], dos[i], **kw), n_sets, iters=10)
+    bwd_plain_ms = time_ms(lambda i: bca.blockwise_causal_attn_bwd_plain(
+        *sets[i], *resid[i], dos[i], **kw), n_sets, iters=5)
+    mask = joint_mask(S, c, r, dev)
+    lib = []
+    for q, k, v, kb, vb in sets:
+        xs = [x.contiguous().requires_grad_() for x in (
+            q, torch.cat([k, kb], 2).repeat_interleave(G, 1),
+            torch.cat([v, vb], 2).repeat_interleave(G, 1))]
+        out = Fn.scaled_dot_product_attention(*xs, attn_mask=mask,
+                                              scale=Dh ** -0.5)
+        lib.append((xs, out))
+    lib_fwd_ms = time_ms(lambda i: Fn.scaled_dot_product_attention(
+        *[x.detach() for x in lib[i][0]], attn_mask=mask, scale=Dh ** -0.5),
+        n_sets)
+    lib_bwd_ms = time_ms(lambda i: torch.autograd.grad(
+        lib[i][1], lib[i][0], dos[i].contiguous(), retain_graph=True),
+        n_sets, iters=10)
+    vis = visible_pairs(S, c, r) * B * H
+    in_bytes = 2 * (B * H * S * Dh + 2 * B * Hkv * S * Dh
+                    + 2 * B * Hkv * M * Dh)
+    rows = B * H * S
+    log(f"  blockwise_causal_attn(residuals) B={B} H={H} Hkv={Hkv} S={S}: "
+        f"kernel {res_ms:.4f} ms, plain {res_plain_ms:.4f} ms, sdpa "
+        f"{lib_fwd_ms:.4f} ms")
+    log(f"  blockwise_causal_attn_bwd B={B} H={H} Hkv={Hkv} S={S}: kernel "
+        f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, sdpa backward "
+        f"{lib_bwd_ms:.4f} ms")
+    del sets, lib, resid, dos
+    return [
+        dict(name="blockwise_causal_attn(return_residuals)", route="cuda",
+             source="src/repro_torch/csrc/blockwise_causal_attn.cu",
+             replaces="src/repro/kernels/blockwise_causal_attn.py:96",
+             ms=res_ms, plain_ms=res_plain_ms, library_ms=lib_fwd_ms,
+             # reads q, k, v, slots; writes the output and (m, denom)
+             bytes=in_bytes + 2 * B * H * S * Dh + 2 * 4 * rows,
+             flops=4 * Dh * vis,
+             max_abs_err=errs["res", "full", bf16]),
+        dict(name="blockwise_causal_attn_bwd", route="cuda",
+             source="src/repro_torch/csrc/blockwise_causal_attn_bwd.cu",
+             replaces="src/repro/kernels/blockwise_causal_attn.py:469",
+             ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+             # reads q, k, v, slots, dO (bf16) and (m, denom) (fp32);
+             # writes dq (bf16), dk_loc, dv_loc, dk̄, dv̄ (fp32)
+             bytes=(in_bytes + 2 * rows * Dh + 2 * 4 * rows
+                    + 2 * rows * Dh
+                    + 4 * 2 * (B * Hkv * S * Dh + B * Hkv * M * Dh)),
+             flops=10 * Dh * vis,
+             max_abs_err=errs["bwd", "full", bf16]),
+    ]
+
+
+def reset_launches():
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    from repro_torch.kernels import linformer_attn as la
+    bca.blockwise_causal_attn.launches = 0
+    bca.blockwise_causal_attn.residual_launches = 0
+    bca.blockwise_causal_attn_bwd.launches = 0
+    la.decode_attn.launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    from repro_torch.kernels import linformer_attn as la
+    return {"blockwise_causal_attn": bca.blockwise_causal_attn.launches,
+            "blockwise_causal_attn(return_residuals)":
+                bca.blockwise_causal_attn.residual_launches,
+            "blockwise_causal_attn_bwd":
+                bca.blockwise_causal_attn_bwd.launches,
+            "decode_attn": la.decode_attn.launches}
+
+
+def serve_phase(dev, cfg):
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import EOS
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import param_bytes
+    from repro_torch.serving import ServingEngine
+    bf16 = torch.bfloat16
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
         f"H={cfg.attention.num_heads}/{cfg.attention.num_kv_heads}, "
         f"vocab {cfg.padded_vocab_size}, {cfg.dtype}")
@@ -314,24 +576,22 @@ def main():
                for n in lens]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    bca.blockwise_causal_attn.launches = 0
-    la.decode_attn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs, sched = eng.serve(prompts, budgets, max_batch=4,
                             return_scheduler=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"blockwise_causal_attn": bca.blockwise_causal_attn.launches,
-                "decode_attn": la.decode_attn.launches}
+    launches = read_launches()
     n_tok = sum(len(o) for o in outs)
     peak = torch.cuda.max_memory_allocated()
     log(f"  {len(prompts)} requests (prompts {lens}), {n_tok} tokens in "
         f"{wall:.2f} s: {n_tok / wall:.1f} tok/s; peak memory "
         f"{peak / 1e9:.2f} GB; {sched.stats.chunks} decode chunks, mean "
         f"occupancy {sched.stats.mean_occupancy:.2f}; launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    for name in ("blockwise_causal_attn", "decode_attn"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the serve path")
     if sched.stats.bad_rows:
         raise AssertionError(f"{sched.stats.bad_rows} rows flagged with "
                              f"non-finite logits: {sched.bad}")
@@ -340,8 +600,6 @@ def main():
             raise AssertionError(f"output of {len(o)} tokens for budget {b}")
         if len(o) < b:
             log(f"  a request ended at EOS after {len(o)} of {b} tokens")
-    for rec in records:
-        rec["launches"] = launches[rec["name"]]
 
     # where the time goes: one admission prefill and one 16-step decode
     # chunk of a full 4-row pool, each timed alone, then again under
@@ -363,19 +621,20 @@ def main():
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        kernels = profile_kernels(fn)
-        busy = sum(t for _, _, t in kernels)
-        log(f"[profile] {name}: wall {1e3 * wall:.2f} ms, device busy "
-            f"{1e3 * busy:.2f} ms ({100 * busy / wall:.1f}%), "
-            f"{sum(n for _, n, _ in kernels)} kernel launches")
-        for kname, n, t in kernels[:8]:
-            log(f"    {1e3 * t:9.3f} ms {n:6d}x  {kname[:90]}")
+        log_profile(name, wall, profile_kernels(fn))
     del eng, params, pool
-    torch.cuda.empty_cache()
+    return launches
 
-    # -- 6. 2 layers, fp32: kernels vs plain reference ----------------------
+
+def serve_parity_phase(dev, cfg):
+    import numpy as np
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving import ServingEngine
     cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     params2 = tmodel.init_params(cfg2, seed=1, device=dev)
+    c = cfg.attention.linformer.block_size
+    rng = np.random.default_rng(1)
     prompts2 = [list(map(int, rng.integers(4, cfg.vocab_size, n)))
                 for n in (c + 5, 2 * c + 9)]
     res = {}
@@ -398,6 +657,177 @@ def main():
     if not all(torch.isfinite(v[0]).all() for v in res.values()):
         raise AssertionError("non-finite prefill logits")
 
+
+def train_phase(dev, cfg):
+    import torch
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataState, batches
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer
+    cfg8 = dataclasses.replace(cfg, num_layers=TRAIN_RUN["layers"])
+    tcfg = TrainConfig(seq_len=TRAIN_RUN["seq"],
+                       global_batch=TRAIN_RUN["batch"],
+                       steps=TRAIN_RUN["steps"], log_every=1,
+                       checkpoint_every=0, seed=0,
+                       optimizer=OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                                 total_steps=4))
+    log(f"[train] {cfg8.name} cut to {cfg8.num_layers} layers, d="
+        f"{cfg8.d_model}, vocab {cfg8.padded_vocab_size}, {cfg8.dtype}, "
+        f"remat {cfg8.remat}, seq {tcfg.seq_len}, global batch "
+        f"{tcfg.global_batch}, {tcfg.steps} steps")
+    trainer = Trainer(cfg8, tcfg, device=dev, log_fn=log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in flatten(trainer._params).values())
+    for h in trainer.history:
+        log(f"  step {h['step']}: loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, {h['ms']:.1f} ms, "
+            f"{h['tokens_per_s']:.1f} tokens/s")
+    log(f"  {n_params / 1e9:.3f} B params; run {wall:.1f} s (parameter "
+        f"init included); peak memory {peak / 1e9:.2f} GB; launches "
+        f"{launches}")
+    if len(trainer.history) != tcfg.steps or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in trainer.history):
+        raise AssertionError(f"non-finite or missing losses: "
+                             f"{trainer.history}")
+    need = cfg8.num_layers * tcfg.steps
+    for name in ("blockwise_causal_attn",
+                 "blockwise_causal_attn(return_residuals)",
+                 "blockwise_causal_attn_bwd"):
+        if launches[name] < need:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"train path, expected at least {need}")
+
+    # where the time goes: one more step (fresh optimizer state, the next
+    # batch) under torch.profiler, after the counted run
+    params = trainer._params
+    state = adamw_init(params, tcfg.optimizer)
+    stream = batches(trainer.corpus, DataState(tcfg.seed, tcfg.steps),
+                     batch=tcfg.global_batch, seq=tcfg.seq_len)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(stream)[0].items()}
+    step = trainer.train_step
+    t0 = time.perf_counter()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log_profile("train step", wall,
+                profile_kernels(lambda: step(params, state, batch)), top=16)
+    del trainer, params, state
+    return launches
+
+
+def train_parity_phase(dev, cfg):
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch)
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    batch = make_causal_batch(SyntheticCorpus(cfg2.vocab_size, seed=0),
+                              DataState(0, 0), batch=1,
+                              seq=TRAIN_PARITY_SEQ)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    res = {}
+    for backend in ("auto", "reference"):
+        c = cfg2.with_attention_backend(backend)
+        params = tmodel.init_params(c, seed=1, device=dev)
+        leaves = flatten(params)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        p0 = {k: p.detach().clone() for k, p in leaves.items()}
+        reset_launches()
+        loss, _ = tmodel.loss_fn(params, c, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        launches = read_launches()
+        # step counter 1: the schedule's learning rate at step 0 is 0
+        state = adamw_init(params, opt)
+        state["step"] = torch.ones((), dtype=torch.int32)
+        params, state, _ = make_train_step(c, opt)(params, state, batch)
+        res[backend] = (loss.item(), dict(zip(leaves, grads)),
+                        {k: p.detach() - p0[k]
+                         for k, p in flatten(params).items()})
+        log(f"  [train-parity] {backend}: loss {loss.item():.6f}, launches "
+            f"{launches}")
+        del params, state, p0, leaves
+        torch.cuda.empty_cache()
+    loss_a, ga, ua = res["auto"]
+    loss_r, gr, ur = res["reference"]
+    loss_err = abs(loss_a - loss_r) / abs(loss_r)
+    grad_err = {k: ((ga[k] - gr[k]).norm() / gr[k].norm()).item()
+                for k in gr}
+    worst = max(grad_err, key=grad_err.get)
+    upd_rel = math.sqrt(sum(((ua[k] - ur[k]) ** 2).sum().item() for k in ur)
+                        / sum((ur[k] ** 2).sum().item() for k in ur))
+    log(f"[train-parity] 2-layer fp32, B=1, S={TRAIN_PARITY_SEQ}: loss rel "
+        f"err {loss_err:.2e} (tol {TRAIN_LOSS_RTOL:g}); worst gradient leaf "
+        f"{worst} rel norm err {grad_err[worst]:.2e} (tol "
+        f"{TRAIN_GRAD_RTOL:g}); after one AdamW step, update rel norm err "
+        f"{upd_rel:.2e} (tol {TRAIN_UPDATE_RTOL:g})")
+    if not np.isfinite(loss_a) or not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"losses differ: {loss_a} vs {loss_r}")
+    if not grad_err[worst] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"gradient {worst} differs: {grad_err[worst]}")
+    if not upd_rel <= TRAIN_UPDATE_RTOL:
+        raise AssertionError("parameters after AdamW differ")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(card_line())
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    build_phase()
+    errs = check_phase(dev)
+    records = time_phase(dev, errs)
+    cfg = get_config("qwen3-8b")
+    serve_launches = serve_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_parity_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = train_phase(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity_phase(dev, cfg)
+
+    # launches: each kernel's count on its own main path (serve for the
+    # inference kernels, train for the training kernels), both paths beside
+    for rec in records:
+        by_path = {"serve": serve_launches[rec["name"]],
+                   "train": train_launches[rec["name"]]}
+        rec["launches_by_path"] = by_path
+        rec["launches"] = by_path["train" if rec["name"] in (
+            "blockwise_causal_attn(return_residuals)",
+            "blockwise_causal_attn_bwd") else "serve"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,113 @@
+"""Fault-tolerant checkpointing, in the JAX package's on-disk format.
+
+Counterpart of ``repro/checkpoint/checkpointer.py``:
+
+* Atomic: written to ``step_<N>.tmp/`` then renamed, so a preempted writer
+  never corrupts the latest checkpoint.
+* The same files and keys: one ``<name>.npz`` per saved tree, keyed by
+  "/"-joined paths (``layers/attn/wq``, ``mu/embed/tok``, ``step``), bf16
+  widened to fp32 (npz has no bf16), and ``metadata.json`` with the step and
+  the data-pipeline state. A checkpoint written here restores through the
+  JAX ``Checkpointer`` and ``bridge.read_params_npz``, and one written by
+  the JAX package restores here.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import flatten, nest
+
+
+def _to_numpy(tree: Dict) -> Dict[str, np.ndarray]:
+    out = {}
+    for key, t in flatten(tree).items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        out[key] = t.numpy()
+    return out
+
+
+def _from_numpy(template: Dict, flat: Dict[str, np.ndarray]) -> Dict:
+    """Tensors shaped, typed and placed like `template`'s leaves."""
+    out = {}
+    for key, t in flatten(template).items():
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(
+                f"shape mismatch for {key}: ckpt {arr.shape} vs "
+                f"{tuple(t.shape)}")
+        out[key] = torch.from_numpy(np.array(arr)).to(dtype=t.dtype,
+                                                      device=t.device)
+    return nest(out)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    def _path(self, step: int, tmp: bool = False) -> str:
+        return os.path.join(self.directory,
+                            f"step_{step:08d}" + (".tmp" if tmp else ""))
+
+    def save(self, step: int, state: Dict[str, Any],
+             metadata: Optional[Dict] = None) -> str:
+        """Write the named trees of `state` (nested dicts of tensors)
+        atomically."""
+        tmp, final = self._path(step, tmp=True), self._path(step)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        for name, tree in state.items():
+            np.savez(os.path.join(tmp, f"{name}.npz"), **_to_numpy(tree))
+        meta = dict(metadata or {})
+        meta["step"] = step
+        with open(os.path.join(tmp, "metadata.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        self._gc()
+        return final
+
+    def _gc(self) -> None:
+        for s in self.all_steps()[:-self.keep]:
+            shutil.rmtree(self._path(s), ignore_errors=True)
+
+    def all_steps(self):
+        out = []
+        for d in os.listdir(self.directory):
+            if d.startswith("step_") and not d.endswith(".tmp"):
+                try:
+                    out.append(int(d[5:]))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, templates: Dict[str, Any]
+                ) -> Tuple[Dict[str, Any], Dict]:
+        """Restore named trees; `templates` gives structure, shape, dtype
+        and device."""
+        d = self._path(step)
+        out = {}
+        for name, template in templates.items():
+            with np.load(os.path.join(d, f"{name}.npz")) as z:
+                flat = {k: z[k] for k in z.files}
+            out[name] = _from_numpy(template, flat)
+        with open(os.path.join(d, "metadata.json")) as f:
+            meta = json.load(f)
+        return out, meta

@@ -1,11 +1,20 @@
 // Blockwise-causal Linformer attention, forward (CUDA C++ for sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/blockwise_causal_attn.py:
-// blockwise_causal_attn (plain form; body _kernel -> _attend_block ->
-// _joint_scores). Each query row t of block n = t / c takes one joint softmax
-// over its own block (causal, keys n*c .. t) and the compressed slots
-// m < n*r of the earlier blocks. Scores and accumulation are fp32; the output
-// has q's dtype. GQA: query head h reads kv head h / G, never a repeated copy.
+// blockwise_causal_attn, both forms: the plain one (body _kernel ->
+// _attend_block -> _joint_scores) and, given non-null `m` / `denom`
+// pointers, the residual-emitting one (return_residuals=True, _kernel_res).
+// Each query row t of block n = t / c takes one joint softmax over its own
+// block (causal, keys n*c .. t) and the compressed slots m < n*r of the
+// earlier blocks. Scores and accumulation are fp32; the output has q's dtype.
+// GQA: query head h reads kv head h / G, never a repeated copy.
+//
+// The residual form also writes each row's softmax max and denominator in
+// fp32, which the backward (blockwise_causal_attn_bwd.cu) recomputes the
+// probabilities from. The online softmax rescales its running denominator
+// whenever the running max moves, so after the last tile the pair (m, l) is
+// exactly _attend_block's (the max over the joint row and the sum of
+// exp(s - max)); that final pair is what gets written.
 //
 // What bounds it on an H100. At serving prefill lengths (S of a few thousand,
 // Dh = 128) the work is about 4*Dh flops per visible (row, key) pair against
@@ -49,21 +58,12 @@ struct BcaParams {
   const void* kbar;
   const void* vbar;
   void* out;
+  float* m;                               // (B, H, S) residuals, or null
+  float* denom;
   Strides sq, skv, sslot, so;
   int H, Hkv, S, M, block_size, block_slots;
   float scale;
 };
-
-// Load `valid` rows of Dh elements (row stride `rs`) into shared memory as
-// fp32 with pitch Dh + 1; rows valid .. rows-1 are zero-filled.
-template <typename T, int Dh>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long rs,
-                                          int rows, int valid) {
-  for (int idx = threadIdx.x; idx < rows * Dh; idx += kThreads) {
-    const int r = idx / Dh, d = idx % Dh;
-    dst[r * (Dh + 1) + d] = r < valid ? to_f32<T>(src[r * rs + d]) : 0.f;
-  }
-}
 
 // One key tile of the online softmax. Column `col` of the tile is visible to
 // tile row `row` when col < valid and, for the causal local tile,
@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(kThreads) bca_fwd_kernel(BcaParams p) {
   const T* VB = static_cast<const T*>(p.vbar) + b * p.sslot.b + hk * p.sslot.h;
   T* O = static_cast<T*>(p.out) + b * p.so.b + h * p.so.h;
 
-  load_tile<T, Dh>(sQ, Q + q0 * p.sq.s, p.sq.s, BQ, BQ);
+  load_rows<kThreads, T, Dh>(sQ, Q + q0 * p.sq.s, p.sq.s, BQ, BQ);
 
   float o[RQ][RD], m[RQ], l[RQ];
 #pragma unroll
@@ -176,8 +176,8 @@ __global__ void __launch_bounds__(kThreads) bca_fwd_kernel(BcaParams p) {
   for (int j0 = 0; j0 < nslots; j0 += kTileK) {
     const int valid = min(kTileK, nslots - j0);
     __syncthreads();  // the previous tile is consumed
-    load_tile<T, Dh>(sK, KB + j0 * p.sslot.s, p.sslot.s, kTileK, valid);
-    load_tile<T, Dh>(sV, VB + j0 * p.sslot.s, p.sslot.s, kTileK, valid);
+    load_rows<kThreads, T, Dh>(sK, KB + j0 * p.sslot.s, p.sslot.s, kTileK, valid);
+    load_rows<kThreads, T, Dh>(sV, VB + j0 * p.sslot.s, p.sslot.s, kTileK, valid);
     __syncthreads();
     tile_step<Dh, BQ>(sQ, sK, sV, sP, o, m, l, p.scale, valid, false, 0);
   }
@@ -187,8 +187,8 @@ __global__ void __launch_bounds__(kThreads) bca_fwd_kernel(BcaParams p) {
   for (int j0 = n * p.block_size; j0 < k_end; j0 += kTileK) {
     const int valid = min(kTileK, k_end - j0);
     __syncthreads();
-    load_tile<T, Dh>(sK, K + j0 * p.skv.s, p.skv.s, kTileK, valid);
-    load_tile<T, Dh>(sV, V + j0 * p.skv.s, p.skv.s, kTileK, valid);
+    load_rows<kThreads, T, Dh>(sK, K + j0 * p.skv.s, p.skv.s, kTileK, valid);
+    load_rows<kThreads, T, Dh>(sV, V + j0 * p.skv.s, p.skv.s, kTileK, valid);
     __syncthreads();
     tile_step<Dh, BQ>(sQ, sK, sV, sP, o, m, l, p.scale, valid, true, q0 - j0);
   }
@@ -200,6 +200,12 @@ __global__ void __launch_bounds__(kThreads) bca_fwd_kernel(BcaParams p) {
 #pragma unroll
     for (int jd = 0; jd < RD; ++jd)
       O[row * p.so.s + tx + 16 * jd] = from_f32<T>(o[i][jd] * inv);
+    // every lane of the half warp holds the same (m, l) after the reductions
+    if (p.m != nullptr && tx == 0) {
+      const long long at = static_cast<long long>(bh) * p.S + row;
+      p.m[at] = m[i];
+      p.denom[at] = l[i];
+    }
   }
 }
 
@@ -235,13 +241,15 @@ cudaError_t dispatch_tile(const BcaParams& p, int B, int Dh, cudaStream_t stream
 }  // namespace
 }  // namespace repro_torch
 
-// q (B,H,S,Dh); k, v (B,Hkv,S,Dh); kbar, vbar (B,Hkv,M,Dh); out (B,H,S,Dh).
+// q (B,H,S,Dh); k, v (B,Hkv,S,Dh); kbar, vbar (B,Hkv,M,Dh); out (B,H,S,Dh);
+// m, denom: null, or contiguous (B,H,S) fp32 for the residuals.
 // strides: 12 element strides (batch, head, seq) of q, k and v (shared),
 // kbar and vbar (shared), and out. Returns the launch's cudaError_t.
 extern "C" int bca_forward(const void* q, const void* k, const void* v, const void* kbar,
-                           const void* vbar, void* out, const long long* strides, int B,
-                           int H, int Hkv, int S, int M, int Dh, int block_size,
-                           int block_slots, float scale, int dtype, void* stream) {
+                           const void* vbar, void* out, float* m, float* denom,
+                           const long long* strides, int B, int H, int Hkv, int S, int M,
+                           int Dh, int block_size, int block_slots, float scale, int dtype,
+                           void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || block_size <= 0 || S % block_size != 0 ||
       M != (S / block_size) * block_slots)
@@ -253,6 +261,9 @@ extern "C" int bca_forward(const void* q, const void* k, const void* v, const vo
   p.kbar = kbar;
   p.vbar = vbar;
   p.out = out;
+  p.m = m;
+  p.denom = denom;
+  if ((m == nullptr) != (denom == nullptr)) return cudaErrorInvalidValue;
   p.sq = {strides[0], strides[1], strides[2]};
   p.skv = {strides[3], strides[4], strides[5]};
   p.sslot = {strides[6], strides[7], strides[8]};

@@ -55,6 +55,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Load `valid` rows of Dh elements (row stride `rs`, in elements) into shared
+// memory as fp32 with pitch Dh + 1 (the pad keeps column walks free of bank
+// conflicts); rows valid .. rows-1 are zero-filled. All Threads threads of
+// the block take part.
+template <int Threads, typename T, int Dh>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, long long rs, int rows,
+                                          int valid) {
+  for (int idx = threadIdx.x; idx < rows * Dh; idx += Threads) {
+    const int r = idx / Dh, d = idx % Dh;
+    dst[r * (Dh + 1) + d] = r < valid ? to_f32<T>(src[r * rs + d]) : 0.f;
+  }
+}
+
 // Allow `bytes` of dynamic shared memory for `kernel` (needed above 48 KB).
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

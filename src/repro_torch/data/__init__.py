@@ -1,1 +1,3 @@
-from repro_torch.data.pipeline import BOS, EOS, MASK, PAD  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    BOS, EOS, MASK, PAD, DataState, SyntheticCorpus, batches,
+    make_causal_batch)

@@ -1,17 +1,24 @@
-"""Blockwise-causal Linformer attention forward: the CUDA kernel's wrapper
-and its plain PyTorch twin.
+"""Blockwise-causal Linformer attention, forward and backward: the CUDA
+kernels' wrappers and their plain PyTorch twins.
 
-Counterpart of ``repro/kernels/blockwise_causal_attn.py`` (plain form of
-``blockwise_causal_attn``). Kernel layout: q (B, H, S, Dh); k, v
-(B, Hkv, S, Dh); k̄, v̄ (B, Hkv, M, Dh) with M = (S/c)·r. Query block n of
-(b, h) takes one joint softmax over its own block (causal, c × c) and the
-compressed slots m < n·r; grouped query head h reads kv head h // G.
+Counterpart of ``repro/kernels/blockwise_causal_attn.py``: the forward
+``blockwise_causal_attn`` in its plain and residual-emitting forms
+(``return_residuals=True``, the TPU's ``_kernel_res``) and the backward
+``blockwise_causal_attn_bwd`` (the TPU's ``_bwd_kernel``). Kernel layout:
+q (B, H, S, Dh); k, v (B, Hkv, S, Dh); k̄, v̄ (B, Hkv, M, Dh) with
+M = (S/c)·r. Query block n of (b, h) takes one joint softmax over its own
+block (causal, c × c) and the compressed slots m < n·r; grouped query head
+h reads kv head h // G.
 
-``blockwise_causal_attn`` runs the plain twin for a CPU tensor and the CUDA
-kernel (``csrc/blockwise_causal_attn.cu``) for a CUDA tensor, counting its
-launches in ``blockwise_causal_attn.launches``.
+Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel
+(``csrc/blockwise_causal_attn.cu``, ``csrc/blockwise_causal_attn_bwd.cu``)
+for a CUDA tensor, counting launches in ``blockwise_causal_attn.launches``
+(plain form), ``blockwise_causal_attn.residual_launches`` (residual form)
+and ``blockwise_causal_attn_bwd.launches``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -20,48 +27,111 @@ from repro_torch.kernels import build
 from repro_torch.kernels import common
 
 
-def blockwise_causal_attn_plain(q, k, v, kbar, vbar, *, block_size: int,
-                                block_slots: int, scale: float
-                                ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with the TPU kernel's cast
-    points (``_attend_block``): fp32 scores and products, probabilities
-    normalised in fp32 and cast to the value dtype before the value
-    product, output cast to q's dtype."""
+def joint_scores(q, k, kbar, cut, *, block_size: int, block_slots: int,
+                 scale: float):
+    """Masked fp32 scores of every query block (the TPU's
+    ``_joint_scores``): local (B, Hkv, G, nb, c, c) causal scores and global
+    (B, Hkv, G, nb, c, M) scores over the slots of blocks < cut, where
+    `cut` (B, nb) or (1, nb) is each query block's visibility cut."""
     B, H, S, Dh = q.shape
     Hkv = k.shape[1]
-    G = H // Hkv
-    c, r = block_size, block_slots
-    nb = S // c
+    c, nb = block_size, S // block_size
     M = kbar.shape[2]
     f32 = torch.float32
-    qg = q.reshape(B, Hkv, G, nb, c, Dh).to(f32)
+    qg = q.reshape(B, Hkv, H // Hkv, nb, c, Dh).to(f32)
     kl = k.reshape(B, Hkv, nb, c, Dh).to(f32)
-    vl = v.reshape(B, Hkv, nb, c, Dh)
     s_loc = torch.einsum("bhgncd,bhnkd->bhgnck", qg, kl) * scale
     causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
     s_loc = s_loc.masked_fill(~causal, NEG_INF)
     s_glob = torch.einsum("bhgncd,bhmd->bhgncm", qg, kbar.to(f32)) * scale
-    slot_blk = torch.arange(M, device=q.device) // r
-    vis = slot_blk[None, :] < torch.arange(nb, device=q.device)[:, None]
-    s_glob = s_glob.masked_fill(~vis[:, None, :], NEG_INF)
+    slot_blk = torch.arange(M, device=q.device) // block_slots
+    vis = slot_blk[None, None, :] < cut[:, :, None]           # (B|1, nb, M)
+    s_glob = s_glob.masked_fill(~vis[:, None, None, :, None, :], NEG_INF)
+    return s_loc, s_glob
+
+
+def blockwise_causal_attn_plain(q, k, v, kbar, vbar, *, block_size: int,
+                                block_slots: int, scale: float,
+                                return_residuals: bool = False):
+    """Plain PyTorch version of the forward kernel, with the TPU kernel's
+    cast points (``_attend_block``): fp32 scores and products,
+    probabilities normalised in fp32 and cast to the value dtype before the
+    value product, output cast to q's dtype. With ``return_residuals``
+    also the joint softmax's per-row max and denominator, (B, H, S) fp32."""
+    B, H, S, Dh = q.shape
+    Hkv = k.shape[1]
+    c, nb = block_size, S // block_size
+    f32 = torch.float32
+    cut = torch.arange(nb, device=q.device)[None]
+    s_loc, s_glob = joint_scores(q, k, kbar, cut, block_size=block_size,
+                                 block_slots=block_slots, scale=scale)
     m = torch.maximum(s_loc.amax(-1, keepdim=True),
                       s_glob.amax(-1, keepdim=True))
     p_loc = torch.exp(s_loc - m)
     p_glob = torch.exp(s_glob - m)
     denom = p_loc.sum(-1, keepdim=True) + p_glob.sum(-1, keepdim=True)
+    vl = v.reshape(B, Hkv, nb, c, Dh)
     out = torch.einsum("bhgnck,bhnkd->bhgncd",
                        (p_loc / denom).to(v.dtype).to(f32), vl.to(f32))
     out = out + torch.einsum("bhgncm,bhmd->bhgncd",
                              (p_glob / denom).to(vbar.dtype).to(f32),
                              vbar.to(f32))
-    return out.reshape(B, H, S, Dh).to(q.dtype)
+    out = out.reshape(B, H, S, Dh).to(q.dtype)
+    if return_residuals:
+        return out, m.reshape(B, H, S), denom.reshape(B, H, S)
+    return out
 
 
-def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
-           block_slots: int, scale: float, stream) -> torch.Tensor:
-    """Check the operands, allocate the output and launch the kernel on
-    `stream` (no synchronisation). The output lies in model layout memory
-    (B, S, H, Dh), returned as its kernel-layout view."""
+def blockwise_causal_attn_bwd_plain(q, k, v, kbar, vbar, m, denom, do, *,
+                                    block_size: int, block_slots: int,
+                                    scale: float,
+                                    start_blocks: Optional[torch.Tensor] = None
+                                    ):
+    """Plain PyTorch version of the backward kernel, step by step as the
+    TPU's ``_bwd_kernel``: recompute p = exp(s − m)/denom over the joint row
+    (visibility cut at n + start_blocks[b]), dv = Pᵀ·dO, dP = dO·Vᵀ,
+    dS = P∘(dP − rowsum(dP∘P)), dq = dS·K·scale, dk = dSᵀ·Q·scale, all in
+    fp32, summed over the G query heads of a group. Returns (dq in q's
+    dtype, dk_loc, dv_loc (B, Hkv, S, Dh) fp32, dk̄, dv̄ (B, Hkv, M, Dh)
+    fp32); slots no query row sees get exact zeros."""
+    B, H, S, Dh = q.shape
+    Hkv = k.shape[1]
+    G, c, nb = H // Hkv, block_size, S // block_size
+    M = kbar.shape[2]
+    f32 = torch.float32
+    nb0 = (torch.zeros(B, dtype=torch.long, device=q.device)
+           if start_blocks is None else start_blocks.to(torch.long))
+    cut = torch.arange(nb, device=q.device)[None] + nb0[:, None]
+    s_loc, s_glob = joint_scores(q, k, kbar, cut, block_size=block_size,
+                                 block_slots=block_slots, scale=scale)
+    rows = (B, Hkv, G, nb, c, 1)
+    mm, dd = m.reshape(rows), denom.reshape(rows)
+    p_loc = torch.exp(s_loc - mm) / dd                        # joint probs
+    p_glob = torch.exp(s_glob - mm) / dd
+    q32 = q.reshape(B, Hkv, G, nb, c, Dh).to(f32)
+    kl32 = k.reshape(B, Hkv, nb, c, Dh).to(f32)
+    vl32 = v.reshape(B, Hkv, nb, c, Dh).to(f32)
+    kbar32, vbar32 = kbar.to(f32), vbar.to(f32)
+    do32 = do.reshape(B, Hkv, G, nb, c, Dh).to(f32)
+
+    dv_loc = torch.einsum("bhgnck,bhgncd->bhnkd", p_loc, do32)
+    dvbar = torch.einsum("bhgncm,bhgncd->bhmd", p_glob, do32)
+    dp_loc = torch.einsum("bhgncd,bhnkd->bhgnck", do32, vl32)
+    dp_glob = torch.einsum("bhgncd,bhmd->bhgncm", do32, vbar32)
+    delta = ((dp_loc * p_loc).sum(-1, keepdim=True)
+             + (dp_glob * p_glob).sum(-1, keepdim=True))
+    ds_loc = p_loc * (dp_loc - delta)
+    ds_glob = p_glob * (dp_glob - delta)
+    dq = torch.einsum("bhgnck,bhnkd->bhgncd", ds_loc, kl32)
+    dq = dq + torch.einsum("bhgncm,bhmd->bhgncd", ds_glob, kbar32)
+    dk_loc = torch.einsum("bhgnck,bhgncd->bhnkd", ds_loc, q32) * scale
+    dkbar = torch.einsum("bhgncm,bhgncd->bhmd", ds_glob, q32) * scale
+    return ((dq * scale).reshape(B, H, S, Dh).to(q.dtype),
+            dk_loc.reshape(B, Hkv, S, Dh), dv_loc.reshape(B, Hkv, S, Dh),
+            dkbar, dvbar)
+
+
+def _check_qkv(q, k, v, kbar, vbar) -> None:
     B, H, S, Dh = q.shape
     Hkv = k.shape[1]
     M = kbar.shape[2]
@@ -72,43 +142,154 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
     if kbar.shape != (B, Hkv, M, Dh) or vbar.shape != kbar.shape:
         raise ValueError(f"kbar {tuple(kbar.shape)} / vbar "
                          f"{tuple(vbar.shape)}: expected (B, Hkv, M, Dh)")
+
+
+def _same_strides(a, b):
+    """The kernels take one stride set for a pair (k/v, k̄/v̄)."""
+    if a.stride() != b.stride():
+        return a.contiguous(), b.contiguous()
+    return a, b
+
+
+def _model_layout_empty(B, H, S, Dh, dtype, device) -> torch.Tensor:
+    """An output in model-layout memory (B, S, H, Dh), as its kernel-layout
+    view (B, H, S, Dh)."""
+    return torch.empty((B, S, H, Dh), dtype=dtype, device=device).movedim(1, 2)
+
+
+def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
+           block_slots: int, scale: float, stream,
+           return_residuals: bool = False):
+    """Check the operands, allocate the outputs and launch the forward
+    kernel on `stream` (no synchronisation). The output lies in model
+    layout memory (B, S, H, Dh), returned as its kernel-layout view; with
+    `return_residuals` also m and denom, contiguous (B, H, S) fp32."""
+    _check_qkv(q, k, v, kbar, vbar)
+    B, H, S, Dh = q.shape
+    Hkv, M = k.shape[1], kbar.shape[2]
     common.check_blockwise_shapes(seq=S, block_size=block_size,
                                   block_slots=block_slots, slots=M,
                                   head_dim=Dh)
     dtype = common.kernel_dtype_code(q, k, v, kbar, vbar)
-    if k.stride() != v.stride():
-        v = v.contiguous()
-        k = k.contiguous()
-    if kbar.stride() != vbar.stride():
-        kbar, vbar = kbar.contiguous(), vbar.contiguous()
-    out = torch.empty((B, S, H, Dh), dtype=q.dtype,
-                      device=q.device).movedim(1, 2)
+    k, v = _same_strides(k, v)
+    kbar, vbar = _same_strides(kbar, vbar)
+    out = _model_layout_empty(B, H, S, Dh, q.dtype, q.device)
     common.check_operands(q, k, v, kbar, vbar, out)
+    m = denom = None
+    if return_residuals:
+        m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        denom = torch.empty_like(m)
     dims = (0, 1, 2)
     strides = build.strides_arg((q, dims), (k, dims), (kbar, dims),
                                 (out, dims))
     rc = kl.lib.bca_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kbar.data_ptr(),
-        vbar.data_ptr(), out.data_ptr(), strides, B, H, Hkv, S, M, Dh,
-        block_size, block_slots, float(scale), dtype, stream)
+        vbar.data_ptr(), out.data_ptr(),
+        None if m is None else m.data_ptr(),
+        None if denom is None else denom.data_ptr(), strides, B, H, Hkv, S,
+        M, Dh, block_size, block_slots, float(scale), dtype, stream)
     kl.check(rc, "blockwise_causal_attn")
-    return out
+    return (out, m, denom) if return_residuals else out
 
 
 def blockwise_causal_attn(q, k, v, kbar, vbar, *, block_size: int,
-                          block_slots: int, scale: float) -> torch.Tensor:
-    """Blockwise-causal attention forward in kernel layout. A CPU tensor
-    runs the plain twin; a CUDA tensor launches the CUDA kernel on the
-    current stream (or raises)."""
+                          block_slots: int, scale: float,
+                          return_residuals: bool = False):
+    """Blockwise-causal attention forward in kernel layout; with
+    ``return_residuals`` also the per-row (m, denom), (B, H, S) fp32, that
+    :func:`blockwise_causal_attn_bwd` recomputes the probabilities from. A
+    CPU tensor runs the plain twin; a CUDA tensor launches the CUDA kernel
+    on the current stream (or raises)."""
+    kw = dict(block_size=block_size, block_slots=block_slots, scale=scale,
+              return_residuals=return_residuals)
     if not q.is_cuda:
-        return blockwise_causal_attn_plain(
-            q, k, v, kbar, vbar, block_size=block_size,
-            block_slots=block_slots, scale=scale)
+        return blockwise_causal_attn_plain(q, k, v, kbar, vbar, **kw)
     out = launch(build.library(), q, k, v, kbar, vbar,
-                 block_size=block_size, block_slots=block_slots, scale=scale,
-                 stream=torch.cuda.current_stream(q.device).cuda_stream)
-    blockwise_causal_attn.launches += 1
+                 stream=torch.cuda.current_stream(q.device).cuda_stream,
+                 **kw)
+    if return_residuals:
+        blockwise_causal_attn.residual_launches += 1
+    else:
+        blockwise_causal_attn.launches += 1
     return out
 
 
 blockwise_causal_attn.launches = 0
+blockwise_causal_attn.residual_launches = 0
+
+
+def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
+               block_size: int, block_slots: int, scale: float, stream,
+               start_blocks: Optional[torch.Tensor] = None):
+    """Check the operands, allocate the gradients and launch the backward
+    kernels (dq, then dk/dv) on `stream`. Gradients lie in model-layout
+    memory, returned as kernel-layout views."""
+    _check_qkv(q, k, v, kbar, vbar)
+    B, H, S, Dh = q.shape
+    Hkv, M = k.shape[1], kbar.shape[2]
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
+    for name, t in (("m", m), ("denom", denom)):
+        if t.shape != (B, H, S) or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous (B, H, S) fp32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    common.check_blockwise_bwd_shapes(
+        seq=S, block_size=block_size, block_slots=block_slots, slots=M,
+        head_dim=Dh, offset=start_blocks is not None)
+    if start_blocks is not None and (
+            start_blocks.shape != (B,) or start_blocks.dtype != torch.int32
+            or start_blocks.device != q.device):
+        raise ValueError("start_blocks: expected (B,) int32 on the operands' "
+                         f"device, got {tuple(start_blocks.shape)} "
+                         f"{start_blocks.dtype} on {start_blocks.device}")
+    dtype = common.kernel_dtype_code(q, k, v, kbar, vbar, do)
+    k, v = _same_strides(k, v)
+    kbar, vbar = _same_strides(kbar, vbar)
+    f32 = torch.float32
+    dq = _model_layout_empty(B, H, S, Dh, q.dtype, q.device)
+    dk = _model_layout_empty(B, Hkv, S, Dh, f32, q.device)
+    dv = _model_layout_empty(B, Hkv, S, Dh, f32, q.device)
+    dkbar = _model_layout_empty(B, Hkv, M, Dh, f32, q.device)
+    dvbar = _model_layout_empty(B, Hkv, M, Dh, f32, q.device)
+    delta = torch.empty((B, H, S), dtype=f32, device=q.device)
+    common.check_operands(q, k, v, kbar, vbar, do, m, denom, dq, dk, dv,
+                          dkbar, dvbar, delta)
+    dims = (0, 1, 2)
+    strides = build.strides_arg((q, dims), (k, dims), (kbar, dims),
+                                (do, dims), (dq, dims), (dk, dims),
+                                (dkbar, dims))
+    rc = kl.lib.bca_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kbar.data_ptr(),
+        vbar.data_ptr(), do.data_ptr(), m.data_ptr(), denom.data_ptr(),
+        None if start_blocks is None else start_blocks.data_ptr(),
+        dq.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dkbar.data_ptr(), dvbar.data_ptr(), strides, B, H, Hkv, S, M, Dh,
+        block_size, block_slots, float(scale), dtype, stream)
+    kl.check(rc, "blockwise_causal_attn_bwd")
+    return dq, dk, dv, dkbar, dvbar
+
+
+def blockwise_causal_attn_bwd(q, k, v, kbar, vbar, m, denom, do, *,
+                              block_size: int, block_slots: int,
+                              scale: float,
+                              start_blocks: Optional[torch.Tensor] = None):
+    """Backward of :func:`blockwise_causal_attn` from its residuals, in
+    kernel layout: (dq in q's dtype, dk_loc, dv_loc, dk̄, dv̄ in fp32).
+    `start_blocks` (B,) int32 shifts each row's visibility cut (the offset
+    form; k̄/v̄ then hold M ≥ (start + S/c)·r slots); None means zeros. A CPU
+    tensor runs the plain twin; a CUDA tensor launches the CUDA kernels on
+    the current stream (or raises)."""
+    kw = dict(block_size=block_size, block_slots=block_slots, scale=scale,
+              start_blocks=start_blocks)
+    if not q.is_cuda:
+        return blockwise_causal_attn_bwd_plain(q, k, v, kbar, vbar, m, denom,
+                                               do, **kw)
+    out = launch_bwd(build.library(), q, k, v, kbar, vbar, m, denom, do,
+                     stream=torch.cuda.current_stream(q.device).cuda_stream,
+                     **kw)
+    blockwise_causal_attn_bwd.launches += 1
+    return out
+
+
+blockwise_causal_attn_bwd.launches = 0

@@ -37,10 +37,15 @@ _LL_PTR = ctypes.POINTER(ctypes.c_longlong)
 
 # exported C function -> (restype, argtypes)
 SIGNATURES: Dict[str, Tuple[object, List[object]]] = {
-    # q, k, v, kbar, vbar, out, strides[12], B, H, Hkv, S, M, Dh,
+    # q, k, v, kbar, vbar, out, m, denom, strides[12], B, H, Hkv, S, M, Dh,
     # block_size, block_slots, scale, dtype, stream
-    "bca_forward": (_I, [_P] * 6 + [_LL_PTR] + [_I] * 8
+    "bca_forward": (_I, [_P] * 8 + [_LL_PTR] + [_I] * 8
                     + [ctypes.c_float, _I, _P]),
+    # q, k, v, kbar, vbar, dout, m, denom, start_blocks, dq, delta, dk, dv,
+    # dkbar, dvbar, strides[21], B, H, Hkv, S, M, Dh, block_size,
+    # block_slots, scale, dtype, stream
+    "bca_backward": (_I, [_P] * 15 + [_LL_PTR] + [_I] * 8
+                     + [ctypes.c_float, _I, _P]),
     # q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob, out, strides[6],
     # B, Hkv, G, Dh, c, M, scale, dtype, stream
     "decode_forward": (_I, [_P] * 8 + [_LL_PTR] + [_I] * 6

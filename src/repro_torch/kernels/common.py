@@ -24,6 +24,15 @@ BACKEND_ROUTES: Dict[str, Tuple[str, str]] = {
     "reference": ("plain", "plain"),
 }
 
+# AttentionConfig.backward_impl -> route of the blockwise-causal backward on
+# the "kernel" route: "kernel" is the autograd Function of kernels/ops.py
+# (the residual-emitting forward, then the backward kernel); "plain" is
+# autograd through the reference form of core/causal.py.
+BACKWARD_ROUTES: Dict[str, str] = {
+    "fused": "kernel",
+    "reference": "plain",
+}
+
 # Shared memory one thread block may use on an H100 (227 KB); above 48 KB
 # only as dynamic shared memory after cudaFuncSetAttribute.
 MAX_SMEM_PER_BLOCK = 232448
@@ -33,6 +42,12 @@ MAX_SMEM_PER_BLOCK = 232448
 BCA_HEAD_DIMS = (16, 32, 64, 128)
 BCA_TILE_K = 64
 BCA_P_PITCH = BCA_TILE_K + 16
+
+# csrc/blockwise_causal_attn_bwd.cu: the dq kernel's key tile and the pitch
+# of its dS tile (its query tile and the dk/dv kernel's key tile are
+# bca_query_tile(c)).
+BCA_BWD_TILE_K = 64
+BCA_BWD_S_PITCH = BCA_BWD_TILE_K + 16
 
 # csrc/decode_attn.cu: key tile and head-dim ceiling.
 DECODE_TILE = 64
@@ -66,6 +81,16 @@ def backend_route(backend: str, is_cuda: bool) -> str:
             f"backend={backend!r} needs CUDA tensors: the CUDA kernels "
             "cannot run on the CPU (use 'auto' or 'reference')")
     return route
+
+
+def backward_route(backward_impl: str) -> str:
+    """Route of the blockwise-causal backward: "kernel" or "plain" (see
+    BACKWARD_ROUTES)."""
+    try:
+        return BACKWARD_ROUTES[backward_impl]
+    except KeyError:
+        raise ValueError(f"unknown backward_impl {backward_impl!r}; expected "
+                         f"one of {sorted(BACKWARD_ROUTES)}") from None
 
 
 def to_kernel_layout(x: torch.Tensor) -> torch.Tensor:   # (B,S,H,D) -> (B,H,S,D)
@@ -109,6 +134,40 @@ def check_blockwise_shapes(*, seq: int, block_size: int, block_slots: int,
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"blockwise-causal tile needs {smem} B of shared "
                          f"memory, above {MAX_SMEM_PER_BLOCK}")
+
+
+def bca_bwd_smem_bytes(block_q: int, head_dim: int) -> Tuple[int, int]:
+    """Shared memory of the backward's two kernels: the dq kernel (q and dO
+    tiles, a key and a value tile, the dS tile) and the dk/dv kernel (key,
+    value, q and dO tiles, the Pᵀ and dSᵀ tiles, three row vectors)."""
+    p = head_dim + 1
+    dq = 4 * (2 * block_q * p + 2 * BCA_BWD_TILE_K * p
+              + block_q * BCA_BWD_S_PITCH)
+    pitch = block_q + 16 if block_q % 32 == 0 else block_q
+    dkdv = 4 * (4 * block_q * p + 2 * block_q * pitch + 3 * block_q)
+    return dq, dkdv
+
+
+def check_blockwise_bwd_shapes(*, seq: int, block_size: int,
+                               block_slots: int, slots: int, head_dim: int,
+                               offset: bool) -> None:
+    """Fail fast on shapes csrc/blockwise_causal_attn_bwd.cu does not take.
+    Without an offset the slots are exactly (S/c)·r; with per-row start
+    blocks they are a full buffer of at least that many."""
+    nb_slots = (seq // block_size) * block_slots
+    check_blockwise_shapes(seq=seq, block_size=block_size,
+                           block_slots=block_slots,
+                           slots=nb_slots if offset else slots,
+                           head_dim=head_dim)
+    if offset and slots < nb_slots:
+        raise ValueError(f"M={slots} compressed slots, the offset form needs "
+                         f"at least (S/c)·r = {nb_slots}")
+    for name, smem in zip(("dq", "dk/dv"), bca_bwd_smem_bytes(
+            bca_query_tile(block_size), head_dim)):
+        if smem > MAX_SMEM_PER_BLOCK:
+            raise ValueError(f"blockwise-causal backward {name} tile needs "
+                             f"{smem} B of shared memory, above "
+                             f"{MAX_SMEM_PER_BLOCK}")
 
 
 def decode_smem_bytes(group: int, head_dim: int) -> int:

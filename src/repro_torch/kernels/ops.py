@@ -1,22 +1,33 @@
 """Public wrappers of the port's kernels, in model layout.
 
-Counterpart of ``repro/kernels/ops.py`` for the serving path: the
-blockwise-causal prefill forward and the single-token decode. Layout moves
-are views (kernel layout (B, H, S, Dh) <-> model layout (B, S, H, Dh)); the
-kernels take strided operands, so nothing is transposed in memory. A CPU
-tensor runs each kernel's plain twin, a CUDA tensor the CUDA kernel.
+Counterpart of ``repro/kernels/ops.py`` for the serving and training
+paths: the blockwise-causal attention (forward, and trainable through the
+backward kernel) and the single-token decode. Layout moves are views (kernel
+layout (B, H, S, Dh) <-> model layout (B, S, H, Dh)); the kernels take
+strided operands, so nothing is transposed in memory. A CPU tensor runs
+each kernel's plain twin, a CUDA tensor the CUDA kernel.
 
-Forward only: the backward kernel of the blockwise form comes with the
-training slice, so a CUDA input that requires grad raises.
+Gradients (the JAX package's ``_blockwise_causal_diff``): when an input
+requires grad, the blockwise attention runs through
+:class:`BlockwiseCausalAttnFn` over (q, k, v, k̄, v̄), whose forward is the
+residual-emitting kernel and whose backward is the backward kernel. The
+compression k̄ = compress_blocks(k, E) stays outside the Function in plain
+torch, so autograd chains dk̄/dv̄ into (dk, dE) and (dv, dF) exactly where the
+JAX package chains them through the linear ``compress_blocks`` VJP
+(``ops.py:290-299``). ``backward_impl`` picks the route through
+``common.BACKWARD_ROUTES``: "fused" is that Function, "reference" is
+autograd through the plain reference form of core/causal.py.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.causal import compress_blocks
+from repro_torch.core.causal import (blockwise_causal_attention,
+                                     compress_blocks)
 from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
-from repro_torch.kernels.common import from_kernel_layout, to_kernel_layout
+from repro_torch.kernels.common import (backward_route, from_kernel_layout,
+                                        to_kernel_layout)
 
 
 def _compress_kv(x, W, block_size, block_slots):
@@ -25,6 +36,39 @@ def _compress_kv(x, W, block_size, block_slots):
     nb = S // block_size
     xbar = compress_blocks(x.reshape(B, nb, block_size, Hkv, Dh), W)
     return xbar.reshape(B, nb * block_slots, Hkv, Dh)
+
+
+class BlockwiseCausalAttnFn(torch.autograd.Function):
+    """Differentiable blockwise-causal attention over (q, k, v, k̄, v̄) in
+    model layout. The forward runs the residual-emitting kernel and saves
+    (q, k, v, k̄, v̄, m, denom); the backward runs the backward kernel and
+    returns dq, dk_loc, dv_loc, dk̄, dv̄ cast to their inputs' dtypes (the
+    kernel accumulates them in fp32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kbar, vbar, block_size, block_slots, scale):
+        kw = dict(block_size=block_size, block_slots=block_slots,
+                  scale=scale)
+        out, m, denom = bca.blockwise_causal_attn(
+            to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
+            to_kernel_layout(kbar), to_kernel_layout(vbar),
+            return_residuals=True, **kw)
+        ctx.save_for_backward(q, k, v, kbar, vbar, m, denom)
+        ctx.kw = kw
+        return from_kernel_layout(out)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kbar, vbar, m, denom = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        grads = bca.blockwise_causal_attn_bwd(
+            to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
+            to_kernel_layout(kbar), to_kernel_layout(vbar), m, denom,
+            to_kernel_layout(do), **ctx.kw)
+        dq, dk, dv, dkbar, dvbar = (from_kernel_layout(g) for g in grads)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), dkbar.to(kbar.dtype),
+                dvbar.to(vbar.dtype), None, None, None)
 
 
 def fused_blockwise_causal_attention(
@@ -37,21 +81,29 @@ def fused_blockwise_causal_attention(
     block_size: int,
     block_slots: int,
     scale: float,
+    backward_impl: str = "fused",
 ) -> torch.Tensor:
-    """Causal prefill attention through the blockwise-causal kernel:
-    compress k/v into r slots per block, then one joint softmax per query
-    row over [own block, causal | slots of earlier blocks]."""
-    if q.is_cuda and any(t.requires_grad for t in (q, k, v, E, F)):
-        raise NotImplementedError(
-            "fused_blockwise_causal_attention is forward-only on CUDA (the "
-            "backward kernel comes with the training slice); run under "
-            "torch.no_grad() or use backend='reference'")
+    """Causal prefill/training attention through the blockwise-causal
+    kernels: compress k/v into r slots per block, then one joint softmax per
+    query row over [own block, causal | slots of earlier blocks].
+
+    Trainable: when grad is enabled and an input requires it, the attention
+    goes through the route ``backward_impl`` maps to (see the module
+    docstring); otherwise it is one launch of the plain forward kernel."""
     S = q.shape[1]
     if S % block_size != 0:
         raise ValueError(
             f"S={S} must be a multiple of block_size={block_size}")
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, E, F))
+    if grad and backward_route(backward_impl) == "plain":
+        return blockwise_causal_attention(
+            q, k, v, E, F, block_size=block_size, scale=scale)
     kbar = _compress_kv(k, E, block_size, block_slots)
     vbar = _compress_kv(v, F, block_size, block_slots)
+    if grad:
+        return BlockwiseCausalAttnFn.apply(q, k, v, kbar, vbar, block_size,
+                                           block_slots, scale)
     out = bca.blockwise_causal_attn(
         to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
         to_kernel_layout(kbar), to_kernel_layout(vbar),

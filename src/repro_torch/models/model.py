@@ -1,8 +1,8 @@
 """Unified model API and the device-resident decode loop.
 
-Counterpart of ``repro/models/model.py`` for the dense family. Entry points
-take an explicit device; randomness comes from an explicit
-``torch.Generator``.
+Counterpart of ``repro/models/model.py`` for the dense family: params,
+forward, decode, and the training losses. Entry points take an explicit
+device; randomness comes from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -81,3 +81,69 @@ def decode_scan(
         cur = torch.argmax(last, dim=-1).to(cur.dtype)
         toks.append(tok)
     return torch.stack(toks, dim=1), cur, finished, bad, cache
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable CE in fp32. labels: (B, S) int; mask: (B, S) {0, 1} loss
+    weights. Returns (sum_loss, sum_weight)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum(), mask.sum()
+
+
+def chunked_head_ce(params, cfg: ModelConfig, hidden: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor, *,
+                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LM-head matmul + CE over sequence chunks: the (B, S, V) logits tensor
+    is never materialised; the backward recomputes each chunk's logits
+    (transformer.remat_wrap, "full")."""
+    B, S, D = hidden.shape
+    if S % chunk != 0:
+        chunk = S
+    norm = params["final_norm"]["scale"]
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"]["tok"].T
+
+    def body(h_c, y_c, m_c, norm_, head_):
+        logits = transformer.logits_from_hidden(
+            {"final_norm": {"scale": norm_}, "lm_head": head_}, cfg, h_c)
+        return cross_entropy(logits, y_c, m_c)[0]
+
+    body = transformer.remat_wrap(body, "full")
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, chunk):
+        sl = slice(i, i + chunk)
+        nll = nll + body(hidden[:, sl], labels[:, sl], mask[:, sl], norm,
+                         head)
+    return nll, mask.sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
+            plan: Optional[plan_lib.AttentionPlan] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens (B, S), labels (B, S), loss_mask (B, S). Causal LM:
+    labels are the inputs shifted by one (built by the data pipeline).
+    Returns (loss, metrics): loss, aux_loss, tokens, perplexity."""
+    labels = batch["labels"]
+    mask = batch["loss_mask"].to(torch.float32)
+    if cfg.chunked_ce > 0:
+        hidden, aux, _ = forward(params, cfg, batch, return_hidden=True,
+                                 plan=plan)
+        nll_sum, denom = chunked_head_ce(params, cfg, hidden, labels, mask,
+                                         chunk=cfg.chunked_ce)
+    else:
+        logits, aux, _ = forward(params, cfg, batch, plan=plan)
+        nll_sum, denom = cross_entropy(logits, labels, mask)
+    loss = nll_sum / torch.clamp(denom, min=1.0)
+    metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
+               "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
+    return loss, metrics

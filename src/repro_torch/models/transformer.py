@@ -5,12 +5,20 @@ Counterpart of the dense half of ``repro/models/transformer.py``. Parameters
 are nested dicts of tensors laid out exactly like the JAX package's pytree
 with scanned (stacked) layers: every leaf under ``layers`` carries a leading
 layer axis, e.g. ``layers/attn/wq`` (L, d, H·Dh). Layer i runs on views
-``a[i]`` of the stacked leaves.
+``a[i]`` of the stacked leaves; the forward without a cache, the one a
+backward runs through, takes them with one ``unbind`` per leaf, so the
+backward stacks each leaf's gradient once instead of once per layer.
+
+Rematerialisation (the JAX package's ``remat_wrap``): with ``cfg.remat``
+"full" each block runs under :class:`_Recompute`, which keeps only the
+block's inputs and recomputes the block inside the backward. "dots" maps to
+"full": PyTorch has no counterpart of JAX's dots-saveable policy, so every
+activation is recomputed.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -76,6 +84,17 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     return spec
 
 
+def flatten(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """{"a": {"b": {"c": x}}} -> {"a/b/c": x}, in insertion order."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flatten(val, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
 def nest(flat: Dict[str, torch.Tensor]) -> Dict:
     """{"a/b/c": x} -> {"a": {"b": {"c": x}}}."""
     out: Dict = {}
@@ -117,6 +136,48 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
         for name, w in leaves.items():
             flat[f"{_LIN_GROUPS[group]}/{name}"] = w
     return nest(flat)
+
+
+class _Recompute(torch.autograd.Function):
+    """Activation rematerialisation of `fn(*args)` (one tensor out): the
+    forward runs under no_grad and keeps only `args`; the backward reruns
+    `fn` with grad enabled and differentiates it. Every tensor `fn` depends
+    on must be among `args`: a tensor it closes over gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, fn, *args):
+        ctx.fn = fn
+        ctx.save_for_backward(*args)
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[1:]
+        args = [a.detach().requires_grad_(n)
+                for a, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ctx.fn(*args)
+        wrt = [a for a, n in zip(args, need) if n]
+        grads = iter(torch.autograd.grad(out, wrt, grad_out,
+                                         allow_unused=True))
+        return (None, *(next(grads) if n else None for n in need))
+
+
+def remat_wrap(fn: Callable, policy: str) -> Callable:
+    """`fn(*tensors)` under the remat policy: "none" as is, "full" (and
+    "dots", see the module docstring) through :class:`_Recompute` whenever
+    autograd records."""
+    if policy not in ("none", "dots", "full"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    if policy == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _Recompute.apply(fn, *args)
+
+    return wrapped
 
 
 def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -166,16 +227,34 @@ def _layer_caches(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in cache.items() if k != "lengths"}
 
 
+def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
+              shared_keys) -> Callable:
+    """apply_block as a function of tensors alone, (x, *layer leaves,
+    *shared E/F leaves), so that remat sees every tensor it depends on."""
+    n = len(keys)
+
+    def fn(x, *leaves):
+        shared = dict(zip(shared_keys, leaves[n:])) or None
+        return apply_block(nest(dict(zip(keys, leaves[:n]))), x, cfg,
+                           shared_lin=shared, plan=plan)
+
+    return fn
+
+
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             return_cache: bool = False, cache_max_seq: Optional[int] = None,
-            cache_dtype=torch.bfloat16,
+            cache_dtype=torch.bfloat16, return_hidden: bool = False,
             plan: Optional[plan_lib.AttentionPlan] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
-    """Full-sequence forward. Returns (logits (B, S, V), aux, cache|None).
+    """Full-sequence forward. Returns (logits (B, S, V), aux, cache|None);
+    with return_hidden, the final hidden states (B, S, D) before the final
+    norm instead of the logits.
 
     With return_cache=True the sequence length must be a multiple of the
     Linformer block size; the cache is built in the same pass (the config's
-    single_pass_cache) and positioned at t = S, ready for decode_step."""
+    single_pass_cache) and positioned at t = S, ready for decode_step.
+    When autograd records, each block runs under the config's remat
+    policy."""
     if return_cache and not cfg.single_pass_cache:
         raise ValueError("only the single-pass prefill cache is ported")
     plan = plan if plan is not None \
@@ -189,13 +268,20 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         cache = init_cache(cfg, batch=B,
                            max_seq=cache_max_seq or cfg.max_seq_len,
                            dtype=cache_dtype, device=x.device)
-    for i in range(cfg.num_layers):
-        x = apply_block(layer_slice(params["layers"], i), x, cfg,
-                        shared_lin=shared_lin,
-                        cache_entry=(_layer_caches(cache, i)
-                                     if cache is not None else None),
-                        plan=plan)
-    logits = logits_from_hidden(params, cfg, x)
+    if cache is not None:
+        for i in range(cfg.num_layers):
+            x = apply_block(layer_slice(params["layers"], i), x, cfg,
+                            shared_lin=shared_lin,
+                            cache_entry=_layer_caches(cache, i), plan=plan)
+    else:
+        layers = flatten(params["layers"])
+        per_layer = [leaf.unbind(0) for leaf in layers.values()]
+        shared = shared_lin or {}
+        block = remat_wrap(_block_fn(cfg, plan, list(layers), list(shared)),
+                           cfg.remat)
+        for i in range(cfg.num_layers):
+            x = block(x, *(views[i] for views in per_layer), *shared.values())
+    logits = x if return_hidden else logits_from_hidden(params, cfg, x)
     if cache is not None:
         cache["lengths"].fill_(S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -11,6 +11,11 @@ knob is the JAX package's ``AttentionConfig.backend``:
 * ``"reference"``: the plain reference forms of core/causal.py, on any
   device (the parity oracle).
 
+Every route is differentiable. On the kernel route the training backward
+follows ``AttentionConfig.backward_impl``: ``"fused"`` (default) runs the
+backward kernel from the forward's saved residuals, ``"reference"``
+autograd through the plain reference form (kernels/ops.py).
+
 The multi-device plans (tensor and sequence parallelism) come with the
 multi-GPU slice.
 """
@@ -24,7 +29,7 @@ import torch
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import causal as causal_lib
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.common import backend_route
+from repro_torch.kernels.common import backend_route, backward_route
 
 
 def decode_biases(loc_ok: torch.Tensor, glob_ok: torch.Tensor):
@@ -41,9 +46,11 @@ class AttentionPlan:
     """Execution plan for the attention forms of one config."""
 
     backend: str = "auto"            # AttentionConfig.backend knob
+    backward_impl: str = "fused"     # AttentionConfig.backward_impl knob
 
     def __post_init__(self):
-        backend_route(self.backend, True)     # raises on an unknown knob
+        backend_route(self.backend, True)     # raise on an unknown knob
+        backward_route(self.backward_impl)
 
     def uses_kernels(self, x: torch.Tensor) -> bool:
         """Whether a call on `x` goes through kernels/ops.py (True) or the
@@ -52,14 +59,15 @@ class AttentionPlan:
 
     def causal_attention(self, q, k, v, E, F, *, block_size: int,
                          block_slots: int, scale: float) -> torch.Tensor:
-        """Full-sequence blockwise-causal attention (prefill).
+        """Full-sequence blockwise-causal attention (prefill and training),
+        differentiable on both routes.
         q (B, S, H, Dh); k/v (B, S, Hkv, Dh); E/F (c, r) or (Hkv, c, r)."""
         if not self.uses_kernels(q):
             return causal_lib.blockwise_causal_attention(
                 q, k, v, E, F, block_size=block_size, scale=scale)
         return kernel_ops.fused_blockwise_causal_attention(
             q, k, v, E, F, block_size=block_size, block_slots=block_slots,
-            scale=scale)
+            scale=scale, backward_impl=self.backward_impl)
 
     def decode_attention(self, q_t, raw_k, raw_v, comp_k, comp_v, loc_ok,
                          glob_ok, *, scale: float) -> torch.Tensor:
@@ -78,7 +86,8 @@ class AttentionPlan:
 
 def resolve_attention_plan(acfg: AttentionConfig) -> AttentionPlan:
     """The plan of one attention config."""
-    return AttentionPlan(backend=acfg.backend)
+    return AttentionPlan(backend=acfg.backend,
+                         backward_impl=acfg.backward_impl)
 
 
 def as_plan(plan: Union[AttentionPlan, str, None]) -> AttentionPlan:

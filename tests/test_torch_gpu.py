@@ -11,7 +11,10 @@ Tolerances: fp32 1e-4 absolute (summation order); bf16
 |kernel - plain| <= 2^-8·max|v| + 2^-7·|plain| elementwise (the plain
 version rounds each probability to bf16 before the value product, as the
 TPU kernel did, where the kernel keeps it in fp32; each output is rounded
-once to bf16)."""
+once to bf16). The residuals and the backward's fp32 outputs (kernel and
+plain version both compute in fp32 from the same inputs, summing up to G·S
+terms in another order): 1e-4 of the tensor's largest entry; dq in bf16
+adds 2^-7·|plain|, one bf16 rounding step apart."""
 import dataclasses
 
 import pytest
@@ -21,6 +24,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.causal import NEG_INF, compress_blocks
 from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
+from repro_torch.kernels import ops as tops
 from repro_torch.models import model as tmodel
 from repro_torch.serving import ServingEngine
 
@@ -75,6 +79,115 @@ def test_blockwise_kernel_matches_plain(cuda, dtype, shape):
     ref = bca.blockwise_causal_attn_plain(*args, **kw)
     assert out.dtype == dtype and out.shape == ref.shape
     _assert_close(out, ref, (args[2], args[4]))
+
+
+def _assert_grad_close(out, ref):
+    diff = (out.float() - ref.float()).abs()
+    bound = 1e-4 * max(1.0, ref.float().abs().max().item())
+    if out.dtype == torch.bfloat16:
+        bound = bound + 2 ** -7 * ref.float().abs()
+    assert (diff <= bound).all(), diff.max().item()
+
+
+BWD_SHAPES = {"smoke_gqa_2c": ((2, 4, 2, 32, 16, 4, 16), None),
+              "smoke_offset": ((2, 4, 2, 32, 16, 4, 16), [1, 3]),
+              # the train step's shapes (qwen3-8b, B=2, S=4096)
+              "full": ((2, 32, 8, 4096, 256, 16, 128), None)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["smoke_gqa_2c", "full"])
+def test_residual_forward_matches_plain(cuda, dtype, shape):
+    (B, H, Hkv, S, c, r, Dh), _ = BWD_SHAPES[shape]
+    args = _bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, cuda, seed=2)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    n0 = bca.blockwise_causal_attn.residual_launches
+    out, m, d = bca.blockwise_causal_attn(*args, return_residuals=True, **kw)
+    torch.cuda.synchronize()
+    assert bca.blockwise_causal_attn.residual_launches == n0 + 1
+    ro, rm, rd = bca.blockwise_causal_attn_plain(*args, return_residuals=True,
+                                                 **kw)
+    _assert_close(out, ro, (args[2], args[4]))
+    _assert_grad_close(m, rm)
+    _assert_grad_close(d, rd)
+    # one build serves both forms: the plain form's output is the same
+    assert torch.equal(bca.blockwise_causal_attn(*args, **kw), out)
+
+
+def _offset_residuals(q, k, kbar, start, kw):
+    """(m, denom) of the offset form, from the joint scores."""
+    nb = q.shape[2] // kw["block_size"]
+    cut = torch.arange(nb, device=q.device)[None] + start.long()[:, None]
+    s_loc, s_glob = bca.joint_scores(q, k, kbar, cut, **kw)
+    m = torch.maximum(s_loc.amax(-1, keepdim=True),
+                      s_glob.amax(-1, keepdim=True))
+    d = (torch.exp(s_loc - m).sum(-1, keepdim=True)
+         + torch.exp(s_glob - m).sum(-1, keepdim=True))
+    shape = q.shape[:3]
+    return m.reshape(shape).contiguous(), d.reshape(shape).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(BWD_SHAPES))
+def test_backward_kernel_matches_plain(cuda, dtype, shape):
+    (B, H, Hkv, S, c, r, Dh), start = BWD_SHAPES[shape]
+    q, k, v, kb, vb = _bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, cuda,
+                                  seed=3)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    sb = None
+    if start is None:
+        _, m, d = bca.blockwise_causal_attn_plain(q, k, v, kb, vb,
+                                                  return_residuals=True, **kw)
+    else:
+        # a full slot buffer: the slots of earlier chunks, then this one's
+        sb = torch.tensor(start, dtype=torch.int32, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(4)
+        kb, vb = (torch.cat([torch.randn(B, Hkv, max(start) * r, Dh,
+                                         generator=g, device=cuda).to(dtype),
+                             x], 2) for x in (kb, vb))
+        m, d = _offset_residuals(q, k, kb, sb, kw)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    do = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    n0 = bca.blockwise_causal_attn_bwd.launches
+    got = bca.blockwise_causal_attn_bwd(q, k, v, kb, vb, m, d, do,
+                                        start_blocks=sb, **kw)
+    torch.cuda.synchronize()
+    assert bca.blockwise_causal_attn_bwd.launches == n0 + 1
+    want = bca.blockwise_causal_attn_bwd_plain(q, k, v, kb, vb, m, d, do,
+                                               start_blocks=sb, **kw)
+    assert got[0].dtype == dtype
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape
+        _assert_grad_close(g_, w)
+    # slots no row sees (block >= start + S/c - 1) are exact zeros
+    nb0 = torch.zeros(B, device=cuda) if sb is None else sb
+    slot_blk = torch.arange(kb.shape[2], device=cuda) // r
+    invisible = slot_blk[None] >= (nb0[:, None] + S // c - 1)
+    assert invisible.any()
+    for g_ in got[3:]:
+        assert torch.all(g_.movedim(1, 2)[invisible] == 0)
+
+
+def test_autograd_through_kernels_matches_reference(cuda):
+    """Gradients through the port's Function (residual forward + backward
+    kernel) against autograd through the plain reference form, fp32."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, H, Hkv, S, c, r, Dh = 2, 8, 2, 128, 32, 8, 32
+    xs = [torch.randn(*shape, generator=g, device=cuda).requires_grad_()
+          for shape in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh),
+                        (c, r), (c, r))]
+    do = torch.randn(B, S, H, Dh, generator=g, device=cuda)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    grads = {}
+    for impl in ("fused", "reference"):
+        n0 = bca.blockwise_causal_attn_bwd.launches
+        out = tops.fused_blockwise_causal_attention(*xs, backward_impl=impl,
+                                                    **kw)
+        grads[impl] = torch.autograd.grad(out, xs, do)
+        assert (bca.blockwise_causal_attn_bwd.launches > n0) == \
+            (impl == "fused")
+    for a, b_ in zip(grads["fused"], grads["reference"]):
+        _assert_grad_close(a, b_)
 
 
 def _decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, seed=0):

@@ -5,14 +5,17 @@ The same numpy inputs (seeded) go through the JAX functions — the Pallas
 kernel wrappers in interpret mode and the pure-jnp references — and through
 the port's plain versions: its core/causal.py references and the plain
 twins that its kernel wrappers run for CPU tensors. Tolerance: 1e-5
-absolute (fp32, different summation orders)."""
+absolute (fp32, different summation orders); 1e-5 relative for the softmax
+denominators, which grow with the row length."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import causal as jcausal
+from repro.kernels import blockwise_causal_attn as jbca
 from repro.kernels import ops as jops
 
 from repro_torch.core import causal as tcausal
@@ -193,3 +196,174 @@ def test_kernel_guards_accept_main_path_shapes():
         tcommon.check_decode_shapes(group=4096, head_dim=128)
     with pytest.raises(TypeError, match="one dtype"):
         tcommon.kernel_dtype_code(torch.zeros(1), torch.zeros(1).bfloat16())
+
+
+# -- training: residual-emitting forward (1r) and backward (2) ----------------
+
+
+def _kernel_inputs(G, S, seed, M=None):
+    """Kernel-layout operands: q (B, H, S, DH), k/v (B, H/G, S, DH), slots
+    (B, H/G, M, DH) (M = (S/C)·R unless given), dO like q."""
+    rng = np.random.default_rng(seed)
+    hkv = H // G
+    M = M or (S // C) * R
+    return (_np(rng, B, H, S, DH), _np(rng, B, hkv, S, DH),
+            _np(rng, B, hkv, S, DH), _np(rng, B, hkv, M, DH),
+            _np(rng, B, hkv, M, DH), _np(rng, B, H, S, DH))
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_residual_forward_plain_matches_jax(G):
+    q, k, v, kb, vb, _ = _kernel_inputs(G, 64, seed=4 + G)
+    kw = dict(block_size=C, block_slots=R, scale=DH ** -0.5)
+    out_j, m_j, d_j = jbca.blockwise_causal_attn(
+        *map(jnp.asarray, (q, k, v, kb, vb)), interpret=True,
+        return_residuals=True, **kw)
+    launches = tbca.blockwise_causal_attn.residual_launches
+    out, m, d = tbca.blockwise_causal_attn(
+        *map(torch.from_numpy, (q, k, v, kb, vb)), return_residuals=True,
+        **kw)
+    assert tbca.blockwise_causal_attn.residual_launches == launches
+    _close(out, out_j)
+    _close(m, m_j)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_j), rtol=ATOL)
+    # the residual form's output is the plain form's
+    plain = tbca.blockwise_causal_attn(
+        *map(torch.from_numpy, (q, k, v, kb, vb)), **kw)
+    assert torch.equal(plain, out)
+
+
+def _jax_residuals(q, k, kb, vb, v, start, kw):
+    """(m, denom) of the JAX forward: the offset form's when `start` is
+    given (a full slot buffer), else the plain form's."""
+    if start is None:
+        _, m, d = jbca.blockwise_causal_attn(
+            *map(jnp.asarray, (q, k, v, kb, vb)), interpret=True,
+            return_residuals=True, **kw)
+    else:
+        _, m, d = jbca.blockwise_causal_prefix_attn(
+            *map(jnp.asarray, (q, k, v, kb, vb)),
+            jnp.asarray(start, jnp.int32), interpret=True,
+            return_residuals=True, **kw)
+    return np.asarray(m), np.asarray(d)
+
+
+@pytest.mark.parametrize("G,S,start", [
+    (1, 32, None),                 # MHA, S = 2c
+    (2, 64, None),                 # GQA
+    (2, 32, [1, 3]),               # GQA, nonzero per-row start blocks
+    (1, 48, [0, 2]),
+])
+def test_backward_plain_matches_jax(G, S, start):
+    M = None if start is None else (max(start) + S // C) * R + R
+    q, k, v, kb, vb, do = _kernel_inputs(G, S, seed=7 + S, M=M)
+    kw = dict(block_size=C, block_slots=R, scale=DH ** -0.5)
+    m, d = _jax_residuals(q, k, kb, vb, v, start, kw)
+    want = jbca.blockwise_causal_attn_bwd(
+        *map(jnp.asarray, (q, k, v, kb, vb, m, d, do)), interpret=True,
+        start_blocks=None if start is None else jnp.asarray(start,
+                                                            jnp.int32),
+        **kw)
+    sb = None if start is None else torch.tensor(start, dtype=torch.int32)
+    launches = tbca.blockwise_causal_attn_bwd.launches
+    got = tbca.blockwise_causal_attn_bwd(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, kb, vb, m, d, do)),
+        start_blocks=sb, **kw)
+    assert tbca.blockwise_causal_attn_bwd.launches == launches
+    for g, w in zip(got, want):
+        _close(g, w)
+    # slots no query row sees: exact zeros, in both packages
+    invisible = np.all(np.asarray(want[3]) == 0, axis=-1)
+    assert invisible.any()
+    assert torch.all(got[3][torch.from_numpy(invisible)] == 0)
+    assert torch.all(got[4][torch.from_numpy(invisible)] == 0)
+
+
+def _grad_inputs(per_head, G, S, seed):
+    rng = np.random.default_rng(seed)
+    hkv = H // G
+    shape = (hkv, C, R) if per_head else (C, R)
+    return (_np(rng, B, S, H, DH), _np(rng, B, S, hkv, DH),
+            _np(rng, B, S, hkv, DH), _np(rng, *shape) * R ** -0.5,
+            _np(rng, *shape) * R ** -0.5, _np(rng, B, S, H, DH))
+
+
+@pytest.mark.parametrize("backward_impl", ["fused", "reference"])
+@pytest.mark.parametrize("per_head,G", [(False, 1), (False, 2), (True, 2)])
+def test_attention_grads_match_jax(per_head, G, backward_impl):
+    """torch.autograd through the port's fused_blockwise_causal_attention
+    (its Function runs the twins on the CPU) against jax.grad of the JAX
+    one (Pallas forward and backward in interpret mode): dq/dk/dv/dE/dF.
+    dq/dk/dv within 1e-5 absolute; dE/dF sum over every block of every row
+    (entries ~10), so they are held to 1e-5 of their largest entry."""
+    q, k, v, E, F, do = _grad_inputs(per_head, G, 64, seed=11 + G)
+    kw = dict(block_size=C, block_slots=R, scale=DH ** -0.5)
+
+    def f(*xs):
+        out = jops.fused_blockwise_causal_attention(*xs, **kw)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, (q, k, v, E, F)))
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, E, F)]
+    launches = (tbca.blockwise_causal_attn.residual_launches,
+                tbca.blockwise_causal_attn_bwd.launches)
+    out = tops.fused_blockwise_causal_attention(
+        *xs, backward_impl=backward_impl, **kw)
+    got = torch.autograd.grad(out, xs, torch.from_numpy(do))
+    assert launches == (tbca.blockwise_causal_attn.residual_launches,
+                        tbca.blockwise_causal_attn_bwd.launches)
+    for name, g, w in zip("q k v E F".split(), got, want):
+        w = np.asarray(w)
+        scale = np.abs(w).max() if name in "EF" else 1.0
+        np.testing.assert_allclose(g.numpy(), w, atol=ATOL * scale, rtol=0,
+                                   err_msg=name)
+
+
+def test_fused_route_uses_the_function_only_under_grad(monkeypatch):
+    """The Function (residual forward + backward kernel) runs only when
+    autograd records; "reference" routes gradients through the plain
+    reference form and never reaches the Function."""
+    q, k, v, E, F, _ = _grad_inputs(False, 2, 32, seed=3)
+    kw = dict(block_size=C, block_slots=R, scale=DH ** -0.5)
+    calls = []
+    real = tops.BlockwiseCausalAttnFn.apply
+    monkeypatch.setattr(tops.BlockwiseCausalAttnFn, "apply",
+                        lambda *a: calls.append(1) or real(*a))
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, E, F)]
+    with torch.no_grad():
+        tops.fused_blockwise_causal_attention(*xs, **kw)
+    assert calls == []
+    tops.fused_blockwise_causal_attention(*xs, **kw).sum().backward()
+    assert calls == [1]
+    tops.fused_blockwise_causal_attention(
+        *xs, backward_impl="reference", **kw).sum().backward()
+    assert calls == [1]
+    with pytest.raises(ValueError, match="unknown backward_impl"):
+        tops.fused_blockwise_causal_attention(*xs, backward_impl="pallas",
+                                              **kw)
+    with pytest.raises(ValueError, match="unknown backward_impl"):
+        tplan.AttentionPlan(backward_impl="pallas")
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(seq=64, block_size=16, block_slots=4, slots=16, head_dim=48,
+          offset=False), "head_dim"),
+    (dict(seq=64, block_size=16, block_slots=4, slots=20, head_dim=16,
+          offset=False), "compressed slots"),
+    (dict(seq=64, block_size=16, block_slots=4, slots=12, head_dim=16,
+          offset=True), "at least"),
+])
+def test_backward_kernel_guards(kw, match):
+    with pytest.raises(ValueError, match=match):
+        tcommon.check_blockwise_bwd_shapes(**kw)
+
+
+def test_backward_guards_accept_main_path_shapes():
+    tcommon.check_blockwise_bwd_shapes(seq=4096, block_size=256,
+                                       block_slots=16, slots=256,
+                                       head_dim=128, offset=False)
+    tcommon.check_blockwise_bwd_shapes(seq=32, block_size=16, block_slots=4,
+                                       slots=40, head_dim=16, offset=True)
+    dq, dkdv = tcommon.bca_bwd_smem_bytes(64, 128)
+    assert max(dq, dkdv) <= tcommon.MAX_SMEM_PER_BLOCK
