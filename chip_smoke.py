@@ -14,27 +14,39 @@ error; none catches its own failure:
    c=256, r=16, Dh=128, H=32, Hkv=8): the blockwise forward at S=1024 and
    decode at B=4, M=256; the residual-emitting forward and the backward at
    the train step's shapes (B=2, S=4096), plus a backward with per-row
-   start blocks;
+   start blocks; the prefix form (both forms) and its quantized sibling at
+   the chunked serve's shapes (B=4, P=512, M=288, start blocks 0, 3, 7, 14)
+   and quantized decode at B=4, M=288, int8 and fp8 pages;
 4. [time] time each kernel at full width in bf16 with CUDA events (inputs
    rotated through more than the 50 MB L2 cache), beside its plain version,
-   one PyTorch library call computing the same function, and the least
-   time the card could take (bytes over 3.35 TB/s or flops over
+   one masked `scaled_dot_product_attention` call computing the same
+   function (over the dequantised operands for the quantized kernels), and
+   the least time the card could take (bytes over 3.35 TB/s or flops over
    989 TFLOP/s); the training kernels at the train step's shapes (B=2,
-   S=4096);
+   S=4096), the quantized ones with int8 pages;
 5. [serve] serve 8 requests through full-width, 36-layer qwen3-8b (random
    bf16 weights from a seeded generator, bf16 cache, max_seq 4096,
    max_batch 4, decode_chunk 16), prompts of k·256+j tokens, with the
    kernels' launch counters reset just before and read just after; then a
    torch.profiler breakdown of one prefill and one decode chunk;
-6. [parity] at full width with 2 layers in fp32, serve 2 requests with the
-   kernels (backend "auto") and with the plain reference: prefill logits
-   within the stated tolerance, first 16 greedy tokens identical;
-7. [train] 4 steps of the Trainer on full-width qwen3-8b cut to 8 layers
+6. [serve-chunked] the same serve with chunked admission
+   (prefill_chunk=512), counters reset and read around it: token agreement
+   with [serve], then the profile of one chunk forward of a 4-row pool;
+7. [serve-paged] the same chunked serve into the paged pool with int8
+   pages: clean page accounting, cache bytes against the dense pool, then
+   the profile of one paged decode chunk;
+8. [parity] at full width with 2 layers in fp32: the kernels (backend
+   "auto") against the plain reference: dense prefill logits within the
+   stated tolerance and the first 16 greedy tokens of 2 requests
+   identical; chunked admission through the kernels token-identical to
+   monolithic; paged int8 and fp8 pools (chunked admission) with identical
+   tokens and chunk-forward logits within the tolerance;
+9. [train] 4 steps of the Trainer on full-width qwen3-8b cut to 8 layers
    (bf16, remat "full", seq 4096, global batch 2, synthetic corpus seed
    0), launch counters reset just before and read just after: each step's
    loss, grad norm, ms and tokens/s, peak memory; then one more step timed
    alone and under torch.profiler;
-8. [train-parity] at full width with 2 layers in fp32 (B=1, S=1024), one
+10. [train-parity] at full width with 2 layers in fp32 (B=1, S=1024), one
    train step with the kernels and one with the plain reference from the
    same parameters and batch: loss, every gradient leaf and the parameters
    after AdamW within the stated tolerances.
@@ -73,6 +85,10 @@ LOGITS_TOL = 2e-3      # 2-layer fp32 prefill logits, kernels vs reference
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_UPDATE_RTOL = 1e-3
+# the chunked and paged serves: chunk width (the JAX ServeConfig default)
+# and page storage
+SERVE_PREFILL_CHUNK = 512
+SERVE_PAGE_DTYPE = "int8"
 
 
 def log(msg):
@@ -153,18 +169,61 @@ def decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, seed, t):
     """Decode operands for rows at positions t (list): pos = t % c, blk =
     t // c select the visible ring entries and slots."""
     import torch
-    from repro_torch.core.causal import NEG_INF
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev).to(dtype)
     kv = [torch.randn(B, n, Hkv, Dh, generator=g,
                       device=dev).to(dtype).movedim(2, 1)
           for n in (c, c, M, M)]
+    return (q, *kv, *decode_biases(B, c, M, r, t, dev))
+
+
+def prefix_inputs(shape, start, M, dtype, dev, seed):
+    """Prefix-form operands in kernel layout: a query chunk, its own k/v in
+    `dtype`, an fp32 slot buffer of M slots (cast or quantized by the
+    caller), per-row start blocks (B,) int32."""
+    import torch
+    B, H, Hkv, P, c, r, Dh = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, P, Dh, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Hkv, P, Dh, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    ck, cv = (torch.randn(B, Hkv, M, Dh, generator=g, device=dev) * 2
+              for _ in range(2))
+    return q, k, v, ck, cv, torch.tensor(start, dtype=torch.int32,
+                                         device=dev)
+
+
+def quantized(x, page_dtype):
+    """Kernel-layout (B, Hkv, N, Dh) fp32 -> codes and (B, Hkv, N) scales,
+    as the paged cache stores them."""
+    from repro_torch.core.cache import quantize_blockwise, resolve_page_dtype
+    pdt, qmax = resolve_page_dtype(page_dtype)
+    return quantize_blockwise(x, (3,), dtype=pdt, qmax=qmax)
+
+
+def decode_biases(B, c, M, r, t, dev):
+    """(B, c) and (B, M) additive biases of rows at positions t."""
+    import torch
+    from repro_torch.core.causal import NEG_INF
     t = torch.tensor(t, device=dev)
     bl = torch.where(torch.arange(c, device=dev)[None] <= (t % c)[:, None],
                      0.0, NEG_INF).float()
     bg = torch.where(torch.arange(M, device=dev)[None]
                      < (t // c * r)[:, None], 0.0, NEG_INF).float()
-    return (q, *kv, bl, bg)
+    return bl, bg
+
+
+def decode_q_inputs(B, Hkv, G, c, M, r, Dh, dtype, page_dtype, dev, seed,
+                    t):
+    """Quantized decode operands: q, ring and slot codes, their scales, the
+    biases of rows at positions t."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev).to(dtype)
+    ops = [quantized(torch.randn(B, Hkv, n, Dh, generator=g, device=dev),
+                     page_dtype) for n in (c, c, M, M)]
+    return (q, *(x for x, _ in ops), *(s for _, s in ops),
+            *decode_biases(B, c, M, r, t, dev))
 
 
 def offset_residuals(q, k, kbar, start, kw):
@@ -258,6 +317,16 @@ TRAIN_SHAPES = {"small": ((2, 4, 2, 32, 16, 4, 16), None),
                 "small-offset": ((2, 4, 2, 32, 16, 4, 16), [1, 3]),
                 "full": ((2, 32, 8, 4096, 256, 16, 128), None)}
 TRAIN_TIME_SHAPE = TRAIN_SHAPES["full"][0]      # the train step's shapes
+# prefix form: (B, H, Hkv, P, c, r, Dh), per-row start blocks, slot buffer
+# M; full = the chunked serve's chunk forward (P = 512, M = (4096 + 512) /
+# 256 · 16); small's last row is clamped at M ((9 + 2)·4 = 44 > 40)
+PREFIX_SHAPES = {"small": ((3, 4, 2, 32, 16, 4, 16), [0, 5, 9], 40),
+                 "full": ((4, 32, 8, 512, 256, 16, 128), [0, 3, 7, 14],
+                          288)}
+# quantized decode: (B, Hkv, G, c, M, r, Dh), rows' positions
+DEC_Q_SHAPES = {"small": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95]),
+                "full": ((4, 8, 4, 256, 288, 16, 128),
+                         [300, 1000, 2300, 4000])}
 # [train]: depth cut, seq, global batch, steps; [train-parity]: seq
 TRAIN_RUN = dict(layers=8, seq=4096, batch=2, steps=4)
 TRAIN_PARITY_SEQ = 1024
@@ -265,6 +334,7 @@ TRAIN_PARITY_SEQ = 1024
 
 def check_phase(dev):
     import torch
+    from repro_torch.core.cache import dequantize_blockwise
     from repro_torch.kernels import blockwise_causal_attn as bca
     from repro_torch.kernels import linformer_attn as la
     log("[check] kernels vs plain versions")
@@ -290,6 +360,60 @@ def check_phase(dev):
         for size, (shape, start) in TRAIN_SHAPES.items():
             errs.update(check_training_kernels(size, shape, start, dtype,
                                                dev))
+        for size, (shape, start, M) in PREFIX_SHAPES.items():
+            errs.update(check_prefix_kernels(size, shape, start, M, dtype,
+                                             dev))
+        for size, ((B, Hkv, G, c, M, r, Dh), t) in DEC_Q_SHAPES.items():
+            for pd in ("int8", "fp8"):
+                args = decode_q_inputs(B, Hkv, G, c, M, r, Dh, dtype, pd,
+                                       dev, 8, t)
+                out = la.decode_attn_q(*args, scale=Dh ** -0.5)
+                torch.cuda.synchronize()
+                errs["dec_q", size, pd, dtype] = check(
+                    f"decode_attn_q {pd} {size}", out,
+                    la.decode_attn_q_plain(*args, scale=Dh ** -0.5), dtype,
+                    [dequantize_blockwise(args[i], args[i + 4]) for i in (2, 4)])
+    return errs
+
+
+def check_prefix_kernels(size, shape, start, M, dtype, dev):
+    """Kernel 4 in both forms (out; out, m, denom) against the prefix form
+    of the forward's plain twin, and kernel 8 over int8 and fp8 slots
+    against its plain twin on the same codes and scales."""
+    import torch
+    from repro_torch.core.cache import dequantize_blockwise
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    B, H, Hkv, P, c, r, Dh = shape
+    q, k, v, ck, cv, sb = prefix_inputs(shape, start, M, dtype, dev, seed=6)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    tag = f"{size} {str(dtype)[6:]}"
+    errs = {}
+    ckd, cvd = ck.to(dtype), cv.to(dtype)
+    out = bca.blockwise_causal_prefix_attn(q, k, v, ckd, cvd, sb, **kw)
+    out_r, m, d = bca.blockwise_causal_prefix_attn(
+        q, k, v, ckd, cvd, sb, return_residuals=True, **kw)
+    torch.cuda.synchronize()
+    ro, rm, rd = bca.blockwise_causal_attn_plain(
+        q, k, v, ckd, cvd, start_blocks=sb, return_residuals=True, **kw)
+    errs["pre", size, dtype] = check(
+        f"blockwise_causal_prefix_attn {size}", out, ro, dtype, (v, cvd))
+    errs["pre_res", size, dtype] = check(
+        f"blockwise_causal_prefix_attn(residuals) {size}", out_r, ro, dtype,
+        (v, cvd))
+    check_grad(f"  m {tag}", m, rm)
+    check_grad(f"  denom {tag}", d, rd)
+    if not torch.equal(out, out_r):
+        raise AssertionError("the prefix form's plain and residual forms "
+                             "differ")
+    for pd in ("int8", "fp8"):
+        (ckq, cks), (cvq, cvs) = quantized(ck, pd), quantized(cv, pd)
+        args = (q, k, v, ckq, cvq, cks, cvs, sb)
+        out = bca.blockwise_causal_prefix_attn_q(*args, **kw)
+        torch.cuda.synchronize()
+        errs["pre_q", size, pd, dtype] = check(
+            f"blockwise_causal_prefix_attn_q {pd} {size}", out,
+            bca.blockwise_causal_prefix_attn_q_plain(*args, **kw), dtype,
+            (v, dequantize_blockwise(cvq, cvs)))
     return errs
 
 
@@ -427,6 +551,8 @@ def time_phase(dev, errs):
         f"sdpa {lib_ms:.4f} ms")
     del sets, lib_sets
     records += time_training_kernels(dev, errs)
+    records += time_prefix_kernels(dev, errs)
+    records += time_decode_q(dev, errs)
     for rec in records:
         t_bytes = rec.pop("bytes") / H100_BYTES_PER_S
         t_flops = rec.pop("flops") / H100_FLOPS[str(bf16)]
@@ -449,6 +575,160 @@ def joint_mask(S, c, r, dev):
                    & (rows[None, :] <= rows[:, None]))
     mask[:, S:] = torch.arange(M)[None, :] // r < (rows // c)[:, None]
     return mask.to(dev)
+
+
+def prefix_mask(P, c, r, M, start):
+    """(B, 1, P, P + M) boolean mask over [chunk keys | slot buffer] of the
+    prefix form: own block causally, slots of absolute blocks < start + n,
+    clamped at M."""
+    import torch
+    rows = torch.arange(P, device=start.device)
+    loc = ((rows[:, None] // c == rows[None, :] // c)
+           & (rows[None, :] <= rows[:, None]))
+    cut = (start.long()[:, None] + rows[None, :] // c) * r        # (B, P)
+    glob = torch.arange(M, device=start.device)[None, None] < cut[..., None]
+    return torch.cat([loc.expand(len(start), P, P), glob], -1)[:, None]
+
+
+def prefix_visible(P, c, r, M, start):
+    """(visible (row, key) pairs of one head, summed over rows b; slots read,
+    summed over rows b): the work and the slot bytes the prefix form
+    needs."""
+    nb = P // c
+    pairs = sum(t % c + 1 + min((s + t // c) * r, M)
+                for s in start for t in range(P))
+    slots = sum(min((s + nb - 1) * r, M) for s in start)
+    return pairs, slots
+
+
+def time_prefix_kernels(dev, errs):
+    """Kernels 4, 4r and 8 (int8 slots) at the chunked serve's chunk
+    forward (B=4, P=512, M=288, start blocks 0, 3, 7, 14), bf16, beside
+    one masked SDPA call (over the dequantised slots for kernel 8)."""
+    import torch
+    from repro_torch.core.cache import dequantize_blockwise
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    bf16 = torch.bfloat16
+    shape, start, M = PREFIX_SHAPES["full"]
+    B, H, Hkv, P, c, r, Dh = shape
+    G = H // Hkv
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    n_sets = 4                                    # 4 x ~30 MB > 50 MB L2
+    sets, qsets = [], []
+    for i in range(n_sets):
+        q, k, v, ck, cv, sb = prefix_inputs(shape, start, M, bf16, dev,
+                                            seed=50 + i)
+        sets.append((q, k, v, ck.to(bf16), cv.to(bf16), sb))
+        (ckq, cks), (cvq, cvs) = (quantized(x, SERVE_PAGE_DTYPE)
+                                  for x in (ck, cv))
+        qsets.append((q, k, v, ckq, cvq, cks, cvs, sb))
+    mask = prefix_mask(P, c, r, M, sets[0][5])
+    lib = [(q, torch.cat([k, ck], 2).repeat_interleave(G, 1),
+            torch.cat([v, cv], 2).repeat_interleave(G, 1))
+           for q, k, v, ck, cv, _ in sets]
+    qlib = [(q, torch.cat([k, dequantize_blockwise(ckq, cks).to(bf16)],
+                          2).repeat_interleave(G, 1),
+             torch.cat([v, dequantize_blockwise(cvq, cvs).to(bf16)],
+                       2).repeat_interleave(G, 1))
+            for q, k, v, ckq, cvq, cks, cvs, _ in qsets]
+    sdpa = lambda xs: Fn.scaled_dot_product_attention(  # noqa: E731
+        *xs, attn_mask=mask, scale=Dh ** -0.5)
+    t = {}
+    for res in (False, True):
+        t["pre", res] = time_ms(lambda i: bca.blockwise_causal_prefix_attn(
+            *sets[i], return_residuals=res, **kw), n_sets)
+        t["pre_plain", res] = time_ms(lambda i: bca.blockwise_causal_attn_plain(
+            *sets[i][:5], start_blocks=sets[i][5], return_residuals=res,
+            **kw), n_sets, iters=10)
+    t["q"] = time_ms(lambda i: bca.blockwise_causal_prefix_attn_q(
+        *qsets[i], **kw), n_sets)
+    t["q_plain"] = time_ms(lambda i: bca.blockwise_causal_prefix_attn_q_plain(
+        *qsets[i], **kw), n_sets, iters=10)
+    t["lib"] = time_ms(lambda i: sdpa(lib[i]), n_sets)
+    t["qlib"] = time_ms(lambda i: sdpa(qlib[i]), n_sets)
+    lib_err = (sdpa(lib[0]).float() - bca.blockwise_causal_prefix_attn(
+        *sets[0], **kw).float()).abs().max().item()
+    pairs, slots = prefix_visible(P, c, r, M, start)
+    act = 2 * (2 * B * H * P * Dh + 2 * B * Hkv * P * Dh)  # q, k, v, out
+    slot_bytes = 2 * slots * Hkv * Dh * 2                  # k̄, v̄ bf16
+    q_slot_bytes = 2 * slots * Hkv * (Dh * 1 + 4)          # codes + scale
+    flops = 4 * Dh * pairs * H
+    log(f"  blockwise_causal_prefix_attn B={B} H={H} Hkv={Hkv} P={P} M={M} "
+        f"start={start}: kernel {t['pre', False]:.4f} ms, residual form "
+        f"{t['pre', True]:.4f} ms, plain {t['pre_plain', False]:.4f} / "
+        f"{t['pre_plain', True]:.4f} ms, sdpa {t['lib']:.4f} ms (sdpa vs "
+        f"kernel {lib_err:.2e})")
+    log(f"  blockwise_causal_prefix_attn_q {SERVE_PAGE_DTYPE}: kernel "
+        f"{t['q']:.4f} ms, plain {t['q_plain']:.4f} ms, sdpa over the "
+        f"dequantised slots {t['qlib']:.4f} ms")
+    src = "src/repro_torch/csrc/blockwise_causal_attn.cu"
+    del sets, qsets, lib, qlib
+    return [
+        dict(name="blockwise_causal_prefix_attn", route="cuda", source=src,
+             replaces="src/repro/kernels/blockwise_causal_attn.py:216",
+             ms=t["pre", False], plain_ms=t["pre_plain", False],
+             library_ms=t["lib"], bytes=act + slot_bytes, flops=flops,
+             max_abs_err=errs["pre", "full", bf16]),
+        dict(name="blockwise_causal_prefix_attn(return_residuals)",
+             route="cuda", source=src,
+             replaces="src/repro/kernels/blockwise_causal_attn.py:125",
+             ms=t["pre", True], plain_ms=t["pre_plain", True],
+             library_ms=t["lib"],
+             bytes=act + slot_bytes + 2 * 4 * B * H * P, flops=flops,
+             max_abs_err=errs["pre_res", "full", bf16]),
+        dict(name="blockwise_causal_prefix_attn_q", route="cuda",
+             source=src,
+             replaces="src/repro/kernels/blockwise_causal_attn.py:157",
+             ms=t["q"], plain_ms=t["q_plain"], library_ms=t["qlib"],
+             bytes=act + q_slot_bytes, flops=flops,
+             max_abs_err=errs["pre_q", "full", SERVE_PAGE_DTYPE, bf16]),
+    ]
+
+
+def time_decode_q(dev, errs):
+    """Kernel 7 (int8 ring and slots) at B=4, M=288, rows at t = 300, 1000,
+    2300, 4000, bf16 q, beside one masked SDPA call over the dequantised
+    bf16 cache."""
+    import torch
+    from repro_torch.core.cache import dequantize_blockwise
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    from repro_torch.kernels import linformer_attn as la
+    bf16 = torch.bfloat16
+    (B, Hkv, G, c, M, r, Dh), t_rows = DEC_Q_SHAPES["full"]
+    n_sets = 24                                    # 24 x 2.5 MB > 50 MB L2
+    sets = [decode_q_inputs(B, Hkv, G, c, M, r, Dh, bf16, SERVE_PAGE_DTYPE,
+                            dev, 60 + i, t_rows) for i in range(n_sets)]
+    ms = time_ms(lambda i: la.decode_attn_q(*sets[i], scale=Dh ** -0.5),
+                 n_sets, iters=100)
+    plain_ms = time_ms(lambda i: la.decode_attn_q_plain(
+        *sets[i], scale=Dh ** -0.5), n_sets, iters=100)
+    lib_sets = []
+    for q, rk, rv, ck, cv, rks, rvs, cks, cvs, bl, bg in sets:
+        deq = lambda x, s_: dequantize_blockwise(x, s_).to(bf16)  # noqa: E731
+        keys = torch.cat([deq(rk, rks), deq(ck, cks)], 2)
+        vals = torch.cat([deq(rv, rvs), deq(cv, cvs)], 2)
+        ok = (torch.cat([bl, bg], 1) == 0)[:, None, None, :]
+        lib_sets.append((q.reshape(B, Hkv * G, 1, Dh),
+                         keys.repeat_interleave(G, 1),
+                         vals.repeat_interleave(G, 1), ok))
+    lib_ms = time_ms(lambda i: Fn.scaled_dot_product_attention(
+        *lib_sets[i][:3], attn_mask=lib_sets[i][3], scale=Dh ** -0.5),
+        n_sets, iters=100)
+    vis = sum(t % c + 1 + (t // c) * r for t in t_rows)
+    nbytes = 2 * 2 * B * Hkv * G * Dh + 2 * vis * Hkv * (Dh * 1 + 4) \
+        + 4 * B * (c + M)
+    log(f"  decode_attn_q {SERVE_PAGE_DTYPE} B={B} Hkv={Hkv} G={G} c={c} "
+        f"M={M} t={t_rows}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa over the dequantised cache {lib_ms:.4f} ms")
+    del sets, lib_sets
+    return [dict(name="decode_attn_q", route="cuda",
+                 source="src/repro_torch/csrc/decode_attn.cu",
+                 replaces="src/repro/kernels/linformer_attn.py:180",
+                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                 flops=4 * Dh * G * Hkv * vis,
+                 max_abs_err=errs["dec_q", "full", SERVE_PAGE_DTYPE, bf16])]
 
 
 def time_training_kernels(dev, errs):
@@ -527,34 +807,58 @@ def time_training_kernels(dev, errs):
     ]
 
 
-def reset_launches():
+LAUNCH_COUNTERS = (  # (record name, wrapper module, wrapper, counter)
+    ("blockwise_causal_attn", "bca", "blockwise_causal_attn", "launches"),
+    ("blockwise_causal_attn(return_residuals)", "bca",
+     "blockwise_causal_attn", "residual_launches"),
+    ("blockwise_causal_attn_bwd", "bca", "blockwise_causal_attn_bwd",
+     "launches"),
+    ("decode_attn", "la", "decode_attn", "launches"),
+    ("blockwise_causal_prefix_attn", "bca", "blockwise_causal_prefix_attn",
+     "launches"),
+    ("blockwise_causal_prefix_attn(return_residuals)", "bca",
+     "blockwise_causal_prefix_attn", "residual_launches"),
+    ("blockwise_causal_prefix_attn_q", "bca",
+     "blockwise_causal_prefix_attn_q", "launches"),
+    ("decode_attn_q", "la", "decode_attn_q", "launches"),
+)
+
+
+def _counters():
     from repro_torch.kernels import blockwise_causal_attn as bca
     from repro_torch.kernels import linformer_attn as la
-    bca.blockwise_causal_attn.launches = 0
-    bca.blockwise_causal_attn.residual_launches = 0
-    bca.blockwise_causal_attn_bwd.launches = 0
-    la.decode_attn.launches = 0
+    mods = {"bca": bca, "la": la}
+    return [(name, getattr(mods[m], fn), attr)
+            for name, m, fn, attr in LAUNCH_COUNTERS]
+
+
+def reset_launches():
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    from repro_torch.kernels import blockwise_causal_attn as bca
-    from repro_torch.kernels import linformer_attn as la
-    return {"blockwise_causal_attn": bca.blockwise_causal_attn.launches,
-            "blockwise_causal_attn(return_residuals)":
-                bca.blockwise_causal_attn.residual_launches,
-            "blockwise_causal_attn_bwd":
-                bca.blockwise_causal_attn_bwd.launches,
-            "decode_attn": la.decode_attn.launches}
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
 
 
-def serve_phase(dev, cfg):
+def require_launches(launches, names, path):
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the {path} path")
+
+
+SERVE_LENS = (3, 256 + 17, 230, 512 + 5, 768 + 30, 1, 256 + 9, 512 + 32)
+SERVE_BUDGETS = [32, 40, 40, 36, 48, 44, 32, 48]
+
+
+def serve_setup(dev, cfg):
+    """Full-width random bf16 params (seed 0) and the 8 prompts: c + j
+    tokens, j in SERVE_LENS; 486 + 40 crosses the block boundary at 512
+    while decoding, so the decode-time fold runs."""
     import numpy as np
     import torch
-    from repro_torch.data.pipeline import EOS
     from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import param_bytes
-    from repro_torch.serving import ServingEngine
-    bf16 = torch.bfloat16
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
         f"H={cfg.attention.num_heads}/{cfg.attention.num_kv_heads}, "
         f"vocab {cfg.padded_vocab_size}, {cfg.dtype}")
@@ -563,47 +867,111 @@ def serve_phase(dev, cfg):
     torch.cuda.synchronize()
     log(f"  params: {param_bytes(params) / 1e9:.2f} GB in "
         f"{time.perf_counter() - t0:.1f} s")
-    eng = ServingEngine(params, cfg, max_seq=4096, device=dev,
-                        cache_dtype=bf16, decode_chunk=16)
     c = cfg.attention.linformer.block_size
-    # k·c + j tokens; 486 + 40 crosses the block boundary at 512 while
-    # decoding, so the decode-time fold runs
-    lens = [c + 3, 2 * c + 17, c + 230, 3 * c + 5, 4 * c + 30, c + 1,
-            2 * c + 9, 3 * c + 32]
-    budgets = [32, 40, 40, 36, 48, 44, 32, 48]
     rng = np.random.default_rng(0)
-    prompts = [list(map(int, rng.integers(4, cfg.vocab_size, n)))
-               for n in lens]
+    prompts = [list(map(int, rng.integers(4, cfg.vocab_size, c + j)))
+               for j in SERVE_LENS]
+    return params, prompts
+
+
+def serve_engine(dev, cfg, params, **kw):
+    import torch
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(params, cfg, max_seq=4096, device=dev,
+                         cache_dtype=torch.bfloat16, decode_chunk=16, **kw)
+
+
+# engine calls the scheduler makes, timed one by one in a counted serve
+SERVE_ACTIVITIES = ("prefill_request", "pool_prefill_chunk",
+                    "pool_prefill_remainder", "decode_chunk_fn")
+
+
+def time_activities(eng):
+    """Shadow the engine's SERVE_ACTIVITIES with wrappers that synchronise
+    before and after each call and add its host wall to {name: [calls,
+    seconds]}: where a serve's wall goes, at the cost of one extra sync
+    per call."""
+    import torch
+    acc = {}
+    for name in SERVE_ACTIVITIES:
+        def timed(*args, _fn=getattr(eng, name), _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec = acc.setdefault(_name, [0, 0.0])
+            rec[0] += 1
+            rec[1] += time.perf_counter() - t0
+            return out
+        setattr(eng, name, timed)
+    return acc
+
+
+def run_serve(tag, eng, prompts, kernels):
+    """One counted serve of the 8 requests (max_batch 4): launch counters
+    reset just before and read just after; each of `kernels` must have
+    launched; host wall by engine activity. Returns (outputs, scheduler,
+    launches)."""
+    import torch
+    from repro_torch.data.pipeline import EOS
+    acc = time_activities(eng)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    outs, sched = eng.serve(prompts, budgets, max_batch=4,
+    outs, sched = eng.serve(prompts, SERVE_BUDGETS, max_batch=4,
                             return_scheduler=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     n_tok = sum(len(o) for o in outs)
     peak = torch.cuda.max_memory_allocated()
-    log(f"  {len(prompts)} requests (prompts {lens}), {n_tok} tokens in "
-        f"{wall:.2f} s: {n_tok / wall:.1f} tok/s; peak memory "
-        f"{peak / 1e9:.2f} GB; {sched.stats.chunks} decode chunks, mean "
-        f"occupancy {sched.stats.mean_occupancy:.2f}; launches {launches}")
-    for name in ("blockwise_causal_attn", "decode_attn"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the serve path")
-    if sched.stats.bad_rows:
-        raise AssertionError(f"{sched.stats.bad_rows} rows flagged with "
-                             f"non-finite logits: {sched.bad}")
-    for o, b in zip(outs, budgets):
-        if not (0 < len(o) <= b) or EOS in o:
-            raise AssertionError(f"output of {len(o)} tokens for budget {b}")
+    st = sched.stats
+    log(f"[{tag}] {len(prompts)} requests (prompts "
+        f"{[len(p) for p in prompts]}), {n_tok} tokens in {wall:.2f} s: "
+        f"{n_tok / wall:.1f} tok/s; peak memory {peak / 1e9:.2f} GB; "
+        f"{st.chunks} decode chunks, {st.idle_ticks} idle ticks, mean "
+        f"occupancy {st.mean_occupancy:.2f}; {st.prefill_forwards} prefill "
+        f"forwards for {st.prefill_tokens} prompt tokens; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    rest = wall - sum(t for _, t in acc.values())
+    log("  wall by activity: " + ", ".join(
+        f"{name} {n}x {t:.2f} s" for name, (n, t) in acc.items())
+        + f", scheduler and the rest {rest:.2f} s")
+    for name in SERVE_ACTIVITIES:
+        delattr(eng, name)                       # the engine's own again
+    require_launches(launches, kernels, tag)
+    if st.bad_rows:
+        raise AssertionError(f"{st.bad_rows} rows flagged with non-finite "
+                             f"logits: {sched.bad}")
+    for o, b in zip(outs, SERVE_BUDGETS):
+        if not isinstance(o, list) or not (0 < len(o) <= b) or EOS in o:
+            raise AssertionError(f"output {o!r} for budget {b}")
         if len(o) < b:
             log(f"  a request ended at EOS after {len(o)} of {b} tokens")
+    return outs, sched, launches
 
-    # where the time goes: one admission prefill and one 16-step decode
-    # chunk of a full 4-row pool, each timed alone, then again under
-    # torch.profiler for the device time by kernel
+
+def timed_profile(name, fn, top=8):
+    """fn once as a warm-up, once timed alone, once under torch.profiler."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log_profile(name, wall, profile_kernels(fn), top=top)
+
+
+def serve_phase(dev, cfg, params, prompts):
+    """Monolithic admission into the dense pool, then where the time goes:
+    one admission prefill and one 16-step decode chunk of a full 4-row
+    pool."""
+    import torch
+    eng = serve_engine(dev, cfg, params)
+    outs, _, launches = run_serve("serve", eng, prompts,
+                                  ("blockwise_causal_attn", "decode_attn"))
     pool = eng.init_pool_cache(4)
     firsts = []
     for row, p in enumerate(prompts[:4]):
@@ -612,21 +980,103 @@ def serve_phase(dev, cfg):
         firsts.append(first)
     cur = torch.tensor(firsts, device=dev)
     fin = torch.zeros(4, dtype=torch.bool, device=dev)
-    work = {"prefill": lambda: eng.prefill_request(prompts[4]),
-            "decode_chunk": lambda: eng.decode_chunk_fn(cur, fin, pool, 16)}
-    for name, fn in work.items():
-        fn()                                          # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        log_profile(name, wall, profile_kernels(fn))
-    del eng, params, pool
+    timed_profile("prefill", lambda: eng.prefill_request(prompts[4]))
+    timed_profile("decode_chunk",
+                  lambda: eng.decode_chunk_fn(cur, fin, pool, 16))
+    del eng, pool
+    return outs, launches
+
+
+def chunk_rows(prompts, P, c):
+    """The first chunk of each prompt: (tokens (g, P), n_valid (g,))."""
+    import numpy as np
+    toks = np.zeros((len(prompts), P), np.int64)
+    n_valid = np.zeros(len(prompts), np.int64)
+    for j, p in enumerate(prompts):
+        n = min(P, (len(p) // c) * c)
+        toks[j, :n] = p[:n]
+        n_valid[j] = n
+    return toks, n_valid
+
+
+def serve_chunked_phase(dev, cfg, params, prompts, mono_outs):
+    """Chunked admission (prefill_chunk=512) into the dense pool: token
+    agreement with the monolithic run, then one chunk forward of a 4-row
+    pool under the profiler."""
+    eng = serve_engine(dev, cfg, params, prefill_chunk=SERVE_PREFILL_CHUNK)
+    outs, _, launches = run_serve(
+        "serve-chunked", eng, prompts,
+        ("blockwise_causal_prefix_attn", "decode_attn"))
+    same = [a == b for a, b in zip(outs, mono_outs)]
+    agree = sum(sum(x == y for x, y in zip(a, b)) for a, b in
+                zip(outs, mono_outs))
+    log(f"  chunked vs monolithic: {sum(same)} of {len(same)} requests "
+        f"token-identical, {agree} of {sum(map(len, mono_outs))} tokens "
+        "equal position by position (bf16: GEMMs of other shapes round "
+        "differently)")
+    pool = eng.init_pool_cache(4)
+    toks, n_valid = chunk_rows(prompts[:4], SERVE_PREFILL_CHUNK,
+                               cfg.attention.linformer.block_size)
+
+    def chunk_forward():
+        pool["lengths"].zero_()
+        eng.pool_prefill_chunk(pool, [0, 1, 2, 3], toks, n_valid, pad_to=4)
+
+    timed_profile(f"chunk forward (4, {SERVE_PREFILL_CHUNK}), n_valid "
+                  f"{n_valid.tolist()}", chunk_forward)
+    del eng, pool
+    return launches
+
+
+def serve_paged_phase(dev, cfg, params, prompts):
+    """Chunked admission into the paged pool with int8 pages: clean page
+    accounting, cache bytes against the dense pool, then one paged decode
+    chunk of a 4-row pool under the profiler."""
+    import torch
+    eng = serve_engine(dev, cfg, params, prefill_chunk=SERVE_PREFILL_CHUNK,
+                       cache_format="paged", page_dtype=SERVE_PAGE_DTYPE)
+    _, sched, launches = run_serve(
+        "serve-paged", eng, prompts,
+        ("blockwise_causal_prefix_attn_q", "decode_attn_q"))
+    for name in ("blockwise_causal_prefix_attn", "decode_attn"):
+        if launches[name]:
+            raise AssertionError(f"{name} launched on the paged path")
+    alloc = sched.pool.alloc
+    alloc.check()
+    if alloc.free_pages != alloc.usable_pages:
+        raise AssertionError(f"{alloc.usable_pages - alloc.free_pages} "
+                             "pages leaked")
+    dense = serve_engine(dev, cfg, params).cache_bytes(4)
+    log(f"  pages: {sched.pool.pages_allocated} allocated, "
+        f"{sched.pool.pages_freed} freed, all {alloc.usable_pages} free "
+        f"after serve; cache bytes of a 4-row pool: {eng.cache_bytes(4)} "
+        f"paged {SERVE_PAGE_DTYPE} against {dense} dense bf16 "
+        f"({eng.cache_bytes(4) / dense:.3f}x)")
+    # one 16-step decode chunk of a full paged pool, each row owning a full
+    # page table and sitting at its prompt's whole blocks
+    pool = eng.init_pool_cache(4)
+    c, maxp = cfg.attention.linformer.block_size, eng.max_pages_per_row()
+    for row, p in enumerate(prompts[:4]):
+        eng.write_table_row(pool, row, range(row * maxp, (row + 1) * maxp))
+        pool["lengths"][row] = (len(p) // c) * c
+    cur = torch.full((4,), 5, device=dev)
+    fin = torch.zeros(4, dtype=torch.bool, device=dev)
+    lengths = pool["lengths"].clone()
+
+    def decode_chunk():
+        pool["lengths"].copy_(lengths)
+        eng.decode_chunk_fn(cur, fin, pool, 16)
+
+    timed_profile("paged decode_chunk", decode_chunk)
+    del eng, pool
     return launches
 
 
 def serve_parity_phase(dev, cfg):
+    """2-layer full-width fp32: the kernels against the plain reference on
+    the dense pool (prefill logits, tokens), chunked against monolithic
+    admission through the kernels (tokens), and the paged int8 and fp8
+    pools under chunked admission (chunk-forward logits, tokens)."""
     import numpy as np
     import torch
     from repro_torch.models import model as tmodel
@@ -637,25 +1087,55 @@ def serve_parity_phase(dev, cfg):
     rng = np.random.default_rng(1)
     prompts2 = [list(map(int, rng.integers(4, cfg.vocab_size, n)))
                 for n in (c + 5, 2 * c + 9)]
-    res = {}
+
+    def engine(backend, **kw):
+        return ServingEngine(params2, cfg2, max_seq=4096, device=dev,
+                             cache_dtype=torch.float32, decode_chunk=16,
+                             attention_backend=backend, **kw)
+
+    def assert_parity(what, logits, outs):
+        dl = (logits["auto"] - logits["reference"]).abs().max().item()
+        same = outs["auto"] == outs["reference"]
+        log(f"[parity] 2-layer fp32, {what}: logits max |auto - reference| "
+            f"= {dl:.3e} (tol {LOGITS_TOL:g}); first 16 greedy tokens "
+            f"identical: {same}")
+        if not dl <= LOGITS_TOL:
+            raise AssertionError(f"{what}: logits differ by {dl}")
+        if not same:
+            raise AssertionError(f"{what}: greedy tokens differ: {outs}")
+        if not all(torch.isfinite(v).all() for v in logits.values()):
+            raise AssertionError(f"{what}: non-finite logits")
+
+    logits, outs = {}, {}
     for backend in ("auto", "reference"):
-        eng = ServingEngine(params2, cfg2, max_seq=4096, device=dev,
-                            cache_dtype=torch.float32, decode_chunk=16,
-                            attention_backend=backend)
-        _, logits = eng.prefill(np.asarray([prompts2[1]]))
-        res[backend] = (logits.float(), eng.serve(prompts2, 16, max_batch=2))
-    dl = (res["auto"][0] - res["reference"][0]).abs().max().item()
-    same = res["auto"][1] == res["reference"][1]
-    log(f"[parity] 2-layer fp32: prefill logits max |auto - reference| = "
-        f"{dl:.3e} (tol {LOGITS_TOL:g}); first 16 greedy tokens identical: "
-        f"{same}")
-    if not dl <= LOGITS_TOL:
-        raise AssertionError(f"prefill logits differ by {dl}")
-    if not same:
-        raise AssertionError(f"greedy tokens differ: {res['auto'][1]} vs "
-                             f"{res['reference'][1]}")
-    if not all(torch.isfinite(v[0]).all() for v in res.values()):
-        raise AssertionError("non-finite prefill logits")
+        eng = engine(backend)
+        _, lg = eng.prefill(np.asarray([prompts2[1]]))
+        logits[backend], outs[backend] = lg.float(), eng.serve(
+            prompts2, 16, max_batch=2)
+    assert_parity("dense pool, prefill", logits, outs)
+    chunked = engine("auto", prefill_chunk=SERVE_PREFILL_CHUNK).serve(
+        prompts2, 16, max_batch=2)
+    log(f"[parity] 2-layer fp32: chunked admission through the kernels "
+        f"token-identical to monolithic: {chunked == outs['auto']}")
+    if chunked != outs["auto"]:
+        raise AssertionError(f"chunked {chunked} vs monolithic "
+                             f"{outs['auto']}")
+    toks, n_valid = chunk_rows(prompts2, SERVE_PREFILL_CHUNK, c)
+    for pd in ("int8", "fp8"):
+        logits, outs = {}, {}
+        for backend in ("auto", "reference"):
+            eng = engine(backend, prefill_chunk=SERVE_PREFILL_CHUNK,
+                         cache_format="paged", page_dtype=pd)
+            pool = eng.init_pool_cache(2)
+            maxp = eng.max_pages_per_row()
+            for row in range(2):
+                eng.write_table_row(pool, row,
+                                    range(row * maxp, (row + 1) * maxp))
+            _, lg = eng.pool_prefill_chunk(pool, [0, 1], toks, n_valid,
+                                           pad_to=2)
+            logits[backend], outs[backend] = lg.float(), eng.serve(
+                prompts2, 16, max_batch=2)
+        assert_parity(f"paged {pd} pool, chunk forward", logits, outs)
 
 
 def train_phase(dev, cfg):
@@ -808,7 +1288,12 @@ def main():
     errs = check_phase(dev)
     records = time_phase(dev, errs)
     cfg = get_config("qwen3-8b")
-    serve_launches = serve_phase(dev, cfg)
+    params, prompts = serve_setup(dev, cfg)
+    mono_outs, serve_launches = serve_phase(dev, cfg, params, prompts)
+    chunked_launches = serve_chunked_phase(dev, cfg, params, prompts,
+                                           mono_outs)
+    paged_launches = serve_paged_phase(dev, cfg, params, prompts)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     serve_parity_phase(dev, cfg)
@@ -819,15 +1304,23 @@ def main():
     torch.cuda.empty_cache()
     train_parity_phase(dev, cfg)
 
-    # launches: each kernel's count on its own main path (serve for the
-    # inference kernels, train for the training kernels), both paths beside
+    # launches: each kernel's count on its own main path, every path beside;
+    # the prefix form's residual variant serves sequence-parallel training,
+    # which is not ported, so no path launches it
+    paths = {"serve": serve_launches, "serve-chunked": chunked_launches,
+             "serve-paged": paged_launches, "train": train_launches}
+    main_path = {"blockwise_causal_attn": "serve",
+                 "decode_attn": "serve",
+                 "blockwise_causal_attn(return_residuals)": "train",
+                 "blockwise_causal_attn_bwd": "train",
+                 "blockwise_causal_prefix_attn": "serve-chunked",
+                 "blockwise_causal_prefix_attn_q": "serve-paged",
+                 "decode_attn_q": "serve-paged"}
     for rec in records:
-        by_path = {"serve": serve_launches[rec["name"]],
-                   "train": train_launches[rec["name"]]}
-        rec["launches_by_path"] = by_path
-        rec["launches"] = by_path["train" if rec["name"] in (
-            "blockwise_causal_attn(return_residuals)",
-            "blockwise_causal_attn_bwd") else "serve"]
+        rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
+        path = main_path.get(rec["name"])
+        rec["main_path"] = path
+        rec["launches"] = paths[path][rec["name"]] if path else 0
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,6 +93,68 @@ def blockwise_causal_attention(
     return out.reshape(B, S, H, Dh)
 
 
+def blockwise_causal_prefix_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    comp_k: torch.Tensor,
+    comp_v: torch.Tensor,
+    start_blocks,
+    *,
+    block_size: int,
+    block_slots: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Chunked-prefill form: a chunk of queries at a per-row block offset
+    attends [own block, causal | slot-resident compressed prefix].
+
+    q: (B, P, H, Dh), one prefill chunk (P % block_size == 0) whose row b
+    starts at absolute position start_blocks[b]·c; k, v: (B, P, Hkv, Dh) the
+    chunk's own keys/values; comp_k, comp_v: (B, M, Hkv, Dh) the cache's
+    slot buffers with the chunk's own blocks already folded in at slot
+    offset start_blocks·r. A query in chunk block j sees the slots m with
+    m // r < start_blocks[b] + j. Identical math to
+    :func:`blockwise_causal_attention` restricted to the chunk's rows. Query
+    blocks run one at a time, so the (P × M) global score tensor is never
+    materialised whole."""
+    B, P, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    c = block_size
+    if P % c != 0:
+        raise ValueError(f"chunk P={P} must be a multiple of block_size={c}")
+    nb = P // c
+    r = block_slots
+    M = comp_k.shape[1]
+    scale_ = scale if scale is not None else Dh ** -0.5
+    start = torch.as_tensor(start_blocks, device=q.device).to(torch.long)
+    start = start.expand(B) if start.ndim == 0 else start
+
+    qb = q.reshape(B, nb, c, Hkv, G, Dh)
+    kb = k.reshape(B, nb, c, Hkv, Dh)
+    vb = v.reshape(B, nb, c, Hkv, Dh)
+    causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    slot_blk = torch.arange(M, device=q.device) // r     # owning block
+
+    outs = []
+    for j in range(nb):
+        qi, ki, vi = qb[:, j], kb[:, j], vb[:, j]        # qi: (B,c,Hkv,G,Dh)
+        a, b_ = _common(qi, ki)
+        s_loc = torch.einsum("bchgd,bkhd->bhgck", a, b_).float() * scale_
+        s_loc = s_loc.masked_fill(~causal, NEG_INF)
+        a, b_ = _common(qi, comp_k)
+        s_glob = torch.einsum("bchgd,bmhd->bhgcm", a, b_).float() * scale_
+        vis = slot_blk[None, :] < (start + j)[:, None]   # (B, M)
+        s_glob = s_glob.masked_fill(~vis[:, None, None, None, :], NEG_INF)
+        s = torch.cat([s_loc, s_glob], dim=-1)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        a, b_ = _common(p[..., :c], vi)
+        out = torch.einsum("bhgck,bkhd->bchgd", a, b_)
+        a, b_ = _common(p[..., c:], comp_v)
+        outs.append(out + torch.einsum("bhgcm,bmhd->bchgd", a, b_))
+    return torch.stack(outs, dim=1).reshape(B, P, H, Dh)
+
+
 def masked_decode_attention(
     q_t: torch.Tensor,        # (B, 1, H, Dh)
     raw_k: torch.Tensor,      # (B, c, Hkv, Dh) — raw ring buffer

@@ -1,8 +1,12 @@
 // Helpers shared by the port's CUDA kernels: element conversion to and from
-// the fp32 compute type, the mask constant, and dynamic shared memory setup.
+// the fp32 compute type (the model dtypes, and the int8 / fp8 e4m3 storage
+// of the paged cache), the mask constant, and dynamic shared memory setup.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace repro_torch {
@@ -16,14 +20,26 @@ constexpr float kNegInf = -1e30f;
 // running max is finite)
 __device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
 
-// dtype codes passed by the Python wrappers (kernels/common.py KERNEL_DTYPES)
+// dtype codes passed by the Python wrappers (kernels/common.py KERNEL_DTYPES
+// and STORAGE_DTYPES)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;
+constexpr int kFp8E4M3 = 3;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// quantized cache storage: the value is code * scale, the scale applied by
+// the caller (an exact conversion here: every int8 and e4m3 code is an fp32)
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+template <> __device__ __forceinline__ float to_f32<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -65,6 +81,23 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, long long rs
   for (int idx = threadIdx.x; idx < rows * Dh; idx += Threads) {
     const int r = idx / Dh, d = idx % Dh;
     dst[r * (Dh + 1) + d] = r < valid ? to_f32<T>(src[r * rs + d]) : 0.f;
+  }
+}
+
+// load_rows for a cache operand that may be quantized: row r's elements are
+// to_f32(code) * scale[r * ss] when `scale` is non-null (the dequantisation of
+// the paged cache, one fp32 scale per slot or token), plain to_f32 otherwise.
+template <int Threads, typename T, int Dh>
+__device__ __forceinline__ void load_rows_scaled(float* dst, const T* src, long long rs,
+                                                 const float* scale, long long ss, int rows,
+                                                 int valid) {
+  if (scale == nullptr) {
+    load_rows<Threads, T, Dh>(dst, src, rs, rows, valid);
+    return;
+  }
+  for (int idx = threadIdx.x; idx < rows * Dh; idx += Threads) {
+    const int r = idx / Dh, d = idx % Dh;
+    dst[r * (Dh + 1) + d] = r < valid ? to_f32<T>(src[r * rs + d]) * scale[r * ss] : 0.f;
   }
 }
 

@@ -1,12 +1,17 @@
 // Single-token GQA decode attention over the compressed cache (CUDA C++ for
 // sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/linformer_attn.py:decode_attn
-// (body _decode_kernel -> _attend_pinned). Per (batch row b, kv head h) the G
-// query heads of the group take one softmax over [raw ring, c tokens |
-// compressed slots, M], with per-row additive fp32 biases (0 = attendable,
-// -1e30 = masked) for the ring (B, c) and the slots (B, M). Scores and
-// accumulation are fp32; the output has q's dtype.
+// Replaces two TPU kernels of src/repro/kernels/linformer_attn.py:
+// decode_attn (body _decode_kernel -> _attend_pinned) and decode_attn_q
+// (_decode_kernel_q), the same attention over the paged, quantized cache:
+// the ring and the page-gathered slots arrive as int8 or fp8 e4m3 codes with
+// one fp32 scale per (row, kv head, token or slot), dequantised as each key
+// tile is loaded into shared memory, so the cache bytes read shrink with the
+// storage dtype. Per (batch row b, kv head h) the G query heads of the group
+// take one softmax over [raw ring, c tokens | compressed slots, M], with
+// per-row additive fp32 biases (0 = attendable, -1e30 = masked) for the ring
+// (B, c) and the slots (B, M). Scores and accumulation are fp32; the output
+// has q's dtype.
 //
 // What bounds it on an H100: bytes. One step reads the whole ring and slot
 // buffers of every (row, kv head) once and does only 4*Dh flops per key and
@@ -37,16 +42,24 @@ struct DecodeParams {
   const void* rv;
   const void* ck;      // (B, Hkv, M, Dh), strided
   const void* cv;
+  const float* rks;    // (B, Hkv, c) per-token scales of a quantized ring, or null
+  const float* rvs;
+  const float* cks;    // (B, Hkv, M) per-slot scales of quantized slots, or null
+  const float* cvs;
   const float* bias_loc;   // (B, c), contiguous
   const float* bias_glob;  // (B, M), contiguous
   void* out;           // (B, Hkv, G, Dh), contiguous
   long long rs_b, rs_h, rs_s;  // ring strides (k and v share them)
   long long cs_b, cs_h, cs_s;  // slot strides (k and v share them)
+  long long rss_b, rss_h, rss_s;  // ring scale strides (k and v share them)
+  long long css_b, css_h, css_s;  // slot scale strides (k and v share them)
   int Hkv, G, Dh, c, M;
   float scale;
 };
 
-template <typename T>
+// T: q and the output; S: the cache storage (T, int8_t or __nv_fp8_e4m3,
+// the latter two with scales)
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   extern __shared__ float smem[];
   const int G = p.G, Dh = p.Dh, P = Dh + 1;
@@ -63,10 +76,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   const int bh = blockIdx.x;
   const int b = bh / p.Hkv, h = bh % p.Hkv;
   const T* Q = static_cast<const T*>(p.q) + static_cast<long long>(bh) * G * Dh;
-  const T* RK = static_cast<const T*>(p.rk) + b * p.rs_b + h * p.rs_h;
-  const T* RV = static_cast<const T*>(p.rv) + b * p.rs_b + h * p.rs_h;
-  const T* CK = static_cast<const T*>(p.ck) + b * p.cs_b + h * p.cs_h;
-  const T* CV = static_cast<const T*>(p.cv) + b * p.cs_b + h * p.cs_h;
+  const S* RK = static_cast<const S*>(p.rk) + b * p.rs_b + h * p.rs_h;
+  const S* RV = static_cast<const S*>(p.rv) + b * p.rs_b + h * p.rs_h;
+  const S* CK = static_cast<const S*>(p.ck) + b * p.cs_b + h * p.cs_h;
+  const S* CV = static_cast<const S*>(p.cv) + b * p.cs_b + h * p.cs_h;
+  const bool scaled = p.rks != nullptr;
+  const float* RKS = scaled ? p.rks + b * p.rss_b + h * p.rss_h : nullptr;
+  const float* RVS = scaled ? p.rvs + b * p.rss_b + h * p.rss_h : nullptr;
+  const float* CKS = scaled ? p.cks + b * p.css_b + h * p.css_h : nullptr;
+  const float* CVS = scaled ? p.cvs + b * p.css_b + h * p.css_h : nullptr;
   const float* BL = p.bias_loc + static_cast<long long>(b) * p.c;
   const float* BG = p.bias_glob + static_cast<long long>(b) * p.M;
   T* O = static_cast<T*>(p.out) + static_cast<long long>(bh) * G * Dh;
@@ -89,11 +107,20 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
       float kv = 0.f, vv = 0.f;
       if (r < n) {
         if (j < p.c) {
-          kv = to_f32<T>(RK[j * p.rs_s + d]);
-          vv = to_f32<T>(RV[j * p.rs_s + d]);
+          kv = to_f32<S>(RK[j * p.rs_s + d]);
+          vv = to_f32<S>(RV[j * p.rs_s + d]);
+          if (scaled) {
+            kv *= RKS[j * p.rss_s];
+            vv *= RVS[j * p.rss_s];
+          }
         } else {
-          kv = to_f32<T>(CK[(j - p.c) * p.cs_s + d]);
-          vv = to_f32<T>(CV[(j - p.c) * p.cs_s + d]);
+          const int m = j - p.c;
+          kv = to_f32<S>(CK[m * p.cs_s + d]);
+          vv = to_f32<S>(CV[m * p.cs_s + d]);
+          if (scaled) {
+            kv *= CKS[m * p.css_s];
+            vv *= CVS[m * p.css_s];
+          }
         }
       }
       sK[r * P + d] = kv;
@@ -146,30 +173,49 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
     O[idx] = from_f32<T>(sO[idx] / sL[idx / Dh]);
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t launch(const DecodeParams& p, int B, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (2 * p.G * p.Dh + 2 * kTile * (p.Dh + 1) + p.G * kTile + 3 * p.G);
-  auto kernel = decode_kernel<T>;
+  auto kernel = decode_kernel<T, S>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<B * p.Hkv, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t dispatch_cache(const DecodeParams& p, int B, int dtype, int cache_dtype,
+                           cudaStream_t stream) {
+  if (cache_dtype == dtype) return launch<T, T>(p, B, stream);
+  if (cache_dtype == kInt8) return launch<T, int8_t>(p, B, stream);
+  if (cache_dtype == kFp8E4M3) return launch<T, __nv_fp8_e4m3>(p, B, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// strides: 6 element strides (batch, head, position) of the ring (raw_k and
-// raw_v share them) and of the slots (comp_k and comp_v share them). Returns
-// the launch's cudaError_t.
+// dtype: q and out; cache_dtype: the ring and the slots, either dtype or a
+// quantized storage (int8, fp8 e4m3) whose fp32 scales are raw_k_s / raw_v_s
+// (B, Hkv, c) and comp_k_s / comp_v_s (B, Hkv, M) (all four null for a dense
+// cache). strides: 12 element strides (batch, head, position) of the ring
+// (raw_k and raw_v share them), the slots (comp_k and comp_v share them),
+// the ring scales and the slot scales (unused when null). Returns the
+// launch's cudaError_t.
 extern "C" int decode_forward(const void* q, const void* raw_k, const void* raw_v,
-                              const void* comp_k, const void* comp_v, const void* bias_loc,
+                              const void* comp_k, const void* comp_v, const float* raw_k_s,
+                              const float* raw_v_s, const float* comp_k_s,
+                              const float* comp_v_s, const void* bias_loc,
                               const void* bias_glob, void* out, const long long* strides,
                               int B, int Hkv, int G, int Dh, int c, int M, float scale,
-                              int dtype, void* stream) {
+                              int dtype, int cache_dtype, void* stream) {
   using namespace repro_torch;
   if (B <= 0 || Hkv <= 0 || G <= 0 || Dh <= 0 || c <= 0 || M < 0)
+    return cudaErrorInvalidValue;
+  const bool scaled = raw_k_s != nullptr;
+  if ((raw_v_s == nullptr) == scaled || (comp_k_s == nullptr) == scaled ||
+      (comp_v_s == nullptr) == scaled || scaled == (cache_dtype == dtype))
     return cudaErrorInvalidValue;
   DecodeParams p;
   p.q = q;
@@ -177,6 +223,10 @@ extern "C" int decode_forward(const void* q, const void* raw_k, const void* raw_
   p.rv = raw_v;
   p.ck = comp_k;
   p.cv = comp_v;
+  p.rks = raw_k_s;
+  p.rvs = raw_v_s;
+  p.cks = comp_k_s;
+  p.cvs = comp_v_s;
   p.bias_loc = static_cast<const float*>(bias_loc);
   p.bias_glob = static_cast<const float*>(bias_glob);
   p.out = out;
@@ -186,6 +236,12 @@ extern "C" int decode_forward(const void* q, const void* raw_k, const void* raw_
   p.cs_b = strides[3];
   p.cs_h = strides[4];
   p.cs_s = strides[5];
+  p.rss_b = strides[6];
+  p.rss_h = strides[7];
+  p.rss_s = strides[8];
+  p.css_b = strides[9];
+  p.css_h = strides[10];
+  p.css_s = strides[11];
   p.Hkv = Hkv;
   p.G = G;
   p.Dh = Dh;
@@ -193,7 +249,7 @@ extern "C" int decode_forward(const void* q, const void* raw_k, const void* raw_
   p.M = M;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(p, B, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(p, B, s);
+  if (dtype == kFloat32) return dispatch_cache<float>(p, B, dtype, cache_dtype, s);
+  if (dtype == kBFloat16) return dispatch_cache<__nv_bfloat16>(p, B, dtype, cache_dtype, s);
   return cudaErrorInvalidValue;
 }

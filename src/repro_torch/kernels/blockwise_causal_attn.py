@@ -3,18 +3,20 @@ kernels' wrappers and their plain PyTorch twins.
 
 Counterpart of ``repro/kernels/blockwise_causal_attn.py``: the forward
 ``blockwise_causal_attn`` in its plain and residual-emitting forms
-(``return_residuals=True``, the TPU's ``_kernel_res``) and the backward
+(``return_residuals=True``, the TPU's ``_kernel_res``), its prefix form
+``blockwise_causal_prefix_attn`` (a query chunk at per-row start blocks
+against a full slot buffer, both forms) and that form over a quantized
+slot buffer, ``blockwise_causal_prefix_attn_q``, and the backward
 ``blockwise_causal_attn_bwd`` (the TPU's ``_bwd_kernel``). Kernel layout:
 q (B, H, S, Dh); k, v (B, Hkv, S, Dh); k̄, v̄ (B, Hkv, M, Dh) with
-M = (S/c)·r. Query block n of (b, h) takes one joint softmax over its own
-block (causal, c × c) and the compressed slots m < n·r; grouped query head
-h reads kv head h // G.
+M = (S/c)·r (any M for the prefix forms). Query block n of (b, h) takes one
+joint softmax over its own block (causal, c × c) and the compressed slots
+m < (start_blocks[b] + n)·r; grouped query head h reads kv head h // G.
 
 Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel
 (``csrc/blockwise_causal_attn.cu``, ``csrc/blockwise_causal_attn_bwd.cu``)
-for a CUDA tensor, counting launches in ``blockwise_causal_attn.launches``
-(plain form), ``blockwise_causal_attn.residual_launches`` (residual form)
-and ``blockwise_causal_attn_bwd.launches``.
+for a CUDA tensor, counting launches in ``<wrapper>.launches`` (and
+``<wrapper>.residual_launches`` for a residual form).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.cache import dequantize_blockwise
 from repro_torch.core.causal import NEG_INF
 from repro_torch.kernels import build
 from repro_torch.kernels import common
@@ -50,19 +53,30 @@ def joint_scores(q, k, kbar, cut, *, block_size: int, block_slots: int,
     return s_loc, s_glob
 
 
+def _visibility_cut(nb: int, start_blocks, device) -> torch.Tensor:
+    """(B|1, nb) visibility cut of each query block: n + start_blocks[b]."""
+    cut = torch.arange(nb, device=device)[None]
+    if start_blocks is None:
+        return cut
+    return cut + start_blocks.to(device=device, dtype=torch.long)[:, None]
+
+
 def blockwise_causal_attn_plain(q, k, v, kbar, vbar, *, block_size: int,
                                 block_slots: int, scale: float,
-                                return_residuals: bool = False):
+                                return_residuals: bool = False,
+                                start_blocks: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the forward kernel, with the TPU kernel's
     cast points (``_attend_block``): fp32 scores and products,
     probabilities normalised in fp32 and cast to the value dtype before the
     value product, output cast to q's dtype. With ``return_residuals``
-    also the joint softmax's per-row max and denominator, (B, H, S) fp32."""
+    also the joint softmax's per-row max and denominator, (B, H, S) fp32.
+    `start_blocks` (B,) shifts each row's visibility cut (the prefix form,
+    ``_prefix_kernel``); None means zeros."""
     B, H, S, Dh = q.shape
     Hkv = k.shape[1]
     c, nb = block_size, S // block_size
     f32 = torch.float32
-    cut = torch.arange(nb, device=q.device)[None]
+    cut = _visibility_cut(nb, start_blocks, q.device)
     s_loc, s_glob = joint_scores(q, k, kbar, cut, block_size=block_size,
                                  block_slots=block_slots, scale=scale)
     m = torch.maximum(s_loc.amax(-1, keepdim=True),
@@ -99,9 +113,7 @@ def blockwise_causal_attn_bwd_plain(q, k, v, kbar, vbar, m, denom, do, *,
     G, c, nb = H // Hkv, block_size, S // block_size
     M = kbar.shape[2]
     f32 = torch.float32
-    nb0 = (torch.zeros(B, dtype=torch.long, device=q.device)
-           if start_blocks is None else start_blocks.to(torch.long))
-    cut = torch.arange(nb, device=q.device)[None] + nb0[:, None]
+    cut = _visibility_cut(nb, start_blocks, q.device)
     s_loc, s_glob = joint_scores(q, k, kbar, cut, block_size=block_size,
                                  block_slots=block_slots, scale=scale)
     rows = (B, Hkv, G, nb, c, 1)
@@ -144,52 +156,78 @@ def _check_qkv(q, k, v, kbar, vbar) -> None:
                          f"{tuple(vbar.shape)}: expected (B, Hkv, M, Dh)")
 
 
-def _same_strides(a, b):
-    """The kernels take one stride set for a pair (k/v, k̄/v̄)."""
-    if a.stride() != b.stride():
-        return a.contiguous(), b.contiguous()
-    return a, b
-
-
 def _model_layout_empty(B, H, S, Dh, dtype, device) -> torch.Tensor:
     """An output in model-layout memory (B, S, H, Dh), as its kernel-layout
     view (B, H, S, Dh)."""
     return torch.empty((B, S, H, Dh), dtype=dtype, device=device).movedim(1, 2)
 
 
+def _slot_scales(kbar_scale, vbar_scale, kbar):
+    """Pointers and strides of quantized slots' scales (null for dense
+    slots); k̄'s and v̄'s scales share one stride set."""
+    if kbar_scale is None:
+        return None, None, (None, (0, 1, 2))
+    common.check_scales(kbar, kbar_scale, vbar_scale)
+    kbar_scale, vbar_scale = common.same_strides(kbar_scale, vbar_scale)
+    return kbar_scale, vbar_scale, (kbar_scale, (0, 1, 2))
+
+
 def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
            block_slots: int, scale: float, stream,
-           return_residuals: bool = False):
+           return_residuals: bool = False,
+           start_blocks: Optional[torch.Tensor] = None,
+           kbar_scale: Optional[torch.Tensor] = None,
+           vbar_scale: Optional[torch.Tensor] = None):
     """Check the operands, allocate the outputs and launch the forward
-    kernel on `stream` (no synchronisation). The output lies in model
+    kernel on `stream` (no synchronisation). With `start_blocks` (B,)
+    int32 it is the prefix form (any M); with `kbar_scale`/`vbar_scale`
+    (B, Hkv, M) fp32 the slots are int8/fp8 codes. The output lies in model
     layout memory (B, S, H, Dh), returned as its kernel-layout view; with
     `return_residuals` also m and denom, contiguous (B, H, S) fp32."""
     _check_qkv(q, k, v, kbar, vbar)
     B, H, S, Dh = q.shape
     Hkv, M = k.shape[1], kbar.shape[2]
-    common.check_blockwise_shapes(seq=S, block_size=block_size,
-                                  block_slots=block_slots, slots=M,
-                                  head_dim=Dh)
-    dtype = common.kernel_dtype_code(q, k, v, kbar, vbar)
-    k, v = _same_strides(k, v)
-    kbar, vbar = _same_strides(kbar, vbar)
+    if start_blocks is None:
+        common.check_blockwise_shapes(seq=S, block_size=block_size,
+                                      block_slots=block_slots, slots=M,
+                                      head_dim=Dh)
+    else:
+        common.check_prefix_shapes(seq=S, block_size=block_size,
+                                   block_slots=block_slots, slots=M,
+                                   head_dim=Dh)
+        common.check_start_blocks(start_blocks, B, q.device)
+    dtype = common.kernel_dtype_code(q, k, v)
+    slot_dtype = (common.kernel_dtype_code(q, kbar, vbar)
+                  if kbar_scale is None
+                  else common.storage_dtype_code(kbar, vbar))
+    k, v = common.same_strides(k, v)
+    kbar, vbar = common.same_strides(kbar, vbar)
+    kbar_scale, vbar_scale, scale_strides = _slot_scales(
+        kbar_scale, vbar_scale, kbar)
     out = _model_layout_empty(B, H, S, Dh, q.dtype, q.device)
     common.check_operands(q, k, v, kbar, vbar, out)
+    if kbar_scale is not None and kbar_scale.device != q.device:
+        raise ValueError(f"scales on {kbar_scale.device}, q on {q.device}")
     m = denom = None
     if return_residuals:
         m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         denom = torch.empty_like(m)
     dims = (0, 1, 2)
     strides = build.strides_arg((q, dims), (k, dims), (kbar, dims),
-                                (out, dims))
+                                (out, dims), scale_strides)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = kl.lib.bca_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kbar.data_ptr(),
-        vbar.data_ptr(), out.data_ptr(),
-        None if m is None else m.data_ptr(),
-        None if denom is None else denom.data_ptr(), strides, B, H, Hkv, S,
-        M, Dh, block_size, block_slots, float(scale), dtype, stream)
+        vbar.data_ptr(), out.data_ptr(), ptr(m), ptr(denom),
+        ptr(start_blocks), ptr(kbar_scale), ptr(vbar_scale), strides, B, H,
+        Hkv, S, M, Dh, block_size, block_slots, float(scale), dtype,
+        slot_dtype, stream)
     kl.check(rc, "blockwise_causal_attn")
     return (out, m, denom) if return_residuals else out
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def blockwise_causal_attn(q, k, v, kbar, vbar, *, block_size: int,
@@ -204,8 +242,7 @@ def blockwise_causal_attn(q, k, v, kbar, vbar, *, block_size: int,
               return_residuals=return_residuals)
     if not q.is_cuda:
         return blockwise_causal_attn_plain(q, k, v, kbar, vbar, **kw)
-    out = launch(build.library(), q, k, v, kbar, vbar,
-                 stream=torch.cuda.current_stream(q.device).cuda_stream,
+    out = launch(build.library(), q, k, v, kbar, vbar, stream=_stream(q),
                  **kw)
     if return_residuals:
         blockwise_causal_attn.residual_launches += 1
@@ -216,6 +253,75 @@ def blockwise_causal_attn(q, k, v, kbar, vbar, *, block_size: int,
 
 blockwise_causal_attn.launches = 0
 blockwise_causal_attn.residual_launches = 0
+
+
+def blockwise_causal_prefix_attn(q, k, v, comp_k, comp_v, start_blocks, *,
+                                 block_size: int, block_slots: int,
+                                 scale: float,
+                                 return_residuals: bool = False):
+    """Prefix form in kernel layout: query chunk q (B, H, P, Dh) whose row b
+    starts at absolute block start_blocks[b] (B,) int32, against the
+    chunk's own k/v (B, Hkv, P, Dh) and a full slot buffer comp_k/comp_v
+    (B, Hkv, M, Dh) holding the chunk's own blocks already folded in; chunk
+    block n sees the slots of absolute blocks < start_blocks[b] + n. With
+    ``return_residuals`` also (m, denom), (B, H, P) fp32. A CPU tensor runs
+    the plain twin; a CUDA tensor launches the CUDA kernel (or raises)."""
+    kw = dict(block_size=block_size, block_slots=block_slots, scale=scale,
+              return_residuals=return_residuals)
+    if not q.is_cuda:
+        return blockwise_causal_attn_plain(q, k, v, comp_k, comp_v,
+                                           start_blocks=start_blocks, **kw)
+    out = launch(build.library(), q, k, v, comp_k, comp_v,
+                 start_blocks=start_blocks, stream=_stream(q), **kw)
+    if return_residuals:
+        blockwise_causal_prefix_attn.residual_launches += 1
+    else:
+        blockwise_causal_prefix_attn.launches += 1
+    return out
+
+
+blockwise_causal_prefix_attn.launches = 0
+blockwise_causal_prefix_attn.residual_launches = 0
+
+
+def blockwise_causal_prefix_attn_q_plain(q, k, v, comp_k, comp_v, comp_k_s,
+                                         comp_v_s, start_blocks, *,
+                                         block_size: int, block_slots: int,
+                                         scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the quantized prefix kernel
+    (``_prefix_kernel_q``): the slots dequantised to fp32, q and the chunk's
+    own k/v cast to fp32, then the prefix form's plain twin in fp32; the
+    output cast to q's dtype."""
+    f32 = torch.float32
+    out = blockwise_causal_attn_plain(
+        q.to(f32), k.to(f32), v.to(f32),
+        dequantize_blockwise(comp_k, comp_k_s),
+        dequantize_blockwise(comp_v, comp_v_s), block_size=block_size,
+        block_slots=block_slots, scale=scale, start_blocks=start_blocks)
+    return out.to(q.dtype)
+
+
+def blockwise_causal_prefix_attn_q(q, k, v, comp_k, comp_v, comp_k_s,
+                                   comp_v_s, start_blocks, *,
+                                   block_size: int, block_slots: int,
+                                   scale: float) -> torch.Tensor:
+    """Prefix form over a quantized slot buffer, in kernel layout: comp_k /
+    comp_v (B, Hkv, M, Dh) int8 or fp8 codes with per-slot fp32 scales
+    comp_k_s / comp_v_s (B, Hkv, M), dequantised in the kernel; q and the
+    chunk's own k/v in the model dtype. Forward only. A CPU tensor runs the
+    plain twin; a CUDA tensor launches the CUDA kernel (or raises)."""
+    kw = dict(block_size=block_size, block_slots=block_slots, scale=scale)
+    if not q.is_cuda:
+        return blockwise_causal_prefix_attn_q_plain(
+            q, k, v, comp_k, comp_v, comp_k_s, comp_v_s, start_blocks, **kw)
+    out = launch(build.library(), q, k, v, comp_k, comp_v,
+                 start_blocks=start_blocks, kbar_scale=comp_k_s,
+                 vbar_scale=comp_v_s, stream=_stream(q), **kw)
+    blockwise_causal_prefix_attn_q.launches += 1
+    return out
+
+
+blockwise_causal_prefix_attn_q.launches = 0
 
 
 def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
@@ -237,15 +343,11 @@ def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
     common.check_blockwise_bwd_shapes(
         seq=S, block_size=block_size, block_slots=block_slots, slots=M,
         head_dim=Dh, offset=start_blocks is not None)
-    if start_blocks is not None and (
-            start_blocks.shape != (B,) or start_blocks.dtype != torch.int32
-            or start_blocks.device != q.device):
-        raise ValueError("start_blocks: expected (B,) int32 on the operands' "
-                         f"device, got {tuple(start_blocks.shape)} "
-                         f"{start_blocks.dtype} on {start_blocks.device}")
+    if start_blocks is not None:
+        common.check_start_blocks(start_blocks, B, q.device)
     dtype = common.kernel_dtype_code(q, k, v, kbar, vbar, do)
-    k, v = _same_strides(k, v)
-    kbar, vbar = _same_strides(kbar, vbar)
+    k, v = common.same_strides(k, v)
+    kbar, vbar = common.same_strides(kbar, vbar)
     f32 = torch.float32
     dq = _model_layout_empty(B, H, S, Dh, q.dtype, q.device)
     dk = _model_layout_empty(B, Hkv, S, Dh, f32, q.device)
@@ -286,8 +388,7 @@ def blockwise_causal_attn_bwd(q, k, v, kbar, vbar, m, denom, do, *,
         return blockwise_causal_attn_bwd_plain(q, k, v, kbar, vbar, m, denom,
                                                do, **kw)
     out = launch_bwd(build.library(), q, k, v, kbar, vbar, m, denom, do,
-                     stream=torch.cuda.current_stream(q.device).cuda_stream,
-                     **kw)
+                     stream=_stream(q), **kw)
     blockwise_causal_attn_bwd.launches += 1
     return out
 

@@ -37,19 +37,21 @@ _LL_PTR = ctypes.POINTER(ctypes.c_longlong)
 
 # exported C function -> (restype, argtypes)
 SIGNATURES: Dict[str, Tuple[object, List[object]]] = {
-    # q, k, v, kbar, vbar, out, m, denom, strides[12], B, H, Hkv, S, M, Dh,
-    # block_size, block_slots, scale, dtype, stream
-    "bca_forward": (_I, [_P] * 8 + [_LL_PTR] + [_I] * 8
-                    + [ctypes.c_float, _I, _P]),
+    # q, k, v, kbar, vbar, out, m, denom, start_blocks, kbar_scale,
+    # vbar_scale, strides[15], B, H, Hkv, S, M, Dh, block_size, block_slots,
+    # scale, dtype, slot_dtype, stream
+    "bca_forward": (_I, [_P] * 11 + [_LL_PTR] + [_I] * 8
+                    + [ctypes.c_float, _I, _I, _P]),
     # q, k, v, kbar, vbar, dout, m, denom, start_blocks, dq, delta, dk, dv,
     # dkbar, dvbar, strides[21], B, H, Hkv, S, M, Dh, block_size,
     # block_slots, scale, dtype, stream
     "bca_backward": (_I, [_P] * 15 + [_LL_PTR] + [_I] * 8
                      + [ctypes.c_float, _I, _P]),
-    # q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob, out, strides[6],
-    # B, Hkv, G, Dh, c, M, scale, dtype, stream
-    "decode_forward": (_I, [_P] * 8 + [_LL_PTR] + [_I] * 6
-                       + [ctypes.c_float, _I, _P]),
+    # q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s, comp_k_s, comp_v_s,
+    # bias_loc, bias_glob, out, strides[12], B, Hkv, G, Dh, c, M, scale,
+    # dtype, cache_dtype, stream
+    "decode_forward": (_I, [_P] * 12 + [_LL_PTR] + [_I] * 6
+                       + [ctypes.c_float, _I, _I, _P]),
     "repro_torch_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -147,6 +149,8 @@ def library() -> KernelLibrary:
 
 
 def strides_arg(*tensors_dims) -> ctypes.Array:
-    """Pack (tensor, dims) strides, in elements, into a C int64 array."""
-    vals = [t.stride(d) for t, dims in tensors_dims for d in dims]
+    """Pack (tensor, dims) strides, in elements, into a C int64 array; a
+    None tensor (an absent optional operand) packs zeros."""
+    vals = [0 if t is None else t.stride(d)
+            for t, dims in tensors_dims for d in dims]
     return (ctypes.c_longlong * len(vals))(*vals)

@@ -4,9 +4,10 @@ backend table, and the fail-fast shape guards of the CUDA kernels.
 Counterpart of ``repro/kernels/common.py``. The TPU package bounded its
 kernels by VMEM budgets; here the guards are derived from what the CUDA
 kernels in ``csrc/`` accept: the head dims they are instantiated for, whole
-blocks (``S % c == 0``), ``M == nb·r`` compressed slots, and the shared
-memory a thread block may use on the H100. The tile constants below must
-match the ``.cu`` sources.
+blocks (``S % c == 0``), ``M == nb·r`` compressed slots (any M for the
+prefix form), the storage dtypes and scale layouts of the quantized cache,
+and the shared memory a thread block may use on the H100. The tile
+constants below must match the ``.cu`` sources.
 """
 from __future__ import annotations
 
@@ -54,6 +55,8 @@ DECODE_TILE = 64
 DECODE_MAX_HEAD_DIM = 256
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# storage dtypes of the paged, quantized cache (codes of csrc/common.cuh)
+STORAGE_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"
@@ -136,6 +139,29 @@ def check_blockwise_shapes(*, seq: int, block_size: int, block_slots: int,
                          f"memory, above {MAX_SMEM_PER_BLOCK}")
 
 
+def check_prefix_shapes(*, seq: int, block_size: int, block_slots: int,
+                        slots: int, head_dim: int) -> None:
+    """Fail fast on shapes the prefix form of csrc/blockwise_causal_attn.cu
+    does not take: a chunk of whole blocks against a slot buffer of any M
+    (the visibility cut is clamped at M)."""
+    check_blockwise_shapes(seq=seq, block_size=block_size,
+                           block_slots=block_slots,
+                           slots=(seq // block_size) * block_slots,
+                           head_dim=head_dim)
+    if slots < 0:
+        raise ValueError(f"M={slots} compressed slots")
+
+
+def check_start_blocks(start_blocks: torch.Tensor, batch: int,
+                       device: torch.device) -> None:
+    if start_blocks.shape != (batch,) or start_blocks.dtype != torch.int32 \
+            or start_blocks.device != device \
+            or not start_blocks.is_contiguous():
+        raise ValueError("start_blocks: expected contiguous (B,) int32 on the "
+                         f"operands' device, got {tuple(start_blocks.shape)} "
+                         f"{start_blocks.dtype} on {start_blocks.device}")
+
+
 def bca_bwd_smem_bytes(block_q: int, head_dim: int) -> Tuple[int, int]:
     """Shared memory of the backward's two kernels: the dq kernel (q and dO
     tiles, a key and a value tile, the dS tile) and the dk/dv kernel (key,
@@ -196,6 +222,34 @@ def kernel_dtype_code(*xs: torch.Tensor) -> int:
     if dt not in KERNEL_DTYPES:
         raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
     return KERNEL_DTYPES[dt]
+
+
+def storage_dtype_code(*xs: torch.Tensor) -> int:
+    """The quantized cache's storage code; every operand shares one of the
+    STORAGE_DTYPES."""
+    dt = xs[0].dtype
+    if any(x.dtype != dt for x in xs) or dt not in STORAGE_DTYPES:
+        raise TypeError("quantized cache operands must share one of "
+                        f"{sorted(map(str, STORAGE_DTYPES))}, got "
+                        f"{sorted({str(x.dtype) for x in xs})}")
+    return STORAGE_DTYPES[dt]
+
+
+def check_scales(data: torch.Tensor, *scales: torch.Tensor) -> None:
+    """Per-(row, kv head, position) fp32 scales of a quantized operand in
+    kernel layout: data (B, Hkv, N, Dh), each scale (B, Hkv, N), strided."""
+    for s in scales:
+        if s.shape != data.shape[:3] or s.dtype != torch.float32:
+            raise ValueError(f"scales {tuple(s.shape)} {s.dtype}: expected "
+                             f"{tuple(data.shape[:3])} float32 (B, Hkv, N)")
+
+
+def same_strides(a: torch.Tensor, b: torch.Tensor):
+    """The kernels take one stride set for a pair (k/v, k̄/v̄, their scales):
+    contiguous copies when the two differ."""
+    if a.stride() != b.stride():
+        return a.contiguous(), b.contiguous()
+    return a, b
 
 
 def check_operands(*xs: torch.Tensor) -> None:

@@ -1,20 +1,25 @@
 """Single-token decode attention over the compressed cache: the CUDA
-kernel's wrapper and its plain PyTorch twin.
+kernel's wrappers and their plain PyTorch twins.
 
-Counterpart of ``decode_attn`` in ``repro/kernels/linformer_attn.py``.
+Counterpart of ``decode_attn`` and ``decode_attn_q`` (the same attention
+over the paged, quantized cache) in ``repro/kernels/linformer_attn.py``.
 Kernel layout: q (B, Hkv, G, Dh) with the GQA group folded into the query
 axis; ring (B, Hkv, c, Dh); slots (B, Hkv, M, Dh); additive fp32 biases
 (B, c) and (B, M), 0 for attendable and NEG_INF for masked. Per (b, kv head)
 the G query rows take one softmax over [ring | slots].
 
-``decode_attn`` runs the plain twin for a CPU tensor and the CUDA kernel
+``decode_attn_q`` takes the ring and the page-gathered slots as int8 or
+fp8 codes with fp32 scales (B, Hkv, c) per token and (B, Hkv, M) per slot.
+
+Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel
 (``csrc/decode_attn.cu``) for a CUDA tensor, counting its launches in
-``decode_attn.launches``.
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.cache import dequantize_blockwise
 from repro_torch.kernels import build
 from repro_torch.kernels import common
 
@@ -44,10 +49,28 @@ def decode_attn_plain(q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
     return out.to(q.dtype)
 
 
+def decode_attn_q_plain(q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s,
+                        comp_k_s, comp_v_s, bias_loc, bias_glob, *,
+                        scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the quantized kernel (``_decode_kernel_q``):
+    ring and slots dequantised to fp32, q cast to fp32, then the dense
+    kernel's plain twin in fp32; the output cast to q's dtype."""
+    out = decode_attn_plain(
+        q.to(torch.float32), dequantize_blockwise(raw_k, raw_k_s),
+        dequantize_blockwise(raw_v, raw_v_s),
+        dequantize_blockwise(comp_k, comp_k_s),
+        dequantize_blockwise(comp_v, comp_v_s), bias_loc, bias_glob,
+        scale=scale)
+    return out.to(q.dtype)
+
+
 def launch(kl: build.KernelLibrary, q, raw_k, raw_v, comp_k, comp_v,
-           bias_loc, bias_glob, *, scale: float, stream) -> torch.Tensor:
+           bias_loc, bias_glob, *, scale: float, stream,
+           scales=None) -> torch.Tensor:
     """Check the operands, allocate the output and launch the kernel on
-    `stream` (no synchronisation)."""
+    `stream` (no synchronisation). `scales`: None for a dense cache in q's
+    dtype, or (raw_k_s, raw_v_s, comp_k_s, comp_v_s) fp32 for int8/fp8
+    codes."""
     B, Hkv, G, Dh = q.shape
     c, M = raw_k.shape[2], comp_k.shape[2]
     if raw_k.shape != (B, Hkv, c, Dh) or raw_v.shape != raw_k.shape:
@@ -63,23 +86,36 @@ def launch(kl: build.KernelLibrary, q, raw_k, raw_v, comp_k, comp_v,
     if bias_loc.dtype != torch.float32 or bias_glob.dtype != torch.float32:
         raise TypeError("decode biases must be float32")
     common.check_decode_shapes(group=G, head_dim=Dh)
-    dtype = common.kernel_dtype_code(q, raw_k, raw_v, comp_k, comp_v)
+    dtype = common.kernel_dtype_code(q)
+    if scales is None:
+        cache_dtype = common.kernel_dtype_code(q, raw_k, raw_v, comp_k,
+                                               comp_v)
+        rks = rvs = cks = cvs = None
+    else:
+        cache_dtype = common.storage_dtype_code(raw_k, raw_v, comp_k, comp_v)
+        rks, rvs, cks, cvs = scales
+        common.check_scales(raw_k, rks, rvs)
+        common.check_scales(comp_k, cks, cvs)
+        rks, rvs = common.same_strides(rks, rvs)
+        cks, cvs = common.same_strides(cks, cvs)
+        if any(s.device != q.device for s in scales):
+            raise ValueError("scales and q on different devices")
     q = q.contiguous()
     bias_loc, bias_glob = bias_loc.contiguous(), bias_glob.contiguous()
-    if raw_k.stride() != raw_v.stride():
-        raw_k, raw_v = raw_k.contiguous(), raw_v.contiguous()
-    if comp_k.stride() != comp_v.stride():
-        comp_k, comp_v = comp_k.contiguous(), comp_v.contiguous()
+    raw_k, raw_v = common.same_strides(raw_k, raw_v)
+    comp_k, comp_v = common.same_strides(comp_k, comp_v)
     out = torch.empty_like(q)
     common.check_operands(q, raw_k, raw_v, comp_k, comp_v, bias_loc,
                           bias_glob, out)
     dims = (0, 1, 2)
-    strides = build.strides_arg((raw_k, dims), (comp_k, dims))
+    strides = build.strides_arg((raw_k, dims), (comp_k, dims), (rks, dims),
+                                (cks, dims))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = kl.lib.decode_forward(
         q.data_ptr(), raw_k.data_ptr(), raw_v.data_ptr(), comp_k.data_ptr(),
-        comp_v.data_ptr(), bias_loc.data_ptr(), bias_glob.data_ptr(),
-        out.data_ptr(), strides, B, Hkv, G, Dh, c, M, float(scale), dtype,
-        stream)
+        comp_v.data_ptr(), ptr(rks), ptr(rvs), ptr(cks), ptr(cvs),
+        bias_loc.data_ptr(), bias_glob.data_ptr(), out.data_ptr(), strides,
+        B, Hkv, G, Dh, c, M, float(scale), dtype, cache_dtype, stream)
     kl.check(rc, "decode_attn")
     return out
 
@@ -100,3 +136,25 @@ def decode_attn(q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob, *,
 
 
 decode_attn.launches = 0
+
+
+def decode_attn_q(q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s,
+                  comp_k_s, comp_v_s, bias_loc, bias_glob, *,
+                  scale: float) -> torch.Tensor:
+    """Decode attention over the quantized cache, in kernel layout: q
+    (B, Hkv, G, Dh) in the model dtype; ring (B, Hkv, c, Dh) and slots
+    (B, Hkv, M, Dh) as int8/fp8 codes with fp32 scales (B, Hkv, c) and
+    (B, Hkv, M), dequantised in the kernel. A CPU tensor runs the plain
+    twin; a CUDA tensor launches the CUDA kernel (or raises)."""
+    scales = (raw_k_s, raw_v_s, comp_k_s, comp_v_s)
+    if not q.is_cuda:
+        return decode_attn_q_plain(q, raw_k, raw_v, comp_k, comp_v, *scales,
+                                   bias_loc, bias_glob, scale=scale)
+    out = launch(build.library(), q, raw_k, raw_v, comp_k, comp_v, bias_loc,
+                 bias_glob, scale=scale, scales=scales,
+                 stream=torch.cuda.current_stream(q.device).cuda_stream)
+    decode_attn_q.launches += 1
+    return out
+
+
+decode_attn_q.launches = 0

@@ -2,7 +2,10 @@
 
 Counterpart of ``repro/kernels/ops.py`` for the serving and training
 paths: the blockwise-causal attention (forward, and trainable through the
-backward kernel) and the single-token decode. Layout moves are views (kernel
+backward kernel), its prefix form for chunked prefill, the single-token
+decode, and the two quantized-cache siblings of the serving path (decode
+and chunk prefill over int8/fp8 codes with fp32 scales, forward only).
+Layout moves are views (kernel
 layout (B, H, S, Dh) <-> model layout (B, S, H, Dh)); the kernels take
 strided operands, so nothing is transposed in memory. A CPU tensor runs
 each kernel's plain twin, a CUDA tensor the CUDA kernel.
@@ -28,6 +31,26 @@ from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
 from repro_torch.kernels.common import (backward_route, from_kernel_layout,
                                         to_kernel_layout)
+
+
+def _scales_to_kernel_layout(s: torch.Tensor) -> torch.Tensor:
+    """(B, N, Hkv) per-token/per-slot scales -> kernel layout (B, Hkv, N),
+    a view."""
+    return s.movedim(2, 1)
+
+
+def _start_blocks(start_blocks, q: torch.Tensor) -> torch.Tensor:
+    """Per-row start blocks as the kernels take them: (B,) int32 on q's
+    device."""
+    return torch.as_tensor(start_blocks, device=q.device).to(
+        torch.int32).reshape(q.shape[0]).contiguous()
+
+
+def _forward_only(name: str, *xs: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise NotImplementedError(
+            f"{name} is forward-only in the port: the prefix form's custom "
+            "VJP (sequence-parallel training) is not ported yet")
 
 
 def _compress_kv(x, W, block_size, block_slots):
@@ -111,6 +134,67 @@ def fused_blockwise_causal_attention(
     return from_kernel_layout(out)
 
 
+def fused_chunk_prefill_attention(
+    q: torch.Tensor,        # (B, P, H, Dh) — one query chunk, model layout
+    k: torch.Tensor,        # (B, P, Hkv, Dh) — the chunk's own keys
+    v: torch.Tensor,
+    comp_k: torch.Tensor,   # (B, M, Hkv, Dh) — full compressed slot buffer
+    comp_v: torch.Tensor,   #   with the chunk's own blocks already folded in
+    start_blocks,           # (B,) int — per-row absolute start block
+    *,
+    block_size: int,
+    block_slots: int,
+    scale: float,
+) -> torch.Tensor:
+    """Blockwise-causal attention for a query chunk starting at a per-row
+    block offset against the slot-resident cache: the chunked-admission
+    prefill path. Row b's chunk block j attends [its own block, causally |
+    compressed slots of absolute blocks < start_blocks[b] + j]; the offsets
+    are a device tensor, so one kernel build serves every offset. Forward
+    only (serving never differentiates through it)."""
+    if q.shape[1] % block_size != 0:
+        raise ValueError(
+            f"P={q.shape[1]} must be a multiple of block_size={block_size}")
+    _forward_only("fused_chunk_prefill_attention", q, k, v, comp_k, comp_v)
+    out = bca.blockwise_causal_prefix_attn(
+        to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
+        to_kernel_layout(comp_k), to_kernel_layout(comp_v),
+        _start_blocks(start_blocks, q), block_size=block_size,
+        block_slots=block_slots, scale=scale)
+    return from_kernel_layout(out)
+
+
+def fused_chunk_prefill_attention_q(
+    q: torch.Tensor,        # (B, P, H, Dh) — one query chunk, model layout
+    k: torch.Tensor,        # (B, P, Hkv, Dh) — the chunk's own keys (exact)
+    v: torch.Tensor,
+    comp_k: torch.Tensor,   # (B, M, Hkv, Dh) int8/fp8 page-gathered slots
+    comp_v: torch.Tensor,
+    comp_k_s: torch.Tensor,  # (B, M, Hkv) fp32 per-slot per-head scales
+    comp_v_s: torch.Tensor,
+    start_blocks,           # (B,) int — per-row absolute start block
+    *,
+    block_size: int,
+    block_slots: int,
+    scale: float,
+) -> torch.Tensor:
+    """Quantized-cache sibling of :func:`fused_chunk_prefill_attention`: the
+    slot buffer is the page gather's int8/fp8 codes plus per-slot scales,
+    dequantised inside the kernel; the chunk's own k/v are activations and
+    stay in the model dtype. Forward only."""
+    if q.shape[1] % block_size != 0:
+        raise ValueError(
+            f"P={q.shape[1]} must be a multiple of block_size={block_size}")
+    _forward_only("fused_chunk_prefill_attention_q", q, k, v)
+    out = bca.blockwise_causal_prefix_attn_q(
+        to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
+        to_kernel_layout(comp_k), to_kernel_layout(comp_v),
+        _scales_to_kernel_layout(comp_k_s),
+        _scales_to_kernel_layout(comp_v_s), _start_blocks(start_blocks, q),
+        block_size=block_size, block_slots=block_slots, scale=scale)
+    return from_kernel_layout(out)
+
+
 def fused_decode_attention(
     q_t: torch.Tensor,        # (B, 1, H, Dh) — one decode token per row
     raw_k: torch.Tensor,      # (B, c, Hkv, Dh) — raw ring buffer
@@ -136,4 +220,37 @@ def fused_decode_attention(
         qk, to_kernel_layout(raw_k), to_kernel_layout(raw_v),
         to_kernel_layout(comp_k), to_kernel_layout(comp_v),
         bias_loc, bias_glob, scale=scale)
+    return out.reshape(B, 1, H, Dh)
+
+
+def fused_decode_attention_q(
+    q_t: torch.Tensor,        # (B, 1, H, Dh) — one decode token per row
+    raw_k: torch.Tensor,      # (B, c, Hkv, Dh) int8/fp8 quantized ring
+    raw_v: torch.Tensor,
+    raw_k_s: torch.Tensor,    # (B, c, Hkv) fp32 per-token per-head scales
+    raw_v_s: torch.Tensor,
+    comp_k: torch.Tensor,     # (B, M, Hkv, Dh) int8/fp8 page-gathered slots
+    comp_v: torch.Tensor,
+    comp_k_s: torch.Tensor,   # (B, M, Hkv) fp32 per-slot per-head scales
+    comp_v_s: torch.Tensor,
+    bias_loc: torch.Tensor,   # (B, c) fp32 — 0 attendable, NEG_INF masked
+    bias_glob: torch.Tensor,  # (B, M) fp32
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Quantized-cache sibling of :func:`fused_decode_attention`: the same
+    GQA group fold and two cache operands, with the ring and the page
+    gather as int8/fp8 codes plus per-(row, head) fp32 scales, dequantised
+    inside the kernel. Forward only."""
+    B, _, H, Dh = q_t.shape
+    Hkv = raw_k.shape[2]
+    if H % Hkv != 0:
+        raise ValueError(f"H={H} query heads not a multiple of Hkv={Hkv}")
+    qk = q_t.reshape(B, Hkv, H // Hkv, Dh)
+    out = la.decode_attn_q(
+        qk, to_kernel_layout(raw_k), to_kernel_layout(raw_v),
+        to_kernel_layout(comp_k), to_kernel_layout(comp_v),
+        _scales_to_kernel_layout(raw_k_s), _scales_to_kernel_layout(raw_v_s),
+        _scales_to_kernel_layout(comp_k_s),
+        _scales_to_kernel_layout(comp_v_s), bias_loc, bias_glob, scale=scale)
     return out.reshape(B, 1, H, Dh)

@@ -5,6 +5,8 @@ scheduler (default) or the static bucketed baseline. Reports through
 
     python -m repro_torch.launch.serve --arch qwen3-8b
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
+        --prefill-chunk 32
 
 Prompt lengths are drawn from {c/2, c, c + c/8, 2c} (c = the attention
 block size), so at full width (c = 256) most prompts reach the blockwise-
@@ -36,6 +38,10 @@ def main(argv=None):
                     help="cache capacity per request (0 = 16 blocks)")
     ap.add_argument("--decode-chunk", type=int, default=32,
                     help="tokens per device-resident decode chunk")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked admission: stream prompts into the pool "
+                         "this many tokens per scheduler round (a multiple "
+                         "of the attention block size; 0 = monolithic)")
     ap.add_argument("--backend", default=None,
                     choices=["auto", "reference", "fused"],
                     help="attention backend (default: the config's 'auto' "
@@ -63,7 +69,8 @@ def main(argv=None):
     eng = ServingEngine(params, cfg, max_seq=max_seq, device=args.device,
                         cache_dtype=torch_dtype(cfg.dtype),
                         decode_chunk=args.decode_chunk,
-                        attention_backend=args.backend)
+                        attention_backend=args.backend,
+                        prefill_chunk=args.prefill_chunk)
     rng = np.random.default_rng(0)
     lengths = [c // 2, c, c + c // 8, 2 * c]
     prompts = [list(rng.integers(4, cfg.vocab_size, int(rng.choice(lengths))))
@@ -88,6 +95,10 @@ def main(argv=None):
         occ = (f", occupancy {sched.stats.mean_occupancy:.2f} over "
                f"{sched.stats.chunks} chunks, {sched.stats.bad_rows} "
                "rows flagged non-finite")
+        if args.prefill_chunk:
+            occ += (f"; chunked prefill: {sched.stats.prefill_forwards} "
+                    f"forwards for {sched.stats.prefill_tokens} prompt "
+                    "tokens")
     log.info("%s: %d requests, %d tokens in %.2fs (%.1f tok/s)%s; "
              "cache/request %d B", args.scheduler, len(prompts), n_tok, dt,
              n_tok / dt, occ, eng.cache_bytes(args.max_batch)

@@ -1,5 +1,6 @@
 """Attention block: QKV/output projections and the blockwise-causal
-Linformer attention (prefill and decode).
+Linformer attention (prefill, chunked prefill and decode, over the
+compressed cache or its paged, quantized sibling).
 
 Counterpart of ``repro/models/attention.py`` for
 ``kind="linformer_causal"``. The attention math dispatches through an
@@ -129,10 +130,43 @@ def apply_attention_decode(
     positions = t[:, None]                                   # (B, 1)
     q, k, v = _qkv(params, x_t, cfg, positions=positions)
     E, F = _resolve_ef(params, shared_lin, cfg)
-    out, new_cache = cache_lib.compressed_decode_attention(
-        q, k, v, layer_cache, E, F, t, plan=plan)
+    # the paged, quantized cache routes on its page_table leaf: the same
+    # attention math over another storage
+    decode_fn = (cache_lib.paged_decode_attention
+                 if "page_table" in layer_cache
+                 else cache_lib.compressed_decode_attention)
+    out, new_cache = decode_fn(q, k, v, layer_cache, E, F, t, plan=plan)
     B = x_t.shape[0]
     return out.reshape(B, 1, -1) @ params["wo"], new_cache
+
+
+def apply_attention_prefill_chunk(
+    params: Dict,
+    x: torch.Tensor,                   # (B, P, D) — one prefill chunk
+    layer_cache: Dict[str, torch.Tensor],
+    t0: torch.Tensor,                  # (B,) int32 — row's committed length
+    cfg: AttentionConfig,
+    *,
+    shared_lin: Optional[Dict] = None,
+    positions: Optional[torch.Tensor] = None,   # (B, P) absolute positions
+    plan: Optional[plan_lib.AttentionPlan] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked-prefill attention at a per-row offset against the layer's
+    slot-resident cache (updated in place): row b's chunk covers absolute
+    positions [t0[b], t0[b] + P); t0 and P are multiples of the block
+    size. Returns (out (B, P, D'), the cache)."""
+    _check_kind(cfg)
+    plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
+    if positions is None:
+        positions = t0[:, None] + torch.arange(x.shape[1], device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions=positions)
+    E, F = _resolve_ef(params, shared_lin, cfg)
+    prefill_fn = (cache_lib.paged_prefill_chunk
+                  if "page_table" in layer_cache
+                  else cache_lib.compressed_prefill_chunk)
+    out, new_cache = prefill_fn(q, k, v, layer_cache, E, F, t0, plan=plan)
+    B, P = x.shape[:2]
+    return out.reshape(B, P, -1) @ params["wo"], new_cache
 
 
 def decode_cache_spec(cfg: AttentionConfig, *, num_layers: int, batch: int,
@@ -144,3 +178,20 @@ def decode_cache_spec(cfg: AttentionConfig, *, num_layers: int, batch: int,
         block_size=cfg.linformer.block_size,
         block_slots=cfg.linformer.block_slots,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, dtype=dtype)
+
+
+def paged_decode_cache_spec(cfg: AttentionConfig, *, num_layers: int,
+                            batch: int, max_seq: int,
+                            arena_pages: Optional[int] = None,
+                            page_dtype: str = "int8"):
+    """{leaf: (shape, dtype)} of the paged, quantized decode cache (the
+    linformer_causal serving pool in int8/fp8 page storage)."""
+    if cfg.kind != "linformer_causal":
+        raise ValueError(
+            f"paged cache requires kind='linformer_causal', got {cfg.kind!r}")
+    return cache_lib.paged_cache_spec(
+        num_layers=num_layers, batch=batch, max_seq=max_seq,
+        block_size=cfg.linformer.block_size,
+        block_slots=cfg.linformer.block_slots,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        arena_pages=arena_pages, page_dtype=page_dtype)

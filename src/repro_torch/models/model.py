@@ -43,6 +43,15 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict,
     return transformer.decode_step(params, cfg, tokens, cache, plan=plan)
 
 
+def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: Dict, n_valid, *,
+                  plan: Optional[plan_lib.AttentionPlan] = None):
+    """Prefill-at-offset forward of one fixed-size chunk per row (serving's
+    chunked-admission path); see transformer.prefill_chunk."""
+    return transformer.prefill_chunk(params, cfg, tokens, cache, n_valid,
+                                     plan=plan)
+
+
 def decode_scan(
     params,
     cfg: ModelConfig,

@@ -204,6 +204,21 @@ def apply_block_decode(params: Dict, x_t: torch.Tensor, layer_cache: Dict,
                              cfg.mlp)
 
 
+def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
+                              layer_cache: Dict, t0: torch.Tensor,
+                              cfg: ModelConfig, *, positions: torch.Tensor,
+                              shared_lin: Optional[Dict],
+                              plan: plan_lib.AttentionPlan) -> torch.Tensor:
+    """One transformer block over a prefill chunk at a per-row offset:
+    cache-writing like `apply_block_decode`, P tokens at once."""
+    h, _ = attn_lib.apply_attention_prefill_chunk(
+        params["attn"], L.rms_norm(params["ln1"], x), layer_cache, t0,
+        cfg.attention, shared_lin=shared_lin, positions=positions, plan=plan)
+    x = x + h
+    return x + L.apply_mlp(params["mlp"], L.rms_norm(params["ln2"], x),
+                           cfg.mlp)
+
+
 def logits_from_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor
                        ) -> torch.Tensor:
     x = L.rms_norm(params["final_norm"], x)
@@ -307,6 +322,36 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                                shared_lin=shared_lin, plan=plan)
     logits = logits_from_hidden(params, cfg, x)
     return logits, {**cache, "lengths": t + 1}
+
+
+def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: Dict, n_valid: torch.Tensor, *,
+                  plan: Optional[plan_lib.AttentionPlan] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """Prefill-at-offset forward of one fixed-size chunk of every row.
+
+    tokens (B, P): row b's next prefill chunk, padded at the END to the
+    chunk width P; n_valid (B,) counts its real tokens (a multiple of the
+    block size, so padding fills whole blocks and needs no mask). Row b's
+    chunk starts at its committed length cache["lengths"][b]: rope runs at
+    the absolute positions and each layer's K/V state is written at the
+    row's offset, in place. Returns (logits at each row's last real token
+    (B, V), cache with ``lengths`` advanced by n_valid)."""
+    plan = plan if plan is not None \
+        else plan_lib.resolve_attention_plan(cfg.attention)
+    t0 = cache["lengths"]
+    B, P = tokens.shape
+    n_valid = torch.as_tensor(n_valid, device=tokens.device).to(t0.dtype)
+    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    positions = t0[:, None] + torch.arange(P, device=x.device)[None, :]
+    shared_lin = params.get("shared", {}).get("lin")
+    for i in range(cfg.num_layers):
+        x = apply_block_prefill_chunk(
+            layer_slice(params["layers"], i), x, _layer_caches(cache, i), t0,
+            cfg, positions=positions, shared_lin=shared_lin, plan=plan)
+    last = (n_valid - 1).long()[:, None, None].expand(B, 1, x.shape[-1])
+    logits = logits_from_hidden(params, cfg, x.gather(1, last))
+    return logits[:, 0], {**cache, "lengths": t0 + n_valid}
 
 
 def param_bytes(params: Dict) -> int:

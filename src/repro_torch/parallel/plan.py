@@ -11,10 +11,12 @@ knob is the JAX package's ``AttentionConfig.backend``:
 * ``"reference"``: the plain reference forms of core/causal.py, on any
   device (the parity oracle).
 
-Every route is differentiable. On the kernel route the training backward
-follows ``AttentionConfig.backward_impl``: ``"fused"`` (default) runs the
-backward kernel from the forward's saved residuals, ``"reference"``
-autograd through the plain reference form (kernels/ops.py).
+Every route of the full-sequence form is differentiable; the chunk-prefill
+and quantized-cache forms are forward-only (serving). On the kernel route
+the training backward follows ``AttentionConfig.backward_impl``:
+``"fused"`` (default) runs the backward kernel from the forward's saved
+residuals, ``"reference"`` autograd through the plain reference form
+(kernels/ops.py).
 
 The multi-device plans (tensor and sequence parallelism) come with the
 multi-GPU slice.
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import causal as causal_lib
+from repro_torch.core.cache import dequantize_blockwise
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.common import backend_route, backward_route
 
@@ -69,6 +72,20 @@ class AttentionPlan:
             q, k, v, E, F, block_size=block_size, block_slots=block_slots,
             scale=scale, backward_impl=self.backward_impl)
 
+    def chunk_prefill_attention(self, q, k, v, comp_k, comp_v, start_blocks,
+                                *, block_size: int, block_slots: int,
+                                scale: float) -> torch.Tensor:
+        """Prefix-form attention for a prefill chunk at per-row offsets
+        against the slot-resident compressed cache. q (B, P, H, Dh); comp_*
+        (B, M, Hkv, Dh) full slot buffers; start_blocks (B,) int."""
+        if not self.uses_kernels(q):
+            return causal_lib.blockwise_causal_prefix_attention(
+                q, k, v, comp_k, comp_v, start_blocks,
+                block_size=block_size, block_slots=block_slots, scale=scale)
+        return kernel_ops.fused_chunk_prefill_attention(
+            q, k, v, comp_k, comp_v, start_blocks, block_size=block_size,
+            block_slots=block_slots, scale=scale)
+
     def decode_attention(self, q_t, raw_k, raw_v, comp_k, comp_v, loc_ok,
                          glob_ok, *, scale: float) -> torch.Tensor:
         """Single-token decode attention over [raw ring | compressed slots]
@@ -84,6 +101,43 @@ class AttentionPlan:
             scale=scale)
 
 
+    # -- the paged, quantized cache -----------------------------------------
+
+    def decode_attention_q(self, q_t, raw_k, raw_v, raw_k_s, raw_v_s,
+                           comp_k, comp_v, comp_k_s, comp_v_s, loc_ok,
+                           glob_ok, *, scale: float) -> torch.Tensor:
+        """Quantized-cache decode: the ring and the page-gathered slots
+        arrive as int8/fp8 codes with fp32 scales, raw_*_s (B, c, Hkv) per
+        token and comp_*_s (B, M, Hkv) per slot. The kernel route
+        dequantises inside the kernel; the reference route dequantises in
+        plain torch and runs the dense reference."""
+        if not self.uses_kernels(q_t):
+            return causal_lib.masked_decode_attention(
+                q_t, dequantize_blockwise(raw_k, raw_k_s), dequantize_blockwise(raw_v, raw_v_s),
+                dequantize_blockwise(comp_k, comp_k_s), dequantize_blockwise(comp_v, comp_v_s), loc_ok,
+                glob_ok, scale=scale)
+        bias_loc, bias_glob = decode_biases(loc_ok, glob_ok)
+        return kernel_ops.fused_decode_attention_q(
+            q_t, raw_k, raw_v, raw_k_s, raw_v_s, comp_k, comp_v, comp_k_s,
+            comp_v_s, bias_loc, bias_glob, scale=scale)
+
+    def chunk_prefill_attention_q(self, q, k, v, comp_k, comp_v, comp_k_s,
+                                  comp_v_s, start_blocks, *,
+                                  block_size: int, block_slots: int,
+                                  scale: float) -> torch.Tensor:
+        """Quantized-cache chunk prefill: the page-gathered slot buffer as
+        int8/fp8 codes with per-slot scales comp_*_s (B, M, Hkv); the
+        chunk's own k/v are full-precision activations."""
+        if not self.uses_kernels(q):
+            return causal_lib.blockwise_causal_prefix_attention(
+                q, k, v, dequantize_blockwise(comp_k, comp_k_s), dequantize_blockwise(comp_v, comp_v_s),
+                start_blocks, block_size=block_size,
+                block_slots=block_slots, scale=scale)
+        return kernel_ops.fused_chunk_prefill_attention_q(
+            q, k, v, comp_k, comp_v, comp_k_s, comp_v_s, start_blocks,
+            block_size=block_size, block_slots=block_slots, scale=scale)
+
+
 def resolve_attention_plan(acfg: AttentionConfig) -> AttentionPlan:
     """The plan of one attention config."""
     return AttentionPlan(backend=acfg.backend,
@@ -96,4 +150,5 @@ def as_plan(plan: Union[AttentionPlan, str, None]) -> AttentionPlan:
     if isinstance(plan, AttentionPlan):
         return plan
     return AttentionPlan(backend=plan or "reference")
+
 

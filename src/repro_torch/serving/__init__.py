@@ -1,2 +1,3 @@
 from repro_torch.serving.engine import ServingEngine  # noqa: F401
-from repro_torch.serving.scheduler import Request, Scheduler  # noqa: F401
+from repro_torch.serving.scheduler import (  # noqa: F401
+    Request, Scheduler, ShedResult)

@@ -1,16 +1,21 @@
 """Serving engine: slot-based continuous batching over device-resident decode.
 
-Counterpart of the dense, monolithic-admission subset of
-``repro/serving/engine.py``. The engine owns a fixed pool of `max_batch`
-cache slots (rows of one pool cache) and a FCFS `Scheduler`
-(serving/scheduler.py) that admits and retires requests between decode
-chunks:
+Counterpart of the FCFS subset of ``repro/serving/engine.py``. The engine
+owns a fixed pool of `max_batch` cache slots (rows of one pool cache) and a
+FCFS `Scheduler` (serving/scheduler.py) that admits and retires requests
+between decode chunks:
 
-* admission: a queued request is prefilled alone (B=1): its whole blocks
-  run through one forward that also builds the compressed cache, the
-  remaining S mod c tokens run through decode steps; its cache rows are
-  copied into a free pool row, whose position counter starts at the prompt
-  length;
+* admission: with `prefill_chunk=0` (monolithic) a queued request is
+  prefilled alone (B=1): its whole blocks run through one forward that also
+  builds the compressed cache, the remaining S mod c tokens run through
+  decode steps; its cache rows are copied into a free pool row, whose
+  position counter starts at the prompt length. With `prefill_chunk=P`
+  (chunked) the slot is claimed at t=0 and the prompt streams into the pool
+  cache P tokens per scheduler round, interleaved with decode chunks, every
+  co-prefilling row's next chunk batched into ONE padded (g, P) forward
+  (`pool_prefill_chunk`, per-row offsets and valid counts as tensors); the
+  sub-block remainders run through batched decode steps, one group per
+  remainder length (`pool_prefill_remainder`);
 * decode: the whole pool decodes `decode_chunk` tokens on the device
   (model.decode_scan), idle slots riding along finished-masked, and the
   host syncs once per chunk;
@@ -19,6 +24,12 @@ chunks:
 Every cache write, rope position, mask and block fold is per row, so a slot
 decodes identically whatever its neighbours do: continuous scheduling gives
 the same tokens as the static bucketed baseline (`serve_static`).
+
+Pool storage (`cache_format`): "dense" is the compressed cache in
+`cache_dtype`; "paged" keeps the ring and the compressed slots as int8 or
+fp8 codes with fp32 scales (`page_dtype`), the slots in a shared arena of
+pages (`arena_pages`, default capacity-equivalent to the dense pool) behind
+a per-row page table that the scheduler's page allocator fills.
 
 The pool cache is updated in place (the JAX engine donates buffers to the
 same effect); the scheduler's `SlotPool` is its only owner.
@@ -31,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cache as cache_lib
 from repro_torch.data.pipeline import EOS
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import model as model_lib
@@ -38,6 +50,11 @@ from repro_torch.models import transformer
 from repro_torch.parallel.plan import resolve_attention_plan
 
 DEFAULT_DECODE_CHUNK = 32
+
+# Leaves of the paged pool that live in the shared page arena, indexed by
+# physical page (L, Np, ...), not by pool row: per-row gathers pass them
+# whole (rows reach them only through their page tables).
+PAGED_ARENA_KEYS = ("page_k", "page_v", "page_k_s", "page_v_s")
 
 
 def bucket_requests(prompts: Sequence[Sequence[int]], max_batch: int
@@ -75,6 +92,10 @@ class ServingEngine:
         cache_dtype=torch.bfloat16,
         decode_chunk: Optional[int] = None,
         attention_backend: Optional[str] = None,
+        prefill_chunk: int = 0,
+        cache_format: str = "dense",
+        arena_pages: Optional[int] = None,
+        page_dtype: str = "int8",
     ):
         self.device = resolve_device(device)
         if attention_backend is not None:
@@ -85,11 +106,48 @@ class ServingEngine:
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
         self.decode_chunk = max(1, decode_chunk or DEFAULT_DECODE_CHUNK)
+        self.prefill_chunk = int(prefill_chunk)
+        if cache_format not in ("dense", "paged"):
+            raise ValueError(f"unknown cache_format {cache_format!r} "
+                             "(expected 'dense' or 'paged')")
+        self.cache_format = cache_format
+        self.arena_pages = arena_pages
+        self.page_dtype = page_dtype
+        if self.paged:
+            if cfg.attention.kind != "linformer_causal":
+                raise ValueError(
+                    "cache_format='paged' requires the linformer_causal "
+                    f"attention family, got {cfg.attention.kind!r} (the "
+                    "page size IS the attention block fold)")
+            _, self._page_qmax = cache_lib.resolve_page_dtype(page_dtype)
+        if self.prefill_chunk:
+            blk = self._block()
+            if self.prefill_chunk < blk or self.prefill_chunk % blk != 0:
+                raise ValueError(
+                    f"prefill_chunk={self.prefill_chunk} must be a positive "
+                    f"multiple of the attention block size ({blk}) so chunk "
+                    "boundaries land on block-fold boundaries")
 
     # -- internals ------------------------------------------------------
 
     def _block(self) -> int:
         return self.cfg.attention.linformer.block_size
+
+    @property
+    def paged(self) -> bool:
+        return self.cache_format == "paged"
+
+    def max_pages_per_row(self) -> int:
+        """Page-table width: one page per block fold over the pool's token
+        capacity (max_seq + the chunked-prefill slack)."""
+        return (self.max_seq + self.prefill_chunk) // self._block()
+
+    def resolved_arena_pages(self, max_batch: int) -> int:
+        """Arena size of a `max_batch`-row pool: `arena_pages`, or one full
+        table per row + TRASH (capacity-equivalent to the dense pool)."""
+        if self.arena_pages is not None:
+            return self.arena_pages
+        return max_batch * self.max_pages_per_row() + 1
 
     @torch.no_grad()
     def prefill(self, tokens: np.ndarray) -> Tuple[Dict, torch.Tensor]:
@@ -133,9 +191,27 @@ class ServingEngine:
     # -- slot-pool surface (consumed by serving/scheduler.py) -------------
 
     def init_pool_cache(self, max_batch: int) -> Dict:
-        """A fresh (max_batch)-row pool cache, every slot idle at t=0."""
+        """A fresh (max_batch)-row pool cache, every slot idle at t=0.
+
+        Chunked prefill allocates `prefill_chunk` tokens of slack beyond
+        max_seq: a padded final chunk writes its whole P-token window at
+        the row's offset, and without slack a window crossing max_seq would
+        be clamped down over earlier, still-valid slots. The slack only
+        ever holds padding junk (budget checks cap real content at
+        max_seq)."""
+        slack = self.prefill_chunk           # 0 in monolithic mode
+        if self.paged:
+            a = self.cfg.attention
+            return cache_lib.init_paged_cache(
+                device=self.device, num_layers=self.cfg.num_layers,
+                batch=max_batch, max_seq=self.max_seq + slack,
+                block_size=a.linformer.block_size,
+                block_slots=a.linformer.block_slots,
+                num_kv_heads=a.num_kv_heads, head_dim=a.head_dim,
+                arena_pages=self.resolved_arena_pages(max_batch),
+                page_dtype=self.page_dtype)
         return model_lib.init_cache(self.cfg, batch=max_batch,
-                                    max_seq=self.max_seq,
+                                    max_seq=self.max_seq + slack,
                                     dtype=self.cache_dtype,
                                     device=self.device)
 
@@ -149,6 +225,169 @@ class ServingEngine:
             else:
                 v[:, row] = slot_cache[key][:, 0]
         return pool
+
+    # -- chunked admission --------------------------------------------------
+
+    @staticmethod
+    def _gather_rows(pool: Dict, idx: torch.Tensor) -> Dict:
+        """Copies of pool rows `idx` as a B=len(idx) sub-cache. Cache leaves
+        are (L, B, ...) except `lengths` (B,); paged arena leaves pass
+        whole (the sub-cache's page tables keep indexing the shared arena,
+        which the forward updates in place)."""
+        return {k: (v if k in PAGED_ARENA_KEYS else
+                    v.index_select(0 if k == "lengths" else 1, idx))
+                for k, v in pool.items()}
+
+    @staticmethod
+    def _scatter_rows(pool: Dict, sub: Dict, idx: torch.Tensor) -> None:
+        """Write a sub-cache back into pool rows `idx` (the inverse of
+        `_gather_rows`), in place. Duplicate indices carry identical rows
+        (the padding of `_pad_rows`), so which copy lands is immaterial."""
+        for k, v in pool.items():
+            if k in PAGED_ARENA_KEYS:
+                continue
+            if k == "lengths":
+                v[idx] = sub[k]
+            else:
+                v[:, idx] = sub[k]
+
+    @staticmethod
+    def _pad_rows(rows: Sequence[int], *arrays: np.ndarray, pad_to: int):
+        """Pad a row batch to exactly `pad_to` by duplicating the last row
+        (and the matching rows of every per-row array): the duplicate
+        writes the same state twice. The scheduler pads to its pool size,
+        so every admission round runs the same shapes."""
+        g = len(rows)
+        if g == 0:
+            raise ValueError("empty prefill row batch")
+        if pad_to < g:
+            raise ValueError(f"pad_to={pad_to} smaller than batch {g}")
+        rows = list(rows) + [rows[-1]] * (pad_to - g)
+        padded = [np.concatenate([a] + [a[-1:]] * (pad_to - g), axis=0)
+                  for a in arrays]
+        return rows, padded
+
+    @torch.no_grad()
+    def pool_prefill_chunk(self, pool: Dict, rows: Sequence[int],
+                           tokens: np.ndarray, n_valid: np.ndarray,
+                           pad_to: int) -> Tuple[Dict, torch.Tensor]:
+        """Advance rows' prefill by one padded chunk forward, in place.
+        tokens: (g, prefill_chunk), padded at the end; n_valid: (g,) real
+        token counts. Returns (pool, last-valid logits (g, V) on the
+        device)."""
+        g = len(rows)
+        rows, (tokens, n_valid) = self._pad_rows(rows, tokens, n_valid,
+                                                 pad_to=pad_to)
+        idx = torch.as_tensor(rows, device=self.device)
+        sub = self._gather_rows(pool, idx)
+        logits, sub = model_lib.prefill_chunk(
+            self.params, self.cfg,
+            torch.as_tensor(np.asarray(tokens, np.int64), device=self.device),
+            sub, torch.as_tensor(np.asarray(n_valid), device=self.device),
+            plan=self.plan)
+        self._scatter_rows(pool, sub, idx)
+        return pool, logits[:g]
+
+    @torch.no_grad()
+    def pool_prefill_remainder(self, pool: Dict, rows: Sequence[int],
+                               tokens: np.ndarray, pad_to: int
+                               ) -> Tuple[Dict, torch.Tensor]:
+        """Feed rows' final sub-block remainder tokens ((g, rem), rem <
+        block size) through batched decode steps, in place: the monolithic
+        path's remainder loop, batched over a remainder-length group.
+        Returns (pool, final-token logits (g, V) on the device)."""
+        g = len(rows)
+        rows, (tokens,) = self._pad_rows(rows, tokens, pad_to=pad_to)
+        idx = torch.as_tensor(rows, device=self.device)
+        sub = self._gather_rows(pool, idx)
+        toks = torch.as_tensor(np.asarray(tokens, np.int64),
+                               device=self.device)
+        logits = None
+        for t in range(toks.shape[1]):
+            lg, sub = model_lib.decode_step(self.params, self.cfg,
+                                            toks[:, t:t + 1], sub,
+                                            plan=self.plan)
+            logits = lg[:, 0]
+        self._scatter_rows(pool, sub, idx)
+        return pool, logits[:g]
+
+    def reset_pool_row(self, pool: Dict, row: int) -> Dict:
+        """Mark pool row `row` empty at t=0 for chunked prefill, in place.
+        Only `lengths` needs resetting: a previous tenant's K/V is never
+        visible (every mask stops at the row's committed length). A paged
+        row also drops its table, so no fold can reach a page that has
+        changed hands."""
+        pool["lengths"][row] = 0
+        if self.paged:
+            pool["page_table"][:, row] = -1
+        return pool
+
+    # -- the paged pool (cache_format="paged") ----------------------------
+
+    def _page_table_row(self, page_ids: Sequence[int]) -> torch.Tensor:
+        """A row's block-ordered page ids as a (maxp,) table row, -1 past
+        the end."""
+        maxp = self.max_pages_per_row()
+        if len(page_ids) > maxp:
+            raise ValueError(f"{len(page_ids)} pages exceed the table "
+                             f"width {maxp}")
+        tab = np.full((maxp,), -1, np.int32)
+        tab[:len(page_ids)] = page_ids
+        return torch.as_tensor(tab, device=self.device)
+
+    @torch.no_grad()
+    def write_pool_slot_paged(self, pool: Dict, slot_cache: Dict, row: int,
+                              page_ids: Sequence[int]) -> Dict:
+        """Monolithic admission into a paged pool, in place: quantize the
+        request's dense B=1 slot cache (ring per (token, head), compressed
+        slots per (block, head)) into `row`'s ring and the freshly
+        allocated `page_ids` (one per committed prompt block, in block
+        order; blocks past them go to TRASH)."""
+        pdt = pool["page_k"].dtype
+        trash = pool["page_k"].shape[1] - 1
+        for src, dq, ds in (("raw_k", "raw_k_q", "raw_k_s"),
+                            ("raw_v", "raw_v_q", "raw_v_s")):
+            q, s = cache_lib.quantize_blockwise(
+                slot_cache[src], (4,), dtype=pdt, qmax=self._page_qmax)
+            pool[dq][:, row] = q[:, 0]
+            pool[ds][:, row] = s[:, 0]
+        L, Np, r, Hkv, Dh = pool["page_k"].shape
+        maxp = pool["page_table"].shape[2]
+        tab = self._page_table_row(page_ids)
+        dst = torch.where(tab >= 0, tab, torch.full_like(tab, trash)).long()
+        for src, dq, ds in (("comp_k", "page_k", "page_k_s"),
+                            ("comp_v", "page_v", "page_v_s")):
+            blocks = slot_cache[src][:, 0].reshape(L, maxp, r, Hkv, Dh)
+            q, s = cache_lib.quantize_blockwise(
+                blocks, (2, 4), dtype=pdt, qmax=self._page_qmax)
+            pool[dq][:, dst] = q
+            pool[ds][:, dst] = s
+        pool["page_table"][:, row] = tab
+        pool["lengths"][row] = slot_cache["lengths"][0]
+        return pool
+
+    def scrub_arena_pages(self, pool: Dict, page_ids: Sequence[int]) -> Dict:
+        """Zero arena pages, payload and scales, in place: the page
+        allocator's scrub-before-reuse callback (a freed page never carries
+        one request's K/V into the next tenant)."""
+        if len(page_ids) == 0:
+            return pool
+        ids = torch.as_tensor(list(page_ids), device=self.device)
+        for k in PAGED_ARENA_KEYS:
+            pool[k][:, ids] = 0
+        return pool
+
+    def write_table_row(self, pool: Dict, row: int,
+                        page_ids: Sequence[int]) -> Dict:
+        """Publish `row`'s block-ordered page list to the device table, in
+        place (-1 past the end, so unallocated folds go to TRASH)."""
+        pool["page_table"][:, row] = self._page_table_row(page_ids)
+        return pool
+
+    def clear_table_row(self, pool: Dict, row: int) -> Dict:
+        """Retirement: point every later fold of the idle row at TRASH
+        before its pages return to the free list."""
+        return self.write_table_row(pool, row, ())
 
     def prefill_request(self, tokens: Sequence[int]) -> Tuple[Dict, int]:
         """Prefill ONE request (B=1). Returns (slot cache positioned at the
@@ -212,7 +451,8 @@ class ServingEngine:
         decode chunks. `max_new_tokens` is one int or one per request;
         `arrival_chunks` optionally replays an arrival trace (request i is
         admissible after that many chunks of virtual time). Returns outputs
-        ordered like `prompts` (or (outputs, scheduler) with
+        ordered like `prompts`, a `ShedResult` in place of the tokens of a
+        request the paged pool can never hold (or (outputs, scheduler) with
         return_scheduler=True, for stats)."""
         from repro_torch.serving.scheduler import Request, Scheduler
         budgets = _per_request_max_new(max_new_tokens, len(prompts))
@@ -254,10 +494,18 @@ class ServingEngine:
         return results  # type: ignore
 
     def cache_bytes(self, batch: int) -> int:
-        """Decode-cache footprint of a `batch`-row pool, in bytes."""
-        from repro_torch.models.attention import decode_cache_spec
-        spec = decode_cache_spec(self.cfg.attention,
-                                 num_layers=self.cfg.num_layers, batch=batch,
-                                 max_seq=self.max_seq,
-                                 dtype=self.cache_dtype)
+        """Decode-cache footprint of a `batch`-row pool, in bytes. In paged
+        mode: the quantized ring, its scales, the page arena
+        (`arena_pages`, or the capacity-equivalent default) and the
+        table."""
+        from repro_torch.models import attention as attn_lib
+        if self.paged:
+            spec = attn_lib.paged_decode_cache_spec(
+                self.cfg.attention, num_layers=self.cfg.num_layers,
+                batch=batch, max_seq=self.max_seq,
+                arena_pages=self.arena_pages, page_dtype=self.page_dtype)
+        else:
+            spec = attn_lib.decode_cache_spec(
+                self.cfg.attention, num_layers=self.cfg.num_layers,
+                batch=batch, max_seq=self.max_seq, dtype=self.cache_dtype)
         return transformer.cache_nbytes(spec)

@@ -14,13 +14,18 @@ TPU kernel did, where the kernel keeps it in fp32; each output is rounded
 once to bf16). The residuals and the backward's fp32 outputs (kernel and
 plain version both compute in fp32 from the same inputs, summing up to G·S
 terms in another order): 1e-4 of the tensor's largest entry; dq in bf16
-adds 2^-7·|plain|, one bf16 rounding step apart."""
+adds 2^-7·|plain|, one bf16 rounding step apart. The quantized-cache
+kernels (decode_attn_q, blockwise_causal_prefix_attn_q) and their plain
+versions read identical int8/fp8 codes and scales and compute in fp32: the
+same bounds, the bf16 one applying to a bf16 q's output."""
 import dataclasses
 
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.cache import (dequantize_blockwise,
+                                    quantize_blockwise, resolve_page_dtype)
 from repro_torch.core.causal import NEG_INF, compress_blocks
 from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
@@ -242,4 +247,135 @@ def test_smoke_serving_through_kernels_matches_reference(cuda):
                     la.decode_attn.launches > n_dec)
         assert launched == ((True, True) if backend == "auto"
                             else (False, False))
+    assert outs["auto"] == outs["reference"]
+
+
+# prefix form: (B, H, Hkv, P, c, r, Dh), per-row start blocks, slot buffer M;
+# smoke's last row is clamped at M (its cut (9 + 2)·4 = 44 > 40)
+PREFIX_SHAPES = {"smoke": ((3, 4, 2, 32, 16, 4, 16), [0, 5, 9], 40),
+                 "full": ((4, 32, 8, 512, 256, 16, 128), [0, 3, 7, 14], 288)}
+
+
+def _prefix_inputs(shape, start, M, dtype, dev, seed=6):
+    B, H, Hkv, P, c, r, Dh = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, P, Dh, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Hkv, P, Dh, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    ck, cv = (torch.randn(B, Hkv, M, Dh, generator=g, device=dev) * 2
+              for _ in range(2))
+    return q, k, v, ck, cv, torch.tensor(start, dtype=torch.int32,
+                                         device=dev)
+
+
+def _quantized(x, page_dtype):
+    """Kernel-layout (B, Hkv, N, Dh) fp32 -> codes and (B, Hkv, N) scales."""
+    pdt, qmax = resolve_page_dtype(page_dtype)
+    return quantize_blockwise(x, (3,), dtype=pdt, qmax=qmax)
+
+
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(PREFIX_SHAPES))
+def test_prefix_kernel_matches_plain(cuda, shape, dtype, residuals):
+    dims, start, M = PREFIX_SHAPES[shape]
+    c, r, Dh = dims[4:]
+    q, k, v, ck, cv, sb = _prefix_inputs(dims, start, M, dtype, cuda)
+    ck, cv = ck.to(dtype), cv.to(dtype)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5,
+              return_residuals=residuals)
+    fn = bca.blockwise_causal_prefix_attn
+    n0 = fn.residual_launches if residuals else fn.launches
+    got = fn(q, k, v, ck, cv, sb, **kw)
+    torch.cuda.synchronize()
+    assert (fn.residual_launches if residuals else fn.launches) == n0 + 1
+    want = bca.blockwise_causal_attn_plain(q, k, v, ck, cv, start_blocks=sb,
+                                           **kw)
+    if not residuals:
+        got, want = (got,), (want,)
+    assert got[0].dtype == dtype
+    _assert_close(got[0], want[0], (v, cv))
+    for g_, w in zip(got[1:], want[1:]):
+        _assert_grad_close(g_, w)
+
+
+@pytest.mark.parametrize("page_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(PREFIX_SHAPES))
+def test_prefix_q_kernel_matches_plain(cuda, shape, dtype, page_dtype):
+    dims, start, M = PREFIX_SHAPES[shape]
+    c, r, Dh = dims[4:]
+    q, k, v, ck, cv, sb = _prefix_inputs(dims, start, M, dtype, cuda)
+    (ck, cks), (cv, cvs) = _quantized(ck, page_dtype), \
+        _quantized(cv, page_dtype)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    fn = bca.blockwise_causal_prefix_attn_q
+    n0 = fn.launches
+    out = fn(q, k, v, ck, cv, cks, cvs, sb, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ref = bca.blockwise_causal_prefix_attn_q_plain(q, k, v, ck, cv, cks, cvs,
+                                                   sb, **kw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_close(out, ref, (v, dequantize_blockwise(cv, cvs)))
+
+
+# quantized decode: (B, Hkv, G, c, M, r, Dh) and the rows' positions
+DECODE_Q_SHAPES = {"smoke": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95]),
+                   "full": ((4, 8, 4, 256, 288, 16, 128),
+                            [300, 1000, 2300, 4000])}
+
+
+@pytest.mark.parametrize("page_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(DECODE_Q_SHAPES))
+def test_decode_q_kernel_matches_plain(cuda, shape, dtype, page_dtype):
+    (B, Hkv, G, c, M, r, Dh), t = DECODE_Q_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(B, Hkv, G, Dh, generator=g, device=cuda).to(dtype)
+    ops = [_quantized(torch.randn(B, Hkv, n, Dh, generator=g, device=cuda),
+                      page_dtype) for n in (c, c, M, M)]
+    t = torch.tensor(t, device=cuda)
+    bl = torch.where(torch.arange(c, device=cuda)[None] <= (t % c)[:, None],
+                     0.0, NEG_INF).float()
+    bg = torch.where(torch.arange(M, device=cuda)[None]
+                     < (t // c * r)[:, None], 0.0, NEG_INF).float()
+    args = (q, *(x for x, _ in ops), *(s_ for _, s_ in ops), bl, bg)
+    n0 = la.decode_attn_q.launches
+    out = la.decode_attn_q(*args, scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert la.decode_attn_q.launches == n0 + 1
+    ref = la.decode_attn_q_plain(*args, scale=Dh ** -0.5)
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_close(out, ref, [dequantize_blockwise(*ops[i]) for i in (1, 3)])
+
+
+@pytest.mark.parametrize("mode", ["chunked", "paged-int8", "paged-fp8"])
+def test_smoke_serving_modes_through_kernels_match_reference(cuda, mode):
+    """SMOKE serve through the kernels against the reference route, chunked
+    admission into the dense pool and the paged pool under chunked
+    admission: identical greedy tokens, the mode's kernels launched."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device=cuda)
+    prompts = [[5 + i] * n for i, n in enumerate([8, 19, 35, 48, 70])]
+    kw = dict(prefill_chunk=32)
+    counters = [(bca.blockwise_causal_prefix_attn, "launches"),
+                (la.decode_attn, "launches")]
+    if mode != "chunked":
+        kw.update(cache_format="paged", page_dtype=mode.split("-")[1])
+        counters = [(bca.blockwise_causal_prefix_attn_q, "launches"),
+                    (la.decode_attn_q, "launches")]
+    outs = {}
+    for backend in ("auto", "reference"):
+        eng = ServingEngine(params, cfg, max_seq=96, device=cuda,
+                            cache_dtype=torch.float32, decode_chunk=4,
+                            attention_backend=backend, **kw)
+        n0 = [getattr(f, a) for f, a in counters]
+        outs[backend], sched = eng.serve(prompts, 20, max_batch=3,
+                                         return_scheduler=True)
+        launched = [getattr(f, a) > n for (f, a), n in zip(counters, n0)]
+        assert launched == [backend == "auto"] * 2
+        if mode != "chunked":
+            sched.pool.alloc.check()
+            assert sched.pool.alloc.free_pages == sched.pool.alloc.usable_pages
     assert outs["auto"] == outs["reference"]
