@@ -49,7 +49,24 @@ error; none catches its own failure:
 10. [train-parity] at full width with 2 layers in fp32 (B=1, S=1024), one
    train step with the kernels and one with the plain reference from the
    same parameters and batch: loss, every gradient leaf and the parameters
-   after AdamW within the stated tolerances.
+   after AdamW within the stated tolerances;
+11. [train-mlm] 8 Trainer steps of the paper's encoder, linformer-paper
+   CONFIG at full width and full depth (12 layers, d=768, H=12, K=128,
+   ~162 M parameters, bf16, remat "full", seq 512, global batch 32,
+   synthetic corpus seed 0, MLM), launch counters reset just before and
+   read just after: each step's loss, grad norm, ms and tokens/s, peak
+   memory; then one forward alone under torch.no_grad (the inference the
+   paper's Table 3 times) and one train step under torch.profiler;
+12. [train-mlm-parity] the encoder at full width with 2 layers in fp32
+   (B=2, S=512, an MLM batch): one train step through the kernels against
+   one through the plain reference, held as in [train-parity].
+
+[check] and [time] cover the encoder's two kernels too: the exact
+Linformer attention (kernel 5) and the sequence projection (kernel 6), at
+edge shapes (K = 1, K = 512, a ragged S, GQA G = 2, Dh 16/64/128, E[:S] of
+a longer E) and at the paper's full width (B=32, H=12, S=512, K=128,
+Dh=64), timed beside one unmasked SDPA call and one torch.matmul of Eᵀ
+with x.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -330,6 +347,24 @@ DEC_Q_SHAPES = {"small": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95]),
 # [train]: depth cut, seq, global batch, steps; [train-parity]: seq
 TRAIN_RUN = dict(layers=8, seq=4096, batch=2, steps=4)
 TRAIN_PARITY_SEQ = 1024
+# the exact form. Kernel 5: (B, H, Hkv, S, K, Dh); K = 1, K = 512 at
+# Dh = 128 (the most shared memory), a ragged S with GQA G = 2, the
+# paper's full width. Kernel 6: (B, H, S, K, Dh, rows of the stored E),
+# E[:S] passed; K = 1, a sliced E with K past one slot tile, K = 512, the
+# full width and its E[:S] at S < max_seq.
+EXACT_SHAPES = {"k1": (1, 2, 2, 40, 1, 16),
+                "k512_dh128": (1, 4, 4, 100, 512, 128),
+                "ragged_gqa2": (2, 4, 2, 77, 40, 64),
+                "full": (32, 12, 12, 512, 128, 64)}
+SP_SHAPES = {"k1": (2, 4, 40, 1, 16, 40),
+             "sliced_k70": (2, 2, 77, 70, 128, 100),
+             "k512": (1, 2, 64, 512, 64, 64),
+             "full": (32, 12, 512, 128, 64, 512),
+             "full_sliced": (32, 12, 384, 128, 64, 512)}
+# [train-mlm]: linformer-paper at full width and depth; [train-mlm-parity]:
+# its 2-layer fp32 cut
+MLM_RUN = dict(seq=512, batch=32, steps=8)
+MLM_PARITY = dict(layers=2, seq=512, batch=2)
 
 
 def check_phase(dev):
@@ -373,6 +408,57 @@ def check_phase(dev):
                     f"decode_attn_q {pd} {size}", out,
                     la.decode_attn_q_plain(*args, scale=Dh ** -0.5), dtype,
                     [dequantize_blockwise(args[i], args[i + 4]) for i in (2, 4)])
+        errs.update(check_exact_kernels(dtype, dev))
+    return errs
+
+
+def exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed):
+    """Kernel 5's operands as the model passes them: kernel-layout views of
+    q (B, S, H, Dh) and k̄, v̄ (B, K, Hkv, Dh)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    kb, vb = (torch.randn(B, K, Hkv, Dh, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    return q.movedim(2, 1), kb.movedim(2, 1), vb.movedim(2, 1)
+
+
+def sp_inputs(B, H, S, K, Dh, rows, dtype, dev, seed):
+    """Kernel 6's operands: a kernel-layout view of x (B, S, H, Dh) and the
+    leading-row view E[:S] of a (rows, K) E."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    E = (torch.randn(rows, K, generator=g, device=dev) * K ** -0.5).to(dtype)
+    return x.movedim(2, 1), E[:S]
+
+
+def check_exact_kernels(dtype, dev):
+    """Kernel 5 (the attention bounds of `check`) and kernel 6 (fp32 sums of
+    the same inputs, one rounding to the output dtype: the bounds of
+    `check_grad`) against their plain twins; kernel 6 run twice must agree
+    bit for bit (no atomics)."""
+    import torch
+    from repro_torch.kernels import linformer_attn as la
+    from repro_torch.kernels import seq_projection as sp
+    errs = {}
+    for size, (B, H, Hkv, S, K, Dh) in EXACT_SHAPES.items():
+        args = exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed=70)
+        out = la.linformer_attn(*args, scale=Dh ** -0.5)
+        torch.cuda.synchronize()
+        errs["exact", size, dtype] = check(
+            f"linformer_attn {size}", out,
+            la.linformer_attn_plain(*args, scale=Dh ** -0.5), dtype,
+            (args[2],))
+    for size, shape in SP_SHAPES.items():
+        x, E = sp_inputs(*shape, dtype, dev, seed=71)
+        out = sp.seq_projection(x, E)
+        torch.cuda.synchronize()
+        errs["sp", size, dtype] = check_grad(
+            f"seq_projection {size} {str(dtype)[6:]}", out,
+            sp.seq_projection_plain(x, E))
+        if not torch.equal(sp.seq_projection(x, E), out):
+            raise AssertionError("seq_projection is not deterministic")
     return errs
 
 
@@ -553,6 +639,7 @@ def time_phase(dev, errs):
     records += time_training_kernels(dev, errs)
     records += time_prefix_kernels(dev, errs)
     records += time_decode_q(dev, errs)
+    records += time_exact_kernels(dev, errs)
     for rec in records:
         t_bytes = rec.pop("bytes") / H100_BYTES_PER_S
         t_flops = rec.pop("flops") / H100_FLOPS[str(bf16)]
@@ -807,6 +894,69 @@ def time_training_kernels(dev, errs):
     ]
 
 
+def time_exact_kernels(dev, errs):
+    """Kernels 5 and 6 at the paper's full width (B=32, H=12, S=512, K=128,
+    Dh=64), bf16, beside their plain versions, one unmasked SDPA call over
+    (q, k̄, v̄) and one torch.matmul of Eᵀ with x."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import linformer_attn as la
+    from repro_torch.kernels import seq_projection as sp
+    bf16 = torch.bfloat16
+    B, H, Hkv, S, K, Dh = EXACT_SHAPES["full"]
+    sc = Dh ** -0.5
+    n_sets = 4                                    # 4 x ~31 MB > 50 MB L2
+    sets = [exact_inputs(B, H, Hkv, S, K, Dh, bf16, dev, seed=80 + i)
+            for i in range(n_sets)]
+    t = {"exact": time_ms(lambda i: la.linformer_attn(*sets[i], scale=sc),
+                          n_sets),
+         "exact_plain": time_ms(lambda i: la.linformer_attn_plain(
+             *sets[i], scale=sc), n_sets, iters=10)}
+    lib = [tuple(x.contiguous() for x in xs) for xs in sets]
+    t["exact_lib"] = time_ms(lambda i: Fn.scaled_dot_product_attention(
+        *lib[i], scale=sc), n_sets)
+    lib_err = (Fn.scaled_dot_product_attention(*lib[0], scale=sc).float()
+               - la.linformer_attn(*sets[0], scale=sc).float()).abs().max()
+    log(f"  linformer_attn B={B} H={H} Hkv={Hkv} S={S} K={K} Dh={Dh}: "
+        f"kernel {t['exact']:.4f} ms, plain {t['exact_plain']:.4f} ms, sdpa "
+        f"{t['exact_lib']:.4f} ms (sdpa vs kernel {lib_err.item():.2e})")
+    del sets, lib
+    Bp, Hp, Sp, Kp, Dp, rows = SP_SHAPES["full"]
+    n_sets = 6                                    # 6 x ~16 MB > 50 MB L2
+    psets = [sp_inputs(Bp, Hp, Sp, Kp, Dp, rows, bf16, dev, seed=90 + i)
+             for i in range(n_sets)]
+    t["sp"] = time_ms(lambda i: sp.seq_projection(*psets[i]), n_sets)
+    t["sp_plain"] = time_ms(lambda i: sp.seq_projection_plain(*psets[i]),
+                            n_sets, iters=10)
+    plib = [(E.T, x.contiguous()) for x, E in psets]
+    t["sp_lib"] = time_ms(lambda i: torch.matmul(*plib[i]), n_sets)
+    lib_err = (torch.matmul(*plib[0]).float()
+               - sp.seq_projection(*psets[0]).float()).abs().max()
+    log(f"  seq_projection B={Bp} H={Hp} S={Sp} K={Kp} Dh={Dp}: kernel "
+        f"{t['sp']:.4f} ms, plain {t['sp_plain']:.4f} ms, matmul "
+        f"{t['sp_lib']:.4f} ms (matmul vs kernel {lib_err.item():.2e})")
+    del psets, plib
+    return [
+        dict(name="linformer_attn", route="cuda",
+             source="src/repro_torch/csrc/linformer_attn.cu",
+             replaces="src/repro/kernels/linformer_attn.py:58",
+             ms=t["exact"], plain_ms=t["exact_plain"],
+             library_ms=t["exact_lib"],
+             # reads q, k̄, v̄; writes the output
+             bytes=2 * (2 * B * H * S * Dh + 2 * B * Hkv * K * Dh),
+             flops=4 * Dh * S * K * B * H,
+             max_abs_err=errs["exact", "full", bf16]),
+        dict(name="seq_projection", route="cuda",
+             source="src/repro_torch/csrc/seq_projection.cu",
+             replaces="src/repro/kernels/seq_projection.py:39",
+             ms=t["sp"], plain_ms=t["sp_plain"], library_ms=t["sp_lib"],
+             # reads x and E[:S]; writes K̄
+             bytes=2 * (Bp * Hp * Sp * Dp + Sp * Kp + Bp * Hp * Kp * Dp),
+             flops=2 * Sp * Kp * Dp * Bp * Hp,
+             max_abs_err=errs["sp", "full", bf16]),
+    ]
+
+
 LAUNCH_COUNTERS = (  # (record name, wrapper module, wrapper, counter)
     ("blockwise_causal_attn", "bca", "blockwise_causal_attn", "launches"),
     ("blockwise_causal_attn(return_residuals)", "bca",
@@ -821,13 +971,16 @@ LAUNCH_COUNTERS = (  # (record name, wrapper module, wrapper, counter)
     ("blockwise_causal_prefix_attn_q", "bca",
      "blockwise_causal_prefix_attn_q", "launches"),
     ("decode_attn_q", "la", "decode_attn_q", "launches"),
+    ("linformer_attn", "la", "linformer_attn", "launches"),
+    ("seq_projection", "sp", "seq_projection", "launches"),
 )
 
 
 def _counters():
     from repro_torch.kernels import blockwise_causal_attn as bca
     from repro_torch.kernels import linformer_attn as la
-    mods = {"bca": bca, "la": la}
+    from repro_torch.kernels import seq_projection as sp
+    mods = {"bca": bca, "la": la, "sp": sp}
     return [(name, getattr(mods[m], fn), attr)
             for name, m, fn, attr in LAUNCH_COUNTERS]
 
@@ -1206,22 +1359,21 @@ def train_phase(dev, cfg):
     return launches
 
 
-def train_parity_phase(dev, cfg):
+def train_parity_phase(dev, cfg2, batch, tag):
+    """One train step of the fp32 config `cfg2` on `batch` (numpy) through
+    the kernels (backend "auto") and through the plain reference, from the
+    same parameters: loss, every gradient leaf and the AdamW update within
+    the TRAIN_* tolerances."""
     import numpy as np
     import torch
     from repro_torch.configs.base import OptimizerConfig
-    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
-                                           make_causal_batch)
     from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import flatten
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step
-    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=10)
-    batch = make_causal_batch(SyntheticCorpus(cfg2.vocab_size, seed=0),
-                              DataState(0, 0), batch=1,
-                              seq=TRAIN_PARITY_SEQ)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    B, S = batch["tokens"].shape
     res = {}
     for backend in ("auto", "reference"):
         c = cfg2.with_attention_backend(backend)
@@ -1241,8 +1393,8 @@ def train_parity_phase(dev, cfg):
         res[backend] = (loss.item(), dict(zip(leaves, grads)),
                         {k: p.detach() - p0[k]
                          for k, p in flatten(params).items()})
-        log(f"  [train-parity] {backend}: loss {loss.item():.6f}, launches "
-            f"{launches}")
+        log(f"  [{tag}] {backend}: loss {loss.item():.6f}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
         del params, state, p0, leaves
         torch.cuda.empty_cache()
     loss_a, ga, ua = res["auto"]
@@ -1253,7 +1405,7 @@ def train_parity_phase(dev, cfg):
     worst = max(grad_err, key=grad_err.get)
     upd_rel = math.sqrt(sum(((ua[k] - ur[k]) ** 2).sum().item() for k in ur)
                         / sum((ur[k] ** 2).sum().item() for k in ur))
-    log(f"[train-parity] 2-layer fp32, B=1, S={TRAIN_PARITY_SEQ}: loss rel "
+    log(f"[{tag}] {cfg2.num_layers}-layer fp32, B={B}, S={S}: loss rel "
         f"err {loss_err:.2e} (tol {TRAIN_LOSS_RTOL:g}); worst gradient leaf "
         f"{worst} rel norm err {grad_err[worst]:.2e} (tol "
         f"{TRAIN_GRAD_RTOL:g}); after one AdamW step, update rel norm err "
@@ -1266,6 +1418,106 @@ def train_parity_phase(dev, cfg):
         raise AssertionError("parameters after AdamW differ")
 
 
+def train_mlm_phase(dev):
+    """8 Trainer steps of linformer-paper CONFIG at full width and depth
+    (MLM, bf16, remat "full"), counted; then one forward alone under
+    torch.no_grad and one train step under torch.profiler."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataState, batches
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer
+    cfg = get_config("linformer-paper")
+    steps = MLM_RUN["steps"]
+    tcfg = TrainConfig(seq_len=MLM_RUN["seq"], global_batch=MLM_RUN["batch"],
+                       steps=steps, log_every=1, checkpoint_every=0, seed=0,
+                       optimizer=OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                                 total_steps=steps))
+    a = cfg.attention
+    log(f"[train-mlm] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"H={a.num_heads}, Dh={a.head_dim}, K={a.linformer.k} "
+        f"({a.linformer.sharing} E), vocab {cfg.padded_vocab_size}, "
+        f"{cfg.dtype}, remat {cfg.remat}, seq {tcfg.seq_len}, global batch "
+        f"{tcfg.global_batch}, {cfg.objective}, {steps} steps")
+    trainer = Trainer(cfg, tcfg, device=dev, log_fn=log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    params = trainer._params
+    n_params = sum(p.numel() for p in flatten(params).values())
+    tokens = tcfg.global_batch * tcfg.seq_len
+    for h in trainer.history:
+        log(f"  step {h['step']}: loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, {h['ms']:.1f} ms, "
+            f"{1e3 * tokens / h['ms']:.1f} tokens/s "
+            f"({h['tokens_per_s']:.1f} masked tokens/s)")
+    log(f"  {n_params / 1e6:.2f} M params; run {wall:.1f} s (parameter init "
+        f"included); peak memory {peak / 1e9:.2f} GB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if len(trainer.history) != steps or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in trainer.history):
+        raise AssertionError(f"non-finite or missing losses: "
+                             f"{trainer.history}")
+    # remat "full": each block's forward runs again in the backward, so at
+    # least one launch per layer per step of kernel 5 and two (k and v) of
+    # kernel 6
+    for name, per_layer in (("linformer_attn", 1), ("seq_projection", 2)):
+        need = per_layer * cfg.num_layers * steps
+        if launches[name] < need:
+            raise AssertionError(f"{name}: {launches[name]} launches on the "
+                                 f"train-mlm path, expected at least {need}")
+    for name in ("blockwise_causal_attn", "decode_attn"):
+        if launches[name]:
+            raise AssertionError(f"{name} launched on the encoder path")
+
+    stream = batches(trainer.corpus, DataState(tcfg.seed, steps),
+                     batch=tcfg.global_batch, seq=tcfg.seq_len,
+                     objective=cfg.objective)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(stream)[0].items()}
+
+    def infer():
+        with torch.no_grad():
+            return tmodel.forward(params, cfg, batch)[0]
+
+    logits = infer()
+    if logits.shape != (*batch["tokens"].shape, cfg.padded_vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"forward logits {tuple(logits.shape)} not "
+                             "finite or misshapen")
+    del logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        infer()
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 * (time.perf_counter() - t0) / 3
+    log(f"  forward alone (torch.no_grad, B={tcfg.global_batch}, "
+        f"S={tcfg.seq_len}): {fwd_ms:.2f} ms, {1e3 * tokens / fwd_ms:.1f} "
+        "tokens/s (mean of 3)")
+    log_profile("forward", fwd_ms * 1e-3, profile_kernels(infer), top=8)
+    state = adamw_init(params, tcfg.optimizer)
+    step = trainer.train_step
+    t0 = time.perf_counter()
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log_profile("train-mlm step", wall,
+                profile_kernels(lambda: step(params, state, batch)), top=16)
+    del trainer, params, state
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1275,6 +1527,8 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch, make_mlm_batch)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1302,20 +1556,38 @@ def main():
     train_launches = train_phase(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    train_parity_phase(dev, cfg)
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    train_parity_phase(dev, cfg2, make_causal_batch(
+        SyntheticCorpus(cfg2.vocab_size, seed=0), DataState(0, 0), batch=1,
+        seq=TRAIN_PARITY_SEQ), "train-parity")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mlm_launches = train_mlm_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc2 = dataclasses.replace(get_config("linformer-paper"),
+                               num_layers=MLM_PARITY["layers"],
+                               dtype="float32")
+    train_parity_phase(dev, enc2, make_mlm_batch(
+        SyntheticCorpus(enc2.vocab_size, seed=0), DataState(0, 0),
+        batch=MLM_PARITY["batch"], seq=MLM_PARITY["seq"]),
+        "train-mlm-parity")
 
     # launches: each kernel's count on its own main path, every path beside;
     # the prefix form's residual variant serves sequence-parallel training,
     # which is not ported, so no path launches it
     paths = {"serve": serve_launches, "serve-chunked": chunked_launches,
-             "serve-paged": paged_launches, "train": train_launches}
+             "serve-paged": paged_launches, "train": train_launches,
+             "train-mlm": mlm_launches}
     main_path = {"blockwise_causal_attn": "serve",
                  "decode_attn": "serve",
                  "blockwise_causal_attn(return_residuals)": "train",
                  "blockwise_causal_attn_bwd": "train",
                  "blockwise_causal_prefix_attn": "serve-chunked",
                  "blockwise_causal_prefix_attn_q": "serve-paged",
-                 "decode_attn_q": "serve-paged"}
+                 "decode_attn_q": "serve-paged",
+                 "linformer_attn": "train-mlm",
+                 "seq_projection": "train-mlm"}
     for rec in records:
         rec["launches_by_path"] = {p: n[rec["name"]] for p, n in paths.items()}
         path = main_path.get(rec["name"])

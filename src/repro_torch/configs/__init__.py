@@ -2,7 +2,8 @@
 
 The config dataclasses in ``base.py`` are copies of the JAX package's, field
 for field, so ``dataclasses.asdict`` of a JAX config rebuilds the same config
-here. This slice of the port covers the dense ``qwen3-8b`` family only.
+here. The port covers the dense ``qwen3-8b`` decoder and the paper's
+``linformer-paper`` encoder.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
 # arch id (public, dashed) -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
+    "linformer-paper": "linformer_paper",
 }
 
 

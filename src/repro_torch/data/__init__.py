@@ -1,3 +1,3 @@
 from repro_torch.data.pipeline import (  # noqa: F401
-    BOS, EOS, MASK, PAD, DataState, SyntheticCorpus, batches,
-    make_causal_batch)
+    BOS, EOS, MASK, PAD, ByteTokenizer, DataState, SyntheticCorpus, batches,
+    make_causal_batch, make_mlm_batch)

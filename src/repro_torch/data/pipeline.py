@@ -1,9 +1,10 @@
 """Deterministic, checkpointable data pipeline (numpy only).
 
-Copy of the causal-LM half of ``repro/data/pipeline.py``: the same reserved
-ids, the same structured synthetic corpus (Zipfian unigrams, copy/recall
-spans, arithmetic progressions) drawn from the same numpy generators, so a
-seed gives the JAX package's batches byte for byte. Every batch is a pure
+Copy of ``repro/data/pipeline.py``: the same reserved ids, byte tokenizer
+and structured synthetic corpus (Zipfian unigrams, copy/recall spans,
+arithmetic progressions), the causal-LM and the MLM batches, drawn from the
+same numpy generators, so a seed gives the JAX package's batches byte for
+byte. Every batch is a pure
 function of (seed, step, shard); `DataState` {seed, step} is what a
 checkpoint stores.
 """
@@ -29,6 +30,21 @@ class DataState:
     @staticmethod
     def from_dict(d) -> "DataState":
         return DataState(int(d["seed"]), int(d["step"]))
+
+
+class ByteTokenizer:
+    """Reversible byte-level tokenizer (offsets past the reserved ids)."""
+
+    vocab_size = 256 + VOCAB_RESERVED
+
+    def encode(self, text: str) -> np.ndarray:
+        return np.frombuffer(text.encode("utf-8"), np.uint8).astype(np.int32) \
+            + VOCAB_RESERVED
+
+    def decode(self, ids: np.ndarray) -> str:
+        ids = np.asarray(ids)
+        ids = ids[ids >= VOCAB_RESERVED] - VOCAB_RESERVED
+        return bytes(ids.astype(np.uint8)).decode("utf-8", errors="replace")
 
 
 class SyntheticCorpus:
@@ -87,17 +103,45 @@ def make_causal_batch(corpus: SyntheticCorpus, state: DataState, *,
     }
 
 
+def make_mlm_batch(corpus: SyntheticCorpus, state: DataState, *,
+                   batch: int, seq: int, mask_prob: float = 0.15,
+                   shard: int = 0) -> Dict[str, np.ndarray]:
+    """BERT-style masking: 80% [MASK] / 10% random / 10% keep. The masking
+    draws come from their own stream (shard + 1_000_003); BOS is never
+    masked; the loss mask marks the masked positions only."""
+    rng = corpus._rng(state.step, shard + 1_000_003)
+    toks = corpus.batch(state.step, shard, batch, seq)
+    labels = toks.copy()
+    is_masked = rng.random(toks.shape) < mask_prob
+    is_masked[:, 0] = False                       # keep BOS
+    roll = rng.random(toks.shape)
+    inp = toks.copy()
+    inp[is_masked & (roll < 0.8)] = MASK
+    rnd = rng.integers(VOCAB_RESERVED, corpus.vocab_size, toks.shape)
+    sel = is_masked & (roll >= 0.8) & (roll < 0.9)
+    inp[sel] = rnd[sel]
+    return {
+        "tokens": inp,
+        "labels": labels,
+        "loss_mask": is_masked.astype(np.int32),
+    }
+
+
 def batches(corpus: SyntheticCorpus, state: DataState, *, batch: int,
-            seq: int, objective: str = "causal_lm", shard: int = 0
+            seq: int, objective: str = "causal_lm", mask_prob: float = 0.15,
+            shard: int = 0
             ) -> Iterator[Tuple[Dict[str, np.ndarray], DataState]]:
     """Infinite deterministic batch stream; yields (batch, next_state).
-    Only the causal-LM objective is ported (MLM comes with the encoder)."""
-    if objective != "causal_lm":
-        raise ValueError(f"objective {objective!r} is not ported; the "
-                         "PyTorch port trains causal_lm only")
+    ``objective="mlm"`` gives masked-LM batches, anything else causal-LM
+    ones (as in the JAX package)."""
     step = state.step
     while True:
-        b = make_causal_batch(corpus, DataState(state.seed, step),
-                              batch=batch, seq=seq, shard=shard)
+        st = DataState(state.seed, step)
+        if objective == "mlm":
+            b = make_mlm_batch(corpus, st, batch=batch, seq=seq,
+                               mask_prob=mask_prob, shard=shard)
+        else:
+            b = make_causal_batch(corpus, st, batch=batch, seq=seq,
+                                  shard=shard)
         step += 1
         yield b, DataState(state.seed, step)

@@ -52,6 +52,12 @@ SIGNATURES: Dict[str, Tuple[object, List[object]]] = {
     # dtype, cache_dtype, stream
     "decode_forward": (_I, [_P] * 12 + [_LL_PTR] + [_I] * 6
                        + [ctypes.c_float, _I, _I, _P]),
+    # q, kbar, vbar, out, strides[9], B, H, Hkv, S, K, Dh, scale, dtype,
+    # stream
+    "linformer_attn_forward": (_I, [_P] * 4 + [_LL_PTR] + [_I] * 6
+                               + [ctypes.c_float, _I, _P]),
+    # x, E, out, strides[7], B, H, S, K, Dh, dtype, stream
+    "seq_projection_forward": (_I, [_P] * 3 + [_LL_PTR] + [_I] * 6 + [_P]),
     "repro_torch_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -7,7 +7,10 @@ kernels in ``csrc/`` accept: the head dims they are instantiated for, whole
 blocks (``S % c == 0``), ``M == nb·r`` compressed slots (any M for the
 prefix form), the storage dtypes and scale layouts of the quantized cache,
 and the shared memory a thread block may use on the H100. The tile
-constants below must match the ``.cu`` sources.
+constants below must match the ``.cu`` sources. The exact form keeps the
+JAX package's own fail-fast checks as well (``MAX_EXACT_K`` and the
+``divisor_block`` grid floor at its default tiles), so the port refuses the
+shapes the JAX package refuses.
 """
 from __future__ import annotations
 
@@ -53,6 +56,29 @@ BCA_BWD_S_PITCH = BCA_BWD_TILE_K + 16
 # csrc/decode_attn.cu: key tile and head-dim ceiling.
 DECODE_TILE = 64
 DECODE_MAX_HEAD_DIM = 256
+
+# csrc/linformer_attn.cu (kernel 5, the exact form): its query and slot
+# tiles (the slot tile and the probability pitch are those of the blockwise
+# kernel, whose tile step it shares) and the head dims it is built for.
+EXACT_TILE_Q = 64
+EXACT_HEAD_DIMS = BCA_HEAD_DIMS
+
+# csrc/seq_projection.cu (kernel 6): slots per block, sequence rows per
+# shared-memory step, the head dims it is built for.
+SP_TILE_K = 64
+SP_TILE_S = 32
+SP_HEAD_DIMS = BCA_HEAD_DIMS
+
+# The JAX package's fail-fast bounds of the exact form (its
+# repro/kernels/common.py): the compressed length the TPU kernel pins whole
+# in VMEM, and the grid floor `divisor_block` enforces at the kernels'
+# default tiles. The CUDA kernels stream slots and mask ragged tiles, so
+# they need neither; the port keeps both so that it refuses what the JAX
+# package refuses.
+MAX_EXACT_K = 512
+MIN_DIVISOR_BLOCK = 8
+DEFAULT_BLOCK_Q = 256        # linformer_attn query tile (JAX default)
+DEFAULT_BLOCK_S = 512        # seq_projection sequence tile (JAX default)
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # storage dtypes of the paged, quantized cache (codes of csrc/common.cuh)
@@ -102,6 +128,85 @@ def to_kernel_layout(x: torch.Tensor) -> torch.Tensor:   # (B,S,H,D) -> (B,H,S,D
 
 def from_kernel_layout(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(1, 2)
+
+
+def divisor_block(size: int, preferred: int) -> int:
+    """Largest block ≤ preferred that divides `size`, as the JAX package
+    tiles its grids. Fails fast where that block would be below
+    MIN_DIVISOR_BLOCK and the grid longer than MIN_DIVISOR_BLOCK steps (a
+    prime or odd S), with the JAX package's words."""
+    b = max(1, min(preferred, size))
+    while size % b:
+        b -= 1
+    if b < MIN_DIVISOR_BLOCK and size // b > MIN_DIVISOR_BLOCK:
+        raise ValueError(
+            f"sequence length {size} has no block divisor in "
+            f"[{MIN_DIVISOR_BLOCK}, {preferred}] — the kernel grid would "
+            f"degrade to {b}-row blocks ({size // b} grid steps per "
+            f"(batch, head)). Pad or trim the sequence so it has a divisor "
+            f"≥ {MIN_DIVISOR_BLOCK} (any multiple of {MIN_DIVISOR_BLOCK} "
+            f"works), or use backend='reference' for this shape.")
+    return b
+
+
+def check_exact_k(slots: int) -> None:
+    """The exact form's compressed length, bounded as in the JAX package."""
+    if slots > MAX_EXACT_K:
+        raise ValueError(
+            f"fused_linformer_attention requires K ≤ {MAX_EXACT_K} (the JAX "
+            f"package's bound: its TPU kernel pins the whole compressed "
+            f"k̄/v̄ in VMEM); got K={slots}. Lower the Linformer projected "
+            f"dimension (the paper uses 128–256) or use backend='reference' "
+            f"for this shape.")
+
+
+def exact_smem_bytes(head_dim: int) -> int:
+    """Shared memory of csrc/linformer_attn.cu: the query tile, a slot tile
+    of k̄ and of v̄ (fp32, pitch Dh + 1) and the probability tile."""
+    return 4 * ((EXACT_TILE_Q + 2 * BCA_TILE_K) * (head_dim + 1)
+                + EXACT_TILE_Q * BCA_P_PITCH)
+
+
+def check_exact_shapes(*, heads: int, kv_heads: int, slots: int,
+                       head_dim: int) -> None:
+    """Fail fast on shapes csrc/linformer_attn.cu does not take."""
+    if head_dim not in EXACT_HEAD_DIMS:
+        raise ValueError(f"head_dim={head_dim}: the CUDA exact Linformer "
+                         f"kernel is built for head dims {EXACT_HEAD_DIMS}")
+    if kv_heads <= 0 or heads % kv_heads != 0:
+        raise ValueError(f"H={heads} query heads not a multiple of "
+                         f"Hkv={kv_heads}")
+    if slots < 1:
+        raise ValueError(f"K={slots} compressed slots")
+    check_exact_k(slots)
+    smem = exact_smem_bytes(head_dim)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"exact Linformer tile needs {smem} B of shared "
+                         f"memory, above {MAX_SMEM_PER_BLOCK}")
+
+
+def seq_projection_smem_bytes(head_dim: int) -> int:
+    """Shared memory of csrc/seq_projection.cu: an (SP_TILE_S, SP_TILE_K)
+    tile of E and an (SP_TILE_S, Dh) tile of x, fp32."""
+    return 4 * SP_TILE_S * (SP_TILE_K + head_dim)
+
+
+def check_seq_projection_shapes(*, seq: int, rows: int, slots: int,
+                                head_dim: int) -> None:
+    """Fail fast on shapes csrc/seq_projection.cu does not take: E must
+    have exactly the batch's S rows (the caller slices E[:S])."""
+    if head_dim not in SP_HEAD_DIMS:
+        raise ValueError(f"head_dim={head_dim}: the CUDA sequence "
+                         f"projection is built for head dims {SP_HEAD_DIMS}")
+    if rows != seq:
+        raise ValueError(f"E has {rows} rows for a sequence of {seq}; pass "
+                         "E[:S]")
+    if slots < 1:
+        raise ValueError(f"K={slots} projected slots")
+    smem = seq_projection_smem_bytes(head_dim)
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"sequence projection tile needs {smem} B of "
+                         f"shared memory, above {MAX_SMEM_PER_BLOCK}")
 
 
 def bca_query_tile(block_size: int) -> int:

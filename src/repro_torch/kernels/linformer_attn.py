@@ -1,19 +1,24 @@
-"""Single-token decode attention over the compressed cache: the CUDA
-kernel's wrappers and their plain PyTorch twins.
+"""Attention over the compressed keys and values: the exact (bidirectional)
+Linformer attention and the single-token decode over the compressed cache,
+the CUDA kernels' wrappers and their plain PyTorch twins.
 
-Counterpart of ``decode_attn`` and ``decode_attn_q`` (the same attention
-over the paged, quantized cache) in ``repro/kernels/linformer_attn.py``.
-Kernel layout: q (B, Hkv, G, Dh) with the GQA group folded into the query
-axis; ring (B, Hkv, c, Dh); slots (B, Hkv, M, Dh); additive fp32 biases
-(B, c) and (B, M), 0 for attendable and NEG_INF for masked. Per (b, kv head)
-the G query rows take one softmax over [ring | slots].
+Counterpart of ``repro/kernels/linformer_attn.py``:
 
-``decode_attn_q`` takes the ring and the page-gathered slots as int8 or
-fp8 codes with fp32 scales (B, Hkv, c) per token and (B, Hkv, M) per slot.
+* ``linformer_attn`` (kernel 5, ``csrc/linformer_attn.cu``): the exact
+  form, softmax(q·k̄ᵀ·scale)·v̄ over all K slots. Kernel layout: q
+  (B, H, S, Dh); k̄, v̄ (B, Hkv, K, Dh), query head h reading kv head h // G
+  (the TPU wrapper repeats k̄/v̄ to H heads before the call); output in q's
+  dtype.
+* ``decode_attn`` and ``decode_attn_q`` (kernels 3 and 7,
+  ``csrc/decode_attn.cu``): q (B, Hkv, G, Dh) with the GQA group folded
+  into the query axis; ring (B, Hkv, c, Dh); slots (B, Hkv, M, Dh); additive
+  fp32 biases (B, c) and (B, M), 0 for attendable and NEG_INF for masked.
+  Per (b, kv head) the G query rows take one softmax over [ring | slots].
+  ``decode_attn_q`` takes the ring and the page-gathered slots as int8 or
+  fp8 codes with fp32 scales (B, Hkv, c) per token and (B, Hkv, M) per slot.
 
-Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel
-(``csrc/decode_attn.cu``) for a CUDA tensor, counting its launches in
-``<wrapper>.launches``.
+Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel for a
+CUDA tensor, counting its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,63 @@ import torch
 from repro_torch.core.cache import dequantize_blockwise
 from repro_torch.kernels import build
 from repro_torch.kernels import common
+
+
+def linformer_attn_plain(q, kbar, vbar, *, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of kernel 5, with the TPU kernel's cast points
+    (``_softmax_attend``): fp32 scores, the normalised probabilities cast to
+    v̄'s dtype before the value product (fp32 products), output cast to q's
+    dtype. q (B, H, S, Dh); k̄, v̄ (B, Hkv, K, Dh)."""
+    f32 = torch.float32
+    B, H, S, Dh = q.shape
+    Hkv = kbar.shape[1]
+    qg = q.to(f32).reshape(B, Hkv, H // Hkv, S, Dh)
+    s = torch.einsum("bhgsd,bhkd->bhgsk", qg, kbar.to(f32)) * scale
+    s = s - s.amax(-1, keepdim=True)
+    p = torch.exp(s)
+    p = p / p.sum(-1, keepdim=True)
+    out = torch.einsum("bhgsk,bhkd->bhgsd", p.to(vbar.dtype).to(f32),
+                       vbar.to(f32))
+    return out.reshape(B, H, S, Dh).to(q.dtype)
+
+
+def launch_exact(kl: build.KernelLibrary, q, kbar, vbar, *, scale: float,
+                 stream) -> torch.Tensor:
+    """Check the operands, allocate the output and launch kernel 5 on
+    `stream` (no synchronisation). q, k̄ and v̄ may be strided views (last
+    dim contiguous); k̄ and v̄ share one stride set."""
+    B, H, S, Dh = q.shape
+    Hkv, K = kbar.shape[1], kbar.shape[2]
+    if kbar.shape != (B, Hkv, K, Dh) or vbar.shape != kbar.shape:
+        raise ValueError(f"k̄/v̄ {tuple(kbar.shape)}/{tuple(vbar.shape)}: "
+                         f"expected (B, Hkv, K, Dh) = {(B, Hkv, K, Dh)}")
+    common.check_exact_shapes(heads=H, kv_heads=Hkv, slots=K, head_dim=Dh)
+    dtype = common.kernel_dtype_code(q, kbar, vbar)
+    kbar, vbar = common.same_strides(kbar, vbar)
+    out = torch.empty((B, H, S, Dh), dtype=q.dtype, device=q.device)
+    common.check_operands(q, kbar, vbar, out)
+    dims = (0, 1, 2)
+    strides = build.strides_arg((q, dims), (kbar, dims), (out, dims))
+    rc = kl.lib.linformer_attn_forward(
+        q.data_ptr(), kbar.data_ptr(), vbar.data_ptr(), out.data_ptr(),
+        strides, B, H, Hkv, S, K, Dh, float(scale), dtype, stream)
+    kl.check(rc, "linformer_attn")
+    return out
+
+
+def linformer_attn(q, kbar, vbar, *, scale: float) -> torch.Tensor:
+    """Exact Linformer attention in kernel layout. A CPU tensor runs the
+    plain twin; a CUDA tensor launches kernel 5 on the current stream (or
+    raises)."""
+    if not q.is_cuda:
+        return linformer_attn_plain(q, kbar, vbar, scale=scale)
+    out = launch_exact(build.library(), q, kbar, vbar, scale=scale,
+                       stream=torch.cuda.current_stream(q.device).cuda_stream)
+    linformer_attn.launches += 1
+    return out
+
+
+linformer_attn.launches = 0
 
 
 def decode_attn_plain(q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,

@@ -1,10 +1,12 @@
 """Public wrappers of the port's kernels, in model layout.
 
-Counterpart of ``repro/kernels/ops.py`` for the serving and training
-paths: the blockwise-causal attention (forward, and trainable through the
-backward kernel), its prefix form for chunked prefill, the single-token
-decode, and the two quantized-cache siblings of the serving path (decode
-and chunk prefill over int8/fp8 codes with fp32 scales, forward only).
+Counterpart of ``repro/kernels/ops.py``: the blockwise-causal attention
+(forward, and trainable through the backward kernel), its prefix form for
+chunked prefill, the single-token decode, the two quantized-cache siblings
+of the serving path (decode and chunk prefill over int8/fp8 codes with fp32
+scales, forward only), and the exact form's two kernels (the attention over
+K compressed slots and the sequence projection, trainable through their
+analytic backwards in plain torch, as the JAX package's custom VJPs).
 Layout moves are views (kernel
 layout (B, H, S, Dh) <-> model layout (B, S, H, Dh)); the kernels take
 strided operands, so nothing is transposed in memory. A CPU tensor runs
@@ -19,7 +21,10 @@ torch, so autograd chains dk̄/dv̄ into (dk, dE) and (dv, dF) exactly where the
 JAX package chains them through the linear ``compress_blocks`` VJP
 (``ops.py:290-299``). ``backward_impl`` picks the route through
 ``common.BACKWARD_ROUTES``: "fused" is that Function, "reference" is
-autograd through the plain reference form of core/causal.py.
+autograd through the plain reference form of core/causal.py. The exact
+form's :class:`LinformerAttnFn` and :class:`SeqProjectionFn` run kernels 5
+and 6 forward; their backwards are the JAX package's ``_lin_bwd`` and
+``_sp_bwd`` in plain torch (neither TPU kernel has a backward kernel).
 """
 from __future__ import annotations
 
@@ -29,7 +34,10 @@ from repro_torch.core.causal import (blockwise_causal_attention,
                                      compress_blocks)
 from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
-from repro_torch.kernels.common import (backward_route, from_kernel_layout,
+from repro_torch.kernels import seq_projection as sp
+from repro_torch.kernels.common import (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_S,
+                                        backward_route, check_exact_k,
+                                        divisor_block, from_kernel_layout,
                                         to_kernel_layout)
 
 
@@ -254,3 +262,114 @@ def fused_decode_attention_q(
         _scales_to_kernel_layout(comp_k_s),
         _scales_to_kernel_layout(comp_v_s), bias_loc, bias_glob, scale=scale)
     return out.reshape(B, 1, H, Dh)
+
+
+# -- the exact (bidirectional) form ------------------------------------------
+
+
+def _needs_grad(*xs: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class LinformerAttnFn(torch.autograd.Function):
+    """Differentiable exact Linformer attention over (q, k̄, v̄) in model
+    layout: kernel 5 forward, the JAX package's analytic backward
+    (``_lin_bwd``) in plain torch, fp32. Per head, with P = softmax(S),
+    S = q·k̄ᵀ·scale, o = P·v̄: dv̄ = Pᵀ·do; dP = do·v̄ᵀ;
+    dS = P ∘ (dP − rowsum(dP∘P)); dq = dS·k̄·scale; dk̄ = dSᵀ·q·scale. P is
+    recomputed (one small (S × K) product per head) instead of saved. The
+    GQA group's gradients sum into its kv head, the fold of the JAX
+    package's head repeat."""
+
+    @staticmethod
+    def forward(ctx, q, kbar, vbar, scale):
+        out = la.linformer_attn(to_kernel_layout(q), to_kernel_layout(kbar),
+                                to_kernel_layout(vbar), scale=scale)
+        ctx.save_for_backward(q, kbar, vbar)
+        ctx.scale = scale
+        return from_kernel_layout(out)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, kbar, vbar = ctx.saved_tensors
+        scale = ctx.scale
+        f32 = torch.float32
+        B, S, H, Dh = q.shape
+        Hkv = kbar.shape[2]
+        qg = q.to(f32).reshape(B, S, Hkv, H // Hkv, Dh)
+        kb, vb = kbar.to(f32), vbar.to(f32)
+        do32 = do.to(f32).reshape(qg.shape)
+        s = torch.einsum("bshgd,bkhd->bhgsk", qg, kb) * scale
+        p = torch.softmax(s, dim=-1)
+        dv = torch.einsum("bhgsk,bshgd->bkhd", p, do32)
+        dp = torch.einsum("bshgd,bkhd->bhgsk", do32, vb)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        dq = torch.einsum("bhgsk,bkhd->bshgd", ds, kb) * scale
+        dk = torch.einsum("bhgsk,bshgd->bkhd", ds, qg) * scale
+        return (dq.reshape(B, S, H, Dh).to(q.dtype), dk.to(kbar.dtype),
+                dv.to(vbar.dtype), None)
+
+
+def fused_linformer_attention(
+    q: torch.Tensor,        # (B, S, H, Dh) model layout
+    kbar: torch.Tensor,     # (B, K, Hkv, Dh)
+    vbar: torch.Tensor,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Exact (bidirectional) Linformer attention through kernel 5:
+    softmax(q·k̄ᵀ·scale)·v̄ over the K compressed slots, fp32 scores, output
+    in q's dtype. GQA query heads read their kv head in the kernel.
+    Fail-fast as the JAX package: K ≤ MAX_EXACT_K and a sequence the JAX
+    kernel's default query tile can divide. Trainable: when grad is enabled
+    and an input requires it, through :class:`LinformerAttnFn`."""
+    check_exact_k(kbar.shape[1])
+    divisor_block(q.shape[1], DEFAULT_BLOCK_Q)
+    if _needs_grad(q, kbar, vbar):
+        return LinformerAttnFn.apply(q, kbar, vbar, scale)
+    out = la.linformer_attn(to_kernel_layout(q), to_kernel_layout(kbar),
+                            to_kernel_layout(vbar), scale=scale)
+    return from_kernel_layout(out)
+
+
+class SeqProjectionFn(torch.autograd.Function):
+    """Differentiable sequence projection out = Eᵀ·x in model layout:
+    kernel 6 forward; the op is linear, so the backward is the JAX
+    package's ``_sp_bwd`` in plain torch, fp32: dx = E·dout,
+    dE = Σ_{b,h} x·doutᵀ, each cast to its input's dtype (a shared E sums
+    one such cotangent per use, in E's dtype, as JAX does)."""
+
+    @staticmethod
+    def forward(ctx, x, E):
+        out = sp.seq_projection(to_kernel_layout(x), E)
+        ctx.save_for_backward(x, E)
+        return from_kernel_layout(out)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, E = ctx.saved_tensors
+        f32 = torch.float32
+        do32 = do.to(f32)
+        dx = dE = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum("bkhd,sk->bshd", do32, E.to(f32)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dE = torch.einsum("bshd,bkhd->sk", x.to(f32), do32).to(E.dtype)
+        return dx, dE
+
+
+def fused_seq_projection(
+    x: torch.Tensor,        # (B, S, H, Dh)
+    E: torch.Tensor,        # (S, K)
+) -> torch.Tensor:
+    """Sequence-axis projection out = Eᵀ·x through kernel 6:
+    (B, S, H, Dh) × (S, K) → (B, K, H, Dh), the paper's shared linear
+    compression of K/V. Handles only the shared 2-D E with exactly S rows
+    (the plan slices E[:S]; per-head, conv and pool projections go through
+    core/linformer.project_kv). Fail-fast as the JAX package: a sequence
+    its default sequence tile can divide. Trainable through
+    :class:`SeqProjectionFn`."""
+    divisor_block(x.shape[1], DEFAULT_BLOCK_S)
+    if _needs_grad(x, E):
+        return SeqProjectionFn.apply(x, E)
+    return from_kernel_layout(sp.seq_projection(to_kernel_layout(x), E))

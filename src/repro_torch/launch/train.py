@@ -1,11 +1,20 @@
 """Training launcher of the PyTorch port: random weights from the run's
-seed, the synthetic corpus, the Trainer. Reports through `logging`.
+seed, the synthetic corpus, the Trainer. Reports through `logging`. The
+config's objective picks the batches: causal LM for qwen3-8b, masked LM for
+the paper's encoder (linformer-paper).
 
     python -m repro_torch.launch.train --arch qwen3-8b --smoke --device cpu
     python -m repro_torch.launch.train --arch qwen3-8b --layers 8 --steps 4 \
         --ckpt-every 0
+    python -m repro_torch.launch.train --arch linformer-paper --smoke \
+        --device cpu
+    python -m repro_torch.launch.train --arch linformer-paper --seq 512 \
+        --batch 32 --steps 8 --ckpt-every 0
 
-Without --device the run needs a CUDA card (it raises otherwise).
+Without --device the run needs a CUDA card (it raises otherwise). The
+default --seq of a full config is 4096, above linformer-paper's
+max_seq_len of 512: pass --seq 512 or less (a longer sequence raises a
+ValueError).
 Checkpoints go to --ckpt-dir/<arch> (under the temp directory by default)
 every --ckpt-every steps (a quarter of the run by default, 0 for none); a
 rerun with the same directory resumes from the latest one. A checkpoint

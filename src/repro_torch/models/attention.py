@@ -1,11 +1,17 @@
-"""Attention block: QKV/output projections and the blockwise-causal
-Linformer attention (prefill, chunked prefill and decode, over the
-compressed cache or its paged, quantized sibling).
+"""Attention block: QKV/output projections and the paper's Linformer forms:
+the exact bidirectional form (``kind="linformer"``, encoder training and
+inference) and the blockwise-causal form (``kind="linformer_causal"``:
+prefill, chunked prefill and decode, over the compressed cache or its
+paged, quantized sibling).
 
-Counterpart of ``repro/models/attention.py`` for
-``kind="linformer_causal"``. The attention math dispatches through an
-:class:`AttentionPlan` (parallel/plan.py); this module never branches on
-backend strings.
+Counterpart of ``repro/models/attention.py`` for the two Linformer kinds
+(the ``"standard"`` softmax baseline is not ported). The attention math
+dispatches through an :class:`AttentionPlan` (parallel/plan.py); this module
+never branches on backend strings. Per-layer E/F (every sharing mode but
+layerwise) live under the layer's ``lin`` leaves, laid out by
+models/transformer.py ``param_spec``; the layerwise E arrives as
+`shared_lin`. The exact form has no decode cache: its decode and
+chunked-prefill entry points raise, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,14 +22,19 @@ import torch
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import causal as causal_lib
+from repro_torch.core import linformer as lin_lib
 from repro_torch.models import layers as L
 from repro_torch.parallel import plan as plan_lib
 
 
-def _check_kind(cfg: AttentionConfig) -> None:
+def _check_causal(cfg: AttentionConfig, what: str) -> None:
+    """The decode cache paths exist for the causal form only (the exact
+    form is bidirectional: encoder-only)."""
+    lin_lib.check_kind(cfg)
     if cfg.kind != "linformer_causal":
-        raise ValueError("the PyTorch port covers kind='linformer_causal' "
-                         f"only, got {cfg.kind!r}")
+        raise ValueError(
+            f"attention kind {cfg.kind!r} has no {what} path "
+            "(exact linformer is bidirectional/encoder-only)")
 
 
 def _qkv(params: Dict, x: torch.Tensor, cfg: AttentionConfig,
@@ -72,19 +83,27 @@ def apply_attention(
     cache_entry: Optional[Dict[str, torch.Tensor]] = None,
     plan: Optional[plan_lib.AttentionPlan] = None,
 ) -> torch.Tensor:
-    """Full-sequence attention (prefill). x: (B, S, D).
+    """Full-sequence attention (training / prefill). x: (B, S, D).
 
     With `cache_entry` — this layer's slices of a decode cache — also fills
-    the cache from the SAME k/v (single-pass prefill, no second forward)."""
-    _check_kind(cfg)
+    the cache from the SAME k/v (single-pass prefill, no second forward);
+    the causal form only."""
+    lin_lib.check_kind(cfg)
+    if cache_entry is not None and cfg.kind != "linformer_causal":
+        raise ValueError(f"no decode cache for attention kind {cfg.kind!r}")
     B, S, _ = x.shape
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
     q, k, v = _qkv(params, x, cfg, positions)
     E, F = _resolve_ef(params, shared_lin, cfg)
-    out = plan.causal_attention(q, k, v, E, F,
-                                block_size=cfg.linformer.block_size,
-                                block_slots=cfg.linformer.block_slots,
-                                scale=cfg.head_dim ** -0.5)
+    if cfg.kind == "linformer":
+        out = plan.exact_attention(q, k, v, E, F,
+                                   projection=cfg.linformer.projection,
+                                   scale=cfg.head_dim ** -0.5)
+    else:
+        out = plan.causal_attention(q, k, v, E, F,
+                                    block_size=cfg.linformer.block_size,
+                                    block_slots=cfg.linformer.block_slots,
+                                    scale=cfg.head_dim ** -0.5)
     out = out.reshape(B, S, -1) @ params["wo"]
     if cache_entry is not None:
         _entry_from_kv(k, v, cfg, (E, F), cache_entry)
@@ -125,7 +144,7 @@ def apply_attention_decode(
     """One-token decode step against the layer's cache (updated in place).
     Each row decodes at its own position t[b]: rope, cache write and mask
     are all per row."""
-    _check_kind(cfg)
+    _check_causal(cfg, "decode")
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
     positions = t[:, None]                                   # (B, 1)
     q, k, v = _qkv(params, x_t, cfg, positions=positions)
@@ -155,7 +174,7 @@ def apply_attention_prefill_chunk(
     slot-resident cache (updated in place): row b's chunk covers absolute
     positions [t0[b], t0[b] + P); t0 and P are multiples of the block
     size. Returns (out (B, P, D'), the cache)."""
-    _check_kind(cfg)
+    _check_causal(cfg, "chunked-prefill")
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
     if positions is None:
         positions = t0[:, None] + torch.arange(x.shape[1], device=x.device)
@@ -172,7 +191,9 @@ def apply_attention_prefill_chunk(
 def decode_cache_spec(cfg: AttentionConfig, *, num_layers: int, batch: int,
                       max_seq: int, dtype=torch.bfloat16):
     """{leaf: (shape, dtype)} of this attention kind's decode cache."""
-    _check_kind(cfg)
+    lin_lib.check_kind(cfg)
+    if cfg.kind != "linformer_causal":
+        raise ValueError(f"no decode cache for attention kind {cfg.kind!r}")
     return cache_lib.compressed_cache_spec(
         num_layers=num_layers, batch=batch, max_seq=max_seq,
         block_size=cfg.linformer.block_size,

@@ -1,5 +1,6 @@
-"""Dense decoder LM (qwen3-style): RMSNorm, RoPE, qk-norm, GQA, SwiGLU, with
-blockwise-causal Linformer attention.
+"""Dense transformer: the qwen3-style decoder LM (RMSNorm, RoPE, qk-norm,
+GQA, SwiGLU, blockwise-causal Linformer attention) and the paper's encoder
+(learned positions, GELU MLP, exact bidirectional Linformer attention).
 
 Counterpart of the dense half of ``repro/models/transformer.py``. Parameters
 are nested dicts of tensors laid out exactly like the JAX package's pytree
@@ -54,9 +55,10 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     H, Hkv, Dh = a.num_heads, a.num_kv_heads, a.head_dim
     spec: Dict[str, Tuple[Tuple[int, ...], str]] = {
         "embed/tok": ((cfg.padded_vocab_size, d), _EMBED)}
-    if not a.use_rope:
-        raise ValueError("learned positions are not ported; use_rope=True")
-    lin = lin_lib.linformer_param_shapes(a, num_layers=nl)
+    if not a.use_rope:                 # learned positions, N(0, 0.02)
+        spec["embed/pos"] = ((cfg.max_seq_len, d), _EMBED)
+    lin = lin_lib.linformer_param_shapes(a, num_layers=nl,
+                                         max_seq=cfg.max_seq_len)
     for name, shape in lin.get("shared", {}).items():
         spec[f"{_LIN_GROUPS['shared']}/{name}"] = (shape, _LIN)
     spec["layers/ln1/scale"] = ((nl, d), _ONES)
@@ -131,6 +133,7 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
             flat[key] = w.mul_(std).to(dt)
     lin = lin_lib.init_linformer_params(generator, cfg.attention,
                                         num_layers=cfg.num_layers,
+                                        max_seq=cfg.max_seq_len,
                                         device=device, dtype=dt)
     for group, leaves in lin.items():
         for name, w in leaves.items():
@@ -219,6 +222,21 @@ def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
                            cfg.mlp)
 
 
+def embed_inputs(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) input stream: token embeddings plus, for a model with
+    learned positions, the first S rows of ``embed/pos``."""
+    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    pos = params["embed"].get("pos")
+    if pos is not None:
+        S = x.shape[1]
+        if S > pos.shape[0]:
+            raise ValueError(f"sequence length {S} exceeds the "
+                             f"{pos.shape[0]} learned positions (the "
+                             "config's max_seq_len)")
+        x = x + pos[:S][None]
+    return x
+
+
 def logits_from_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor
                        ) -> torch.Tensor:
     x = L.rms_norm(params["final_norm"], x)
@@ -274,8 +292,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         raise ValueError("only the single-pass prefill cache is ported")
     plan = plan if plan is not None \
         else plan_lib.resolve_attention_plan(cfg.attention)
-    tokens = batch["tokens"]
-    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    x = embed_inputs(params, batch["tokens"])
     B, S, _ = x.shape
     shared_lin = params.get("shared", {}).get("lin")
     cache = None
@@ -315,6 +332,8 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         else plan_lib.resolve_attention_plan(cfg.attention)
     t = cache["lengths"]
     x = L.embed_tokens(params["embed"]["tok"], tokens)
+    if "pos" in params["embed"]:
+        x = x + params["embed"]["pos"][t.long()][:, None]     # (B, 1, D)
     shared_lin = params.get("shared", {}).get("lin")
     for i in range(cfg.num_layers):
         x = apply_block_decode(layer_slice(params["layers"], i), x,
@@ -344,6 +363,9 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     n_valid = torch.as_tensor(n_valid, device=tokens.device).to(t0.dtype)
     x = L.embed_tokens(params["embed"]["tok"], tokens)
     positions = t0[:, None] + torch.arange(P, device=x.device)[None, :]
+    if "pos" in params["embed"]:
+        tab = params["embed"]["pos"]
+        x = x + tab[positions.clamp(0, tab.shape[0] - 1).long()]
     shared_lin = params.get("shared", {}).get("lin")
     for i in range(cfg.num_layers):
         x = apply_block_prefill_chunk(

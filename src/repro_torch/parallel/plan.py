@@ -8,8 +8,8 @@ knob is the JAX package's ``AttentionConfig.backend``:
 * ``"auto"`` (default): the CUDA kernels for CUDA tensors, their plain twins
   for CPU tensors (through kernels/ops.py);
 * ``"fused"``: the CUDA kernels; raises for CPU tensors;
-* ``"reference"``: the plain reference forms of core/causal.py, on any
-  device (the parity oracle).
+* ``"reference"``: the plain reference forms of core/causal.py and
+  core/linformer.py, on any device (the parity oracle).
 
 Every route of the full-sequence form is differentiable; the chunk-prefill
 and quantized-cache forms are forward-only (serving). On the kernel route
@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import causal as causal_lib
+from repro_torch.core import linformer as lin_lib
 from repro_torch.core.cache import dequantize_blockwise
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.common import backend_route, backward_route
@@ -71,6 +72,32 @@ class AttentionPlan:
         return kernel_ops.fused_blockwise_causal_attention(
             q, k, v, E, F, block_size=block_size, block_slots=block_slots,
             scale=scale, backward_impl=self.backward_impl)
+
+    def exact_attention(self, q, k, v, E, F, *, projection: str,
+                        scale: float) -> torch.Tensor:
+        """Exact (bidirectional) Linformer attention: sequence projection of
+        K/V, then attention over the K compressed slots; differentiable on
+        both routes. q (B, S, H, Dh); k/v (B, S, Hkv, Dh); E/F per
+        `projection`: linear (max_seq, K) or (Hkv, max_seq, K), conv/pool
+        (c, r). On the kernel route a linear, shared 2-D E goes through
+        kernel 6 as E[:S] for k and F[:S] for v, then kernel 5; per-head,
+        conv and pool projections run core/linformer.project_kv in plain
+        torch, then kernel 5 (the JAX package's rule). A sequence longer
+        than a linear E's rows raises a ValueError on both routes."""
+        if not self.uses_kernels(q):
+            return lin_lib.exact_linformer_attention(q, k, v, E, F,
+                                                     kind=projection,
+                                                     scale=scale)
+        if projection == "linear" and E.ndim == 2:
+            S = q.shape[1]
+            lin_lib.check_projection_rows(S, E)
+            lin_lib.check_projection_rows(S, F)
+            kbar = kernel_ops.fused_seq_projection(k, E[:S])
+            vbar = kernel_ops.fused_seq_projection(v, F[:S])
+        else:
+            kbar, vbar = lin_lib.project_kv(k, v, E, F, kind=projection)
+        return kernel_ops.fused_linformer_attention(q, kbar, vbar,
+                                                    scale=scale)
 
     def chunk_prefill_attention(self, q, k, v, comp_k, comp_v, start_blocks,
                                 *, block_size: int, block_slots: int,

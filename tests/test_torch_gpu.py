@@ -17,7 +17,10 @@ terms in another order): 1e-4 of the tensor's largest entry; dq in bf16
 adds 2^-7·|plain|, one bf16 rounding step apart. The quantized-cache
 kernels (decode_attn_q, blockwise_causal_prefix_attn_q) and their plain
 versions read identical int8/fp8 codes and scales and compute in fp32: the
-same bounds, the bf16 one applying to a bf16 q's output."""
+same bounds, the bf16 one applying to a bf16 q's output. The exact form:
+linformer_attn (kernel 5) under the attention bounds above; seq_projection
+(kernel 6, fp32 sums of the same inputs, one rounding to the output dtype)
+and the exact form's gradients under the backward's bounds."""
 import dataclasses
 
 import pytest
@@ -30,7 +33,9 @@ from repro_torch.core.causal import NEG_INF, compress_blocks
 from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import seq_projection as sp
 from repro_torch.models import model as tmodel
+from repro_torch.models.transformer import flatten
 from repro_torch.serving import ServingEngine
 
 pytestmark = pytest.mark.gpu
@@ -379,3 +384,126 @@ def test_smoke_serving_modes_through_kernels_match_reference(cuda, mode):
             sched.pool.alloc.check()
             assert sched.pool.alloc.free_pages == sched.pool.alloc.usable_pages
     assert outs["auto"] == outs["reference"]
+
+
+# -- the exact form: kernels 5 and 6 ------------------------------------------
+
+# (B, H, Hkv, S, K, Dh): K = 1; K = 512 at Dh = 128 (the most shared memory);
+# a ragged S with GQA G = 2; the paper's full width
+EXACT_SHAPES = {"k1": (1, 2, 2, 40, 1, 16),
+                "k512_dh128": (1, 4, 4, 100, 512, 128),
+                "ragged_gqa2": (2, 4, 2, 77, 40, 64),
+                "full": (32, 12, 12, 512, 128, 64)}
+# (B, H, S, K, Dh, rows of the stored E): E[:S] of a longer E; K past one
+# slot tile; the paper's full width
+SP_SHAPES = {"k1": (2, 4, 40, 1, 16, 40),
+             "sliced_k70": (2, 2, 77, 70, 128, 100),
+             "k512": (1, 2, 64, 512, 64, 64),
+             "full": (32, 12, 512, 128, 64, 512)}
+
+
+def _exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed=0):
+    """q from model layout (a strided kernel-layout view), k̄/v̄ (B, Hkv, K,
+    Dh) views of (B, K, Hkv, Dh), as the model passes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    kb, vb = (torch.randn(B, K, Hkv, Dh, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    return q.movedim(2, 1), kb.movedim(2, 1), vb.movedim(2, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(EXACT_SHAPES))
+def test_exact_kernel_matches_plain(cuda, dtype, shape):
+    B, H, Hkv, S, K, Dh = EXACT_SHAPES[shape]
+    args = _exact_inputs(B, H, Hkv, S, K, Dh, dtype, cuda)
+    n0 = la.linformer_attn.launches
+    out = la.linformer_attn(*args, scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert la.linformer_attn.launches == n0 + 1
+    ref = la.linformer_attn_plain(*args, scale=Dh ** -0.5)
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_close(out, ref, (args[2],))
+
+
+def _sp_inputs(B, H, S, K, Dh, rows, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    E = (torch.randn(rows, K, generator=g, device=dev) * K ** -0.5).to(dtype)
+    return x.movedim(2, 1), E[:S]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(SP_SHAPES))
+def test_seq_projection_kernel_matches_plain(cuda, dtype, shape):
+    x, E = _sp_inputs(*SP_SHAPES[shape], dtype, cuda)
+    n0 = sp.seq_projection.launches
+    out = sp.seq_projection(x, E)
+    torch.cuda.synchronize()
+    assert sp.seq_projection.launches == n0 + 1
+    ref = sp.seq_projection_plain(x, E)
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_grad_close(out, ref)
+    # deterministic: no atomics, one summation order
+    assert torch.equal(sp.seq_projection(x, E), out)
+
+
+@pytest.mark.parametrize("shape", ["ragged_gqa2", "full"])
+def test_exact_functions_grads_match_autograd_through_plain(cuda, shape):
+    """LinformerAttnFn and SeqProjectionFn (kernels 5 and 6 forward, the
+    analytic backwards) against autograd through the plain twins, fp32,
+    chained as the model chains them: k̄ = Eᵀk, v̄ = Fᵀv, then attention."""
+    B, H, Hkv, S, K, Dh = EXACT_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    xs = [torch.randn(*sh, generator=g, device=cuda).requires_grad_()
+          for sh in ((B, S, H, Dh), (B, S, Hkv, Dh), (B, S, Hkv, Dh),
+                     (S, K), (S, K))]
+    do = torch.randn(B, S, H, Dh, generator=g, device=cuda)
+    sc = Dh ** -0.5
+    tk = lambda t: t.movedim(2, 1)  # noqa: E731  model <-> kernel layout
+
+    def through_kernels(q, k, v, E, F):
+        kb, vb = tops.fused_seq_projection(k, E), tops.fused_seq_projection(
+            v, F)
+        return tops.fused_linformer_attention(q, kb, vb, scale=sc)
+
+    def through_plain(q, k, v, E, F):
+        kb, vb = sp.seq_projection_plain(tk(k), E), sp.seq_projection_plain(
+            tk(v), F)
+        return tk(la.linformer_attn_plain(tk(q), kb, vb, scale=sc))
+
+    n5, n6 = la.linformer_attn.launches, sp.seq_projection.launches
+    got = torch.autograd.grad(through_kernels(*xs), xs, do)
+    assert la.linformer_attn.launches == n5 + 1
+    assert sp.seq_projection.launches == n6 + 2
+    want = torch.autograd.grad(through_plain(*xs), xs, do)
+    for a, b_ in zip(got, want):
+        _assert_grad_close(a, b_)
+
+
+def test_smoke_encoder_train_step_through_kernels_matches_reference(cuda):
+    """linformer-paper SMOKE in fp32 on the card: loss and every gradient
+    leaf through kernels 5 and 6 against the plain reference route."""
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_mlm_batch)
+    cfg = dataclasses.replace(get_smoke_config("linformer-paper"),
+                              dtype="float32")
+    batch = make_mlm_batch(SyntheticCorpus(cfg.vocab_size, seed=0),
+                           DataState(0, 0), batch=2, seq=96)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    res = {}
+    for backend in ("auto", "reference"):
+        c = cfg.with_attention_backend(backend)
+        params = tmodel.init_params(c, seed=0, device=cuda)
+        leaves = flatten(params)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        n5 = la.linformer_attn.launches
+        loss, _ = tmodel.loss_fn(params, c, batch)
+        res[backend] = loss.item(), torch.autograd.grad(
+            loss, list(leaves.values()))
+        assert (la.linformer_attn.launches > n5) == (backend == "auto")
+    assert abs(res["auto"][0] - res["reference"][0]) <= \
+        1e-5 * abs(res["reference"][0])
+    for a, b_ in zip(res["auto"][1], res["reference"][1]):
+        _assert_grad_close(a, b_)
