@@ -56,17 +56,27 @@ error; none catches its own failure:
    synthetic corpus seed 0, MLM), launch counters reset just before and
    read just after: each step's loss, grad norm, ms and tokens/s, peak
    memory; then one forward alone under torch.no_grad (the inference the
-   paper's Table 3 times) and one train step under torch.profiler;
+   paper's Table 3 times) and one train step under torch.profiler, each
+   profile's launches of kernels 5 and 6 equal to their counters';
 12. [train-mlm-parity] the encoder at full width with 2 layers in fp32
    (B=2, S=512, an MLM batch): one train step through the kernels against
-   one through the plain reference, held as in [train-parity].
+   one through the plain reference, held as in [train-parity];
+13. [train-mlm-parity-bf16] the same encoder and batch, the loss and every
+   gradient leaf through the kernels in bf16 (kernels 5 and 6 on the
+   tensor cores), through the plain reference in bf16 and in fp32: the
+   kernel route no further from fp32 than BF16_PARITY_FACTOR times the
+   plain bf16 route, plus BF16_PARITY_ABS.
+
+Every torch.profiler breakdown is of the second of two runs, the first a
+discarded warm-up step (profile_kernels).
 
 [check] and [time] cover the encoder's two kernels too: the exact
-Linformer attention (kernel 5) and the sequence projection (kernel 6), at
-edge shapes (K = 1, K = 512, a ragged S, GQA G = 2, Dh 16/64/128, E[:S] of
-a longer E) and at the paper's full width (B=32, H=12, S=512, K=128,
-Dh=64), timed beside one unmasked SDPA call and one torch.matmul of Eᵀ
-with x.
+Linformer attention (kernel 5) and the sequence projection (kernel 6), in
+fp32 (SIMT) and bf16 (tensor cores), at edge shapes (K = 1, K = 130,
+K = 512, a ragged S, GQA G = 2, Dh 16/32/64/128, E[:S] of a longer E, a
+long S, q, x or E one element into its buffer) and at the paper's full
+width (B=32, H=12, S=512, K=128, Dh=64), timed by CUDA-graph replay
+beside one unmasked SDPA call and one torch.matmul of Eᵀ with x.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -85,8 +95,9 @@ H100_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # Kernel vs plain version. fp32: 1e-4 absolute (summation order). bf16:
 # |kernel - plain| <= 2^-8·max|v| + 2^-7·|plain| elementwise: the plain
 # version rounds each probability to bf16 (relative 2^-9) before the value
-# product, where the kernel keeps it in fp32, and each output is rounded
-# once to bf16 (relative 2^-8).
+# product, where the kernel keeps it in fp32 (kernel 5 in bf16 rounds the
+# unnormalised exp(s - m) instead: again at most 2^-9·max|v| an output),
+# and each output is rounded once to bf16 (relative 2^-8).
 FP32_TOL = 1e-4
 # The residuals (m, denom) and the backward's outputs: kernel and plain
 # version compute in fp32 from the same inputs, summing up to G·S terms in
@@ -102,6 +113,12 @@ LOGITS_TOL = 2e-3      # 2-layer fp32 prefill logits, kernels vs reference
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_UPDATE_RTOL = 1e-3
+# [train-mlm-parity-bf16]: the loss and each gradient leaf through the
+# kernels in bf16 may be at most this many times as far from the fp32
+# reference as the plain reference route in bf16 is, plus an absolute
+# slack (loss: absolute error; gradient leaf: relative norm error)
+BF16_PARITY_FACTOR = 2.0
+BF16_PARITY_ABS = 1e-6
 # the chunked and paged serves: chunk width (the JAX ServeConfig default)
 # and page storage
 SERVE_PREFILL_CHUNK = 512
@@ -129,21 +146,82 @@ def time_ms(fn, n_sets, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, n_sets, iters=60):
+    """Mean device time of fn(i) over `iters` calls, cycling through
+    `n_sets` input sets: the calls are captured once into a CUDA graph,
+    which is replayed between two CUDA events. Unlike time_ms this leaves
+    out the host's time to enqueue each call, which at ~0.03 ms a call is
+    as long as the call itself."""
+    import torch
+    for i in range(n_sets):                      # warm-up, outside capture
+        fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i % n_sets)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
+
+
 def profile_kernels(fn):
-    """Run fn once under torch.profiler; return [(kernel name, launches,
-    device seconds)] sorted by device time."""
+    """Run fn twice under torch.profiler: a warm-up step whose trace is
+    discarded, then the recorded step. (A trace begun without a warm-up
+    step missed the first kernels of its run, such as the first layer's
+    launches of kernels 5 and 6 in the encoder's step.) Return [(kernel
+    name, launches, device seconds)] of the recorded step sorted by device
+    time, and the launch counters' increments over that step."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
+        prof.step()
+        before = read_launches()
+        fn()
+        torch.cuda.synchronize()
+        counted = {k: v - before[k] for k, v in read_launches().items()}
+        prof.step()
+    # the step's own annotation (ProfilerStep#) is not a kernel
     out = [(e.key, e.count, e.self_device_time_total * 1e-6)
            for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    return sorted(out, key=lambda x: -x[2])
+           if e.device_type == DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
+    return sorted(out, key=lambda x: -x[2]), counted
+
+
+# the device kernels of kernels 5 and 6 (bf16 tensor-core design, fp32
+# SIMT design), as the profiler names them
+DEVICE_KERNELS = {"linformer_attn": ("exact_fwd_mma_kernel",
+                                     "exact_fwd_kernel"),
+                  "seq_projection": ("seq_projection_mma_kernel",
+                                     "seq_projection_kernel")}
+
+
+def require_profiled(what, kernels, counted):
+    """Each of kernels 5 and 6 launched in a profiled run shows in the
+    profile exactly as often as its launch counter counted."""
+    for name, frags in DEVICE_KERNELS.items():
+        seen = sum(n for k, n, _ in kernels
+                   if any(f"::{f}<" in k for f in frags))
+        log(f"  {what}: {name} {seen} launches profiled, "
+            f"{counted[name]} counted")
+        if seen != counted[name]:
+            raise AssertionError(f"{what}: the profiler saw {seen} launches "
+                                 f"of {name}, its counter {counted[name]}")
 
 
 def log_profile(name, wall, kernels, top=8):
@@ -349,18 +427,32 @@ TRAIN_RUN = dict(layers=8, seq=4096, batch=2, steps=4)
 TRAIN_PARITY_SEQ = 1024
 # the exact form. Kernel 5: (B, H, Hkv, S, K, Dh); K = 1, K = 512 at
 # Dh = 128 (the most shared memory), a ragged S with GQA G = 2, the
-# paper's full width. Kernel 6: (B, H, S, K, Dh, rows of the stored E),
-# E[:S] passed; K = 1, a sliced E with K past one slot tile, K = 512, the
-# full width and its E[:S] at S < max_seq.
+# paper's full width, K = 130 (2 slots past one 128-slot tile of the bf16
+# kernel), Dh = 32 at K = 128, q one element into its buffer (SHIFTED).
+# Kernel 6: (B, H, S, K, Dh, rows of the stored E), E[:S] passed; K = 1, a
+# sliced E with K past one slot tile, K = 512, the full width and its
+# E[:S] at S < max_seq, K = 130, K = 512 at Dh = 128, x or E one element
+# into its buffer, a long S = 1100 (18 chunks, the last ragged).
 EXACT_SHAPES = {"k1": (1, 2, 2, 40, 1, 16),
                 "k512_dh128": (1, 4, 4, 100, 512, 128),
                 "ragged_gqa2": (2, 4, 2, 77, 40, 64),
-                "full": (32, 12, 12, 512, 128, 64)}
+                "full": (32, 12, 12, 512, 128, 64),
+                "k130": (2, 4, 2, 100, 130, 64),
+                "dh32_k128": (2, 4, 4, 128, 128, 32),
+                "misaligned_q": (2, 4, 2, 77, 128, 64)}
 SP_SHAPES = {"k1": (2, 4, 40, 1, 16, 40),
              "sliced_k70": (2, 2, 77, 70, 128, 100),
              "k512": (1, 2, 64, 512, 64, 64),
              "full": (32, 12, 512, 128, 64, 512),
-             "full_sliced": (32, 12, 384, 128, 64, 512)}
+             "full_sliced": (32, 12, 384, 128, 64, 512),
+             "k130": (2, 4, 100, 130, 64, 128),
+             "k512_dh128": (1, 2, 130, 512, 128, 160),
+             "misaligned_x": (2, 4, 77, 128, 64, 100),
+             "misaligned_E": (2, 4, 77, 128, 64, 100),
+             "s1100": (2, 4, 1100, 130, 64, 1200)}
+# the operand a shape moves one element into a larger buffer (its base is
+# then not 16-byte aligned)
+SHIFTED = {"misaligned_q": "q", "misaligned_x": "x", "misaligned_E": "E"}
 # [train-mlm]: linformer-paper at full width and depth; [train-mlm-parity]:
 # its 2-layer fp32 cut
 MLM_RUN = dict(seq=512, batch=32, steps=8)
@@ -412,24 +504,40 @@ def check_phase(dev):
     return errs
 
 
-def exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed):
+def shifted(t):
+    """t's values in a contiguous view starting one element into a larger
+    buffer."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed, shift=None):
     """Kernel 5's operands as the model passes them: kernel-layout views of
-    q (B, S, H, Dh) and k̄, v̄ (B, K, Hkv, Dh)."""
+    q (B, S, H, Dh) and k̄, v̄ (B, K, Hkv, Dh); shift "q" moves q."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
     kb, vb = (torch.randn(B, K, Hkv, Dh, generator=g, device=dev).to(dtype)
               for _ in range(2))
+    if shift == "q":
+        q = shifted(q)
     return q.movedim(2, 1), kb.movedim(2, 1), vb.movedim(2, 1)
 
 
-def sp_inputs(B, H, S, K, Dh, rows, dtype, dev, seed):
+def sp_inputs(B, H, S, K, Dh, rows, dtype, dev, seed, shift=None):
     """Kernel 6's operands: a kernel-layout view of x (B, S, H, Dh) and the
-    leading-row view E[:S] of a (rows, K) E."""
+    leading-row view E[:S] of a (rows, K) E; shift "x" or "E" moves it."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
     E = (torch.randn(rows, K, generator=g, device=dev) * K ** -0.5).to(dtype)
+    if shift == "x":
+        x = shifted(x)
+    if shift == "E":
+        E = shifted(E)
     return x.movedim(2, 1), E[:S]
 
 
@@ -443,7 +551,8 @@ def check_exact_kernels(dtype, dev):
     from repro_torch.kernels import seq_projection as sp
     errs = {}
     for size, (B, H, Hkv, S, K, Dh) in EXACT_SHAPES.items():
-        args = exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed=70)
+        args = exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed=70,
+                            shift=SHIFTED.get(size))
         out = la.linformer_attn(*args, scale=Dh ** -0.5)
         torch.cuda.synchronize()
         errs["exact", size, dtype] = check(
@@ -451,7 +560,8 @@ def check_exact_kernels(dtype, dev):
             la.linformer_attn_plain(*args, scale=Dh ** -0.5), dtype,
             (args[2],))
     for size, shape in SP_SHAPES.items():
-        x, E = sp_inputs(*shape, dtype, dev, seed=71)
+        x, E = sp_inputs(*shape, dtype, dev, seed=71,
+                         shift=SHIFTED.get(size))
         out = sp.seq_projection(x, E)
         torch.cuda.synchronize()
         errs["sp", size, dtype] = check_grad(
@@ -897,7 +1007,9 @@ def time_training_kernels(dev, errs):
 def time_exact_kernels(dev, errs):
     """Kernels 5 and 6 at the paper's full width (B=32, H=12, S=512, K=128,
     Dh=64), bf16, beside their plain versions, one unmasked SDPA call over
-    (q, k̄, v̄) and one torch.matmul of Eᵀ with x."""
+    (q, k̄, v̄) and one torch.matmul of Eᵀ with x, each by CUDA-graph replay
+    (time_graph_ms: at ~0.01-0.03 ms a call, time_ms's eager loop times the
+    host's enqueue); the kernels' eager time is logged beside it."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels import linformer_attn as la
@@ -908,33 +1020,38 @@ def time_exact_kernels(dev, errs):
     n_sets = 4                                    # 4 x ~31 MB > 50 MB L2
     sets = [exact_inputs(B, H, Hkv, S, K, Dh, bf16, dev, seed=80 + i)
             for i in range(n_sets)]
-    t = {"exact": time_ms(lambda i: la.linformer_attn(*sets[i], scale=sc),
-                          n_sets),
-         "exact_plain": time_ms(lambda i: la.linformer_attn_plain(
-             *sets[i], scale=sc), n_sets, iters=10)}
+    t = {"exact": time_graph_ms(
+             lambda i: la.linformer_attn(*sets[i], scale=sc), n_sets),
+         "exact_eager": time_ms(
+             lambda i: la.linformer_attn(*sets[i], scale=sc), n_sets),
+         "exact_plain": time_graph_ms(lambda i: la.linformer_attn_plain(
+             *sets[i], scale=sc), n_sets, iters=12)}
     lib = [tuple(x.contiguous() for x in xs) for xs in sets]
-    t["exact_lib"] = time_ms(lambda i: Fn.scaled_dot_product_attention(
+    t["exact_lib"] = time_graph_ms(lambda i: Fn.scaled_dot_product_attention(
         *lib[i], scale=sc), n_sets)
     lib_err = (Fn.scaled_dot_product_attention(*lib[0], scale=sc).float()
                - la.linformer_attn(*sets[0], scale=sc).float()).abs().max()
     log(f"  linformer_attn B={B} H={H} Hkv={Hkv} S={S} K={K} Dh={Dh}: "
-        f"kernel {t['exact']:.4f} ms, plain {t['exact_plain']:.4f} ms, sdpa "
-        f"{t['exact_lib']:.4f} ms (sdpa vs kernel {lib_err.item():.2e})")
+        f"kernel {t['exact']:.4f} ms (eager loop {t['exact_eager']:.4f}), "
+        f"plain {t['exact_plain']:.4f} ms, sdpa {t['exact_lib']:.4f} ms "
+        f"(sdpa vs kernel {lib_err.item():.2e})")
     del sets, lib
     Bp, Hp, Sp, Kp, Dp, rows = SP_SHAPES["full"]
     n_sets = 6                                    # 6 x ~16 MB > 50 MB L2
     psets = [sp_inputs(Bp, Hp, Sp, Kp, Dp, rows, bf16, dev, seed=90 + i)
              for i in range(n_sets)]
-    t["sp"] = time_ms(lambda i: sp.seq_projection(*psets[i]), n_sets)
-    t["sp_plain"] = time_ms(lambda i: sp.seq_projection_plain(*psets[i]),
-                            n_sets, iters=10)
+    t["sp"] = time_graph_ms(lambda i: sp.seq_projection(*psets[i]), n_sets)
+    t["sp_eager"] = time_ms(lambda i: sp.seq_projection(*psets[i]), n_sets)
+    t["sp_plain"] = time_graph_ms(
+        lambda i: sp.seq_projection_plain(*psets[i]), n_sets, iters=12)
     plib = [(E.T, x.contiguous()) for x, E in psets]
-    t["sp_lib"] = time_ms(lambda i: torch.matmul(*plib[i]), n_sets)
+    t["sp_lib"] = time_graph_ms(lambda i: torch.matmul(*plib[i]), n_sets)
     lib_err = (torch.matmul(*plib[0]).float()
                - sp.seq_projection(*psets[0]).float()).abs().max()
     log(f"  seq_projection B={Bp} H={Hp} S={Sp} K={Kp} Dh={Dp}: kernel "
-        f"{t['sp']:.4f} ms, plain {t['sp_plain']:.4f} ms, matmul "
-        f"{t['sp_lib']:.4f} ms (matmul vs kernel {lib_err.item():.2e})")
+        f"{t['sp']:.4f} ms (eager loop {t['sp_eager']:.4f}), plain "
+        f"{t['sp_plain']:.4f} ms, matmul {t['sp_lib']:.4f} ms (matmul vs "
+        f"kernel {lib_err.item():.2e})")
     del psets, plib
     return [
         dict(name="linformer_attn", route="cuda",
@@ -1114,7 +1231,7 @@ def timed_profile(name, fn, top=8):
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    log_profile(name, wall, profile_kernels(fn), top=top)
+    log_profile(name, wall, profile_kernels(fn)[0], top=top)
 
 
 def serve_phase(dev, cfg, params, prompts):
@@ -1354,7 +1471,8 @@ def train_phase(dev, cfg):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     log_profile("train step", wall,
-                profile_kernels(lambda: step(params, state, batch)), top=16)
+                profile_kernels(lambda: step(params, state, batch))[0],
+                top=16)
     del trainer, params, state
     return launches
 
@@ -1416,6 +1534,68 @@ def train_parity_phase(dev, cfg2, batch, tag):
         raise AssertionError(f"gradient {worst} differs: {grad_err[worst]}")
     if not upd_rel <= TRAIN_UPDATE_RTOL:
         raise AssertionError("parameters after AdamW differ")
+
+
+def train_parity_bf16_phase(dev, cfg32, batch, tag):
+    """The loss and every gradient leaf of the fp32 config `cfg32` on
+    `batch` (numpy) through three routes from the same parameters (drawn in
+    fp32, cast to bf16 for the bf16 routes): the kernels in bf16 (backend
+    "auto": kernels 5 and 6 on the tensor cores), the plain reference in
+    bf16 and the plain reference in fp32. The kernel route's error against
+    fp32 may be at most BF16_PARITY_FACTOR times the plain bf16 route's,
+    plus BF16_PARITY_ABS."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten, nest
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    B, S = batch["tokens"].shape
+    base = flatten(tmodel.init_params(cfg32, seed=1, device=dev))
+    routes = (("kernels bf16", "auto", "bfloat16"),
+              ("plain bf16", "reference", "bfloat16"),
+              ("plain fp32", "reference", "float32"))
+    res = {}
+    for route, backend, dtype in routes:
+        c = dataclasses.replace(cfg32, dtype=dtype).with_attention_backend(
+            backend)
+        leaves = {k: v.detach().to(getattr(torch, dtype)).requires_grad_(True)
+                  for k, v in base.items()}
+        reset_launches()
+        loss, _ = tmodel.loss_fn(nest(leaves), c, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        launches = read_launches()
+        used = {k: v for k, v in launches.items() if v}
+        if bool(used) != (backend == "auto"):
+            raise AssertionError(f"[{tag}] {route}: launches {used}")
+        res[route] = (loss.float().item(),
+                      {k: g.float() for k, g in zip(leaves, grads)})
+        log(f"  [{tag}] {route}: loss {loss.float().item():.6f}, launches "
+            f"{used}")
+        del leaves, grads, loss
+    loss32, g32 = res["plain fp32"]
+    errs = {}
+    for route in ("kernels bf16", "plain bf16"):
+        loss, g = res[route]
+        errs[route] = {"loss": abs(loss - loss32)}
+        errs[route].update({k: ((g[k] - g32[k]).norm()
+                                / g32[k].norm().clamp_min(1e-30)).item()
+                            for k in g32})
+    ek, ep = errs["kernels bf16"], errs["plain bf16"]
+    ratio = {k: ek[k] / (BF16_PARITY_FACTOR * ep[k] + BF16_PARITY_ABS)
+             for k in ek}
+    worst = max((k for k in ratio if k != "loss"), key=ratio.get)
+    log(f"[{tag}] {cfg32.num_layers}-layer, B={B}, S={S}, against fp32: "
+        f"loss err kernels bf16 {ek['loss']:.3e}, plain bf16 "
+        f"{ep['loss']:.3e}; worst gradient leaf {worst}: rel norm err "
+        f"kernels bf16 {ek[worst]:.3e}, plain bf16 {ep[worst]:.3e}; "
+        f"median leaf ratio kernels / plain "
+        f"{np.median([ek[k] / max(ep[k], 1e-30) for k in ek if k != 'loss']):.3f} "
+        f"(tol {BF16_PARITY_FACTOR:g}x + {BF16_PARITY_ABS:g})")
+    bad = [k for k, r in ratio.items() if not r <= 1.0]
+    if bad:
+        raise AssertionError(f"[{tag}] kernel route in bf16 beyond "
+                             f"{BF16_PARITY_FACTOR}x the plain bf16 route: "
+                             f"{ {k: (ek[k], ep[k]) for k in bad} }")
 
 
 def train_mlm_phase(dev):
@@ -1505,15 +1685,18 @@ def train_mlm_phase(dev):
     log(f"  forward alone (torch.no_grad, B={tcfg.global_batch}, "
         f"S={tcfg.seq_len}): {fwd_ms:.2f} ms, {1e3 * tokens / fwd_ms:.1f} "
         "tokens/s (mean of 3)")
-    log_profile("forward", fwd_ms * 1e-3, profile_kernels(infer), top=8)
+    kernels, counted = profile_kernels(infer)
+    log_profile("forward", fwd_ms * 1e-3, kernels, top=8)
+    require_profiled("forward", kernels, counted)
     state = adamw_init(params, tcfg.optimizer)
     step = trainer.train_step
     t0 = time.perf_counter()
     step(params, state, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    log_profile("train-mlm step", wall,
-                profile_kernels(lambda: step(params, state, batch)), top=16)
+    kernels, counted = profile_kernels(lambda: step(params, state, batch))
+    log_profile("train-mlm step", wall, kernels, top=16)
+    require_profiled("train-mlm step", kernels, counted)
     del trainer, params, state
     return launches
 
@@ -1568,10 +1751,13 @@ def main():
     enc2 = dataclasses.replace(get_config("linformer-paper"),
                                num_layers=MLM_PARITY["layers"],
                                dtype="float32")
-    train_parity_phase(dev, enc2, make_mlm_batch(
+    mlm_batch = make_mlm_batch(
         SyntheticCorpus(enc2.vocab_size, seed=0), DataState(0, 0),
-        batch=MLM_PARITY["batch"], seq=MLM_PARITY["seq"]),
-        "train-mlm-parity")
+        batch=MLM_PARITY["batch"], seq=MLM_PARITY["seq"])
+    train_parity_phase(dev, enc2, mlm_batch, "train-mlm-parity")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity_bf16_phase(dev, enc2, mlm_batch, "train-mlm-parity-bf16")
 
     # launches: each kernel's count on its own main path, every path beside;
     # the prefix form's residual variant serves sequence-parallel training,

@@ -57,17 +57,35 @@ BCA_BWD_S_PITCH = BCA_BWD_TILE_K + 16
 DECODE_TILE = 64
 DECODE_MAX_HEAD_DIM = 256
 
-# csrc/linformer_attn.cu (kernel 5, the exact form): its query and slot
-# tiles (the slot tile and the probability pitch are those of the blockwise
-# kernel, whose tile step it shares) and the head dims it is built for.
+# csrc/linformer_attn.cu (kernel 5, the exact form) and the head dims it is
+# built for. fp32 (SIMT, exact_fwd_kernel): 64-row query tiles, the
+# blockwise kernel's 64-slot tile and probability pitch (it shares its tile
+# step), fp32 rows of pitch Dh + 1. bf16 (tensor cores, exact_fwd_mma_kernel):
+# two query tiles a block of 4 warps of 16 rows, bf16 rows of pitch Dh + 8,
+# slot tiles of 128 (64 at Dh = 128), one k̄/v̄ stage when K fits one tile,
+# two otherwise.
 EXACT_TILE_Q = 64
 EXACT_HEAD_DIMS = BCA_HEAD_DIMS
+EXACT_MMA_TILE_Q = 64
+EXACT_MMA_Q_TILES = 2
 
-# csrc/seq_projection.cu (kernel 6): slots per block, sequence rows per
-# shared-memory step, the head dims it is built for.
+
+def exact_mma_tile_kv(head_dim: int) -> int:
+    return 128 if head_dim <= 64 else 64
+
+
+# csrc/seq_projection.cu (kernel 6) and the head dims it is built for. fp32
+# (SIMT, seq_projection_kernel): 64 slots per block, 32 sequence rows per
+# shared-memory step. bf16 (tensor cores, seq_projection_mma_kernel): 8 warps
+# of 16 slots, 64-row chunks of x (pitch Dh + 8) and of E (pitch slot tile
+# + 8) in two cp.async stages.
 SP_TILE_K = 64
 SP_TILE_S = 32
 SP_HEAD_DIMS = BCA_HEAD_DIMS
+SP_MMA_TILE_K = 128
+SP_MMA_CHUNK_S = 64
+SP_MMA_STAGES = 2
+
 
 # The JAX package's fail-fast bounds of the exact form (its
 # repro/kernels/common.py): the compressed length the TPU kernel pins whole
@@ -160,15 +178,23 @@ def check_exact_k(slots: int) -> None:
             f"for this shape.")
 
 
-def exact_smem_bytes(head_dim: int) -> int:
-    """Shared memory of csrc/linformer_attn.cu: the query tile, a slot tile
-    of k̄ and of v̄ (fp32, pitch Dh + 1) and the probability tile."""
-    return 4 * ((EXACT_TILE_Q + 2 * BCA_TILE_K) * (head_dim + 1)
-                + EXACT_TILE_Q * BCA_P_PITCH)
+def exact_smem_bytes(head_dim: int, dtype: torch.dtype, slots: int) -> int:
+    """Shared memory of csrc/linformer_attn.cu. fp32: the query tile, a slot
+    tile of k̄ and of v̄ (fp32, pitch Dh + 1) and the probability tile. bf16:
+    two query tiles and one stage of a k̄ and a v̄ slot tile (bf16, pitch
+    Dh + 8), two stages when the K slots span more than one tile."""
+    kernel_dtype(dtype)
+    if dtype == torch.float32:
+        return 4 * ((EXACT_TILE_Q + 2 * BCA_TILE_K) * (head_dim + 1)
+                    + EXACT_TILE_Q * BCA_P_PITCH)
+    tile = exact_mma_tile_kv(head_dim)
+    stages = 1 if slots <= tile else 2
+    return 2 * (head_dim + 8) * (EXACT_MMA_Q_TILES * EXACT_MMA_TILE_Q
+                                 + stages * 2 * tile)
 
 
 def check_exact_shapes(*, heads: int, kv_heads: int, slots: int,
-                       head_dim: int) -> None:
+                       head_dim: int, dtype: torch.dtype) -> None:
     """Fail fast on shapes csrc/linformer_attn.cu does not take."""
     if head_dim not in EXACT_HEAD_DIMS:
         raise ValueError(f"head_dim={head_dim}: the CUDA exact Linformer "
@@ -179,20 +205,25 @@ def check_exact_shapes(*, heads: int, kv_heads: int, slots: int,
     if slots < 1:
         raise ValueError(f"K={slots} compressed slots")
     check_exact_k(slots)
-    smem = exact_smem_bytes(head_dim)
+    smem = exact_smem_bytes(head_dim, dtype, slots)
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"exact Linformer tile needs {smem} B of shared "
                          f"memory, above {MAX_SMEM_PER_BLOCK}")
 
 
-def seq_projection_smem_bytes(head_dim: int) -> int:
-    """Shared memory of csrc/seq_projection.cu: an (SP_TILE_S, SP_TILE_K)
-    tile of E and an (SP_TILE_S, Dh) tile of x, fp32."""
-    return 4 * SP_TILE_S * (SP_TILE_K + head_dim)
+def seq_projection_smem_bytes(head_dim: int, dtype: torch.dtype) -> int:
+    """Shared memory of csrc/seq_projection.cu. fp32: an (SP_TILE_S,
+    SP_TILE_K) tile of E and an (SP_TILE_S, Dh) tile of x. bf16: two stages
+    of a 64-row chunk of x (pitch Dh + 8) and of E (pitch slot tile + 8)."""
+    kernel_dtype(dtype)
+    if dtype == torch.float32:
+        return 4 * SP_TILE_S * (SP_TILE_K + head_dim)
+    return 2 * SP_MMA_STAGES * SP_MMA_CHUNK_S * (head_dim + 8
+                                                 + SP_MMA_TILE_K + 8)
 
 
 def check_seq_projection_shapes(*, seq: int, rows: int, slots: int,
-                                head_dim: int) -> None:
+                                head_dim: int, dtype: torch.dtype) -> None:
     """Fail fast on shapes csrc/seq_projection.cu does not take: E must
     have exactly the batch's S rows (the caller slices E[:S])."""
     if head_dim not in SP_HEAD_DIMS:
@@ -203,7 +234,7 @@ def check_seq_projection_shapes(*, seq: int, rows: int, slots: int,
                          "E[:S]")
     if slots < 1:
         raise ValueError(f"K={slots} projected slots")
-    smem = seq_projection_smem_bytes(head_dim)
+    smem = seq_projection_smem_bytes(head_dim, dtype)
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"sequence projection tile needs {smem} B of "
                          f"shared memory, above {MAX_SMEM_PER_BLOCK}")
@@ -318,15 +349,20 @@ def check_decode_shapes(*, group: int, head_dim: int) -> None:
                          f"{MAX_SMEM_PER_BLOCK}")
 
 
+def kernel_dtype(dt: torch.dtype) -> int:
+    """The kernels' code of one dtype (KERNEL_DTYPES)."""
+    if dt not in KERNEL_DTYPES:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
+    return KERNEL_DTYPES[dt]
+
+
 def kernel_dtype_code(*xs: torch.Tensor) -> int:
     """The kernels' dtype code; every operand must share one dtype."""
     dt = xs[0].dtype
     if any(x.dtype != dt for x in xs):
         raise TypeError("kernel operands must share one dtype, got "
                         f"{sorted({str(x.dtype) for x in xs})}")
-    if dt not in KERNEL_DTYPES:
-        raise TypeError(f"kernels take float32 or bfloat16, got {dt}")
-    return KERNEL_DTYPES[dt]
+    return kernel_dtype(dt)
 
 
 def storage_dtype_code(*xs: torch.Tensor) -> int:

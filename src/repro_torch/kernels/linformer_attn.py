@@ -57,8 +57,9 @@ def launch_exact(kl: build.KernelLibrary, q, kbar, vbar, *, scale: float,
     if kbar.shape != (B, Hkv, K, Dh) or vbar.shape != kbar.shape:
         raise ValueError(f"k̄/v̄ {tuple(kbar.shape)}/{tuple(vbar.shape)}: "
                          f"expected (B, Hkv, K, Dh) = {(B, Hkv, K, Dh)}")
-    common.check_exact_shapes(heads=H, kv_heads=Hkv, slots=K, head_dim=Dh)
     dtype = common.kernel_dtype_code(q, kbar, vbar)
+    common.check_exact_shapes(heads=H, kv_heads=Hkv, slots=K, head_dim=Dh,
+                              dtype=q.dtype)
     kbar, vbar = common.same_strides(kbar, vbar)
     out = torch.empty((B, H, S, Dh), dtype=q.dtype, device=q.device)
     common.check_operands(q, kbar, vbar, out)

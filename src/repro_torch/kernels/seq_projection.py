@@ -34,9 +34,9 @@ def launch(kl: build.KernelLibrary, x, E, *, stream) -> torch.Tensor:
         raise ValueError(f"E {tuple(E.shape)}: the kernel takes one shared "
                          "(S, K) projection")
     K = E.shape[1]
-    common.check_seq_projection_shapes(seq=S, rows=E.shape[0], slots=K,
-                                       head_dim=Dh)
     dtype = common.kernel_dtype_code(x, E)
+    common.check_seq_projection_shapes(seq=S, rows=E.shape[0], slots=K,
+                                       head_dim=Dh, dtype=x.dtype)
     out = torch.empty((B, H, K, Dh), dtype=x.dtype, device=x.device)
     common.check_operands(x, E, out)
     strides = build.strides_arg((x, (0, 1, 2)), (E, (0,)), (out, (0, 1, 2)))

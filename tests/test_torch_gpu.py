@@ -10,8 +10,9 @@ which the port does not need):
 Tolerances: fp32 1e-4 absolute (summation order); bf16
 |kernel - plain| <= 2^-8·max|v| + 2^-7·|plain| elementwise (the plain
 version rounds each probability to bf16 before the value product, as the
-TPU kernel did, where the kernel keeps it in fp32; each output is rounded
-once to bf16). The residuals and the backward's fp32 outputs (kernel and
+TPU kernel did, where the kernel keeps it in fp32 — kernel 5 in bf16
+rounds the unnormalised exp(s - m) instead, at most 2^-9·max|v| an output;
+each output is rounded once to bf16). The residuals and the backward's fp32 outputs (kernel and
 plain version both compute in fp32 from the same inputs, summing up to G·S
 terms in another order): 1e-4 of the tensor's largest entry; dq in bf16
 adds 2^-7·|plain|, one bf16 rounding step apart. The quantized-cache
@@ -389,26 +390,52 @@ def test_smoke_serving_modes_through_kernels_match_reference(cuda, mode):
 # -- the exact form: kernels 5 and 6 ------------------------------------------
 
 # (B, H, Hkv, S, K, Dh): K = 1; K = 512 at Dh = 128 (the most shared memory);
-# a ragged S with GQA G = 2; the paper's full width
+# a ragged S with GQA G = 2; the paper's full width; K = 130, 2 slots past
+# one 128-slot tile of the bf16 kernel; Dh = 32 at K = 128; q starting one
+# element into its buffer (EXACT_SHIFTED: not 16-byte aligned)
 EXACT_SHAPES = {"k1": (1, 2, 2, 40, 1, 16),
                 "k512_dh128": (1, 4, 4, 100, 512, 128),
                 "ragged_gqa2": (2, 4, 2, 77, 40, 64),
-                "full": (32, 12, 12, 512, 128, 64)}
+                "full": (32, 12, 12, 512, 128, 64),
+                "k130": (2, 4, 2, 100, 130, 64),
+                "dh32_k128": (2, 4, 4, 128, 128, 32),
+                "misaligned_q": (2, 4, 2, 77, 128, 64)}
+EXACT_SHIFTED = {"misaligned_q": "q"}
 # (B, H, S, K, Dh, rows of the stored E): E[:S] of a longer E; K past one
-# slot tile; the paper's full width
+# slot tile; the paper's full width; K = 130, 2 slots past one 128-slot
+# tile; K = 512 at Dh = 128; x or E starting one element into its buffer
+# (SP_SHIFTED); a long S = 1100 (18 chunks, the last ragged)
 SP_SHAPES = {"k1": (2, 4, 40, 1, 16, 40),
              "sliced_k70": (2, 2, 77, 70, 128, 100),
              "k512": (1, 2, 64, 512, 64, 64),
-             "full": (32, 12, 512, 128, 64, 512)}
+             "full": (32, 12, 512, 128, 64, 512),
+             "k130": (2, 4, 100, 130, 64, 128),
+             "k512_dh128": (1, 2, 130, 512, 128, 160),
+             "misaligned_x": (2, 4, 77, 128, 64, 100),
+             "misaligned_E": (2, 4, 77, 128, 64, 100),
+             "s1100": (2, 4, 1100, 130, 64, 1200)}
+SP_SHIFTED = {"misaligned_x": "x", "misaligned_E": "E"}
 
 
-def _exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed=0):
+def _shifted(t):
+    """t's values in a contiguous view starting one element into a larger
+    buffer: its base is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed=0, shift=None):
     """q from model layout (a strided kernel-layout view), k̄/v̄ (B, Hkv, K,
-    Dh) views of (B, K, Hkv, Dh), as the model passes them."""
+    Dh) views of (B, K, Hkv, Dh), as the model passes them; `shift` "q"
+    moves q one element into its buffer."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
     kb, vb = (torch.randn(B, K, Hkv, Dh, generator=g, device=dev).to(dtype)
               for _ in range(2))
+    if shift == "q":
+        q = _shifted(q)
     return q.movedim(2, 1), kb.movedim(2, 1), vb.movedim(2, 1)
 
 
@@ -416,7 +443,8 @@ def _exact_inputs(B, H, Hkv, S, K, Dh, dtype, dev, seed=0):
 @pytest.mark.parametrize("shape", list(EXACT_SHAPES))
 def test_exact_kernel_matches_plain(cuda, dtype, shape):
     B, H, Hkv, S, K, Dh = EXACT_SHAPES[shape]
-    args = _exact_inputs(B, H, Hkv, S, K, Dh, dtype, cuda)
+    args = _exact_inputs(B, H, Hkv, S, K, Dh, dtype, cuda,
+                         shift=EXACT_SHIFTED.get(shape))
     n0 = la.linformer_attn.launches
     out = la.linformer_attn(*args, scale=Dh ** -0.5)
     torch.cuda.synchronize()
@@ -426,17 +454,24 @@ def test_exact_kernel_matches_plain(cuda, dtype, shape):
     _assert_close(out, ref, (args[2],))
 
 
-def _sp_inputs(B, H, S, K, Dh, rows, dtype, dev, seed=0):
+def _sp_inputs(B, H, S, K, Dh, rows, dtype, dev, seed=0, shift=None):
+    """x a kernel-layout view of (B, S, H, Dh), E[:S] of a (rows, K) E;
+    `shift` "x" or "E" moves that operand one element into its buffer."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
     E = (torch.randn(rows, K, generator=g, device=dev) * K ** -0.5).to(dtype)
+    if shift == "x":
+        x = _shifted(x)
+    if shift == "E":
+        E = _shifted(E)
     return x.movedim(2, 1), E[:S]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", list(SP_SHAPES))
 def test_seq_projection_kernel_matches_plain(cuda, dtype, shape):
-    x, E = _sp_inputs(*SP_SHAPES[shape], dtype, cuda)
+    x, E = _sp_inputs(*SP_SHAPES[shape], dtype, cuda,
+                      shift=SP_SHIFTED.get(shape))
     n0 = sp.seq_projection.launches
     out = sp.seq_projection(x, E)
     torch.cuda.synchronize()
@@ -446,6 +481,47 @@ def test_seq_projection_kernel_matches_plain(cuda, dtype, shape):
     _assert_grad_close(out, ref)
     # deterministic: no atomics, one summation order
     assert torch.equal(sp.seq_projection(x, E), out)
+
+
+# the device kernel each dtype of kernels 5 and 6 runs: bf16 the tensor-core
+# design, fp32 the SIMT one
+DEVICE_KERNELS = {
+    ("linformer_attn", torch.bfloat16): "exact_fwd_mma_kernel",
+    ("linformer_attn", torch.float32): "exact_fwd_kernel",
+    ("seq_projection", torch.bfloat16): "seq_projection_mma_kernel",
+    ("seq_projection", torch.float32): "seq_projection_kernel",
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["linformer_attn", "seq_projection"])
+def test_exact_kernels_run_their_dtypes_design(cuda, kernel, dtype):
+    """Profile one launch at the paper's full width: a bf16 launch runs the
+    tensor-core kernel and no SIMT one, an fp32 launch the SIMT kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    if kernel == "linformer_attn":
+        B, H, Hkv, S, K, Dh = EXACT_SHAPES["full"]
+        args = _exact_inputs(B, H, Hkv, S, K, Dh, dtype, cuda)
+        fn = lambda: la.linformer_attn(*args, scale=Dh ** -0.5)  # noqa: E731
+    else:
+        x, E = _sp_inputs(*SP_SHAPES["full"], dtype, cuda)
+        fn = lambda: sp.seq_projection(x, E)  # noqa: E731
+    # the first step is a discarded warm-up: the profiler traces the second
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    want = DEVICE_KERNELS[kernel, dtype]
+    other = DEVICE_KERNELS[kernel, ({torch.float32, torch.bfloat16}
+                                    - {dtype}).pop()]
+    assert [n for n in names if want in n], names
+    assert not [n for n in names if other in n], names
 
 
 @pytest.mark.parametrize("shape", ["ragged_gqa2", "full"])
