@@ -16,14 +16,20 @@ error; none catches its own failure:
    the train step's shapes (B=2, S=4096), plus a backward with per-row
    start blocks; the prefix form (both forms) and its quantized sibling at
    the chunked serve's shapes (B=4, P=512, M=288, start blocks 0, 3, 7, 14)
-   and quantized decode at B=4, M=288, int8 and fp8 pages;
-4. [time] time each kernel at full width in bf16 with CUDA events (inputs
-   rotated through more than the 50 MB L2 cache), beside its plain version,
-   one masked `scaled_dot_product_attention` call computing the same
-   function (over the dequantised operands for the quantized kernels), and
-   the least time the card could take (bytes over 3.35 TB/s or flops over
-   989 TFLOP/s); the training kernels at the train step's shapes (B=2,
-   S=4096), the quantized ones with int8 pages;
+   and quantized decode at B=4, M=288, int8 and fp8 pages; both decode
+   kernels also at their edges (DEC_EDGE_SHAPES: a B=1 step whose key
+   splits see no visible key, c + M not a multiple of the 64-key tile, a
+   fully masked row, misaligned views, G=3 and G=6, Dh 16/32/64/128), each
+   launched twice with bit-identical results;
+4. [time] time each kernel at full width in bf16 by CUDA-graph replay
+   (time_graph_ms; inputs rotated through more than the 50 MB L2 cache),
+   its eager loop logged beside, next to its plain version, one masked
+   `scaled_dot_product_attention` call computing the same function (over
+   the dequantised operands for the quantized kernels; graph-timed too),
+   and the least time the card could take (bytes over 3.35 TB/s or flops
+   over 989 TFLOP/s); the training kernels at the train step's shapes
+   (B=2, S=4096), the quantized ones with int8 pages; decode also at a B=1
+   prompt-remainder step (logged);
 5. [serve] serve 8 requests through full-width, 36-layer qwen3-8b (random
    bf16 weights from a seeded generator, bf16 cache, max_seq 4096,
    max_batch 4, decode_chunk 16), prompts of k·256+j tokens, with the
@@ -68,7 +74,8 @@ error; none catches its own failure:
    plain bf16 route, plus BF16_PARITY_ABS.
 
 Every torch.profiler breakdown is of the second of two runs, the first a
-discarded warm-up step (profile_kernels).
+discarded warm-up step (profile_kernels), and lists the port's kernels by
+function (the decode kernels' split and combine passes on their own).
 
 [check] and [time] cover the encoder's two kernels too: the exact
 Linformer attention (kernel 5) and the sequence projection (kernel 6), in
@@ -146,18 +153,20 @@ def time_ms(fn, n_sets, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def time_graph_ms(fn, n_sets, iters=60):
+def time_graph_ms(fn, n_sets, iters=60, stream=None):
     """Mean device time of fn(i) over `iters` calls, cycling through
     `n_sets` input sets: the calls are captured once into a CUDA graph,
     which is replayed between two CUDA events. Unlike time_ms this leaves
     out the host's time to enqueue each call, which at ~0.03 ms a call is
-    as long as the call itself."""
+    as long as the call itself. `stream`: the capture stream (an autograd
+    backward runs on its forward's stream, so a backward is captured on the
+    stream its forward ran on)."""
     import torch
     for i in range(n_sets):                      # warm-up, outside capture
         fn(i)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(iters):
             fn(i % n_sets)
     graph.replay()
@@ -226,12 +235,20 @@ def require_profiled(what, kernels, counted):
 
 def log_profile(name, wall, kernels, top=8):
     """One profile's line: wall, device busy, launches, device time by
-    group (the port's kernels, GEMMs, everything else), the top kernels."""
+    group (the port's kernels, GEMMs, everything else); the port's kernels
+    by function (all template instances together: the decode kernels' split
+    and combine passes each on a line); the top kernels."""
+    import re
     busy = sum(t for _, _, t in kernels)
     groups = {"port kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
-    for kname, _, t in kernels:
+    port = {}
+    for kname, n, t in kernels:
         if "repro_torch" in kname:
             groups["port kernels"] += t
+            fn = re.search(r"::(\w+)(?:<|\()", kname.split("repro_torch", 1)[1])
+            rec = port.setdefault(fn.group(1) if fn else kname, [0, 0.0])
+            rec[0] += n
+            rec[1] += t
         elif any(w in kname for w in ("nvjet", "gemm", "cutlass", "xmma")):
             groups["GEMMs"] += t
         else:
@@ -240,6 +257,10 @@ def log_profile(name, wall, kernels, top=8):
         f"{1e3 * busy:.2f} ms ({100 * busy / wall:.1f}%), "
         f"{sum(n for _, n, _ in kernels)} kernel launches; "
         + ", ".join(f"{g} {1e3 * t:.2f} ms" for g, t in groups.items()))
+    if port:
+        log("    port kernels: " + ", ".join(
+            f"{fn} {1e3 * t:.3f} ms in {n}x"
+            for fn, (n, t) in sorted(port.items(), key=lambda x: -x[1][1])))
     for kname, n, t in kernels[:top]:
         log(f"    {1e3 * t:9.3f} ms {n:6d}x  {kname[:90]}")
 
@@ -260,16 +281,21 @@ def bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed):
             tk(vbar.reshape(B, nb * r, Hkv, Dh)))
 
 
-def decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, seed, t):
+def decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, seed, t,
+                  edge=None):
     """Decode operands for rows at positions t (list): pos = t % c, blk =
-    t // c select the visible ring entries and slots."""
+    t // c select the visible ring entries and slots. `edge` (see
+    DEC_EDGE_SHAPES): "shifted" moves the ring and the slots one element
+    into their buffers, "masked_row" masks every key of row 1."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev).to(dtype)
-    kv = [torch.randn(B, n, Hkv, Dh, generator=g,
-                      device=dev).to(dtype).movedim(2, 1)
+    kv = [torch.randn(B, n, Hkv, Dh, generator=g, device=dev).to(dtype)
           for n in (c, c, M, M)]
-    return (q, *kv, *decode_biases(B, c, M, r, t, dev))
+    if edge == "shifted":
+        kv = [shifted(x) for x in kv]
+    return (q, *(x.movedim(2, 1) for x in kv),
+            *decode_biases(B, c, M, r, t, dev, edge))
 
 
 def prefix_inputs(shape, start, M, dtype, dev, seed):
@@ -296,8 +322,9 @@ def quantized(x, page_dtype):
     return quantize_blockwise(x, (3,), dtype=pdt, qmax=qmax)
 
 
-def decode_biases(B, c, M, r, t, dev):
-    """(B, c) and (B, M) additive biases of rows at positions t."""
+def decode_biases(B, c, M, r, t, dev, edge=None):
+    """(B, c) and (B, M) additive biases of rows at positions t; edge
+    "masked_row" masks every key of row 1."""
     import torch
     from repro_torch.core.causal import NEG_INF
     t = torch.tensor(t, device=dev)
@@ -305,20 +332,25 @@ def decode_biases(B, c, M, r, t, dev):
                      0.0, NEG_INF).float()
     bg = torch.where(torch.arange(M, device=dev)[None]
                      < (t // c * r)[:, None], 0.0, NEG_INF).float()
+    if edge == "masked_row":
+        bl[1], bg[1] = NEG_INF, NEG_INF
     return bl, bg
 
 
 def decode_q_inputs(B, Hkv, G, c, M, r, Dh, dtype, page_dtype, dev, seed,
-                    t):
+                    t, edge=None):
     """Quantized decode operands: q, ring and slot codes, their scales, the
-    biases of rows at positions t."""
+    biases of rows at positions t; `edge` as in decode_inputs (the codes
+    moved one byte into their buffers)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev).to(dtype)
     ops = [quantized(torch.randn(B, Hkv, n, Dh, generator=g, device=dev),
                      page_dtype) for n in (c, c, M, M)]
+    if edge == "shifted":
+        ops = [(shifted(x), sc) for x, sc in ops]
     return (q, *(x for x, _ in ops), *(s for _, s in ops),
-            *decode_biases(B, c, M, r, t, dev))
+            *decode_biases(B, c, M, r, t, dev, edge))
 
 
 def offset_residuals(q, k, kbar, start, kw):
@@ -422,6 +454,21 @@ PREFIX_SHAPES = {"small": ((3, 4, 2, 32, 16, 4, 16), [0, 5, 9], 40),
 DEC_Q_SHAPES = {"small": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95]),
                 "full": ((4, 8, 4, 256, 288, 16, 128),
                          [300, 1000, 2300, 4000])}
+# the decode kernels' edges, dense and quantized: (B, Hkv, G, c, M, r, Dh),
+# rows' positions, edge. b1_split_empty: a B = 1 remainder step at t = 10,
+# so 7 of the 8 key splits see no visible key and their tiles are skipped;
+# ragged_dh64: c + M = 300 (4 whole tiles and 44 keys); masked_row_dh16:
+# row 1 masks every key (the plain version's uniform average); shifted:
+# ring and slots one element into their buffers (no 16-byte loads), G = 3;
+# g6: G = 6, two blocks of query rows a kv head
+DEC_EDGE_SHAPES = {
+    "b1_split_empty": ((1, 8, 4, 256, 256, 16, 128), [10], None),
+    "ragged_dh64": ((2, 2, 4, 100, 200, 4, 64), [150, 2410], None),
+    "masked_row_dh16": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95],
+                        "masked_row"),
+    "shifted": ((2, 2, 3, 64, 70, 8, 64), [70, 300], "shifted"),
+    "g6": ((1, 2, 6, 64, 64, 8, 32), [100], None),
+}
 # [train]: depth cut, seq, global batch, steps; [train-parity]: seq
 TRAIN_RUN = dict(layers=8, seq=4096, batch=2, steps=4)
 TRAIN_PARITY_SEQ = 1024
@@ -461,9 +508,7 @@ MLM_PARITY = dict(layers=2, seq=512, batch=2)
 
 def check_phase(dev):
     import torch
-    from repro_torch.core.cache import dequantize_blockwise
     from repro_torch.kernels import blockwise_causal_attn as bca
-    from repro_torch.kernels import linformer_attn as la
     log("[check] kernels vs plain versions")
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -476,31 +521,58 @@ def check_phase(dev):
                 f"blockwise_causal_attn {size}", out,
                 bca.blockwise_causal_attn_plain(*args, **kw), dtype,
                 (args[2], args[4]))
-        for size, ((B, Hkv, G, c, M, r, Dh), t) in DEC_SHAPES.items():
-            args = decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, 2, t)
-            out = la.decode_attn(*args, scale=Dh ** -0.5)
-            torch.cuda.synchronize()
-            errs["dec", size, dtype] = check(
-                f"decode_attn {size}", out,
-                la.decode_attn_plain(*args, scale=Dh ** -0.5), dtype,
-                (args[2], args[4]))
+        errs.update(check_decode_kernels(dtype, dev))
         for size, (shape, start) in TRAIN_SHAPES.items():
             errs.update(check_training_kernels(size, shape, start, dtype,
                                                dev))
         for size, (shape, start, M) in PREFIX_SHAPES.items():
             errs.update(check_prefix_kernels(size, shape, start, M, dtype,
                                              dev))
-        for size, ((B, Hkv, G, c, M, r, Dh), t) in DEC_Q_SHAPES.items():
-            for pd in ("int8", "fp8"):
-                args = decode_q_inputs(B, Hkv, G, c, M, r, Dh, dtype, pd,
-                                       dev, 8, t)
-                out = la.decode_attn_q(*args, scale=Dh ** -0.5)
-                torch.cuda.synchronize()
-                errs["dec_q", size, pd, dtype] = check(
-                    f"decode_attn_q {pd} {size}", out,
-                    la.decode_attn_q_plain(*args, scale=Dh ** -0.5), dtype,
-                    [dequantize_blockwise(args[i], args[i + 4]) for i in (2, 4)])
         errs.update(check_exact_kernels(dtype, dev))
+    return errs
+
+
+def check_decode_kernels(dtype, dev):
+    """Kernel 3 (dense cache) and kernel 7 (int8 and fp8 codes) against
+    their plain twins at DEC_SHAPES / DEC_Q_SHAPES and every edge of
+    DEC_EDGE_SHAPES (a second launch must agree bit for bit: the key splits
+    are merged in a fixed order, without atomics)."""
+    import torch
+    from repro_torch.core.cache import dequantize_blockwise
+    from repro_torch.kernels import linformer_attn as la
+    errs = {}
+    cases = [("dec", size, shape, t, None)
+             for size, (shape, t) in DEC_SHAPES.items()]
+    cases += [("dec", size, shape, t, edge)
+              for size, (shape, t, edge) in DEC_EDGE_SHAPES.items()]
+    for pd in ("int8", "fp8"):
+        cases += [(("dec_q", pd), size, shape, t, None)
+                  for size, (shape, t) in DEC_Q_SHAPES.items()]
+        cases += [(("dec_q", pd), size, shape, t, edge)
+                  for size, (shape, t, edge) in DEC_EDGE_SHAPES.items()]
+    for kind, size, (B, Hkv, G, c, M, r, Dh), t, edge in cases:
+        sc = Dh ** -0.5
+        if kind == "dec":
+            args = decode_inputs(B, Hkv, G, c, M, r, Dh, dtype, dev, 2, t,
+                                 edge)
+            fn, plain, name = la.decode_attn, la.decode_attn_plain, \
+                f"decode_attn {size}"
+            values = (args[2], args[4])
+            key = ("dec", size, dtype)
+        else:
+            pd = kind[1]
+            args = decode_q_inputs(B, Hkv, G, c, M, r, Dh, dtype, pd, dev, 8,
+                                   t, edge)
+            fn, plain, name = la.decode_attn_q, la.decode_attn_q_plain, \
+                f"decode_attn_q {pd} {size}"
+            values = [dequantize_blockwise(args[i], args[i + 4])
+                      for i in (2, 4)]
+            key = ("dec_q", size, pd, dtype)
+        out = fn(*args, scale=sc)
+        torch.cuda.synchronize()
+        errs[key] = check(name, out, plain(*args, scale=sc), dtype, values)
+        if not torch.equal(fn(*args, scale=sc), out):
+            raise AssertionError(f"{name}: two launches differ")
     return errs
 
 
@@ -675,8 +747,8 @@ def time_phase(dev, errs):
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels import blockwise_causal_attn as bca
-    from repro_torch.kernels import linformer_attn as la
-    log("[time] full width, bf16, L2-cold inputs")
+    log("[time] full width, bf16, L2-cold inputs; kernels and library calls "
+        "by CUDA-graph replay, the kernels' eager loop beside")
     bf16 = torch.bfloat16
     records = []
     B, H, Hkv, S, c, r, Dh = BCA_SHAPES["full"]
@@ -684,7 +756,8 @@ def time_phase(dev, errs):
     sets = [bca_inputs(B, H, Hkv, S, c, r, Dh, bf16, dev, seed=10 + i)
             for i in range(n_sets)]
     kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
-    ms = time_ms(lambda i: bca.blockwise_causal_attn(*sets[i], **kw), n_sets)
+    run = lambda i: bca.blockwise_causal_attn(*sets[i], **kw)  # noqa: E731
+    ms, eager_ms = time_graph_ms(run, n_sets), time_ms(run, n_sets)
     plain_ms = time_ms(
         lambda i: bca.blockwise_causal_attn_plain(*sets[i], **kw), n_sets)
     M = (S // c) * r
@@ -693,7 +766,7 @@ def time_phase(dev, errs):
     lib_sets = [(q, torch.cat([k, kb], 2).repeat_interleave(G, 1),
                  torch.cat([v, vb], 2).repeat_interleave(G, 1))
                 for q, k, v, kb, vb in sets]
-    lib_ms = time_ms(lambda i: Fn.scaled_dot_product_attention(
+    lib_ms = time_graph_ms(lambda i: Fn.scaled_dot_product_attention(
         *lib_sets[i], attn_mask=mask, scale=Dh ** -0.5), n_sets)
     lib_err = (Fn.scaled_dot_product_attention(
         *lib_sets[0], attn_mask=mask, scale=Dh ** -0.5).float()
@@ -705,47 +778,20 @@ def time_phase(dev, errs):
         name="blockwise_causal_attn", route="cuda",
         source="src/repro_torch/csrc/blockwise_causal_attn.cu",
         replaces="src/repro/kernels/blockwise_causal_attn.py:301",
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
         bytes=nbytes, flops=flops,
         max_abs_err=errs["bca", "full", bf16]))
     log(f"  blockwise_causal_attn B={B} H={H} Hkv={Hkv} S={S} c={c} r={r} "
-        f"Dh={Dh}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms (sdpa vs kernel {lib_err.item():.2e})")
+        f"Dh={Dh}: kernel {ms:.4f} ms (eager loop {eager_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (sdpa vs kernel "
+        f"{lib_err.item():.2e})")
     del sets, lib_sets
-
-    (B, Hkv, G, c, M, r, Dh), _ = DEC_SHAPES["full"]
-    t_rows = [300, 1000, 2300, 4000]                # mixed pos and blk
-    n_sets = 16                                     # 16 x 4 MB > 50 MB L2
-    sets = [decode_inputs(B, Hkv, G, c, M, r, Dh, bf16, dev, 20 + i, t_rows)
-            for i in range(n_sets)]
-    ms = time_ms(lambda i: la.decode_attn(*sets[i], scale=Dh ** -0.5),
-                 n_sets, iters=100)
-    plain_ms = time_ms(
-        lambda i: la.decode_attn_plain(*sets[i], scale=Dh ** -0.5), n_sets,
-        iters=100)
-    lib_sets = []
-    for q, rk, rv, ck, cv, bl, bg in sets:
-        keys = torch.cat([rk, ck], 2).repeat_interleave(G, 1)
-        vals = torch.cat([rv, cv], 2).repeat_interleave(G, 1)
-        ok = (torch.cat([bl, bg], 1) == 0)[:, None, None, :]
-        lib_sets.append((q.reshape(B, Hkv * G, 1, Dh), keys, vals, ok))
-    lib_ms = time_ms(lambda i: Fn.scaled_dot_product_attention(
-        *lib_sets[i][:3], attn_mask=lib_sets[i][3], scale=Dh ** -0.5),
-        n_sets, iters=100)
-    vis = sum(t % c + 1 + (t // c) * r for t in t_rows)
-    nbytes = 2 * (2 * B * Hkv * G * Dh + 2 * vis * Hkv * Dh) \
-        + 4 * B * (c + M)
-    flops = 4 * Dh * G * Hkv * vis
-    records.append(dict(
-        name="decode_attn", route="cuda",
-        source="src/repro_torch/csrc/decode_attn.cu",
-        replaces="src/repro/kernels/linformer_attn.py:143",
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
-        flops=flops, max_abs_err=errs["dec", "full", bf16]))
-    log(f"  decode_attn B={B} Hkv={Hkv} G={G} c={c} M={M} Dh={Dh} "
-        f"t={t_rows}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms")
-    del sets, lib_sets
+    # kernel 3 at the monolithic serve's decode step (B = 4, rows of mixed
+    # position and block), then at a B = 1 prompt-remainder step (logged)
+    rec = time_decode(dev, errs, DEC_SHAPES["full"][0][0],
+                      [300, 1000, 2300, 4000])
+    records.append(rec)
+    time_decode(dev, errs, 1, [1040])
     records += time_training_kernels(dev, errs)
     records += time_prefix_kernels(dev, errs)
     records += time_decode_q(dev, errs)
@@ -759,6 +805,54 @@ def time_phase(dev, errs):
             f"({rec['bound_by']}), kernel at "
             f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
     return records
+
+
+def time_decode(dev, errs, B, t_rows):
+    """Kernel 3 at the full width's Hkv, G, c, M, Dh and B rows at
+    positions t_rows, bf16, beside one masked SDPA call over [ring | slots]
+    (the kv heads repeated G times), both by CUDA-graph replay; the
+    kernel's eager loop logged beside. Returns the kernel's record."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import common
+    from repro_torch.kernels import linformer_attn as la
+    bf16 = torch.bfloat16
+    (_, Hkv, G, c, M, r, Dh), _ = DEC_SHAPES["full"]
+    n_sets = 16 * 4 // B                          # > 50 MB of L2 at B = 1 too
+    sets = [decode_inputs(B, Hkv, G, c, M, r, Dh, bf16, dev, 20 + i, t_rows)
+            for i in range(n_sets)]
+    run = lambda i: la.decode_attn(*sets[i], scale=Dh ** -0.5)  # noqa: E731
+    ms = time_graph_ms(run, n_sets, iters=100)
+    eager_ms = time_ms(run, n_sets, iters=100)
+    plain_ms = time_ms(
+        lambda i: la.decode_attn_plain(*sets[i], scale=Dh ** -0.5), n_sets,
+        iters=100)
+    lib_sets = []
+    for q, rk, rv, ck, cv, bl, bg in sets:
+        keys = torch.cat([rk, ck], 2).repeat_interleave(G, 1)
+        vals = torch.cat([rv, cv], 2).repeat_interleave(G, 1)
+        ok = (torch.cat([bl, bg], 1) == 0)[:, None, None, :]
+        lib_sets.append((q.reshape(B, Hkv * G, 1, Dh), keys, vals, ok))
+    lib_ms = time_graph_ms(lambda i: Fn.scaled_dot_product_attention(
+        *lib_sets[i][:3], attn_mask=lib_sets[i][3], scale=Dh ** -0.5),
+        n_sets, iters=100)
+    vis = sum(t % c + 1 + (t // c) * r for t in t_rows)
+    nbytes = 2 * (2 * B * Hkv * G * Dh + 2 * vis * Hkv * Dh) \
+        + 4 * B * (c + M)
+    flops = 4 * Dh * G * Hkv * vis
+    bound = 1e3 * max(nbytes / H100_BYTES_PER_S,
+                      flops / H100_FLOPS[str(bf16)])
+    log(f"  decode_attn B={B} Hkv={Hkv} G={G} c={c} M={M} Dh={Dh} "
+        f"t={t_rows}, {common.decode_splits(B * Hkv, G, c + M)[0]} key "
+        f"splits: kernel {ms:.4f} ms (eager loop {eager_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; bound {bound:.4f} ms")
+    del sets, lib_sets
+    return dict(name="decode_attn", route="cuda",
+                source="src/repro_torch/csrc/decode_attn.cu",
+                replaces="src/repro/kernels/linformer_attn.py:143",
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bytes=nbytes, flops=flops,
+                max_abs_err=errs["dec", "full", bf16])
 
 
 def joint_mask(S, c, r, dev):
@@ -833,17 +927,20 @@ def time_prefix_kernels(dev, errs):
         *xs, attn_mask=mask, scale=Dh ** -0.5)
     t = {}
     for res in (False, True):
-        t["pre", res] = time_ms(lambda i: bca.blockwise_causal_prefix_attn(
-            *sets[i], return_residuals=res, **kw), n_sets)
+        run = lambda i: bca.blockwise_causal_prefix_attn(  # noqa: E731
+            *sets[i], return_residuals=res, **kw)
+        t["pre", res], t["pre_eager", res] = (time_graph_ms(run, n_sets),
+                                              time_ms(run, n_sets))
         t["pre_plain", res] = time_ms(lambda i: bca.blockwise_causal_attn_plain(
             *sets[i][:5], start_blocks=sets[i][5], return_residuals=res,
             **kw), n_sets, iters=10)
-    t["q"] = time_ms(lambda i: bca.blockwise_causal_prefix_attn_q(
-        *qsets[i], **kw), n_sets)
+    run = lambda i: bca.blockwise_causal_prefix_attn_q(  # noqa: E731
+        *qsets[i], **kw)
+    t["q"], t["q_eager"] = time_graph_ms(run, n_sets), time_ms(run, n_sets)
     t["q_plain"] = time_ms(lambda i: bca.blockwise_causal_prefix_attn_q_plain(
         *qsets[i], **kw), n_sets, iters=10)
-    t["lib"] = time_ms(lambda i: sdpa(lib[i]), n_sets)
-    t["qlib"] = time_ms(lambda i: sdpa(qlib[i]), n_sets)
+    t["lib"] = time_graph_ms(lambda i: sdpa(lib[i]), n_sets)
+    t["qlib"] = time_graph_ms(lambda i: sdpa(qlib[i]), n_sets)
     lib_err = (sdpa(lib[0]).float() - bca.blockwise_causal_prefix_attn(
         *sets[0], **kw).float()).abs().max().item()
     pairs, slots = prefix_visible(P, c, r, M, start)
@@ -852,32 +949,37 @@ def time_prefix_kernels(dev, errs):
     q_slot_bytes = 2 * slots * Hkv * (Dh * 1 + 4)          # codes + scale
     flops = 4 * Dh * pairs * H
     log(f"  blockwise_causal_prefix_attn B={B} H={H} Hkv={Hkv} P={P} M={M} "
-        f"start={start}: kernel {t['pre', False]:.4f} ms, residual form "
-        f"{t['pre', True]:.4f} ms, plain {t['pre_plain', False]:.4f} / "
-        f"{t['pre_plain', True]:.4f} ms, sdpa {t['lib']:.4f} ms (sdpa vs "
-        f"kernel {lib_err:.2e})")
+        f"start={start}: kernel {t['pre', False]:.4f} ms (eager loop "
+        f"{t['pre_eager', False]:.4f}), residual form {t['pre', True]:.4f} "
+        f"ms (eager loop {t['pre_eager', True]:.4f}), plain "
+        f"{t['pre_plain', False]:.4f} / {t['pre_plain', True]:.4f} ms, sdpa "
+        f"{t['lib']:.4f} ms (sdpa vs kernel {lib_err:.2e})")
     log(f"  blockwise_causal_prefix_attn_q {SERVE_PAGE_DTYPE}: kernel "
-        f"{t['q']:.4f} ms, plain {t['q_plain']:.4f} ms, sdpa over the "
-        f"dequantised slots {t['qlib']:.4f} ms")
+        f"{t['q']:.4f} ms (eager loop {t['q_eager']:.4f}), plain "
+        f"{t['q_plain']:.4f} ms, sdpa over the dequantised slots "
+        f"{t['qlib']:.4f} ms")
     src = "src/repro_torch/csrc/blockwise_causal_attn.cu"
     del sets, qsets, lib, qlib
     return [
         dict(name="blockwise_causal_prefix_attn", route="cuda", source=src,
              replaces="src/repro/kernels/blockwise_causal_attn.py:216",
-             ms=t["pre", False], plain_ms=t["pre_plain", False],
+             ms=t["pre", False], eager_ms=t["pre_eager", False],
+             plain_ms=t["pre_plain", False],
              library_ms=t["lib"], bytes=act + slot_bytes, flops=flops,
              max_abs_err=errs["pre", "full", bf16]),
         dict(name="blockwise_causal_prefix_attn(return_residuals)",
              route="cuda", source=src,
              replaces="src/repro/kernels/blockwise_causal_attn.py:125",
-             ms=t["pre", True], plain_ms=t["pre_plain", True],
+             ms=t["pre", True], eager_ms=t["pre_eager", True],
+             plain_ms=t["pre_plain", True],
              library_ms=t["lib"],
              bytes=act + slot_bytes + 2 * 4 * B * H * P, flops=flops,
              max_abs_err=errs["pre_res", "full", bf16]),
         dict(name="blockwise_causal_prefix_attn_q", route="cuda",
              source=src,
              replaces="src/repro/kernels/blockwise_causal_attn.py:157",
-             ms=t["q"], plain_ms=t["q_plain"], library_ms=t["qlib"],
+             ms=t["q"], eager_ms=t["q_eager"], plain_ms=t["q_plain"],
+             library_ms=t["qlib"],
              bytes=act + q_slot_bytes, flops=flops,
              max_abs_err=errs["pre_q", "full", SERVE_PAGE_DTYPE, bf16]),
     ]
@@ -890,15 +992,15 @@ def time_decode_q(dev, errs):
     import torch
     from repro_torch.core.cache import dequantize_blockwise
     import torch.nn.functional as Fn
-    from repro_torch.kernels import blockwise_causal_attn as bca
     from repro_torch.kernels import linformer_attn as la
     bf16 = torch.bfloat16
     (B, Hkv, G, c, M, r, Dh), t_rows = DEC_Q_SHAPES["full"]
     n_sets = 24                                    # 24 x 2.5 MB > 50 MB L2
     sets = [decode_q_inputs(B, Hkv, G, c, M, r, Dh, bf16, SERVE_PAGE_DTYPE,
                             dev, 60 + i, t_rows) for i in range(n_sets)]
-    ms = time_ms(lambda i: la.decode_attn_q(*sets[i], scale=Dh ** -0.5),
-                 n_sets, iters=100)
+    run = lambda i: la.decode_attn_q(*sets[i], scale=Dh ** -0.5)  # noqa: E731
+    ms = time_graph_ms(run, n_sets, iters=100)
+    eager_ms = time_ms(run, n_sets, iters=100)
     plain_ms = time_ms(lambda i: la.decode_attn_q_plain(
         *sets[i], scale=Dh ** -0.5), n_sets, iters=100)
     lib_sets = []
@@ -910,20 +1012,22 @@ def time_decode_q(dev, errs):
         lib_sets.append((q.reshape(B, Hkv * G, 1, Dh),
                          keys.repeat_interleave(G, 1),
                          vals.repeat_interleave(G, 1), ok))
-    lib_ms = time_ms(lambda i: Fn.scaled_dot_product_attention(
+    lib_ms = time_graph_ms(lambda i: Fn.scaled_dot_product_attention(
         *lib_sets[i][:3], attn_mask=lib_sets[i][3], scale=Dh ** -0.5),
         n_sets, iters=100)
     vis = sum(t % c + 1 + (t // c) * r for t in t_rows)
     nbytes = 2 * 2 * B * Hkv * G * Dh + 2 * vis * Hkv * (Dh * 1 + 4) \
         + 4 * B * (c + M)
     log(f"  decode_attn_q {SERVE_PAGE_DTYPE} B={B} Hkv={Hkv} G={G} c={c} "
-        f"M={M} t={t_rows}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa over the dequantised cache {lib_ms:.4f} ms")
+        f"M={M} t={t_rows}: kernel {ms:.4f} ms (eager loop "
+        f"{eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa over the "
+        f"dequantised cache {lib_ms:.4f} ms")
     del sets, lib_sets
     return [dict(name="decode_attn_q", route="cuda",
                  source="src/repro_torch/csrc/decode_attn.cu",
                  replaces="src/repro/kernels/linformer_attn.py:180",
-                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bytes=nbytes,
                  flops=4 * Dh * G * Hkv * vis,
                  max_abs_err=errs["dec_q", "full", SERVE_PAGE_DTYPE, bf16])]
 
@@ -945,47 +1049,59 @@ def time_training_kernels(dev, errs):
     dos = [torch.randn(s[0].shape, generator=g, device=dev).to(bf16)
            for s in sets]
     kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
-    res_ms = time_ms(lambda i: bca.blockwise_causal_attn(
-        *sets[i], return_residuals=True, **kw), n_sets)
+    run = lambda i: bca.blockwise_causal_attn(  # noqa: E731
+        *sets[i], return_residuals=True, **kw)
+    res_ms = time_graph_ms(run, n_sets, iters=20)
+    res_eager_ms = time_ms(run, n_sets)
     res_plain_ms = time_ms(lambda i: bca.blockwise_causal_attn_plain(
         *sets[i], return_residuals=True, **kw), n_sets, iters=5)
     resid = [bca.blockwise_causal_attn(*s, return_residuals=True, **kw)[1:]
              for s in sets]
-    bwd_ms = time_ms(lambda i: bca.blockwise_causal_attn_bwd(
-        *sets[i], *resid[i], dos[i], **kw), n_sets, iters=10)
+    run = lambda i: bca.blockwise_causal_attn_bwd(  # noqa: E731
+        *sets[i], *resid[i], dos[i], **kw)
+    bwd_ms = time_graph_ms(run, n_sets, iters=10)
+    bwd_eager_ms = time_ms(run, n_sets, iters=10)
     bwd_plain_ms = time_ms(lambda i: bca.blockwise_causal_attn_bwd_plain(
         *sets[i], *resid[i], dos[i], **kw), n_sets, iters=5)
     mask = joint_mask(S, c, r, dev)
+    # the SDPA forwards whose backward is timed run on the stream the
+    # backward is then captured on
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
     lib = []
-    for q, k, v, kb, vb in sets:
-        xs = [x.contiguous().requires_grad_() for x in (
-            q, torch.cat([k, kb], 2).repeat_interleave(G, 1),
-            torch.cat([v, vb], 2).repeat_interleave(G, 1))]
-        out = Fn.scaled_dot_product_attention(*xs, attn_mask=mask,
-                                              scale=Dh ** -0.5)
-        lib.append((xs, out))
-    lib_fwd_ms = time_ms(lambda i: Fn.scaled_dot_product_attention(
+    with torch.cuda.stream(side):
+        for q, k, v, kb, vb in sets:
+            xs = [x.contiguous().requires_grad_() for x in (
+                q, torch.cat([k, kb], 2).repeat_interleave(G, 1),
+                torch.cat([v, vb], 2).repeat_interleave(G, 1))]
+            out = Fn.scaled_dot_product_attention(*xs, attn_mask=mask,
+                                                  scale=Dh ** -0.5)
+            lib.append((xs, out))
+    torch.cuda.synchronize()
+    lib_fwd_ms = time_graph_ms(lambda i: Fn.scaled_dot_product_attention(
         *[x.detach() for x in lib[i][0]], attn_mask=mask, scale=Dh ** -0.5),
-        n_sets)
-    lib_bwd_ms = time_ms(lambda i: torch.autograd.grad(
-        lib[i][1], lib[i][0], dos[i].contiguous(), retain_graph=True),
-        n_sets, iters=10)
+        n_sets, iters=20)
+    dos_c = [do.contiguous() for do in dos]
+    lib_bwd_ms = time_graph_ms(lambda i: torch.autograd.grad(
+        lib[i][1], lib[i][0], dos_c[i], retain_graph=True),
+        n_sets, iters=10, stream=side)
     vis = visible_pairs(S, c, r) * B * H
     in_bytes = 2 * (B * H * S * Dh + 2 * B * Hkv * S * Dh
                     + 2 * B * Hkv * M * Dh)
     rows = B * H * S
     log(f"  blockwise_causal_attn(residuals) B={B} H={H} Hkv={Hkv} S={S}: "
-        f"kernel {res_ms:.4f} ms, plain {res_plain_ms:.4f} ms, sdpa "
-        f"{lib_fwd_ms:.4f} ms")
+        f"kernel {res_ms:.4f} ms (eager loop {res_eager_ms:.4f}), plain "
+        f"{res_plain_ms:.4f} ms, sdpa {lib_fwd_ms:.4f} ms")
     log(f"  blockwise_causal_attn_bwd B={B} H={H} Hkv={Hkv} S={S}: kernel "
-        f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, sdpa backward "
-        f"{lib_bwd_ms:.4f} ms")
-    del sets, lib, resid, dos
+        f"{bwd_ms:.4f} ms (eager loop {bwd_eager_ms:.4f}), plain "
+        f"{bwd_plain_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms")
+    del sets, lib, resid, dos, dos_c
     return [
         dict(name="blockwise_causal_attn(return_residuals)", route="cuda",
              source="src/repro_torch/csrc/blockwise_causal_attn.cu",
              replaces="src/repro/kernels/blockwise_causal_attn.py:96",
-             ms=res_ms, plain_ms=res_plain_ms, library_ms=lib_fwd_ms,
+             ms=res_ms, eager_ms=res_eager_ms, plain_ms=res_plain_ms,
+             library_ms=lib_fwd_ms,
              # reads q, k, v, slots; writes the output and (m, denom)
              bytes=in_bytes + 2 * B * H * S * Dh + 2 * 4 * rows,
              flops=4 * Dh * vis,
@@ -993,7 +1109,8 @@ def time_training_kernels(dev, errs):
         dict(name="blockwise_causal_attn_bwd", route="cuda",
              source="src/repro_torch/csrc/blockwise_causal_attn_bwd.cu",
              replaces="src/repro/kernels/blockwise_causal_attn.py:469",
-             ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+             ms=bwd_ms, eager_ms=bwd_eager_ms, plain_ms=bwd_plain_ms,
+             library_ms=lib_bwd_ms,
              # reads q, k, v, slots, dO (bf16) and (m, denom) (fp32);
              # writes dq (bf16), dk_loc, dv_loc, dk̄, dv̄ (fp32)
              bytes=(in_bytes + 2 * rows * Dh + 2 * 4 * rows
@@ -1057,7 +1174,8 @@ def time_exact_kernels(dev, errs):
         dict(name="linformer_attn", route="cuda",
              source="src/repro_torch/csrc/linformer_attn.cu",
              replaces="src/repro/kernels/linformer_attn.py:58",
-             ms=t["exact"], plain_ms=t["exact_plain"],
+             ms=t["exact"], eager_ms=t["exact_eager"],
+             plain_ms=t["exact_plain"],
              library_ms=t["exact_lib"],
              # reads q, k̄, v̄; writes the output
              bytes=2 * (2 * B * H * S * Dh + 2 * B * Hkv * K * Dh),
@@ -1066,7 +1184,8 @@ def time_exact_kernels(dev, errs):
         dict(name="seq_projection", route="cuda",
              source="src/repro_torch/csrc/seq_projection.cu",
              replaces="src/repro/kernels/seq_projection.py:39",
-             ms=t["sp"], plain_ms=t["sp_plain"], library_ms=t["sp_lib"],
+             ms=t["sp"], eager_ms=t["sp_eager"], plain_ms=t["sp_plain"],
+             library_ms=t["sp_lib"],
              # reads x and E[:S]; writes K̄
              bytes=2 * (Bp * Hp * Sp * Dp + Sp * Kp + Bp * Hp * Kp * Dp),
              flops=2 * Sp * Kp * Dp * Bp * Hp,

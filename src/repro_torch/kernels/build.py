@@ -48,9 +48,9 @@ SIGNATURES: Dict[str, Tuple[object, List[object]]] = {
     "bca_backward": (_I, [_P] * 15 + [_LL_PTR] + [_I] * 8
                      + [ctypes.c_float, _I, _P]),
     # q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s, comp_k_s, comp_v_s,
-    # bias_loc, bias_glob, out, strides[12], B, Hkv, G, Dh, c, M, scale,
-    # dtype, cache_dtype, stream
-    "decode_forward": (_I, [_P] * 12 + [_LL_PTR] + [_I] * 6
+    # bias_loc, bias_glob, out, part, strides[12], B, Hkv, G, Dh, c, M,
+    # nsplit, tiles_per_split, scale, dtype, cache_dtype, stream
+    "decode_forward": (_I, [_P] * 13 + [_LL_PTR] + [_I] * 8
                        + [ctypes.c_float, _I, _I, _P]),
     # q, kbar, vbar, out, strides[9], B, H, Hkv, S, K, Dh, scale, dtype,
     # stream

@@ -7,9 +7,10 @@ kernels in ``csrc/`` accept: the head dims they are instantiated for, whole
 blocks (``S % c == 0``), ``M == nb·r`` compressed slots (any M for the
 prefix form), the storage dtypes and scale layouts of the quantized cache,
 and the shared memory a thread block may use on the H100. The tile
-constants below must match the ``.cu`` sources. The exact form keeps the
-JAX package's own fail-fast checks as well (``MAX_EXACT_K`` and the
-``divisor_block`` grid floor at its default tiles), so the port refuses the
+constants below must match the ``.cu`` sources. The port keeps the JAX
+package's own fail-fast checks as well (the exact form's ``MAX_EXACT_K``
+and ``divisor_block`` grid floor at its default tiles; the causal,
+chunk-prefill and decode forms' ``MAX_PINNED_SLOTS``), so it refuses the
 shapes the JAX package refuses.
 """
 from __future__ import annotations
@@ -53,9 +54,26 @@ BCA_P_PITCH = BCA_TILE_K + 16
 BCA_BWD_TILE_K = 64
 BCA_BWD_S_PITCH = BCA_BWD_TILE_K + 16
 
-# csrc/decode_attn.cu: key tile and head-dim ceiling.
+# csrc/decode_attn.cu (kernels 3 and 7): the 64-key tile (the unit of
+# masked-tile skipping and of a key split), the query rows of a kv head's
+# group one block takes (the grid's z axis covers the rest of G), the key
+# rows of a tile one lane holds, and the head dims it is built for. The
+# split count aims at DECODE_TARGET_BLOCKS thread blocks: two for each of
+# the H100's 132 SMs.
 DECODE_TILE = 64
-DECODE_MAX_HEAD_DIM = 256
+DECODE_GROUP_ROWS = 4
+DECODE_KEYS_PER_LANE = 4
+DECODE_HEAD_DIMS = BCA_HEAD_DIMS
+DECODE_TARGET_BLOCKS = 2 * 132
+DECODE_MAX_GRID_YZ = 65535           # CUDA's grid limit on the y and z axes
+DECODE_MAX_GROUP = DECODE_GROUP_ROWS * DECODE_MAX_GRID_YZ
+
+# The JAX package's bound on the compressed slot buffer of the causal,
+# chunk-prefill and decode forms (its repro/kernels/common.py): its TPU
+# kernels pin all M slots in VMEM per grid step. The CUDA kernels stream
+# slot tiles and need no such bound; the port keeps it so that it refuses
+# what the JAX package refuses.
+MAX_PINNED_SLOTS = 4096
 
 # csrc/linformer_attn.cu (kernel 5, the exact form) and the head dims it is
 # built for. fp32 (SIMT, exact_fwd_kernel): 64-row query tiles, the
@@ -332,21 +350,43 @@ def check_blockwise_bwd_shapes(*, seq: int, block_size: int,
                              f"{MAX_SMEM_PER_BLOCK}")
 
 
-def decode_smem_bytes(group: int, head_dim: int) -> int:
-    return 4 * (2 * group * head_dim + 2 * DECODE_TILE * (head_dim + 1)
-                + group * DECODE_TILE + 3 * group)
+def decode_splits(rows: int, group: int, keys: int) -> Tuple[int, int]:
+    """(splits, 64-key tiles a split) of the decode kernels for `rows` =
+    B·Hkv (row, kv head) pairs, a GQA group of `group` query heads and
+    `keys` = c + M keys: enough splits for about DECODE_TARGET_BLOCKS
+    blocks, at most one a tile, and no split without a tile."""
+    tiles = -(-keys // DECODE_TILE)
+    blocks = rows * -(-group // DECODE_GROUP_ROWS)
+    want = max(1, min(tiles, -(-DECODE_TARGET_BLOCKS // blocks)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
 
 
 def check_decode_shapes(*, group: int, head_dim: int) -> None:
     """Fail fast on shapes csrc/decode_attn.cu does not take."""
-    if head_dim > DECODE_MAX_HEAD_DIM:
-        raise ValueError(f"head_dim={head_dim} above the decode kernel's "
-                         f"{DECODE_MAX_HEAD_DIM}")
-    smem = decode_smem_bytes(group, head_dim)
-    if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"decode tile for G={group}, Dh={head_dim} needs "
-                         f"{smem} B of shared memory, above "
-                         f"{MAX_SMEM_PER_BLOCK}")
+    if head_dim not in DECODE_HEAD_DIMS:
+        raise ValueError(f"head_dim={head_dim}: the CUDA decode kernel is "
+                         f"built for head dims {DECODE_HEAD_DIMS}")
+    if not 1 <= group <= DECODE_MAX_GROUP:
+        raise ValueError(f"group G={group}: the decode kernel's grid takes "
+                         f"1 to {DECODE_MAX_GROUP} query heads a kv head")
+
+
+PINNED_REMEDY = ("Raise block_size, lower block_slots or max_seq, or use "
+                 "backend='reference' for this cache shape.")
+
+
+def check_pinned_slots(name: str, slots: int, what: str, *,
+                       grid_step: bool = True,
+                       remedy: str = PINNED_REMEDY) -> None:
+    """The JAX package's refusal of more than MAX_PINNED_SLOTS compressed
+    slots, in its words (repro/kernels/ops.py): "`name` pins `what` in
+    VMEM[ per grid step], which requires M ≤ 4096. `remedy`"."""
+    if slots > MAX_PINNED_SLOTS:
+        raise ValueError(
+            f"{name} pins {what} in VMEM"
+            + (" per grid step" if grid_step else "")
+            + f", which requires M ≤ {MAX_PINNED_SLOTS}. {remedy}")
 
 
 def kernel_dtype(dt: torch.dtype) -> int:

@@ -16,6 +16,9 @@ Counterpart of ``repro/kernels/linformer_attn.py``:
   Per (b, kv head) the G query rows take one softmax over [ring | slots].
   ``decode_attn_q`` takes the ring and the page-gathered slots as int8 or
   fp8 codes with fp32 scales (B, Hkv, c) per token and (B, Hkv, M) per slot.
+  On the card the key range is split over thread blocks
+  (``common.decode_splits``) and a second kernel merges the splits, with
+  fp32 scratch the wrapper allocates.
 
 Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel for a
 CUDA tensor, counting its launches in ``<wrapper>.launches``.
@@ -170,6 +173,13 @@ def launch(kl: build.KernelLibrary, q, raw_k, raw_v, comp_k, comp_v,
     out = torch.empty_like(q)
     common.check_operands(q, raw_k, raw_v, comp_k, comp_v, bias_loc,
                           bias_glob, out)
+    # the key splits and, for more than one, their fp32 merge states (o, m,
+    # l) for the combine pass: scratch from the caching allocator, so the
+    # launch can be captured into a CUDA graph
+    nsplit, per_split = common.decode_splits(B * Hkv, G, c + M)
+    part = None if nsplit == 1 else torch.empty(
+        B * Hkv * nsplit * G * (Dh + 2), dtype=torch.float32,
+        device=q.device)
     dims = (0, 1, 2)
     strides = build.strides_arg((raw_k, dims), (comp_k, dims), (rks, dims),
                                 (cks, dims))
@@ -177,8 +187,9 @@ def launch(kl: build.KernelLibrary, q, raw_k, raw_v, comp_k, comp_v,
     rc = kl.lib.decode_forward(
         q.data_ptr(), raw_k.data_ptr(), raw_v.data_ptr(), comp_k.data_ptr(),
         comp_v.data_ptr(), ptr(rks), ptr(rvs), ptr(cks), ptr(cvs),
-        bias_loc.data_ptr(), bias_glob.data_ptr(), out.data_ptr(), strides,
-        B, Hkv, G, Dh, c, M, float(scale), dtype, cache_dtype, stream)
+        bias_loc.data_ptr(), bias_glob.data_ptr(), out.data_ptr(), ptr(part),
+        strides, B, Hkv, G, Dh, c, M, nsplit, per_split, float(scale), dtype,
+        cache_dtype, stream)
     kl.check(rc, "decode_attn")
     return out
 

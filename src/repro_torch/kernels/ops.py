@@ -10,7 +10,10 @@ analytic backwards in plain torch, as the JAX package's custom VJPs).
 Layout moves are views (kernel
 layout (B, H, S, Dh) <-> model layout (B, S, H, Dh)); the kernels take
 strided operands, so nothing is transposed in memory. A CPU tensor runs
-each kernel's plain twin, a CUDA tensor the CUDA kernel.
+each kernel's plain twin, a CUDA tensor the CUDA kernel. The five wrappers
+of the causal, chunk-prefill and decode forms refuse more than
+``MAX_PINNED_SLOTS`` compressed slots with the JAX package's ValueError,
+on CPU and CUDA tensors alike.
 
 Gradients (the JAX package's ``_blockwise_causal_diff``): when an input
 requires grad, the blockwise attention runs through
@@ -37,8 +40,8 @@ from repro_torch.kernels import linformer_attn as la
 from repro_torch.kernels import seq_projection as sp
 from repro_torch.kernels.common import (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_S,
                                         backward_route, check_exact_k,
-                                        divisor_block, from_kernel_layout,
-                                        to_kernel_layout)
+                                        check_pinned_slots, divisor_block,
+                                        from_kernel_layout, to_kernel_layout)
 
 
 def _scales_to_kernel_layout(s: torch.Tensor) -> torch.Tensor:
@@ -125,6 +128,13 @@ def fused_blockwise_causal_attention(
     if S % block_size != 0:
         raise ValueError(
             f"S={S} must be a multiple of block_size={block_size}")
+    M = (S // block_size) * block_slots
+    check_pinned_slots(
+        "fused_blockwise_causal_attention",
+        M, f"all M = (S/c)·r = ({S}/{block_size})·{block_slots} = {M} "
+        "compressed slots",
+        remedy="Raise block_size, lower block_slots, or use "
+        "backend='reference' for this shape.")
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v, E, F))
     if grad and backward_route(backward_impl) == "plain":
@@ -163,6 +173,10 @@ def fused_chunk_prefill_attention(
     if q.shape[1] % block_size != 0:
         raise ValueError(
             f"P={q.shape[1]} must be a multiple of block_size={block_size}")
+    M = comp_k.shape[1]
+    check_pinned_slots(
+        "fused_chunk_prefill_attention", M,
+        f"the full M = (max_seq/c)·r = {M}-slot compressed cache buffer")
     _forward_only("fused_chunk_prefill_attention", q, k, v, comp_k, comp_v)
     out = bca.blockwise_causal_prefix_attn(
         to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
@@ -193,6 +207,9 @@ def fused_chunk_prefill_attention_q(
     if q.shape[1] % block_size != 0:
         raise ValueError(
             f"P={q.shape[1]} must be a multiple of block_size={block_size}")
+    M = comp_k.shape[1]
+    check_pinned_slots("fused_chunk_prefill_attention_q", M,
+                       f"the full M = (max_pages·r) = {M}-slot page gather")
     _forward_only("fused_chunk_prefill_attention_q", q, k, v)
     out = bca.blockwise_causal_prefix_attn_q(
         to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
@@ -223,6 +240,11 @@ def fused_decode_attention(
     Hkv = raw_k.shape[2]
     if H % Hkv != 0:
         raise ValueError(f"H={H} query heads not a multiple of Hkv={Hkv}")
+    M = comp_k.shape[1]
+    check_pinned_slots(
+        "fused_decode_attention", M,
+        f"the full M = (max_seq/c)·r = {M}-slot compressed cache buffer",
+        grid_step=False)
     qk = q_t.reshape(B, Hkv, H // Hkv, Dh)
     out = la.decode_attn(
         qk, to_kernel_layout(raw_k), to_kernel_layout(raw_v),
@@ -254,6 +276,10 @@ def fused_decode_attention_q(
     Hkv = raw_k.shape[2]
     if H % Hkv != 0:
         raise ValueError(f"H={H} query heads not a multiple of Hkv={Hkv}")
+    M = comp_k.shape[1]
+    check_pinned_slots("fused_decode_attention_q", M,
+                       f"the full M = (max_pages·r) = {M}-slot page gather",
+                       grid_step=False)
     qk = q_t.reshape(B, Hkv, H // Hkv, Dh)
     out = la.decode_attn_q(
         qk, to_kernel_layout(raw_k), to_kernel_layout(raw_v),

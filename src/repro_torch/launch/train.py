@@ -5,13 +5,16 @@ the paper's encoder (linformer-paper).
 
     python -m repro_torch.launch.train --arch qwen3-8b --smoke --device cpu
     python -m repro_torch.launch.train --arch qwen3-8b --layers 8 --steps 4 \
-        --ckpt-every 0
+        --ckpt-every 0 [--backend reference]
     python -m repro_torch.launch.train --arch linformer-paper --smoke \
         --device cpu
     python -m repro_torch.launch.train --arch linformer-paper --seq 512 \
         --batch 32 --steps 8 --ckpt-every 0
 
-Without --device the run needs a CUDA card (it raises otherwise). The
+Without --device the run needs a CUDA card (it raises otherwise).
+--backend picks the attention route for the run: "auto" (the config's
+default: the kernels), "reference" (the plain reference forms, the parity
+oracle) or "fused" (the kernels, CUDA only). The
 default --seq of a full config is 4096, above linformer-paper's
 max_seq_len of 512: pass --seq 512 or less (a longer sequence raises a
 ValueError).
@@ -47,6 +50,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--backend", default=None,
+                    choices=["auto", "reference", "fused"],
+                    help="attention route (default: the config's 'auto', "
+                         "the kernels)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=None,
@@ -75,7 +82,8 @@ def main(argv=None):
         optimizer=OptimizerConfig(lr=args.lr,
                                   warmup_steps=max(args.steps // 10, 1),
                                   total_steps=args.steps))
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, tcfg, device=args.device,
+                      attention_backend=args.backend)
     metrics = trainer.run()
     log.info("[train] final: %s", metrics)
     return metrics

@@ -356,6 +356,124 @@ def test_decode_q_kernel_matches_plain(cuda, shape, dtype, page_dtype):
     _assert_close(out, ref, [dequantize_blockwise(*ops[i]) for i in (1, 3)])
 
 
+# the decode kernels' edges: (B, Hkv, G, c, M, r, Dh), rows' positions,
+# edge. b1_split_empty: a B = 1 step at t = 10, so 7 of its 8 key splits
+# see no visible key and their 64-key tiles are skipped; b4_full: B = 4 at
+# pos 0, c - 1 and block boundaries; ragged_dh64: c + M = 300, not a
+# multiple of the tile; masked_row_dh16: row 1 masks every key (the plain
+# version's uniform average); shifted_dh64: ring and slots one element
+# into their buffers (no 16-byte loads), G = 3; g6_dh32: G = 6, two
+# blocks of query rows a kv head
+DECODE_EDGES = {
+    "b1_split_empty": ((1, 8, 4, 256, 256, 16, 128), [10], None),
+    "b4_full": ((4, 8, 4, 256, 256, 16, 128), [0, 255, 1380, 4095], None),
+    "ragged_dh64": ((2, 2, 4, 100, 200, 4, 64), [150, 2410], None),
+    "masked_row_dh16": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95],
+                        "masked_row"),
+    "shifted_dh64": ((2, 2, 3, 64, 70, 8, 64), [70, 300], "shifted"),
+    "g6_dh32": ((1, 2, 6, 64, 64, 8, 32), [100], None),
+}
+
+
+def _decode_edge_inputs(shape, t, edge, dtype, storage, dev, seed=9):
+    """(wrapper, plain twin, operands, value operands) of kernel 3
+    (storage "dense") or kernel 7 (int8 / fp8 codes) at one edge."""
+    B, Hkv, G, c, M, r, Dh = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hkv, G, Dh, generator=g, device=dev).to(dtype)
+    kv = [torch.randn(B, n, Hkv, Dh, generator=g, device=dev)
+          for n in (c, c, M, M)]
+    t = torch.tensor(t, device=dev)
+    bl = torch.where(torch.arange(c, device=dev)[None] <= (t % c)[:, None],
+                     0.0, NEG_INF).float()
+    bg = torch.where(torch.arange(M, device=dev)[None]
+                     < (t // c * r)[:, None], 0.0, NEG_INF).float()
+    if edge == "masked_row":
+        bl[1], bg[1] = NEG_INF, NEG_INF
+    if storage == "dense":
+        kv = [x.to(dtype) for x in kv]
+        if edge == "shifted":
+            kv = [_shifted(x) for x in kv]
+        kv = [x.movedim(2, 1) for x in kv]
+        return (la.decode_attn, la.decode_attn_plain, (q, *kv, bl, bg),
+                (kv[1], kv[3]))
+    ops = [_quantized(x.movedim(2, 1), storage) for x in kv]
+    if edge == "shifted":
+        ops = [(_shifted(x), sc) for x, sc in ops]
+    args = (q, *(x for x, _ in ops), *(sc for _, sc in ops), bl, bg)
+    return (la.decode_attn_q, la.decode_attn_q_plain, args,
+            [dequantize_blockwise(*ops[i]) for i in (1, 3)])
+
+
+@pytest.mark.parametrize("storage", ["dense", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", list(DECODE_EDGES))
+def test_decode_kernels_at_their_edges(cuda, edge, dtype, storage):
+    """Kernels 3 and 7 against their plain twins at each edge; a second
+    launch gives the same bits (the key splits merge in a fixed order)."""
+    shape, t, kind = DECODE_EDGES[edge]
+    fn, plain, args, values = _decode_edge_inputs(shape, t, kind, dtype,
+                                                  storage, cuda)
+    sc = shape[-1] ** -0.5
+    n0 = fn.launches
+    out = fn(*args, scale=sc)
+    again = fn(*args, scale=sc)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    ref = plain(*args, scale=sc)
+    assert out.dtype == dtype and out.shape == ref.shape
+    _assert_close(out, ref, values)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("storage", ["dense", "int8", "fp8"])
+def test_decode_kernels_skip_masked_tiles(cuda, storage):
+    """A B = 1 step at t = 10 sees ring keys 0..10 only: every other key of
+    the ring and every slot is NaN (dense) or has a NaN scale (quantized),
+    and the kernel, which skips the masked tiles and keys, returns the
+    plain twin's output on the clean operands."""
+    shape, t, _ = DECODE_EDGES["b1_split_empty"]
+    fn, plain, args, values = _decode_edge_inputs(shape, t, None,
+                                                  torch.bfloat16, storage,
+                                                  cuda)
+    sc = shape[-1] ** -0.5
+    ref = plain(*args, scale=sc)
+    poisoned = [x.clone() for x in args]
+    if storage == "dense":
+        for i in (1, 2):                        # ring k, v past key 10
+            poisoned[i][:, :, t[0] + 1:] = float("nan")
+        for i in (3, 4):                        # every slot
+            poisoned[i][:] = float("nan")
+    else:
+        for i in (5, 6):                        # ring scales past key 10
+            poisoned[i][:, :, t[0] + 1:] = float("nan")
+        for i in (7, 8):                        # every slot scale
+            poisoned[i][:] = float("nan")
+    out = fn(*poisoned, scale=sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, fn(*args, scale=sc))
+    _assert_close(out, ref, values)
+
+
+@pytest.mark.parametrize("storage", ["dense", "int8"])
+def test_decode_kernels_replay_from_a_cuda_graph(cuda, storage):
+    """One decode call captured into a CUDA graph (split scratch from the
+    caching allocator, no host sync) and replayed equals the eager call."""
+    shape, t, _ = DECODE_EDGES["b4_full"]
+    fn, _, args, _ = _decode_edge_inputs(shape, t, None, torch.bfloat16,
+                                         storage, cuda)
+    sc = shape[-1] ** -0.5
+    eager = fn(*args, scale=sc)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, scale=sc)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 @pytest.mark.parametrize("mode", ["chunked", "paged-int8", "paged-fp8"])
 def test_smoke_serving_modes_through_kernels_match_reference(cuda, mode):
     """SMOKE serve through the kernels against the reference route, chunked

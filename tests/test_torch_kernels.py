@@ -192,8 +192,9 @@ def test_kernel_guards_accept_main_path_shapes():
     tcommon.check_blockwise_shapes(seq=32, block_size=16, block_slots=4,
                                    slots=8, head_dim=16)
     tcommon.check_decode_shapes(group=4, head_dim=128)
-    with pytest.raises(ValueError, match="shared memory"):
-        tcommon.check_decode_shapes(group=4096, head_dim=128)
+    with pytest.raises(ValueError, match="group"):
+        tcommon.check_decode_shapes(group=tcommon.DECODE_MAX_GROUP + 1,
+                                    head_dim=128)
     with pytest.raises(TypeError, match="one dtype"):
         tcommon.kernel_dtype_code(torch.zeros(1), torch.zeros(1).bfloat16())
 

@@ -449,6 +449,36 @@ def test_launcher_cuts_depth_and_can_skip_checkpoints(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "qwen3-8b")
 
 
+def test_launcher_backend_routes_the_same_steps(tmp_path, monkeypatch):
+    """--backend reference trains the same seeded steps through the plain
+    reference forms: the losses of the default route (the kernels' plain
+    twins on the CPU) within 1e-4 relative, and no kernel wrapper runs."""
+    from repro_torch.kernels import blockwise_causal_attn as tbca
+    import repro_torch.train as ttrain
+    made = []
+
+    class Spy(ttrain.Trainer):
+        def __init__(self, cfg, tcfg, **kw):
+            super().__init__(cfg, tcfg, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(ttrain, "Trainer", Spy)
+    args = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--seq", "32", "--batch", "2", "--ckpt-every", "0",
+            "--ckpt-dir", str(tmp_path)]
+    calls = []
+    real = tbca.blockwise_causal_attn_plain
+    monkeypatch.setattr(tbca, "blockwise_causal_attn_plain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    tlaunch.main(args)
+    n_auto = len(calls)
+    tlaunch.main(args + ["--backend", "reference"])
+    auto, ref = (np.array([h["loss"] for h in t.history]) for t in made)
+    assert made[1].cfg.attention.backend == "reference"
+    assert n_auto > 0 and len(calls) == n_auto
+    np.testing.assert_allclose(ref, auto, rtol=1e-4)
+
+
 def test_watchdog_flags_a_straggler(smoke, tmp_path):
     _, _, cfg_t = smoke
     logs = []
