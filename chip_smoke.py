@@ -20,7 +20,11 @@ error; none catches its own failure:
    kernels also at their edges (DEC_EDGE_SHAPES: a B=1 step whose key
    splits see no visible key, c + M not a multiple of the 64-key tile, a
    fully masked row, misaligned views, G=3 and G=6, Dh 16/32/64/128), each
-   launched twice with bit-identical results;
+   launched twice with bit-identical results; the prefix form (both forms)
+   and its int8/fp8 sibling also at their edges (PREFIX_EDGE_SHAPES: the
+   bf16 tensor-core kernel's 64-row query tile spanning blocks at c = 16,
+   32, 48, G = 1, 3, 6, Dh 16/32/64, M = 0, a cut clamped at M, a start
+   block at M/r - 1, misaligned views), launched twice, bit-identical;
 4. [time] time each kernel at full width in bf16 by CUDA-graph replay
    (time_graph_ms; inputs rotated through more than the 50 MB L2 cache),
    its eager loop logged beside, next to its plain version, one masked
@@ -29,7 +33,8 @@ error; none catches its own failure:
    and the least time the card could take (bytes over 3.35 TB/s or flops
    over 989 TFLOP/s); the training kernels at the train step's shapes
    (B=2, S=4096), the quantized ones with int8 pages; decode also at a B=1
-   prompt-remainder step (logged);
+   prompt-remainder step (logged); the tensor-core prefix kernel's
+   registers and spills from -Xptxas -v beside its times;
 5. [serve] serve 8 requests through full-width, 36-layer qwen3-8b (random
    bf16 weights from a seeded generator, bf16 cache, max_seq 4096,
    max_batch 4, decode_chunk 16), prompts of k·256+j tokens, with the
@@ -40,7 +45,8 @@ error; none catches its own failure:
    with [serve], then the profile of one chunk forward of a 4-row pool;
 7. [serve-paged] the same chunked serve into the paged pool with int8
    pages: clean page accounting, cache bytes against the dense pool, then
-   the profile of one paged decode chunk;
+   the profiles of one paged decode chunk and of one (4, 512) paged chunk
+   forward, with the device time of its page gathers (`paged_gather`);
 8. [parity] at full width with 2 layers in fp32: the kernels (backend
    "auto") against the plain reference: dense prefill logits within the
    stated tolerance and the first 16 greedy tokens of 2 requests
@@ -182,13 +188,16 @@ def time_graph_ms(fn, n_sets, iters=60, stream=None):
     return ms
 
 
-def profile_kernels(fn):
+def profile_kernels(fn, ranges=()):
     """Run fn twice under torch.profiler: a warm-up step whose trace is
     discarded, then the recorded step. (A trace begun without a warm-up
     step missed the first kernels of its run, such as the first layer's
     launches of kernels 5 and 6 in the encoder's step.) Return [(kernel
     name, launches, device seconds)] of the recorded step sorted by device
-    time, and the launch counters' increments over that step."""
+    time, the launch counters' increments over that step, and {range:
+    (calls, device seconds of the kernels launched inside it)} of the
+    record_function `ranges` fn opens (their own GPU-side spans are not
+    kernels and stay out of the list)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -205,11 +214,14 @@ def profile_kernels(fn):
         counted = {k: v - before[k] for k, v in read_launches().items()}
         prof.step()
     # the step's own annotation (ProfilerStep#) is not a kernel
+    events = prof.key_averages()
     out = [(e.key, e.count, e.self_device_time_total * 1e-6)
-           for e in prof.key_averages()
+           for e in events
            if e.device_type == DeviceType.CUDA
-           and not e.key.startswith("ProfilerStep")]
-    return sorted(out, key=lambda x: -x[2]), counted
+           and not e.key.startswith("ProfilerStep") and e.key not in ranges]
+    spans = {e.key: (e.count, e.device_time_total * 1e-6) for e in events
+             if e.device_type == DeviceType.CPU and e.key in ranges}
+    return sorted(out, key=lambda x: -x[2]), counted, spans
 
 
 # the device kernels of kernels 5 and 6 (bf16 tensor-core design, fp32
@@ -379,7 +391,8 @@ def check(name, out, ref, dtype, values):
     if dtype == torch.float32:
         bound = torch.full_like(diff, FP32_TOL)
     else:
-        vmax = max(v.float().abs().max().item() for v in values)
+        vmax = max(v.float().abs().max().item() for v in values
+                   if v.numel())          # an empty slot buffer (M = 0)
         bound = 2 ** -8 * vmax + 2 ** -7 * ref.float().abs()
     worst = (diff / bound).max().item()
     log(f"  {name} {str(dtype)[6:]}: max |kernel - plain| = {err:.3e}, "
@@ -404,6 +417,28 @@ def check_grad(name, out, ref):
     if not worst <= 1.0:
         raise AssertionError(f"{name}: error {err} beyond its bound")
     return err
+
+
+def ptxas_registers(fragment):
+    """[(slot storage, (Dh, further int template arguments), registers,
+    spill bytes)] of every compiled entry whose name holds `fragment`, from
+    the build's -Xptxas -v log."""
+    import re
+    from repro_torch.kernels import build
+    lines = build.library().log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry" not in line or fragment not in line:
+            continue
+        name = line.split(fragment, 1)[1]
+        slot = ("fp8" if "fp8" in name else "bf16" if "bfloat16" in name
+                else "int8" if name.startswith("IaL") else "fp32")
+        ints = tuple(map(int, re.findall(r"Li(\d+)E", name)))
+        tail = " ".join(lines[i + 1:i + 4])
+        regs = int(re.search(r"Used (\d+) registers", tail).group(1))
+        spill = int(re.search(r"(\d+) bytes spill stores", tail).group(1))
+        out.append((slot, ints, regs, spill))
+    return sorted(out)
 
 
 def visible_pairs(S, c, r, start=0):
@@ -450,6 +485,23 @@ TRAIN_TIME_SHAPE = TRAIN_SHAPES["full"][0]      # the train step's shapes
 PREFIX_SHAPES = {"small": ((3, 4, 2, 32, 16, 4, 16), [0, 5, 9], 40),
                  "full": ((4, 32, 8, 512, 256, 16, 128), [0, 3, 7, 14],
                           288)}
+# the prefix form's edges, kernels 4 (both forms) and 8: (B, H, Hkv, P, c,
+# r, Dh), start blocks, M, edge. The tensor-core kernel's 64-row query tile
+# spans 4 blocks at c = 16 (a ragged last tile: 96 rows), 2 at c = 32, and
+# blocks that do not divide it at c = 48; c = 64 is one block a tile.
+# c16_dh16_g1: row 1's cut clamps at M ((9 + 5)·4 = 56 > 48); c32_dh32_g3:
+# G = 3; c64_dh64_g6: G = 6, a partial slot tile; m0: no slots at all;
+# last_start: a start block at M/r - 1; shifted: every operand (q, k, v,
+# slots, scales) one element into its buffer (no 16-byte loads)
+PREFIX_EDGE_SHAPES = {
+    "c16_dh16_g1": ((2, 2, 2, 96, 16, 4, 16), [0, 9], 48, None),
+    "c32_dh32_g3": ((2, 6, 2, 128, 32, 8, 32), [2, 7], 120, None),
+    "c48_dh64": ((2, 4, 2, 144, 48, 4, 64), [1, 6], 64, None),
+    "c64_dh64_g6": ((1, 12, 2, 192, 64, 8, 64), [4], 200, None),
+    "m0": ((2, 4, 2, 64, 16, 4, 32), [0, 3], 0, None),
+    "last_start": ((2, 4, 2, 64, 32, 8, 64), [7, 0], 64, None),
+    "shifted": ((2, 4, 2, 64, 16, 4, 64), [1, 2], 24, "shifted"),
+}
 # quantized decode: (B, Hkv, G, c, M, r, Dh), rows' positions
 DEC_Q_SHAPES = {"small": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95]),
                 "full": ((4, 8, 4, 256, 288, 16, 128),
@@ -528,6 +580,9 @@ def check_phase(dev):
         for size, (shape, start, M) in PREFIX_SHAPES.items():
             errs.update(check_prefix_kernels(size, shape, start, M, dtype,
                                              dev))
+        for size, (shape, start, M, edge) in PREFIX_EDGE_SHAPES.items():
+            errs.update(check_prefix_kernels(size, shape, start, M, dtype,
+                                             dev, edge))
         errs.update(check_exact_kernels(dtype, dev))
     return errs
 
@@ -644,19 +699,23 @@ def check_exact_kernels(dtype, dev):
     return errs
 
 
-def check_prefix_kernels(size, shape, start, M, dtype, dev):
+def check_prefix_kernels(size, shape, start, M, dtype, dev, edge=None):
     """Kernel 4 in both forms (out; out, m, denom) against the prefix form
     of the forward's plain twin, and kernel 8 over int8 and fp8 slots
-    against its plain twin on the same codes and scales."""
+    against its plain twin on the same codes and scales; each launched
+    twice, bit-identical. `edge` "shifted" moves every operand one element
+    into its buffer (see PREFIX_EDGE_SHAPES)."""
     import torch
     from repro_torch.core.cache import dequantize_blockwise
     from repro_torch.kernels import blockwise_causal_attn as bca
     B, H, Hkv, P, c, r, Dh = shape
     q, k, v, ck, cv, sb = prefix_inputs(shape, start, M, dtype, dev, seed=6)
+    move = shifted if edge == "shifted" else (lambda x: x)
+    q, k, v = move(q), move(k), move(v)
     kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
     tag = f"{size} {str(dtype)[6:]}"
     errs = {}
-    ckd, cvd = ck.to(dtype), cv.to(dtype)
+    ckd, cvd = move(ck.to(dtype)), move(cv.to(dtype))
     out = bca.blockwise_causal_prefix_attn(q, k, v, ckd, cvd, sb, **kw)
     out_r, m, d = bca.blockwise_causal_prefix_attn(
         q, k, v, ckd, cvd, sb, return_residuals=True, **kw)
@@ -673,15 +732,24 @@ def check_prefix_kernels(size, shape, start, M, dtype, dev):
     if not torch.equal(out, out_r):
         raise AssertionError("the prefix form's plain and residual forms "
                              "differ")
+    again = bca.blockwise_causal_prefix_attn(
+        q, k, v, ckd, cvd, sb, return_residuals=True, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(again, (out_r, m, d))):
+        raise AssertionError(f"blockwise_causal_prefix_attn {tag}: two "
+                             "launches differ")
     for pd in ("int8", "fp8"):
         (ckq, cks), (cvq, cvs) = quantized(ck, pd), quantized(cv, pd)
-        args = (q, k, v, ckq, cvq, cks, cvs, sb)
+        args = (q, k, v, move(ckq), move(cvq), move(cks), move(cvs), sb)
         out = bca.blockwise_causal_prefix_attn_q(*args, **kw)
         torch.cuda.synchronize()
         errs["pre_q", size, pd, dtype] = check(
             f"blockwise_causal_prefix_attn_q {pd} {size}", out,
             bca.blockwise_causal_prefix_attn_q_plain(*args, **kw), dtype,
             (v, dequantize_blockwise(cvq, cvs)))
+        if not torch.equal(bca.blockwise_causal_prefix_attn_q(*args, **kw),
+                           out):
+            raise AssertionError(f"blockwise_causal_prefix_attn_q {pd} "
+                                 f"{tag}: two launches differ")
     return errs
 
 
@@ -958,6 +1026,10 @@ def time_prefix_kernels(dev, errs):
         f"{t['q']:.4f} ms (eager loop {t['q_eager']:.4f}), plain "
         f"{t['q_plain']:.4f} ms, sdpa over the dequantised slots "
         f"{t['qlib']:.4f} ms")
+    log("  bca_prefix_mma_kernel<slots, Dh, heads a block> (-Xptxas -v): "
+        + ", ".join(f"{slot} {dh} {heads} {regs} registers, {spill} B spilled"
+                    for slot, (dh, heads), regs, spill
+                    in ptxas_registers("bca_prefix_mma_kernel")))
     src = "src/repro_torch/csrc/blockwise_causal_attn.cu"
     del sets, qsets, lib, qlib
     return [
@@ -1341,8 +1413,10 @@ def run_serve(tag, eng, prompts, kernels):
     return outs, sched, launches
 
 
-def timed_profile(name, fn, top=8):
-    """fn once as a warm-up, once timed alone, once under torch.profiler."""
+def timed_profile(name, fn, top=8, ranges=()):
+    """fn once as a warm-up, once timed alone, once under torch.profiler;
+    the device time of each record_function range in `ranges` is logged
+    beside the profile."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1350,7 +1424,13 @@ def timed_profile(name, fn, top=8):
     fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    log_profile(name, wall, profile_kernels(fn)[0], top=top)
+    kernels, _, spans = profile_kernels(fn, ranges)
+    log_profile(name, wall, kernels, top=top)
+    busy = sum(t for _, _, t in kernels)
+    for rng in ranges:
+        n, t = spans.get(rng, (0, 0.0))
+        log(f"    range {rng}: {n} calls, {1e3 * t:.3f} ms of device time "
+            f"({100 * t / busy:.1f}% of busy)")
 
 
 def serve_phase(dev, cfg, params, prompts):
@@ -1420,7 +1500,8 @@ def serve_chunked_phase(dev, cfg, params, prompts, mono_outs):
 def serve_paged_phase(dev, cfg, params, prompts):
     """Chunked admission into the paged pool with int8 pages: clean page
     accounting, cache bytes against the dense pool, then one paged decode
-    chunk of a 4-row pool under the profiler."""
+    chunk and one paged chunk forward of a 4-row pool under the
+    profiler."""
     import torch
     eng = serve_engine(dev, cfg, params, prefill_chunk=SERVE_PREFILL_CHUNK,
                        cache_format="paged", page_dtype=SERVE_PAGE_DTYPE)
@@ -1457,8 +1538,47 @@ def serve_paged_phase(dev, cfg, params, prompts):
         eng.decode_chunk_fn(cur, fin, pool, 16)
 
     timed_profile("paged decode_chunk", decode_chunk)
-    del eng, pool
+    del pool
+    paged_chunk_profile(eng, cfg, prompts)
+    del eng
     return launches
+
+
+def paged_chunk_profile(eng, cfg, prompts):
+    """One (4, 512) chunk forward into the paged int8 pool under the
+    profiler, beside the dense one of [serve-chunked]: kernel 8's device
+    time, and that of `paged_gather` (core/cache.py), which copies every
+    row's pages into a dense slot buffer for kernel 8 in each layer, timed
+    as a record_function range around it: the price of a page-table fold
+    into the kernel."""
+    import torch
+    from repro_torch.core import cache as tcache
+    pool = eng.init_pool_cache(4)
+    maxp = eng.max_pages_per_row()
+    for row in range(4):
+        eng.write_table_row(pool, row, range(row * maxp, (row + 1) * maxp))
+    toks, n_valid = chunk_rows(prompts[:4], SERVE_PREFILL_CHUNK,
+                               cfg.attention.linformer.block_size)
+
+    def chunk_forward():
+        pool["lengths"].zero_()
+        eng.pool_prefill_chunk(pool, [0, 1, 2, 3], toks, n_valid, pad_to=4)
+
+    gather = tcache.paged_gather
+
+    def annotated(*args, **kw):
+        with torch.profiler.record_function("paged_gather"):
+            return gather(*args, **kw)
+
+    tcache.paged_gather = annotated
+    try:
+        timed_profile(f"paged chunk forward (4, {SERVE_PREFILL_CHUNK}), "
+                      f"{SERVE_PAGE_DTYPE} pages, n_valid "
+                      f"{n_valid.tolist()}", chunk_forward,
+                      ranges=("paged_gather",))
+    finally:
+        tcache.paged_gather = gather
+    del pool
 
 
 def serve_parity_phase(dev, cfg):
@@ -1804,7 +1924,7 @@ def train_mlm_phase(dev):
     log(f"  forward alone (torch.no_grad, B={tcfg.global_batch}, "
         f"S={tcfg.seq_len}): {fwd_ms:.2f} ms, {1e3 * tokens / fwd_ms:.1f} "
         "tokens/s (mean of 3)")
-    kernels, counted = profile_kernels(infer)
+    kernels, counted, _ = profile_kernels(infer)
     log_profile("forward", fwd_ms * 1e-3, kernels, top=8)
     require_profiled("forward", kernels, counted)
     state = adamw_init(params, tcfg.optimizer)
@@ -1813,7 +1933,7 @@ def train_mlm_phase(dev):
     step(params, state, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels, counted = profile_kernels(lambda: step(params, state, batch))
+    kernels, counted, _ = profile_kernels(lambda: step(params, state, batch))
     log_profile("train-mlm step", wall, kernels, top=16)
     require_profiled("train-mlm step", kernels, counted)
     del trainer, params, state

@@ -1,5 +1,6 @@
-// Building blocks of the bf16 tensor-core kernels (linformer_attn.cu,
-// seq_projection.cu): inline PTX for cp.async 16-byte copies, ldmatrix
+// Building blocks of the bf16 tensor-core kernels (blockwise_causal_attn.cu,
+// linformer_attn.cu, seq_projection.cu): inline PTX for cp.async 16-byte
+// (and 4-byte) copies, ldmatrix
 // (plain and transposed), mma.sync m16n8k16 with fp32 accumulators, packing
 // two fp32 values to a bf16x2, and a tile loader that takes any layout.
 //
@@ -42,6 +43,12 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
 // share them in L1.
 __device__ __forceinline__ void cp_async_16_ca(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// A 4-byte copy (cp.async.ca: the 4-byte size exists only through L1), for
+// per-row fp32 scales; both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -88,12 +95,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// True when rows of a bf16 operand at `p` with element strides `s...` can be
-// copied in 16-byte pieces: the base and every stride a multiple of 16 bytes.
-template <typename... S>
+// True when rows of an operand at `p` (ElemBytes-byte elements, bf16 by
+// default) with element strides `s...` can be copied in 16-byte pieces: the
+// base and every stride a multiple of 16 bytes.
+template <int ElemBytes = 2, typename... S>
 __host__ __device__ inline bool aligned16(const void* p, S... s) {
   bool ok = reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  ((ok = ok && static_cast<long long>(s) % 8 == 0), ...);
+  ((ok = ok && static_cast<long long>(s) * ElemBytes % 16 == 0), ...);
   return ok;
 }
 

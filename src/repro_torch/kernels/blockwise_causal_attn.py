@@ -79,8 +79,9 @@ def blockwise_causal_attn_plain(q, k, v, kbar, vbar, *, block_size: int,
     cut = _visibility_cut(nb, start_blocks, q.device)
     s_loc, s_glob = joint_scores(q, k, kbar, cut, block_size=block_size,
                                  block_slots=block_slots, scale=scale)
-    m = torch.maximum(s_loc.amax(-1, keepdim=True),
-                      s_glob.amax(-1, keepdim=True))
+    m = s_loc.amax(-1, keepdim=True)
+    if s_glob.shape[-1]:                      # M = 0: no slot to take a max of
+        m = torch.maximum(m, s_glob.amax(-1, keepdim=True))
     p_loc = torch.exp(s_loc - m)
     p_glob = torch.exp(s_glob - m)
     denom = p_loc.sum(-1, keepdim=True) + p_glob.sum(-1, keepdim=True)
@@ -187,6 +188,10 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
     _check_qkv(q, k, v, kbar, vbar)
     B, H, S, Dh = q.shape
     Hkv, M = k.shape[1], kbar.shape[2]
+    dtype = common.kernel_dtype_code(q, k, v)
+    slot_dtype = (common.kernel_dtype_code(q, kbar, vbar)
+                  if kbar_scale is None
+                  else common.storage_dtype_code(kbar, vbar))
     if start_blocks is None:
         common.check_blockwise_shapes(seq=S, block_size=block_size,
                                       block_slots=block_slots, slots=M,
@@ -194,12 +199,9 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
     else:
         common.check_prefix_shapes(seq=S, block_size=block_size,
                                    block_slots=block_slots, slots=M,
-                                   head_dim=Dh)
+                                   head_dim=Dh, group=H // Hkv,
+                                   dtype=q.dtype, slot_dtype=kbar.dtype)
         common.check_start_blocks(start_blocks, B, q.device)
-    dtype = common.kernel_dtype_code(q, k, v)
-    slot_dtype = (common.kernel_dtype_code(q, kbar, vbar)
-                  if kbar_scale is None
-                  else common.storage_dtype_code(kbar, vbar))
     k, v = common.same_strides(k, v)
     kbar, vbar = common.same_strides(kbar, vbar)
     kbar_scale, vbar_scale, scale_strides = _slot_scales(
@@ -228,6 +230,20 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
 
 def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
+
+
+FORWARD_ROUTES = {0: "simt", 1: "tensor cores"}
+
+
+def last_forward_route() -> str:
+    """The kernel the last CUDA launch of the forward wrappers ran: "simt"
+    (bca_fwd_kernel: fp32, and the forms without start blocks) or "tensor
+    cores" (bca_prefix_mma_kernel: bf16 with start blocks). A probe for
+    the tests of the routes; it builds the library if need be."""
+    code = build.library().lib.bca_forward_route()
+    if code not in FORWARD_ROUTES:
+        raise RuntimeError("no blockwise-causal forward launched yet")
+    return FORWARD_ROUTES[code]
 
 
 def blockwise_causal_attn(q, k, v, kbar, vbar, *, block_size: int,

@@ -47,6 +47,8 @@ SIGNATURES: Dict[str, Tuple[object, List[object]]] = {
     # block_slots, scale, dtype, stream
     "bca_backward": (_I, [_P] * 15 + [_LL_PTR] + [_I] * 8
                      + [ctypes.c_float, _I, _P]),
+    # the kernel the last bca_forward launched: 0 SIMT, 1 tensor cores
+    "bca_forward_route": (_I, []),
     # q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s, comp_k_s, comp_v_s,
     # bias_loc, bias_glob, out, part, strides[12], B, Hkv, G, Dh, c, M,
     # nsplit, tiles_per_split, scale, dtype, cache_dtype, stream

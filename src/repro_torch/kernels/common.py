@@ -42,11 +42,31 @@ BACKWARD_ROUTES: Dict[str, str] = {
 # only as dynamic shared memory after cudaFuncSetAttribute.
 MAX_SMEM_PER_BLOCK = 232448
 
-# csrc/blockwise_causal_attn.cu: head dims the kernel is instantiated for,
-# its key tile, and the pitch of its probability tile.
+# csrc/blockwise_causal_attn.cu: head dims the kernels are instantiated for,
+# the SIMT kernel's key tile and the pitch of its probability tile. The
+# tensor-core prefix kernel (bf16 with start blocks: kernels 4, 4r and 8,
+# namespace tc of the source): a 64-row query tile of one or two query heads
+# a block (4 warps of 16 rows each), 64-key tiles in several stages, bf16
+# rows of pitch Dh + 8, and for int8/fp8 slots byte rows of pitch
+# Dh + BCA_MMA_CODE_PAD beside each stage's k and v tiles.
 BCA_HEAD_DIMS = (16, 32, 64, 128)
 BCA_TILE_K = 64
 BCA_P_PITCH = BCA_TILE_K + 16
+BCA_MMA_TILE_Q = 64
+BCA_MMA_TILE_K = 64
+BCA_MMA_CODE_PAD = 16
+
+
+def bca_prefix_mma_heads(group: int) -> int:
+    """Query heads a block of the tensor-core prefix kernel takes: two of
+    one kv head when the group G is even, else one."""
+    return 2 if group % 2 == 0 else 1
+
+
+def bca_prefix_mma_stages(heads: int) -> int:
+    """Its tile buffers: three for two heads a block, two for one."""
+    return 3 if heads == 2 else 2
+
 
 # csrc/blockwise_causal_attn_bwd.cu: the dq kernel's key tile and the pitch
 # of its dS tile (its query tile and the dk/dv kernel's key tile are
@@ -293,17 +313,41 @@ def check_blockwise_shapes(*, seq: int, block_size: int, block_slots: int,
                          f"memory, above {MAX_SMEM_PER_BLOCK}")
 
 
+def bca_prefix_mma_smem_bytes(head_dim: int, slot_dtype: torch.dtype,
+                              group: int) -> int:
+    """Shared memory of the tensor-core prefix kernel for bf16 slots or
+    int8/fp8 codes (STORAGE_DTYPES) and a GQA group of `group` query heads:
+    per stage a k and a v tile of bf16 rows of pitch Dh + 8; quantized slots
+    add a k and a v tile of byte rows of pitch Dh + BCA_MMA_CODE_PAD and the
+    tile's k and v fp32 scales (the q tiles and the output are staged in
+    these buffers)."""
+    if slot_dtype != torch.bfloat16 and slot_dtype not in STORAGE_DTYPES:
+        raise TypeError(f"the tensor-core prefix kernel takes bf16, int8 or "
+                        f"fp8 e4m3 slots, got {slot_dtype}")
+    per_stage = 2 * BCA_MMA_TILE_K * (head_dim + 8) * 2
+    if slot_dtype in STORAGE_DTYPES:
+        per_stage += 2 * BCA_MMA_TILE_K * (head_dim + BCA_MMA_CODE_PAD + 4)
+    return bca_prefix_mma_stages(bca_prefix_mma_heads(group)) * per_stage
+
+
 def check_prefix_shapes(*, seq: int, block_size: int, block_slots: int,
-                        slots: int, head_dim: int) -> None:
+                        slots: int, head_dim: int, group: int,
+                        dtype: torch.dtype, slot_dtype: torch.dtype) -> None:
     """Fail fast on shapes the prefix form of csrc/blockwise_causal_attn.cu
     does not take: a chunk of whole blocks against a slot buffer of any M
-    (the visibility cut is clamped at M)."""
+    (the visibility cut is clamped at M). bf16 runs the tensor-core kernel,
+    fp32 the SIMT kernel: each is held to the shared memory it requests."""
     check_blockwise_shapes(seq=seq, block_size=block_size,
                            block_slots=block_slots,
                            slots=(seq // block_size) * block_slots,
                            head_dim=head_dim)
     if slots < 0:
         raise ValueError(f"M={slots} compressed slots")
+    if kernel_dtype(dtype) == KERNEL_DTYPES[torch.bfloat16]:
+        smem = bca_prefix_mma_smem_bytes(head_dim, slot_dtype, group)
+        if smem > MAX_SMEM_PER_BLOCK:
+            raise ValueError(f"tensor-core prefix tile needs {smem} B of "
+                             f"shared memory, above {MAX_SMEM_PER_BLOCK}")
 
 
 def check_start_blocks(start_blocks: torch.Tensor, batch: int,

@@ -47,7 +47,8 @@ def _assert_close(out, ref, values):
     if out.dtype == torch.float32:
         bound = torch.full_like(diff, 1e-4)
     else:
-        vmax = max(v.float().abs().max().item() for v in values)
+        vmax = max(v.float().abs().max().item() for v in values
+                   if v.numel())          # an empty slot buffer (M = 0)
         bound = 2 ** -8 * vmax + 2 ** -7 * ref.float().abs()
     assert (diff <= bound).all(), diff.max().item()
 
@@ -256,10 +257,23 @@ def test_smoke_serving_through_kernels_matches_reference(cuda):
     assert outs["auto"] == outs["reference"]
 
 
-# prefix form: (B, H, Hkv, P, c, r, Dh), per-row start blocks, slot buffer M;
-# smoke's last row is clamped at M (its cut (9 + 2)·4 = 44 > 40)
-PREFIX_SHAPES = {"smoke": ((3, 4, 2, 32, 16, 4, 16), [0, 5, 9], 40),
-                 "full": ((4, 32, 8, 512, 256, 16, 128), [0, 3, 7, 14], 288)}
+# prefix form: (B, H, Hkv, P, c, r, Dh), per-row start blocks, slot buffer M,
+# edge; smoke's last row is clamped at M (its cut (9 + 2)·4 = 44 > 40). The
+# rest are chip_smoke's PREFIX_EDGE_SHAPES: the bf16 kernel's 64-row query
+# tile spans 4, 2 or non-dividing blocks at c = 16, 32, 48 (c16's second
+# tile ragged, its row 1 clamped at M), G = 1, 3, 6, M = 0, a start block at
+# M/r - 1, every operand one element into its buffer (no 16-byte loads)
+PREFIX_SHAPES = {
+    "smoke": ((3, 4, 2, 32, 16, 4, 16), [0, 5, 9], 40, None),
+    "full": ((4, 32, 8, 512, 256, 16, 128), [0, 3, 7, 14], 288, None),
+    "c16_dh16_g1": ((2, 2, 2, 96, 16, 4, 16), [0, 9], 48, None),
+    "c32_dh32_g3": ((2, 6, 2, 128, 32, 8, 32), [2, 7], 120, None),
+    "c48_dh64": ((2, 4, 2, 144, 48, 4, 64), [1, 6], 64, None),
+    "c64_dh64_g6": ((1, 12, 2, 192, 64, 8, 64), [4], 200, None),
+    "m0": ((2, 4, 2, 64, 16, 4, 32), [0, 3], 0, None),
+    "last_start": ((2, 4, 2, 64, 32, 8, 64), [7, 0], 64, None),
+    "shifted": ((2, 4, 2, 64, 16, 4, 64), [1, 2], 24, "shifted"),
+}
 
 
 def _prefix_inputs(shape, start, M, dtype, dev, seed=6):
@@ -280,27 +294,47 @@ def _quantized(x, page_dtype):
     return quantize_blockwise(x, (3,), dtype=pdt, qmax=qmax)
 
 
+def _prefix_case(shape, dtype, storage, dev, seed=6):
+    """(wrapper, plain twin, args, value operands) of kernel 4 (storage
+    "dense") or kernel 8 (int8 / fp8 codes) at one PREFIX_SHAPES entry,
+    every operand moved into its buffer by one element for "shifted"."""
+    dims, start, M, edge = PREFIX_SHAPES[shape]
+    move = _shifted if edge == "shifted" else (lambda x: x)
+    q, k, v, ck, cv, sb = _prefix_inputs(dims, start, M, dtype, dev, seed)
+    q, k, v = move(q), move(k), move(v)
+    if storage == "dense":
+        ck, cv = move(ck.to(dtype)), move(cv.to(dtype))
+        return (bca.blockwise_causal_prefix_attn,
+                bca.blockwise_causal_attn_plain, (q, k, v, ck, cv, sb),
+                (v, cv))
+    (ck, cks), (cv, cvs) = _quantized(ck, storage), _quantized(cv, storage)
+    args = (q, k, v, move(ck), move(cv), move(cks), move(cvs), sb)
+    return (bca.blockwise_causal_prefix_attn_q,
+            bca.blockwise_causal_prefix_attn_q_plain, args,
+            (v, dequantize_blockwise(cv, cvs)))
+
+
+def _prefix_kw(shape):
+    c, r, Dh = PREFIX_SHAPES[shape][0][4:]
+    return dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+
+
 @pytest.mark.parametrize("residuals", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", list(PREFIX_SHAPES))
 def test_prefix_kernel_matches_plain(cuda, shape, dtype, residuals):
-    dims, start, M = PREFIX_SHAPES[shape]
-    c, r, Dh = dims[4:]
-    q, k, v, ck, cv, sb = _prefix_inputs(dims, start, M, dtype, cuda)
-    ck, cv = ck.to(dtype), cv.to(dtype)
-    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5,
-              return_residuals=residuals)
-    fn = bca.blockwise_causal_prefix_attn
+    fn, _, args, values = _prefix_case(shape, dtype, "dense", cuda)
+    kw = dict(_prefix_kw(shape), return_residuals=residuals)
     n0 = fn.residual_launches if residuals else fn.launches
-    got = fn(q, k, v, ck, cv, sb, **kw)
+    got = fn(*args, **kw)
     torch.cuda.synchronize()
     assert (fn.residual_launches if residuals else fn.launches) == n0 + 1
-    want = bca.blockwise_causal_attn_plain(q, k, v, ck, cv, start_blocks=sb,
+    want = bca.blockwise_causal_attn_plain(*args[:5], start_blocks=args[5],
                                            **kw)
     if not residuals:
         got, want = (got,), (want,)
     assert got[0].dtype == dtype
-    _assert_close(got[0], want[0], (v, cv))
+    _assert_close(got[0], want[0], values)
     for g_, w in zip(got[1:], want[1:]):
         _assert_grad_close(g_, w)
 
@@ -309,21 +343,99 @@ def test_prefix_kernel_matches_plain(cuda, shape, dtype, residuals):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", list(PREFIX_SHAPES))
 def test_prefix_q_kernel_matches_plain(cuda, shape, dtype, page_dtype):
-    dims, start, M = PREFIX_SHAPES[shape]
-    c, r, Dh = dims[4:]
-    q, k, v, ck, cv, sb = _prefix_inputs(dims, start, M, dtype, cuda)
-    (ck, cks), (cv, cvs) = _quantized(ck, page_dtype), \
-        _quantized(cv, page_dtype)
-    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
-    fn = bca.blockwise_causal_prefix_attn_q
+    fn, plain, args, values = _prefix_case(shape, dtype, page_dtype, cuda)
+    kw = _prefix_kw(shape)
     n0 = fn.launches
-    out = fn(q, k, v, ck, cv, cks, cvs, sb, **kw)
+    out = fn(*args, **kw)
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
-    ref = bca.blockwise_causal_prefix_attn_q_plain(q, k, v, ck, cv, cks, cvs,
-                                                   sb, **kw)
+    ref = plain(*args, **kw)
     assert out.dtype == dtype and out.shape == ref.shape
-    _assert_close(out, ref, (v, dequantize_blockwise(cv, cvs)))
+    _assert_close(out, ref, values)
+
+
+@pytest.mark.parametrize("storage", ["dense", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_kernels_are_deterministic(cuda, dtype, storage):
+    """Two launches of kernel 4 (both forms) or kernel 8 at the chunk
+    forward's full shape give the same bits: no atomics."""
+    fn, _, args, _ = _prefix_case("full", dtype, storage, cuda)
+    kw = _prefix_kw("full")
+    forms = [dict(return_residuals=True)] if storage == "dense" else []
+    for extra in [{}] + forms:
+        a, b = fn(*args, **kw, **extra), fn(*args, **kw, **extra)
+        torch.cuda.synchronize()
+        for x, y in zip(*((a, b) if extra else ((a,), (b,)))):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("storage", ["dense", "int8"])
+def test_prefix_kernels_replay_from_a_cuda_graph(cuda, storage):
+    """Kernel 4 (both forms) or kernel 8 in bf16 captured into a CUDA graph
+    (start blocks read on the device, no host sync, outputs from the
+    caching allocator) and replayed equals the eager call."""
+    fn, _, args, _ = _prefix_case("full", torch.bfloat16, storage, cuda)
+    kw = _prefix_kw("full")
+    forms = [{}] + ([dict(return_residuals=True)] if storage == "dense"
+                    else [])
+    for extra in forms:
+        eager = fn(*args, **kw, **extra)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*args, **kw, **extra)
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(*((out, eager) if extra else ((out,), (eager,)))):
+            assert torch.equal(x, y)
+
+
+# (wrapper call, dtype) -> the kernel it must launch: bf16 with start blocks
+# (kernels 4, 4r, 8) the tensor-core kernel, fp32 and the training form
+# without start blocks (kernels 1, 1r) the SIMT kernel
+BCA_ROUTES = {
+    ("prefix", torch.bfloat16): "tensor cores",
+    ("prefix_res", torch.bfloat16): "tensor cores",
+    ("prefix_q", torch.bfloat16): "tensor cores",
+    ("prefix", torch.float32): "simt",
+    ("prefix_res", torch.float32): "simt",
+    ("prefix_q", torch.float32): "simt",
+    ("blockwise", torch.bfloat16): "simt",
+    ("blockwise_res", torch.bfloat16): "simt",
+    ("blockwise", torch.float32): "simt",
+}
+
+
+@pytest.mark.parametrize("call,dtype", list(BCA_ROUTES),
+                         ids=[f"{c}-{str(d)[6:]}" for c, d in BCA_ROUTES])
+def test_forward_kernels_run_their_routes_design(cuda, call, dtype):
+    """bf16 prefix calls launch the tensor-core kernel; fp32, and kernels
+    1/1r in any dtype, the SIMT kernel (the library's route probe, read
+    after each launch)."""
+    if call.startswith("prefix"):
+        storage = "int8" if call == "prefix_q" else "dense"
+        fn, _, args, _ = _prefix_case("smoke", dtype, storage, cuda)
+        kw = dict(_prefix_kw("smoke"))
+        if call == "prefix_res":
+            kw["return_residuals"] = True
+    else:
+        fn = bca.blockwise_causal_attn
+        args = _bca_inputs(2, 4, 2, 64, 16, 4, 16, dtype, cuda)
+        kw = dict(block_size=16, block_slots=4, scale=0.25,
+                  return_residuals=call == "blockwise_res")
+    other = "simt" if BCA_ROUTES[call, dtype] != "simt" else "tensor cores"
+    # a launch of the other route first, so the probe must change
+    if other == "simt":
+        bca.blockwise_causal_attn(*_bca_inputs(2, 4, 2, 64, 16, 4, 16,
+                                               torch.float32, cuda),
+                                  block_size=16, block_slots=4, scale=0.25)
+    else:
+        f2, _, a2, _ = _prefix_case("smoke", torch.bfloat16, "dense", cuda)
+        f2(*a2, **_prefix_kw("smoke"))
+    assert bca.last_forward_route() == other
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert bca.last_forward_route() == BCA_ROUTES[call, dtype]
 
 
 # quantized decode: (B, Hkv, G, c, M, r, Dh) and the rows' positions
