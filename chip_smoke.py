@@ -25,6 +25,13 @@ error; none catches its own failure:
    bf16 tensor-core kernel's 64-row query tile spanning blocks at c = 16,
    32, 48, G = 1, 3, 6, Dh 16/32/64, M = 0, a cut clamped at M, a start
    block at M/r - 1, misaligned views), launched twice, bit-identical;
+   the training form's kernels 1, 1r and 2 also at their edges
+   (TRAIN_EDGE_SHAPES: c = 16, 32, 48 with tiles spanning blocks, G = 1,
+   3, 6, Dh 16/32/64/128, a ragged S, start blocks, a slot tile whose
+   first row split holds no row, misaligned views), every training-form
+   case launched twice, bit-identical, the route probes naming the tensor
+   cores in bf16 and the SIMT kernels in fp32; kernel 2 at the train step's
+   shapes replayed from a CUDA graph equals its eager launch;
 4. [time] time each kernel at full width in bf16 by CUDA-graph replay
    (time_graph_ms; inputs rotated through more than the 50 MB L2 cache),
    its eager loop logged beside, next to its plain version, one masked
@@ -32,9 +39,10 @@ error; none catches its own failure:
    the dequantised operands for the quantized kernels; graph-timed too),
    and the least time the card could take (bytes over 3.35 TB/s or flops
    over 989 TFLOP/s); the training kernels at the train step's shapes
-   (B=2, S=4096), the quantized ones with int8 pages; decode also at a B=1
-   prompt-remainder step (logged); the tensor-core prefix kernel's
-   registers and spills from -Xptxas -v beside its times;
+   (B=2, S=4096; kernel 1 there too, the train step's remat'd forward),
+   the quantized ones with int8 pages; decode also at a B=1
+   prompt-remainder step (logged); the tensor-core forward's and
+   backward's registers and spills from -Xptxas -v beside their times;
 5. [serve] serve 8 requests through full-width, 36-layer qwen3-8b (random
    bf16 weights from a seeded generator, bf16 cache, max_seq 4096,
    max_batch 4, decode_chunk 16), prompts of k·256+j tokens, with the
@@ -56,12 +64,17 @@ error; none catches its own failure:
 9. [train] 4 steps of the Trainer on full-width qwen3-8b cut to 8 layers
    (bf16, remat "full", seq 4096, global batch 2, synthetic corpus seed
    0), launch counters reset just before and read just after: each step's
-   loss, grad norm, ms and tokens/s, peak memory; then one more step timed
-   alone and under torch.profiler;
+   loss, grad norm, ms and tokens/s, peak memory, the route probes (tensor
+   cores); then one more step timed alone and under torch.profiler;
 10. [train-parity] at full width with 2 layers in fp32 (B=1, S=1024), one
-   train step with the kernels and one with the plain reference from the
-   same parameters and batch: loss, every gradient leaf and the parameters
-   after AdamW within the stated tolerances;
+   train step with the kernels (the SIMT route) and one with the plain
+   reference from the same parameters and batch: loss, every gradient leaf
+   and the parameters after AdamW within the stated tolerances;
+   [train-parity-bf16] the same model and batch, the loss and every
+   gradient leaf through the kernels in bf16 (kernels 1r and 2 on the
+   tensor cores), through the plain reference in bf16 and in fp32: the
+   kernel route no further from fp32 than BF16_PARITY_FACTOR times the
+   plain bf16 route, plus BF16_PARITY_ABS;
 11. [train-mlm] 8 Trainer steps of the paper's encoder, linformer-paper
    CONFIG at full width and full depth (12 layers, d=768, H=12, K=128,
    ~162 M parameters, bf16, remat "full", seq 512, global batch 32,
@@ -479,6 +492,26 @@ TRAIN_SHAPES = {"small": ((2, 4, 2, 32, 16, 4, 16), None),
                 "small-offset": ((2, 4, 2, 32, 16, 4, 16), [1, 3]),
                 "full": ((2, 32, 8, 4096, 256, 16, 128), None)}
 TRAIN_TIME_SHAPE = TRAIN_SHAPES["full"][0]      # the train step's shapes
+# the training form's edges, kernels 1 and 1r (without start blocks) and
+# kernel 2: (B, H, Hkv, S, c, r, Dh), per-row start blocks, edge. The
+# tensor-core kernels' 64-row query tiles and 64-key tiles span 4 blocks at
+# c = 16 (a ragged S of 96), 2 at c = 32, and blocks that do not divide them
+# at c = 48 (a ragged S of 144); G = 1, 3, 6; Dh 16, 32, 64, 128.
+# split_empty_dh128: S = 1024 cuts each slot tile's rows into two 512-row
+# splits, and slot tiles 2 and 3 are first seen at rows 576 and 832, so
+# their first split holds no row; shifted: q, k, v, the slots and dO one
+# element into their buffers (no 16-byte loads)
+TRAIN_EDGE_SHAPES = {
+    "c16_dh16_g1": ((2, 2, 2, 96, 16, 4, 16), None, None),
+    "c32_dh32_g3": ((2, 6, 2, 128, 32, 8, 32), None, None),
+    "c48_dh64": ((2, 4, 2, 144, 48, 4, 64), None, None),
+    "c64_dh64_g6": ((1, 12, 2, 192, 64, 8, 64), None, None),
+    "split_empty_dh128": ((1, 4, 2, 1024, 64, 16, 128), None, None),
+    "offset_c16_ragged": ((2, 4, 2, 96, 16, 4, 32), [0, 5], None),
+    "offset_g6": ((1, 12, 2, 192, 64, 8, 64), [2], None),
+    "shifted": ((2, 4, 2, 64, 16, 4, 64), None, "shifted"),
+    "shifted_offset": ((2, 4, 2, 64, 16, 4, 64), [1, 2], "shifted"),
+}
 # prefix form: (B, H, Hkv, P, c, r, Dh), per-row start blocks, slot buffer
 # M; full = the chunked serve's chunk forward (P = 512, M = (4096 + 512) /
 # 256 · 16); small's last row is clamped at M ((9 + 2)·4 = 44 > 40)
@@ -573,10 +606,16 @@ def check_phase(dev):
                 f"blockwise_causal_attn {size}", out,
                 bca.blockwise_causal_attn_plain(*args, **kw), dtype,
                 (args[2], args[4]))
+            if not torch.equal(bca.blockwise_causal_attn(*args, **kw), out):
+                raise AssertionError(f"blockwise_causal_attn {size}: two "
+                                     "launches differ")
         errs.update(check_decode_kernels(dtype, dev))
         for size, (shape, start) in TRAIN_SHAPES.items():
             errs.update(check_training_kernels(size, shape, start, dtype,
                                                dev))
+        for size, (shape, start, edge) in TRAIN_EDGE_SHAPES.items():
+            errs.update(check_training_kernels(size, shape, start, dtype,
+                                               dev, edge))
         for size, (shape, start, M) in PREFIX_SHAPES.items():
             errs.update(check_prefix_kernels(size, shape, start, M, dtype,
                                              dev))
@@ -584,6 +623,7 @@ def check_phase(dev):
             errs.update(check_prefix_kernels(size, shape, start, M, dtype,
                                              dev, edge))
         errs.update(check_exact_kernels(dtype, dev))
+    check_backward_graph(dev)
     return errs
 
 
@@ -753,31 +793,47 @@ def check_prefix_kernels(size, shape, start, M, dtype, dev, edge=None):
     return errs
 
 
-def check_training_kernels(size, shape, start, dtype, dev):
-    """Kernel 1r (out, m, denom) and kernel 2 (dq, dk_loc, dv_loc, dk̄, dv̄)
-    against their plain twins; dk̄/dv̄ of slots no row sees must be exact
-    zeros."""
+def check_training_kernels(size, shape, start, dtype, dev, edge=None):
+    """Kernels 1 and 1r (out; out, m, denom; without start blocks) and
+    kernel 2 (dq, dk_loc, dv_loc, dk̄, dv̄) against their plain twins, each
+    launched twice and bit-identical; dk̄/dv̄ of slots no row sees must be
+    exact zeros; the route probes must name the tensor cores in bf16 and
+    the SIMT kernels in fp32. `edge` "shifted" moves q, k, v, the slots
+    and dO one element into their buffers (see TRAIN_EDGE_SHAPES)."""
     import torch
     from repro_torch.kernels import blockwise_causal_attn as bca
     B, H, Hkv, S, c, r, Dh = shape
     q, k, v, kb, vb = bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed=3)
+    move = shifted if edge == "shifted" else (lambda x: x)
     kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
     errs, sb = {}, None
     tag = f"{size} {str(dtype)[6:]}"
+    route = "tensor cores" if dtype == torch.bfloat16 else "simt"
     if start is None:
-        out, m, d = bca.blockwise_causal_attn(q, k, v, kb, vb,
-                                              return_residuals=True, **kw)
+        q, k, v, kb, vb = map(move, (q, k, v, kb, vb))
+        out_r, m, d = bca.blockwise_causal_attn(q, k, v, kb, vb,
+                                                return_residuals=True, **kw)
+        out = bca.blockwise_causal_attn(q, k, v, kb, vb, **kw)
         torch.cuda.synchronize()
         ro, rm, rd = bca.blockwise_causal_attn_plain(
             q, k, v, kb, vb, return_residuals=True, **kw)
         errs["res", size, dtype] = check(
-            f"blockwise_causal_attn(residuals) {size}", out, ro, dtype,
+            f"blockwise_causal_attn(residuals) {size}", out_r, ro, dtype,
             (v, vb))
+        errs["bca_train", size, dtype] = check(
+            f"blockwise_causal_attn {size}", out, ro, dtype, (v, vb))
         check_grad(f"  m {tag}", m, rm)
         check_grad(f"  denom {tag}", d, rd)
-        if not torch.equal(bca.blockwise_causal_attn(q, k, v, kb, vb, **kw),
-                           out):
+        if not torch.equal(out, out_r):
             raise AssertionError("the plain and residual forms differ")
+        again = bca.blockwise_causal_attn(q, k, v, kb, vb,
+                                          return_residuals=True, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(again, (out_r, m, d))):
+            raise AssertionError(f"blockwise_causal_attn {tag}: two "
+                                 "launches differ")
+        if bca.last_forward_route() != route:
+            raise AssertionError(f"blockwise_causal_attn {tag} ran the "
+                                 f"{bca.last_forward_route()} route")
         m, d = rm, rd
         nb0 = torch.zeros(B, device=dev)
     else:
@@ -788,9 +844,10 @@ def check_training_kernels(size, shape, start, dtype, dev):
                                          generator=g, device=dev).to(dtype),
                              x], 2) for x in (kb, vb))
         m, d = offset_residuals(q, k, kb, sb, kw)
+        q, k, v, kb, vb = map(move, (q, k, v, kb, vb))
         nb0 = sb
     g = torch.Generator(device=dev).manual_seed(5)
-    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    do = move(torch.randn(q.shape, generator=g, device=dev).to(dtype))
     got = bca.blockwise_causal_attn_bwd(q, k, v, kb, vb, m, d, do,
                                         start_blocks=sb, **kw)
     torch.cuda.synchronize()
@@ -800,15 +857,53 @@ def check_training_kernels(size, shape, start, dtype, dev):
         check_grad(f"blockwise_causal_attn_bwd {name} {tag}", g_, w)
         for name, g_, w in zip(("dq", "dk_loc", "dv_loc", "dkbar", "dvbar"),
                                got, want))
+    again = bca.blockwise_causal_attn_bwd(q, k, v, kb, vb, m, d, do,
+                                          start_blocks=sb, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+        raise AssertionError(f"blockwise_causal_attn_bwd {tag}: two "
+                             "launches differ")
+    if bca.last_backward_route() != route:
+        raise AssertionError(f"blockwise_causal_attn_bwd {tag} ran the "
+                             f"{bca.last_backward_route()} route")
     slot_blk = torch.arange(kb.shape[2], device=dev) // r
     invisible = slot_blk[None] >= (nb0[:, None] + S // c - 1)
     zeros = all(bool(torch.all(g_.movedim(1, 2)[invisible] == 0))
                 for g_ in got[3:])
     log(f"  blockwise_causal_attn_bwd {tag}: {int(invisible.sum())} "
-        f"invisible slot rows, exact zeros in dkbar/dvbar: {zeros}")
+        f"invisible slot rows, exact zeros in dkbar/dvbar: {zeros}; two "
+        f"launches bit-identical; route {route}")
     if not zeros:
         raise AssertionError("nonzero gradient on a slot no row sees")
     return errs
+
+
+def check_backward_graph(dev):
+    """Kernel 2 in bf16 at the train step's shapes captured into a CUDA
+    graph (no host sync; its outputs and scratch from the caching
+    allocator) and replayed equals the eager launch."""
+    import torch
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    B, H, Hkv, S, c, r, Dh = TRAIN_TIME_SHAPE
+    args = bca_inputs(B, H, Hkv, S, c, r, Dh, torch.bfloat16, dev, seed=7)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    _, m, d = bca.blockwise_causal_attn(*args, return_residuals=True, **kw)
+    g = torch.Generator(device=dev).manual_seed(8)
+    do = torch.randn(args[0].shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    eager = bca.blockwise_causal_attn_bwd(*args, m, d, do, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bca.blockwise_causal_attn_bwd(*args, m, d, do, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out, eager))
+    log(f"  blockwise_causal_attn_bwd B={B} S={S} bf16: CUDA-graph replay "
+        f"equals the eager launch: {same}")
+    if not same:
+        raise AssertionError("kernel 2 replayed from a CUDA graph differs "
+                             "from its eager launch")
+    del graph, out, eager
 
 
 def time_phase(dev, errs):
@@ -860,7 +955,9 @@ def time_phase(dev, errs):
                       [300, 1000, 2300, 4000])
     records.append(rec)
     time_decode(dev, errs, 1, [1040])
-    records += time_training_kernels(dev, errs)
+    train_fwd, recs = time_training_kernels(dev, errs)
+    records[0].update(train_fwd)      # kernel 1 at the train step's shapes
+    records += recs
     records += time_prefix_kernels(dev, errs)
     records += time_decode_q(dev, errs)
     records += time_exact_kernels(dev, errs)
@@ -1105,9 +1202,11 @@ def time_decode_q(dev, errs):
 
 
 def time_training_kernels(dev, errs):
-    """Kernels 1r and 2 at the train step's shapes, bf16: the residual
-    forward beside the SDPA forward, the backward beside one SDPA backward
-    (torch.autograd.grad on a saved graph, the forward untimed)."""
+    """Kernels 1, 1r and 2 at the train step's shapes, bf16: the forward in
+    both forms beside the SDPA forward, the backward beside one SDPA
+    backward (torch.autograd.grad on a saved graph, the forward untimed).
+    Returns the records of 1r and 2 and kernel 1's numbers at this shape
+    (the remat'd forward of the train step) for its record."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.kernels import blockwise_causal_attn as bca
@@ -1127,6 +1226,11 @@ def time_training_kernels(dev, errs):
     res_eager_ms = time_ms(run, n_sets)
     res_plain_ms = time_ms(lambda i: bca.blockwise_causal_attn_plain(
         *sets[i], return_residuals=True, **kw), n_sets, iters=5)
+    run = lambda i: bca.blockwise_causal_attn(*sets[i], **kw)  # noqa: E731
+    fwd_ms, fwd_eager_ms = time_graph_ms(run, n_sets, iters=20), \
+        time_ms(run, n_sets)
+    fwd_plain_ms = time_ms(lambda i: bca.blockwise_causal_attn_plain(
+        *sets[i], **kw), n_sets, iters=5)
     resid = [bca.blockwise_causal_attn(*s, return_residuals=True, **kw)[1:]
              for s in sets]
     run = lambda i: bca.blockwise_causal_attn_bwd(  # noqa: E731
@@ -1161,14 +1265,28 @@ def time_training_kernels(dev, errs):
     in_bytes = 2 * (B * H * S * Dh + 2 * B * Hkv * S * Dh
                     + 2 * B * Hkv * M * Dh)
     rows = B * H * S
+    fwd_bytes = in_bytes + 2 * B * H * S * Dh
+    fwd_bound = 1e3 * max(fwd_bytes / H100_BYTES_PER_S,
+                          4 * Dh * vis / H100_FLOPS[str(bf16)])
+    log(f"  blockwise_causal_attn B={B} H={H} Hkv={Hkv} S={S}: kernel "
+        f"{fwd_ms:.4f} ms (eager loop {fwd_eager_ms:.4f}), plain "
+        f"{fwd_plain_ms:.4f} ms, sdpa {lib_fwd_ms:.4f} ms; bound "
+        f"{fwd_bound:.4f} ms")
     log(f"  blockwise_causal_attn(residuals) B={B} H={H} Hkv={Hkv} S={S}: "
         f"kernel {res_ms:.4f} ms (eager loop {res_eager_ms:.4f}), plain "
         f"{res_plain_ms:.4f} ms, sdpa {lib_fwd_ms:.4f} ms")
     log(f"  blockwise_causal_attn_bwd B={B} H={H} Hkv={Hkv} S={S}: kernel "
         f"{bwd_ms:.4f} ms (eager loop {bwd_eager_ms:.4f}), plain "
         f"{bwd_plain_ms:.4f} ms, sdpa backward {lib_bwd_ms:.4f} ms")
+    for frag in ("bca_bwd_dq_mma_kernel", "bca_bwd_dkdv_mma_kernel"):
+        log(f"  {frag}<Dh> (-Xptxas -v): " + ", ".join(
+            f"{dh[0]} {regs} registers, {spill} B spilled"
+            for _, dh, regs, spill in ptxas_registers(frag)))
     del sets, lib, resid, dos, dos_c
-    return [
+    train_fwd = dict(train_ms=fwd_ms, train_eager_ms=fwd_eager_ms,
+                     train_plain_ms=fwd_plain_ms,
+                     train_library_ms=lib_fwd_ms, train_bound_ms=fwd_bound)
+    return train_fwd, [
         dict(name="blockwise_causal_attn(return_residuals)", route="cuda",
              source="src/repro_torch/csrc/blockwise_causal_attn.cu",
              replaces="src/repro/kernels/blockwise_causal_attn.py:96",
@@ -1300,6 +1418,16 @@ def reset_launches():
 
 def read_launches():
     return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+
+
+def require_routes(path, route):
+    """The route probes name `route` for the last forward and backward
+    launches of kernels 1, 1r and 2 (all of them, on `path`)."""
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    got = (bca.last_forward_route(), bca.last_backward_route())
+    log(f"  {path}: forward and backward routes {got}")
+    if got != (route, route):
+        raise AssertionError(f"{path}: routes {got}, expected {route}")
 
 
 def require_launches(launches, names, path):
@@ -1695,6 +1823,7 @@ def train_phase(dev, cfg):
         if launches[name] < need:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
                                  f"train path, expected at least {need}")
+    require_routes("train", "tensor cores")
 
     # where the time goes: one more step (fresh optimizer state, the next
     # batch) under torch.profiler, after the counted run
@@ -1779,10 +1908,11 @@ def train_parity_bf16_phase(dev, cfg32, batch, tag):
     """The loss and every gradient leaf of the fp32 config `cfg32` on
     `batch` (numpy) through three routes from the same parameters (drawn in
     fp32, cast to bf16 for the bf16 routes): the kernels in bf16 (backend
-    "auto": kernels 5 and 6 on the tensor cores), the plain reference in
-    bf16 and the plain reference in fp32. The kernel route's error against
-    fp32 may be at most BF16_PARITY_FACTOR times the plain bf16 route's,
-    plus BF16_PARITY_ABS."""
+    "auto": kernels 5 and 6 of the encoder, or kernels 1r and 2 of
+    qwen3-8b, on the tensor cores), the plain reference in bf16 and the
+    plain reference in fp32. The kernel route's error against fp32 may be
+    at most BF16_PARITY_FACTOR times the plain bf16 route's, plus
+    BF16_PARITY_ABS."""
     import numpy as np
     import torch
     from repro_torch.models import model as tmodel
@@ -1979,9 +2109,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
-    train_parity_phase(dev, cfg2, make_causal_batch(
+    parity_batch = make_causal_batch(
         SyntheticCorpus(cfg2.vocab_size, seed=0), DataState(0, 0), batch=1,
-        seq=TRAIN_PARITY_SEQ), "train-parity")
+        seq=TRAIN_PARITY_SEQ)
+    train_parity_phase(dev, cfg2, parity_batch, "train-parity")
+    require_routes("train-parity (fp32)", "simt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity_bf16_phase(dev, cfg2, parity_batch, "train-parity-bf16")
+    require_routes("train-parity-bf16", "tensor cores")
     gc.collect()
     torch.cuda.empty_cache()
     mlm_launches = train_mlm_phase(dev)

@@ -67,32 +67,34 @@ VARIANTS = {
 }
 
 
-def build_variants(tmp):
-    """{name: KernelLibrary} of every variant, built in parallel."""
+def build_variants(tmp, source=SOURCE, variants=VARIANTS,
+                   fns=("bca_forward",)):
+    """{name: KernelLibrary} of every variant of `source` (one library each,
+    binding the exported `fns`), built in parallel, -Xptxas -v in the log."""
     from repro_torch.kernels import build
     nvcc = build.find_nvcc()
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         d = Path(tmp) / name
         shutil.copytree(build.CSRC, d)
-        text = (d / SOURCE).read_text()
+        text = (d / source).read_text()
         for old, new in subs:
             if old not in text:
-                raise SystemExit(f"{name}: passage not in {SOURCE}: {old!r}")
+                raise SystemExit(f"{name}: passage not in {source}: {old!r}")
             text = text.replace(old, new)
-        (d / SOURCE).write_text(text)
+        (d / source).write_text(text)
         so = d / "lib.so"
         procs[name] = (subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-shared", str(d / SOURCE),
-             str(d / "runtime.cu"), "-o", str(so)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
+            [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+             str(d / source), str(d / "runtime.cu"), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{out}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("bca_forward", "repro_torch_error_string"):
+        for fn in (*fns, "repro_torch_error_string"):
             f = getattr(lib, fn)
             f.restype, f.argtypes = build.SIGNATURES[fn]
         libs[name] = build.KernelLibrary(lib=lib, path=so, build_seconds=0.0,

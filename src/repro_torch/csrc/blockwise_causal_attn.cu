@@ -33,13 +33,15 @@
 // key) pair against one read of q, k, v, k-bar, v-bar and one write of the
 // output. At the chunked serve's chunk forward (B=4, H=32, Hkv=8, P=512,
 // c=256, r=16, Dh=128, M=288) a row sees ~232 keys: ~185 flops a byte in
-// bf16, under the tensor cores' ridge (~295), so the bound is bytes.
+// bf16, under the tensor cores' ridge (~295), so the bound is bytes; at the
+// train step's (B=2, S=4096, M=256) a row sees ~248: bytes again.
 //
-// Two designs:
+// Two designs, chosen by dtype:
 //
-// bf16 with start blocks (bca_prefix_mma_kernel: kernels 4, 4r and 8, the
-// serving dtype): both products on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulators). A block owns one 64-row query tile of one row b and
+// bf16 (bca_prefix_mma_kernel: every form in the model dtype - kernels 1
+// and 1r, the training form, with null start blocks read as zeros; 4, 4r
+// and 8 with start blocks): both products on the tensor cores (mma.sync
+// m16n8k16, fp32 accumulators). A block owns one 64-row query tile of one row b and
 // of two query heads of one kv head (one when the group G is odd), 4 warps
 // a head; each warp owns 16 rows, which lie in one attention block (c is a
 // multiple of 16), so each warp keeps its own visibility cut and diagonal
@@ -85,10 +87,9 @@
 //   is read element by element (byte by byte for codes) into the same
 //   layout.
 //
-// fp32, and the training form without start blocks (bca_fwd_kernel: kernels
-// 1 and 1r, and the card's fp32 parity path, where tensor cores would round
-// to TF32): SIMT, bound by fp32 FMA issue. The TPU kernel pinned all M
-// slots in VMEM per grid step (1 MiB each for k-bar and v-bar at M = 4096,
+// fp32 (bca_fwd_kernel: the card's fp32 parity path of every form, where
+// tensor cores would round to TF32): SIMT, bound by fp32 FMA issue. The TPU
+// kernel pinned all M slots in VMEM per grid step (1 MiB each for k-bar and v-bar at M = 4096,
 // Dh = 128, bf16), far past the 227 KB of shared memory of one block. Here
 // one thread block owns one (batch*head, query tile of BQ rows); a tile
 // never straddles two attention blocks (BQ divides c). It streams 64-key
@@ -267,7 +268,7 @@ cudaError_t dispatch_slots(const BcaParams& p, int B, int Dh, int dtype, int slo
   return cudaErrorInvalidValue;
 }
 
-// -- bf16 with start blocks: tensor cores ------------------------------------
+// -- bf16: tensor cores -------------------------------------------------------
 
 namespace tc {
 constexpr int kWarpsPerHead = 4;
@@ -367,7 +368,8 @@ __device__ __forceinline__ void convert_codes(__nv_bfloat16* dst, const unsigned
 }
 
 // S: the slot storage (bf16, int8_t or __nv_fp8_e4m3); q, k, v and the
-// output are bf16; start_blocks is non-null. Heads: query heads a block.
+// output are bf16; start_blocks null means all zeros (the training form,
+// M = (S/c)*r). Heads: query heads a block.
 template <typename S, int Dh, int Heads>
 __global__ void __launch_bounds__(tc::threads(Heads), 2 / Heads)
     bca_prefix_mma_kernel(BcaParams p) {
@@ -410,7 +412,7 @@ __global__ void __launch_bounds__(tc::threads(Heads), 2 / Heads)
   const int c = p.block_size;
   const int q0 = qt * tc::kTileQ;
   const int q_end = min(q0 + tc::kTileQ, p.S);  // the tile's rows below S
-  const int nb0 = p.start_blocks[b];
+  const int nb0 = p.start_blocks == nullptr ? 0 : p.start_blocks[b];
   // the block loads the slots its last row sees and the own-block keys from
   // its first row's block start up to its last row
   const int nsl_blk = min((nb0 + (q_end - 1) / c) * p.block_slots, p.M);
@@ -739,8 +741,8 @@ cudaError_t dispatch_prefix_mma(const BcaParams& p, int B, int Dh, int slot_dtyp
 // with start blocks only.
 // strides: 15 element strides (batch, head, seq) of q, k and v (shared),
 // kbar and vbar (shared), out, and the two scales (shared; unused when
-// null). bf16 with start blocks runs the tensor-core kernel, everything
-// else the SIMT kernel. Returns the launch's cudaError_t.
+// null). bf16 runs the tensor-core kernel (with start blocks or without),
+// fp32 the SIMT kernel. Returns the launch's cudaError_t.
 extern "C" int bca_forward(const void* q, const void* k, const void* v, const void* kbar,
                            const void* vbar, void* out, float* m, float* denom,
                            const int* start_blocks, const float* kbar_scale,
@@ -785,7 +787,6 @@ extern "C" int bca_forward(const void* q, const void* k, const void* v, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return dispatch_slots<float>(p, B, Dh, dtype, slot_dtype, s);
   if (dtype != kBFloat16) return cudaErrorInvalidValue;
-  if (start_blocks == nullptr) return dispatch_tile<__nv_bfloat16, __nv_bfloat16>(p, B, Dh, s);
   p.q_vec = mma::aligned16(q, p.sq.b, p.sq.h, p.sq.s);
   p.kv_vec = mma::aligned16(k, p.skv.b, p.skv.h, p.skv.s) && mma::aligned16(v);
   p.slot_vec = quantized ? mma::aligned16<1>(kbar, p.sslot.b, p.sslot.h, p.sslot.s) &&
@@ -797,6 +798,6 @@ extern "C" int bca_forward(const void* q, const void* k, const void* v, const vo
 }
 
 // The kernel the last bca_forward call of this process launched: 0 the SIMT
-// bca_fwd_kernel, 1 the tensor-core bca_prefix_mma_kernel, -1 none yet (a
-// probe for the tests of the routes).
+// bca_fwd_kernel (fp32), 1 the tensor-core bca_prefix_mma_kernel (bf16), -1
+// none yet (a probe for the tests of the routes).
 extern "C" int bca_forward_route() { return repro_torch::last_route; }

@@ -195,7 +195,8 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
     if start_blocks is None:
         common.check_blockwise_shapes(seq=S, block_size=block_size,
                                       block_slots=block_slots, slots=M,
-                                      head_dim=Dh)
+                                      head_dim=Dh, group=H // Hkv,
+                                      dtype=q.dtype)
     else:
         common.check_prefix_shapes(seq=S, block_size=block_size,
                                    block_slots=block_slots, slots=M,
@@ -232,18 +233,30 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
-FORWARD_ROUTES = {0: "simt", 1: "tensor cores"}
+ROUTES = {0: "simt", 1: "tensor cores"}
 
 
 def last_forward_route() -> str:
     """The kernel the last CUDA launch of the forward wrappers ran: "simt"
-    (bca_fwd_kernel: fp32, and the forms without start blocks) or "tensor
-    cores" (bca_prefix_mma_kernel: bf16 with start blocks). A probe for
-    the tests of the routes; it builds the library if need be."""
+    (bca_fwd_kernel: fp32) or "tensor cores" (bca_prefix_mma_kernel: bf16,
+    every form). A probe for the tests of the routes; it builds the library
+    if need be."""
     code = build.library().lib.bca_forward_route()
-    if code not in FORWARD_ROUTES:
+    if code not in ROUTES:
         raise RuntimeError("no blockwise-causal forward launched yet")
-    return FORWARD_ROUTES[code]
+    return ROUTES[code]
+
+
+def last_backward_route() -> str:
+    """The kernels the last CUDA launch of the backward wrapper ran: "simt"
+    (bca_bwd_dq_kernel and bca_bwd_dkdv_kernel: fp32) or "tensor cores"
+    (bca_bwd_dq_mma_kernel, bca_bwd_dkdv_mma_kernel and the reduction of
+    the slot splits: bf16). A probe for the tests of the routes; it builds
+    the library if need be."""
+    code = build.library().lib.bca_backward_route()
+    if code not in ROUTES:
+        raise RuntimeError("no blockwise-causal backward launched yet")
+    return ROUTES[code]
 
 
 def blockwise_causal_attn(q, k, v, kbar, vbar, *, block_size: int,
@@ -343,9 +356,11 @@ blockwise_causal_prefix_attn_q.launches = 0
 def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
                block_size: int, block_slots: int, scale: float, stream,
                start_blocks: Optional[torch.Tensor] = None):
-    """Check the operands, allocate the gradients and launch the backward
-    kernels (dq, then dk/dv) on `stream`. Gradients lie in model-layout
-    memory, returned as kernel-layout views."""
+    """Check the operands, allocate the gradients and the scratch (delta;
+    in bf16 the slot splits' partials) and launch the backward kernels (dq,
+    then dk/dv, then in bf16 the reduction of the partials) on `stream`.
+    Gradients lie in model-layout memory, returned as kernel-layout
+    views."""
     _check_qkv(q, k, v, kbar, vbar)
     B, H, S, Dh = q.shape
     Hkv, M = k.shape[1], kbar.shape[2]
@@ -358,7 +373,8 @@ def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
                              f"got {tuple(t.shape)} {t.dtype}")
     common.check_blockwise_bwd_shapes(
         seq=S, block_size=block_size, block_slots=block_slots, slots=M,
-        head_dim=Dh, offset=start_blocks is not None)
+        head_dim=Dh, offset=start_blocks is not None, group=H // Hkv,
+        dtype=q.dtype)
     if start_blocks is not None:
         common.check_start_blocks(start_blocks, B, q.device)
     dtype = common.kernel_dtype_code(q, k, v, kbar, vbar, do)
@@ -371,6 +387,10 @@ def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
     dkbar = _model_layout_empty(B, Hkv, M, Dh, f32, q.device)
     dvbar = _model_layout_empty(B, Hkv, M, Dh, f32, q.device)
     delta = torch.empty((B, H, S), dtype=f32, device=q.device)
+    part = None
+    if q.dtype == torch.bfloat16:
+        part = torch.empty(common.bca_bwd_partials_shape(B, Hkv, S, M, Dh),
+                           dtype=f32, device=q.device)
     common.check_operands(q, k, v, kbar, vbar, do, m, denom, dq, dk, dv,
                           dkbar, dvbar, delta)
     dims = (0, 1, 2)
@@ -382,8 +402,9 @@ def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
         vbar.data_ptr(), do.data_ptr(), m.data_ptr(), denom.data_ptr(),
         None if start_blocks is None else start_blocks.data_ptr(),
         dq.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dkbar.data_ptr(), dvbar.data_ptr(), strides, B, H, Hkv, S, M, Dh,
-        block_size, block_slots, float(scale), dtype, stream)
+        dkbar.data_ptr(), dvbar.data_ptr(),
+        None if part is None else part.data_ptr(), strides, B, H, Hkv, S, M,
+        Dh, block_size, block_slots, float(scale), dtype, stream)
     kl.check(rc, "blockwise_causal_attn_bwd")
     return dq, dk, dv, dkbar, dvbar
 

@@ -43,12 +43,14 @@ SIGNATURES: Dict[str, Tuple[object, List[object]]] = {
     "bca_forward": (_I, [_P] * 11 + [_LL_PTR] + [_I] * 8
                     + [ctypes.c_float, _I, _I, _P]),
     # q, k, v, kbar, vbar, dout, m, denom, start_blocks, dq, delta, dk, dv,
-    # dkbar, dvbar, strides[21], B, H, Hkv, S, M, Dh, block_size,
+    # dkbar, dvbar, part, strides[21], B, H, Hkv, S, M, Dh, block_size,
     # block_slots, scale, dtype, stream
-    "bca_backward": (_I, [_P] * 15 + [_LL_PTR] + [_I] * 8
+    "bca_backward": (_I, [_P] * 16 + [_LL_PTR] + [_I] * 8
                      + [ctypes.c_float, _I, _P]),
-    # the kernel the last bca_forward launched: 0 SIMT, 1 tensor cores
+    # the kernel(s) the last bca_forward / bca_backward launched: 0 SIMT, 1
+    # tensor cores
     "bca_forward_route": (_I, []),
+    "bca_backward_route": (_I, []),
     # q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s, comp_k_s, comp_v_s,
     # bias_loc, bias_glob, out, part, strides[12], B, Hkv, G, Dh, c, M,
     # nsplit, tiles_per_split, scale, dtype, cache_dtype, stream

@@ -44,8 +44,8 @@ MAX_SMEM_PER_BLOCK = 232448
 
 # csrc/blockwise_causal_attn.cu: head dims the kernels are instantiated for,
 # the SIMT kernel's key tile and the pitch of its probability tile. The
-# tensor-core prefix kernel (bf16 with start blocks: kernels 4, 4r and 8,
-# namespace tc of the source): a 64-row query tile of one or two query heads
+# tensor-core kernel (bf16: kernels 1, 1r, 4, 4r and 8, namespace tc of the
+# source): a 64-row query tile of one or two query heads
 # a block (4 warps of 16 rows each), 64-key tiles in several stages, bf16
 # rows of pitch Dh + 8, and for int8/fp8 slots byte rows of pitch
 # Dh + BCA_MMA_CODE_PAD beside each stage's k and v tiles.
@@ -68,11 +68,26 @@ def bca_prefix_mma_stages(heads: int) -> int:
     return 3 if heads == 2 else 2
 
 
-# csrc/blockwise_causal_attn_bwd.cu: the dq kernel's key tile and the pitch
-# of its dS tile (its query tile and the dk/dv kernel's key tile are
-# bca_query_tile(c)).
+# csrc/blockwise_causal_attn_bwd.cu, fp32 (SIMT): the dq kernel's key tile
+# and the pitch of its dS tile (its query tile and the dk/dv kernel's key
+# tile are bca_query_tile(c)).
 BCA_BWD_TILE_K = 64
 BCA_BWD_S_PITCH = BCA_BWD_TILE_K + 16
+
+# The same source in bf16 (tensor cores, namespace tcb): 4 warps a block in
+# each kernel; the dk/dv kernel owns 16 keys or slots a warp and walks the
+# query rows in steps of BCA_BWD_MMA_ROW_STEP, the dq kernel owns 16 query
+# rows a warp and walks 64-key tiles; both through BCA_BWD_MMA_STAGES
+# cp.async buffers of bf16 rows of pitch Dh + 8. The rows of a slot tile are
+# cut into splits of BCA_BWD_SPLIT_ROWS (bca_bwd_slot_rows), each a block
+# that writes fp32 partials (bca_bwd_partials_shape) for a reduction pass.
+BCA_BWD_MMA_WARPS = 4
+BCA_BWD_MMA_TILE_K = 16 * BCA_BWD_MMA_WARPS
+BCA_BWD_MMA_ROW_STEP = 32
+BCA_BWD_MMA_TILE_Q = 16 * BCA_BWD_MMA_WARPS
+BCA_BWD_MMA_TILE_KEY = 64
+BCA_BWD_MMA_STAGES = 2
+BCA_BWD_SPLIT_ROWS = 512
 
 # csrc/decode_attn.cu (kernels 3 and 7): the 64-key tile (the unit of
 # masked-tile skipping and of a key split), the query rows of a kv head's
@@ -296,8 +311,11 @@ def bca_smem_bytes(block_q: int, head_dim: int) -> int:
 
 
 def check_blockwise_shapes(*, seq: int, block_size: int, block_slots: int,
-                           slots: int, head_dim: int) -> None:
-    """Fail fast on shapes csrc/blockwise_causal_attn.cu does not take."""
+                           slots: int, head_dim: int, group: int,
+                           dtype: torch.dtype) -> None:
+    """Fail fast on shapes the training form of csrc/blockwise_causal_attn.cu
+    does not take. bf16 runs the tensor-core kernel, fp32 the SIMT kernel:
+    each is held to the shared memory it requests."""
     if head_dim not in BCA_HEAD_DIMS:
         raise ValueError(f"head_dim={head_dim}: the CUDA blockwise-causal "
                          f"kernel is built for head dims {BCA_HEAD_DIMS}")
@@ -307,10 +325,16 @@ def check_blockwise_shapes(*, seq: int, block_size: int, block_slots: int,
     if slots != (seq // block_size) * block_slots:
         raise ValueError(f"M={slots} compressed slots, expected "
                          f"(S/c)·r = {(seq // block_size) * block_slots}")
-    smem = bca_smem_bytes(bca_query_tile(block_size), head_dim)
+    block_q = bca_query_tile(block_size)
+    if kernel_dtype(dtype) == KERNEL_DTYPES[torch.bfloat16]:
+        smem, what = (bca_prefix_mma_smem_bytes(head_dim, dtype, group),
+                      "tensor-core blockwise-causal tile")
+    else:
+        smem, what = (bca_smem_bytes(block_q, head_dim),
+                      "blockwise-causal tile")
     if smem > MAX_SMEM_PER_BLOCK:
-        raise ValueError(f"blockwise-causal tile needs {smem} B of shared "
-                         f"memory, above {MAX_SMEM_PER_BLOCK}")
+        raise ValueError(f"{what} needs {smem} B of shared memory, above "
+                         f"{MAX_SMEM_PER_BLOCK}")
 
 
 def bca_prefix_mma_smem_bytes(head_dim: int, slot_dtype: torch.dtype,
@@ -340,7 +364,7 @@ def check_prefix_shapes(*, seq: int, block_size: int, block_slots: int,
     check_blockwise_shapes(seq=seq, block_size=block_size,
                            block_slots=block_slots,
                            slots=(seq // block_size) * block_slots,
-                           head_dim=head_dim)
+                           head_dim=head_dim, group=group, dtype=dtype)
     if slots < 0:
         raise ValueError(f"M={slots} compressed slots")
     if kernel_dtype(dtype) == KERNEL_DTYPES[torch.bfloat16]:
@@ -372,22 +396,99 @@ def bca_bwd_smem_bytes(block_q: int, head_dim: int) -> Tuple[int, int]:
     return dq, dkdv
 
 
+def bca_bwd_mma_smem_bytes(head_dim: int) -> Tuple[int, int]:
+    """Shared memory of the backward's tensor-core kernels (bf16 rows of
+    pitch Dh + 8): the dq kernel (its q and dO tiles, then per stage a k and
+    a v tile) and the dk/dv kernel (its k and v tiles, then per stage a q
+    and a dO tile of BCA_BWD_MMA_ROW_STEP rows and their m, denom, delta)."""
+    row = 2 * (head_dim + 8)
+    dq = (2 * BCA_BWD_MMA_TILE_Q * row
+          + BCA_BWD_MMA_STAGES * 2 * BCA_BWD_MMA_TILE_KEY * row)
+    dkdv = (2 * BCA_BWD_MMA_TILE_K * row
+            + BCA_BWD_MMA_STAGES * (2 * BCA_BWD_MMA_ROW_STEP * row
+                                    + 3 * BCA_BWD_MMA_ROW_STEP * 4))
+    return dq, dkdv
+
+
+def bca_bwd_nsplit(seq: int) -> int:
+    """Splits of each slot tile's rows in the tensor-core backward."""
+    return -(-seq // BCA_BWD_SPLIT_ROWS)
+
+
+def bca_bwd_slot_rows(tile: int, split: int, *, seq: int, block_size: int,
+                      block_slots: int, start_block: int) -> Tuple[int, int]:
+    """Rows [lo, hi) that split `split` of slot tile `tile` (slots
+    BCA_BWD_MMA_TILE_K·tile onward) takes, for a row whose chunk starts at
+    absolute block `start_block`: chunk block n sees the slots of absolute
+    blocks < n + start_block, so the tile's first slot is first seen by the
+    rows of block (slot // r − start_block + 1); the split cuts
+    [split·BCA_BWD_SPLIT_ROWS, (split + 1)·BCA_BWD_SPLIT_ROWS) out of the
+    rows from there to S. Empty (lo ≥ hi) when no row of the split sees the
+    tile. The kernels (tcb::split_rows) use the same arithmetic."""
+    n = (tile * BCA_BWD_MMA_TILE_K) // block_slots - start_block + 1
+    first = 0 if n <= 0 else min(n * block_size, seq)
+    return (max(split * BCA_BWD_SPLIT_ROWS, first),
+            min((split + 1) * BCA_BWD_SPLIT_ROWS, seq))
+
+
+def bca_bwd_dkdv_items(*, seq: int, block_size: int, block_slots: int,
+                       slots: int, start_block: int):
+    """The tensor-core dk/dv kernel's work items for one row b, in grid
+    order: (kind "slot" or "local", first key or slot, valid count, rows lo,
+    hi, split), the slot splits first (the last split first), then the
+    local key tiles (with c a multiple of 64, every block's first tile
+    first). Empty slot splits are listed too (the kernel returns at once)."""
+    tk, c = BCA_BWD_MMA_TILE_K, block_size
+    n_slot_tiles, nsp = -(-slots // tk), bca_bwd_nsplit(seq)
+    items = []
+    for item in range(n_slot_tiles * nsp):
+        sp, tile = nsp - 1 - item // n_slot_tiles, item % n_slot_tiles
+        lo, hi = bca_bwd_slot_rows(tile, sp, seq=seq, block_size=c,
+                                   block_slots=block_slots,
+                                   start_block=start_block)
+        items.append(("slot", tile * tk, min(tk, slots - tile * tk), lo, hi,
+                      sp))
+    for li in range(-(-seq // tk)):
+        if c % tk == 0:
+            nb = seq // c
+            key0 = (li % nb) * c + (li // nb) * tk
+        else:
+            key0 = li * tk
+        valid = min(tk, seq - key0)
+        items.append(("local", key0, valid, key0,
+                      min(seq, ((key0 + valid - 1) // c + 1) * c), 0))
+    return items
+
+
+def bca_bwd_partials_shape(batch: int, kv_heads: int, seq: int, slots: int,
+                           head_dim: int) -> Tuple[int, ...]:
+    """The fp32 scratch of the tensor-core backward's slot splits: dk̄ and
+    dv̄ partials of every split of every slot (2, splits, B, Hkv, M, Dh)."""
+    return (2, bca_bwd_nsplit(seq), batch, kv_heads, slots, head_dim)
+
+
 def check_blockwise_bwd_shapes(*, seq: int, block_size: int,
                                block_slots: int, slots: int, head_dim: int,
-                               offset: bool) -> None:
+                               offset: bool, group: int,
+                               dtype: torch.dtype) -> None:
     """Fail fast on shapes csrc/blockwise_causal_attn_bwd.cu does not take.
     Without an offset the slots are exactly (S/c)·r; with per-row start
-    blocks they are a full buffer of at least that many."""
+    blocks they are a full buffer of at least that many. bf16 runs the
+    tensor-core kernels, fp32 the SIMT kernels: each is held to the shared
+    memory it requests."""
     nb_slots = (seq // block_size) * block_slots
     check_blockwise_shapes(seq=seq, block_size=block_size,
                            block_slots=block_slots,
                            slots=nb_slots if offset else slots,
-                           head_dim=head_dim)
+                           head_dim=head_dim, group=group, dtype=dtype)
     if offset and slots < nb_slots:
         raise ValueError(f"M={slots} compressed slots, the offset form needs "
                          f"at least (S/c)·r = {nb_slots}")
-    for name, smem in zip(("dq", "dk/dv"), bca_bwd_smem_bytes(
-            bca_query_tile(block_size), head_dim)):
+    if kernel_dtype(dtype) == KERNEL_DTYPES[torch.bfloat16]:
+        smems = bca_bwd_mma_smem_bytes(head_dim)
+    else:
+        smems = bca_bwd_smem_bytes(bca_query_tile(block_size), head_dim)
+    for name, smem in zip(("dq", "dk/dv"), smems):
         if smem > MAX_SMEM_PER_BLOCK:
             raise ValueError(f"blockwise-causal backward {name} tile needs "
                              f"{smem} B of shared memory, above "

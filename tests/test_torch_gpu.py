@@ -390,9 +390,9 @@ def test_prefix_kernels_replay_from_a_cuda_graph(cuda, storage):
             assert torch.equal(x, y)
 
 
-# (wrapper call, dtype) -> the kernel it must launch: bf16 with start blocks
-# (kernels 4, 4r, 8) the tensor-core kernel, fp32 and the training form
-# without start blocks (kernels 1, 1r) the SIMT kernel
+# (wrapper call, dtype) -> the kernel it must launch: bf16 (kernels 1, 1r
+# of the training form; 4, 4r, 8 with start blocks) the tensor-core kernel,
+# fp32 the SIMT kernel
 BCA_ROUTES = {
     ("prefix", torch.bfloat16): "tensor cores",
     ("prefix_res", torch.bfloat16): "tensor cores",
@@ -400,17 +400,18 @@ BCA_ROUTES = {
     ("prefix", torch.float32): "simt",
     ("prefix_res", torch.float32): "simt",
     ("prefix_q", torch.float32): "simt",
-    ("blockwise", torch.bfloat16): "simt",
-    ("blockwise_res", torch.bfloat16): "simt",
+    ("blockwise", torch.bfloat16): "tensor cores",
+    ("blockwise_res", torch.bfloat16): "tensor cores",
     ("blockwise", torch.float32): "simt",
+    ("blockwise_res", torch.float32): "simt",
 }
 
 
 @pytest.mark.parametrize("call,dtype", list(BCA_ROUTES),
                          ids=[f"{c}-{str(d)[6:]}" for c, d in BCA_ROUTES])
 def test_forward_kernels_run_their_routes_design(cuda, call, dtype):
-    """bf16 prefix calls launch the tensor-core kernel; fp32, and kernels
-    1/1r in any dtype, the SIMT kernel (the library's route probe, read
+    """bf16 calls launch the tensor-core kernel, with start blocks or
+    without; fp32 calls the SIMT kernel (the library's route probe, read
     after each launch)."""
     if call.startswith("prefix"):
         storage = "int8" if call == "prefix_q" else "dense"
@@ -439,6 +440,137 @@ def test_forward_kernels_run_their_routes_design(cuda, call, dtype):
 
 
 # quantized decode: (B, Hkv, G, c, M, r, Dh) and the rows' positions
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_run_their_routes_design(cuda, dtype):
+    """Kernel 2 in bf16 launches the tensor-core kernels, in fp32 the SIMT
+    kernels (the library's backward route probe, read after each launch,
+    a launch of the other route first)."""
+    want = "tensor cores" if dtype == torch.bfloat16 else "simt"
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    kw = dict(block_size=16, block_slots=4, scale=0.25)
+    for dt in (other, dtype):
+        q, k, v, kb, vb = _bca_inputs(2, 4, 2, 64, 16, 4, 16, dt, cuda)
+        _, m, d = bca.blockwise_causal_attn(q, k, v, kb, vb,
+                                            return_residuals=True, **kw)
+        bca.blockwise_causal_attn_bwd(q, k, v, kb, vb, m, d, q, **kw)
+        torch.cuda.synchronize()
+    assert bca.last_backward_route() == want
+    assert bca.last_forward_route() == want
+
+
+# the training form's edges (chip_smoke's TRAIN_EDGE_SHAPES): (B, H, Hkv, S,
+# c, r, Dh), per-row start blocks, edge. The tensor-core kernels' 64-row and
+# 64-key tiles span 4 blocks at c = 16 (a ragged S of 96), 2 at c = 32, and
+# blocks that do not divide them at c = 48 (a ragged S of 144); G = 1, 3, 6;
+# Dh 16-128; S = 1024 gives each slot tile two row splits, the first of
+# slot tiles 2 and 3 empty; shifted: q, k, v, slots and dO one element into
+# their buffers
+TRAIN_EDGES = {
+    "c16_dh16_g1": ((2, 2, 2, 96, 16, 4, 16), None, None),
+    "c32_dh32_g3": ((2, 6, 2, 128, 32, 8, 32), None, None),
+    "c48_dh64": ((2, 4, 2, 144, 48, 4, 64), None, None),
+    "c64_dh64_g6": ((1, 12, 2, 192, 64, 8, 64), None, None),
+    "split_empty_dh128": ((1, 4, 2, 1024, 64, 16, 128), None, None),
+    "offset_c16_ragged": ((2, 4, 2, 96, 16, 4, 32), [0, 5], None),
+    "offset_g6": ((1, 12, 2, 192, 64, 8, 64), [2], None),
+    "shifted": ((2, 4, 2, 64, 16, 4, 64), None, "shifted"),
+    "shifted_offset": ((2, 4, 2, 64, 16, 4, 64), [1, 2], "shifted"),
+}
+
+
+def _train_edge_case(name, dtype, dev):
+    """Kernel-layout operands of one edge (slots of earlier chunks put
+    before the chunk's own for start blocks), residuals of the forward's
+    plain twin, a dO, the start blocks, the keyword arguments."""
+    (B, H, Hkv, S, c, r, Dh), start, edge = TRAIN_EDGES[name]
+    q, k, v, kb, vb = _bca_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed=3)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    sb = None
+    if start is not None:
+        sb = torch.tensor(start, dtype=torch.int32, device=dev)
+        g = torch.Generator(device=dev).manual_seed(4)
+        kb, vb = (torch.cat([torch.randn(B, Hkv, max(start) * r, Dh,
+                                         generator=g, device=dev).to(dtype),
+                             x], 2) for x in (kb, vb))
+        m, d = _offset_residuals(q, k, kb, sb, kw)
+    else:
+        _, m, d = bca.blockwise_causal_attn_plain(q, k, v, kb, vb,
+                                                  return_residuals=True, **kw)
+    g = torch.Generator(device=dev).manual_seed(5)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    if edge == "shifted":
+        q, k, v, kb, vb, do = map(_shifted, (q, k, v, kb, vb, do))
+    return (q, k, v, kb, vb), m, d, do, sb, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", [n for n in TRAIN_EDGES
+                                  if TRAIN_EDGES[n][1] is None])
+def test_training_forward_at_its_edges(cuda, name, dtype):
+    """Kernels 1 and 1r against their plain twin, two launches bit-identical,
+    the plain form's output the residual form's."""
+    args, _, _, _, _, kw = _train_edge_case(name, dtype, cuda)
+    out, m, d = bca.blockwise_causal_attn(*args, return_residuals=True, **kw)
+    again = bca.blockwise_causal_attn(*args, return_residuals=True, **kw)
+    plain = bca.blockwise_causal_attn(*args, **kw)
+    torch.cuda.synchronize()
+    ro, rm, rd = bca.blockwise_causal_attn_plain(*args, return_residuals=True,
+                                                 **kw)
+    _assert_close(out, ro, (args[2], args[4]))
+    _assert_grad_close(m, rm)
+    _assert_grad_close(d, rd)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, m, d)))
+    assert torch.equal(plain, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(TRAIN_EDGES))
+def test_backward_kernel_at_its_edges(cuda, name, dtype):
+    """Kernel 2 against its plain twin, two launches bit-identical, exact
+    zeros on the slots no row sees."""
+    args, m, d, do, sb, kw = _train_edge_case(name, dtype, cuda)
+    got = bca.blockwise_causal_attn_bwd(*args, m, d, do, start_blocks=sb,
+                                        **kw)
+    again = bca.blockwise_causal_attn_bwd(*args, m, d, do, start_blocks=sb,
+                                          **kw)
+    torch.cuda.synchronize()
+    want = bca.blockwise_causal_attn_bwd_plain(*args, m, d, do,
+                                               start_blocks=sb, **kw)
+    for g_, w in zip(got, want):
+        assert g_.shape == w.shape
+        _assert_grad_close(g_, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    (B, _, _, S, c, r, _), _, _ = TRAIN_EDGES[name]
+    nb0 = torch.zeros(B, device=cuda) if sb is None else sb
+    slot_blk = torch.arange(args[3].shape[2], device=cuda) // r
+    invisible = slot_blk[None] >= (nb0[:, None] + S // c - 1)
+    assert invisible.any()
+    for g_ in got[3:]:
+        assert torch.all(g_.movedim(1, 2)[invisible] == 0)
+
+
+def test_backward_kernel_replays_from_a_cuda_graph(cuda):
+    """Kernel 2 in bf16 at the train step's shapes captured into a CUDA
+    graph (no host sync; outputs and the slot splits' scratch from the
+    caching allocator) and replayed equals the eager launch."""
+    (B, H, Hkv, S, c, r, Dh), _ = BWD_SHAPES["full"]
+    args = _bca_inputs(B, H, Hkv, S, c, r, Dh, torch.bfloat16, cuda, seed=7)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    _, m, d = bca.blockwise_causal_attn(*args, return_residuals=True, **kw)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    do = torch.randn(args[0].shape, generator=g, device=cuda).to(
+        torch.bfloat16)
+    eager = bca.blockwise_causal_attn_bwd(*args, m, d, do, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bca.blockwise_causal_attn_bwd(*args, m, d, do, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(out, eager):
+        assert torch.equal(x, y)
+
+
 DECODE_Q_SHAPES = {"smoke": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95]),
                    "full": ((4, 8, 4, 256, 288, 16, 128),
                             [300, 1000, 2300, 4000])}

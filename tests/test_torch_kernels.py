@@ -182,15 +182,19 @@ def test_cuda_requested_without_a_card_raises():
      "multiple of 16"),
 ])
 def test_blockwise_kernel_guards(kw, match):
-    with pytest.raises(ValueError, match=match):
-        tcommon.check_blockwise_shapes(**kw)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=match):
+            tcommon.check_blockwise_shapes(**kw, group=2, dtype=dtype)
 
 
 def test_kernel_guards_accept_main_path_shapes():
-    tcommon.check_blockwise_shapes(seq=1024, block_size=256, block_slots=16,
-                                   slots=64, head_dim=128)
-    tcommon.check_blockwise_shapes(seq=32, block_size=16, block_slots=4,
-                                   slots=8, head_dim=16)
+    for dtype in (torch.float32, torch.bfloat16):
+        tcommon.check_blockwise_shapes(seq=1024, block_size=256,
+                                       block_slots=16, slots=64, head_dim=128,
+                                       group=4, dtype=dtype)
+        tcommon.check_blockwise_shapes(seq=32, block_size=16, block_slots=4,
+                                       slots=8, head_dim=16, group=2,
+                                       dtype=dtype)
     tcommon.check_decode_shapes(group=4, head_dim=128)
     with pytest.raises(ValueError, match="group"):
         tcommon.check_decode_shapes(group=tcommon.DECODE_MAX_GROUP + 1,
@@ -356,15 +360,22 @@ def test_fused_route_uses_the_function_only_under_grad(monkeypatch):
           offset=True), "at least"),
 ])
 def test_backward_kernel_guards(kw, match):
-    with pytest.raises(ValueError, match=match):
-        tcommon.check_blockwise_bwd_shapes(**kw)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match=match):
+            tcommon.check_blockwise_bwd_shapes(**kw, group=2, dtype=dtype)
 
 
 def test_backward_guards_accept_main_path_shapes():
-    tcommon.check_blockwise_bwd_shapes(seq=4096, block_size=256,
-                                       block_slots=16, slots=256,
-                                       head_dim=128, offset=False)
-    tcommon.check_blockwise_bwd_shapes(seq=32, block_size=16, block_slots=4,
-                                       slots=40, head_dim=16, offset=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        tcommon.check_blockwise_bwd_shapes(seq=4096, block_size=256,
+                                           block_slots=16, slots=256,
+                                           head_dim=128, offset=False,
+                                           group=4, dtype=dtype)
+        tcommon.check_blockwise_bwd_shapes(seq=32, block_size=16,
+                                           block_slots=4, slots=40,
+                                           head_dim=16, offset=True, group=2,
+                                           dtype=dtype)
     dq, dkdv = tcommon.bca_bwd_smem_bytes(64, 128)
     assert max(dq, dkdv) <= tcommon.MAX_SMEM_PER_BLOCK
+    assert max(tcommon.bca_bwd_mma_smem_bytes(128)) <= \
+        tcommon.MAX_SMEM_PER_BLOCK
