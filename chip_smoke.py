@@ -90,7 +90,43 @@ error; none catches its own failure:
    gradient leaf through the kernels in bf16 (kernels 5 and 6 on the
    tensor cores), through the plain reference in bf16 and in fp32: the
    kernel route no further from fp32 than BF16_PARITY_FACTOR times the
-   plain bf16 route, plus BF16_PARITY_ABS.
+   plain bf16 route, plus BF16_PARITY_ABS;
+14. [serve-standard], [serve-standard-chunked] (right after [serve-paged],
+   on its weights; the Linformer E/F ride along unused) the paper's softmax
+   baseline: qwen3-8b with kind "standard", the same 8 requests into the
+   full KV cache, monolithic and then chunked admission (prefill_chunk=512):
+   no kernel of the port and no remainder step may run; tok/s, wall by
+   activity, peak memory, cache bytes per request against the compressed
+   pool, chunked tokens against monolithic; the profiles of one prefill
+   and one 16-step decode chunk of a full 4-row pool;
+15. [serve-standard-parity] (after [parity]) 2 layers at full width in
+   fp32, kind "standard": chunked admission token-identical to monolithic,
+   the prefill logits at every position within LOGITS_TOL of decoding the
+   prompt step by step over the full cache;
+16. [train-mlm-standard] 8 Trainer steps of linformer-paper CONFIG with
+   kind "standard" as [train-mlm] (Figure 3's baseline, Table 3's n = 512
+   from the trainer's side): no kernel of the port may launch; then the
+   forward alone;
+17. [figure1] core/low_rank.py on the card, on that model: P per layer and
+   head at n = 512 (the first sequence of an MLM batch), the cumulative
+   singular-value mass at rank 128, the JL and Theorem-2 errors at k = 128;
+18. [train-mlm-nonuniform] 8 Trainer steps of linformer-paper CONFIG
+   unrolled (scan_layers=False, no remat, as in JAX) with headwise E/F and
+   k_decay 0.5 (NONUNIFORM: K = 128 down to 64 by effective_k), launch
+   counters reset just before and read just after: exactly one launch of
+   kernel 5 and two of kernel 6 per layer per step, profiles equal to the
+   counters; then the forward alone, logged beside [train-mlm] and
+   [train-mlm-standard];
+19. [table3] paper Table 3: the forward alone of linformer-paper CONFIG at
+   max_seq_len = n for the standard baseline and Linformer at k = 128, 256
+   (TABLE3: n = 512 to 16384 at 16 k tokens a batch, Linformer also at
+   32768 and 65536, B = 1), the launch counters reset just before and read
+   just after every forward (12 launches of kernel 5 and 24 of kernel 6 a
+   Linformer forward, none a standard one): median ms, tokens/s, peak
+   memory above the weights, time saved and memory saved (standard ÷
+   Linformer); one layer's attention alone by CUDA-graph replay
+   (standard_attention, kernels 6, 6 and 5, and one SDPA call as a
+   yardstick).
 
 Every torch.profiler breakdown is of the second of two runs, the first a
 discarded warm-up step (profile_kernels), and lists the port's kernels by
@@ -100,13 +136,17 @@ function (the decode kernels' split and combine passes on their own).
 Linformer attention (kernel 5) and the sequence projection (kernel 6), in
 fp32 (SIMT) and bf16 (tensor cores), at edge shapes (K = 1, K = 130,
 K = 512, a ragged S, GQA G = 2, Dh 16/32/64/128, E[:S] of a longer E, a
-long S, q, x or E one element into its buffer) and at the paper's full
-width (B=32, H=12, S=512, K=128, Dh=64), timed by CUDA-graph replay
+long S, q, x or E one element into its buffer), at the paper's full
+width (B=32, H=12, S=512, K=128, Dh=64) and there at each K of the
+nonuniform path (128, 123, ..., 70, 64), and at every shape [table3]
+runs them at (H=12, Dh=64, K = 128 and 256, n = 512 to 65536 with
+B = max(1, 16384 / n)), timed by CUDA-graph replay
 beside one unmasked SDPA call and one torch.matmul of Eᵀ with x.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
+import collections
 import dataclasses
 import gc
 import json
@@ -201,16 +241,27 @@ def time_graph_ms(fn, n_sets, iters=60, stream=None):
     return ms
 
 
-def profile_kernels(fn, ranges=()):
+# host idle inside the recorded window on either side of the recorded step
+# (scripts/profile_window.py measures why it is needed)
+PROFILE_GAP_S = 0.05
+
+
+def profile_kernels(fn, ranges=(), gap=PROFILE_GAP_S, trace=None):
     """Run fn twice under torch.profiler: a warm-up step whose trace is
-    discarded, then the recorded step. (A trace begun without a warm-up
-    step missed the first kernels of its run, such as the first layer's
-    launches of kernels 5 and 6 in the encoder's step.) Return [(kernel
-    name, launches, device seconds)] of the recorded step sorted by device
-    time, the launch counters' increments over that step, and {range:
-    (calls, device seconds of the kernels launched inside it)} of the
-    record_function `ranges` fn opens (their own GPU-side spans are not
-    kernels and stay out of the list)."""
+    discarded, then the recorded step, with `gap` seconds of host idle on
+    either side of it inside the recorded window. (A trace begun without a
+    warm-up step missed the first kernels of its run. With the warm-up but
+    no gap, a kernel's device timestamp can read milliseconds before its
+    own launch call, so the first kernels of the step fall before the
+    window's start and the profiler drops them: scripts/profile_window.py
+    counts the dropped launches and the skew with and without the gap,
+    and PERF.md keeps its runs.) Return
+    [(kernel name, launches, device seconds)] of the recorded step sorted
+    by device time, the launch counters' increments over that step, and
+    {range: (calls, device seconds of the kernels launched inside it)} of
+    the record_function `ranges` fn opens (their own GPU-side spans are not
+    kernels and stay out of the list). `trace`: a path the Chrome trace is
+    written to."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -221,11 +272,15 @@ def profile_kernels(fn, ranges=()):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(gap)
         before = read_launches()
         fn()
         torch.cuda.synchronize()
         counted = {k: v - before[k] for k, v in read_launches().items()}
+        time.sleep(gap)
         prof.step()
+    if trace:
+        prof.export_chrome_trace(trace)
     # the step's own annotation (ProfilerStep#) is not a kernel
     events = prof.key_averages()
     out = [(e.key, e.count, e.self_device_time_total * 1e-6)
@@ -245,12 +300,17 @@ DEVICE_KERNELS = {"linformer_attn": ("exact_fwd_mma_kernel",
                                      "seq_projection_kernel")}
 
 
+def profiled_launches(kernels):
+    """{kernel 5 or 6: its launches in a profile's kernel list}."""
+    return {name: sum(n for k, n, _ in kernels
+                      if any(f"::{f}<" in k for f in frags))
+            for name, frags in DEVICE_KERNELS.items()}
+
+
 def require_profiled(what, kernels, counted):
     """Each of kernels 5 and 6 launched in a profiled run shows in the
     profile exactly as often as its launch counter counted."""
-    for name, frags in DEVICE_KERNELS.items():
-        seen = sum(n for k, n, _ in kernels
-                   if any(f"::{f}<" in k for f in frags))
+    for name, seen in profiled_launches(kernels).items():
         log(f"  {what}: {name} {seen} launches profiled, "
             f"{counted[name]} counted")
         if seen != counted[name]:
@@ -589,6 +649,12 @@ SHIFTED = {"misaligned_q": "q", "misaligned_x": "x", "misaligned_E": "E"}
 # its 2-layer fp32 cut
 MLM_RUN = dict(seq=512, batch=32, steps=8)
 MLM_PARITY = dict(layers=2, seq=512, batch=2)
+# [train-mlm-nonuniform]: linformer-paper unrolled (scan_layers=False) with
+# per-layer E and F (headwise) and k_decay 0.5: layer i projects to
+# effective_k(128, 0.5, i, 12) slots, 128 down to 64; [check] holds kernels
+# 5 and 6 at each of those K at the paper's full width (B=32, H=12, S=512,
+# Dh=64)
+NONUNIFORM = dict(sharing="headwise", k_decay=0.5)
 
 
 def check_phase(dev):
@@ -736,7 +802,50 @@ def check_exact_kernels(dtype, dev):
             sp.seq_projection_plain(x, E))
         if not torch.equal(sp.seq_projection(x, E), out):
             raise AssertionError("seq_projection is not deterministic")
+    B, H, _, S, K0, Dh = EXACT_SHAPES["full"]
+    for K in nonuniform_ks(K0, 12):
+        args = exact_inputs(B, H, H, S, K, Dh, dtype, dev, seed=72 + K)
+        out = la.linformer_attn(*args, scale=Dh ** -0.5)
+        torch.cuda.synchronize()
+        errs["exact", f"nonuniform_k{K}", dtype] = check(
+            f"linformer_attn nonuniform K={K}", out,
+            la.linformer_attn_plain(*args, scale=Dh ** -0.5), dtype,
+            (args[2],))
+        x, E = sp_inputs(B, H, S, K, Dh, S, dtype, dev, seed=73 + K)
+        out = sp.seq_projection(x, E)
+        torch.cuda.synchronize()
+        errs["sp", f"nonuniform_k{K}", dtype] = check_grad(
+            f"seq_projection nonuniform K={K} {str(dtype)[6:]}", out,
+            sp.seq_projection_plain(x, E))
+    # [table3]'s shapes: every n of its grid at each k, B = 16384 / n
+    for n in TABLE3["ns"] + TABLE3["long_ns"]:
+        B = max(1, TABLE3["tokens"] // n)
+        for K in TABLE3["ks"]:
+            args = exact_inputs(B, H, H, n, K, Dh, dtype, dev, seed=n + K)
+            out = la.linformer_attn(*args, scale=Dh ** -0.5)
+            torch.cuda.synchronize()
+            errs["exact", f"table3_n{n}_k{K}", dtype] = check(
+                f"linformer_attn table3 B={B} n={n} K={K}", out,
+                la.linformer_attn_plain(*args, scale=Dh ** -0.5), dtype,
+                (args[2],))
+            del args, out
+            x, E = sp_inputs(B, H, n, K, Dh, n, dtype, dev, seed=n + K + 1)
+            out = sp.seq_projection(x, E)
+            torch.cuda.synchronize()
+            errs["sp", f"table3_n{n}_k{K}", dtype] = check_grad(
+                f"seq_projection table3 B={B} n={n} K={K} "
+                f"{str(dtype)[6:]}", out, sp.seq_projection_plain(x, E))
+            del x, E, out
+            torch.cuda.empty_cache()
     return errs
+
+
+def nonuniform_ks(k, layers):
+    """The per-layer K of the nonuniform path (core/projections
+    effective_k at NONUNIFORM's k_decay)."""
+    from repro_torch.core.projections import effective_k
+    return [effective_k(k, NONUNIFORM["k_decay"], i, layers)
+            for i in range(layers)]
 
 
 def check_prefix_kernels(size, shape, start, M, dtype, dev, edge=None):
@@ -1496,11 +1605,15 @@ def time_activities(eng):
     return acc
 
 
+# run_serve's result: the outputs, the scheduler, the launch counters of
+# the serve, and {engine activity: [calls, host seconds]}
+ServeRun = collections.namedtuple("ServeRun", "outs sched launches walls")
+
+
 def run_serve(tag, eng, prompts, kernels):
     """One counted serve of the 8 requests (max_batch 4): launch counters
     reset just before and read just after; each of `kernels` must have
-    launched; host wall by engine activity. Returns (outputs, scheduler,
-    launches)."""
+    launched; host wall by engine activity. Returns a ServeRun."""
     import torch
     from repro_torch.data.pipeline import EOS
     acc = time_activities(eng)
@@ -1538,7 +1651,7 @@ def run_serve(tag, eng, prompts, kernels):
             raise AssertionError(f"output {o!r} for budget {b}")
         if len(o) < b:
             log(f"  a request ended at EOS after {len(o)} of {b} tokens")
-    return outs, sched, launches
+    return ServeRun(outs, sched, launches, acc)
 
 
 def timed_profile(name, fn, top=8, ranges=()):
@@ -1567,8 +1680,9 @@ def serve_phase(dev, cfg, params, prompts):
     pool."""
     import torch
     eng = serve_engine(dev, cfg, params)
-    outs, _, launches = run_serve("serve", eng, prompts,
-                                  ("blockwise_causal_attn", "decode_attn"))
+    run = run_serve("serve", eng, prompts,
+                    ("blockwise_causal_attn", "decode_attn"))
+    outs, launches = run.outs, run.launches
     pool = eng.init_pool_cache(4)
     firsts = []
     for row, p in enumerate(prompts[:4]):
@@ -1601,9 +1715,9 @@ def serve_chunked_phase(dev, cfg, params, prompts, mono_outs):
     agreement with the monolithic run, then one chunk forward of a 4-row
     pool under the profiler."""
     eng = serve_engine(dev, cfg, params, prefill_chunk=SERVE_PREFILL_CHUNK)
-    outs, _, launches = run_serve(
-        "serve-chunked", eng, prompts,
-        ("blockwise_causal_prefix_attn", "decode_attn"))
+    run = run_serve("serve-chunked", eng, prompts,
+                    ("blockwise_causal_prefix_attn", "decode_attn"))
+    outs, launches = run.outs, run.launches
     same = [a == b for a, b in zip(outs, mono_outs)]
     agree = sum(sum(x == y for x, y in zip(a, b)) for a, b in
                 zip(outs, mono_outs))
@@ -1633,9 +1747,9 @@ def serve_paged_phase(dev, cfg, params, prompts):
     import torch
     eng = serve_engine(dev, cfg, params, prefill_chunk=SERVE_PREFILL_CHUNK,
                        cache_format="paged", page_dtype=SERVE_PAGE_DTYPE)
-    _, sched, launches = run_serve(
-        "serve-paged", eng, prompts,
-        ("blockwise_causal_prefix_attn_q", "decode_attn_q"))
+    run = run_serve("serve-paged", eng, prompts,
+                    ("blockwise_causal_prefix_attn_q", "decode_attn_q"))
+    sched, launches = run.sched, run.launches
     for name in ("blockwise_causal_prefix_attn", "decode_attn"):
         if launches[name]:
             raise AssertionError(f"{name} launched on the paged path")
@@ -1967,10 +2081,15 @@ def train_parity_bf16_phase(dev, cfg32, batch, tag):
                              f"{ {k: (ek[k], ep[k]) for k in bad} }")
 
 
-def train_mlm_phase(dev):
-    """8 Trainer steps of linformer-paper CONFIG at full width and depth
-    (MLM, bf16, remat "full"), counted; then one forward alone under
-    torch.no_grad and one train step under torch.profiler."""
+def train_mlm_phase(dev, tag="train-mlm", cfg=None, keep_params=False):
+    """8 Trainer steps of an encoder config (default linformer-paper CONFIG
+    at full width and depth; MLM, bf16, remat "full"), counted; then one
+    forward alone under torch.no_grad and, where the config runs kernels 5
+    and 6, one forward and one train step under torch.profiler, each
+    profile's launches of kernels 5 and 6 equal to their counters'. The
+    standard baseline launches no kernel of the port. Returns {launches,
+    step_ms (median after the first step), fwd_ms, peak_gb, and with
+    keep_params the params and the next MLM batch}."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
@@ -1979,18 +2098,28 @@ def train_mlm_phase(dev):
     from repro_torch.models.transformer import flatten
     from repro_torch.optim import adamw_init
     from repro_torch.train import Trainer
-    cfg = get_config("linformer-paper")
+    cfg = cfg or get_config("linformer-paper")
     steps = MLM_RUN["steps"]
     tcfg = TrainConfig(seq_len=MLM_RUN["seq"], global_batch=MLM_RUN["batch"],
                        steps=steps, log_every=1, checkpoint_every=0, seed=0,
                        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=1,
                                                  total_steps=steps))
     a = cfg.attention
-    log(f"[train-mlm] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
-        f"H={a.num_heads}, Dh={a.head_dim}, K={a.linformer.k} "
-        f"({a.linformer.sharing} E), vocab {cfg.padded_vocab_size}, "
-        f"{cfg.dtype}, remat {cfg.remat}, seq {tcfg.seq_len}, global batch "
+    exact = a.kind == "linformer"
+    lin = a.linformer
+    proj = (f"K={lin.k} ({lin.sharing} E"
+            + (f", k_decay {lin.k_decay}: K per layer "
+               f"{nonuniform_ks(lin.k, cfg.num_layers)}" if
+               lin.k_decay < 1 and not cfg.scan_layers else "") + ")"
+            if exact else "full softmax attention")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers "
+        f"({'scanned' if cfg.scan_layers else 'unrolled, no remat'}), "
+        f"d={cfg.d_model}, H={a.num_heads}, Dh={a.head_dim}, {a.kind}: "
+        f"{proj}, vocab {cfg.padded_vocab_size}, {cfg.dtype}, remat "
+        f"{cfg.remat if cfg.scan_layers else 'none'}, seq {tcfg.seq_len}, "
+        f"global batch "
         f"{tcfg.global_batch}, {cfg.objective}, {steps} steps")
+    t_phase = time.perf_counter()
     trainer = Trainer(cfg, tcfg, device=dev, log_fn=log)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2017,17 +2146,25 @@ def train_mlm_phase(dev):
             for h in trainer.history):
         raise AssertionError(f"non-finite or missing losses: "
                              f"{trainer.history}")
-    # remat "full": each block's forward runs again in the backward, so at
-    # least one launch per layer per step of kernel 5 and two (k and v) of
-    # kernel 6
-    for name, per_layer in (("linformer_attn", 1), ("seq_projection", 2)):
-        need = per_layer * cfg.num_layers * steps
-        if launches[name] < need:
-            raise AssertionError(f"{name}: {launches[name]} launches on the "
-                                 f"train-mlm path, expected at least {need}")
-    for name in ("blockwise_causal_attn", "decode_attn"):
-        if launches[name]:
-            raise AssertionError(f"{name} launched on the encoder path")
+    if exact:
+        # each layer launches kernel 5 once and kernel 6 twice (k and v) a
+        # forward; remat "full" runs each block's forward again in the
+        # backward, so a scanned run launches at least that many per step
+        # and an unrolled one (no remat) exactly that many
+        for name, per_layer in (("linformer_attn", 1), ("seq_projection", 2)):
+            need = per_layer * cfg.num_layers * steps
+            if launches[name] < need or (not cfg.scan_layers
+                                         and launches[name] != need):
+                raise AssertionError(
+                    f"{name}: {launches[name]} launches on the {tag} path, "
+                    f"expected {'' if not cfg.scan_layers else 'at least '}"
+                    f"{need}")
+        stray = [k for k, v in launches.items() if v and k not in
+                 ("linformer_attn", "seq_projection")]
+    else:
+        stray = [k for k, v in launches.items() if v]
+    if stray:
+        raise AssertionError(f"{stray} launched on the {tag} path")
 
     stream = batches(trainer.corpus, DataState(tcfg.seed, steps),
                      batch=tcfg.global_batch, seq=tcfg.seq_len,
@@ -2054,20 +2191,395 @@ def train_mlm_phase(dev):
     log(f"  forward alone (torch.no_grad, B={tcfg.global_batch}, "
         f"S={tcfg.seq_len}): {fwd_ms:.2f} ms, {1e3 * tokens / fwd_ms:.1f} "
         "tokens/s (mean of 3)")
-    kernels, counted, _ = profile_kernels(infer)
-    log_profile("forward", fwd_ms * 1e-3, kernels, top=8)
-    require_profiled("forward", kernels, counted)
-    state = adamw_init(params, tcfg.optimizer)
-    step = trainer.train_step
-    t0 = time.perf_counter()
-    step(params, state, batch)
+    if exact:
+        kernels, counted, _ = profile_kernels(infer)
+        log_profile("forward", fwd_ms * 1e-3, kernels, top=8)
+        require_profiled("forward", kernels, counted)
+        state = adamw_init(params, tcfg.optimizer)
+        step = trainer.train_step
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernels, counted, _ = profile_kernels(
+            lambda: step(params, state, batch))
+        log_profile(f"{tag} step", wall, kernels, top=16)
+        require_profiled(f"{tag} step", kernels, counted)
+        del state
+    step_ms = sorted(h["ms"] for h in trainer.history[1:])
+    res = dict(launches=launches, step_ms=step_ms[len(step_ms) // 2],
+               fwd_ms=fwd_ms, peak_gb=peak / 1e9)
+    if keep_params:
+        res.update(params=params, batch=batch)
+    del trainer, params
+    log(f"  [{tag}] {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def serve_standard_phases(dev, cfg, params, prompts, mono_outs):
+    """The paper's softmax baseline served: qwen3-8b at full width with
+    kind "standard" (the same weights as [serve]; the Linformer E/F leaves
+    ride along unused, as in examples/serve_batched.py) into the full KV
+    cache, monolithic and then chunked admission (prefill_chunk=512):
+    no kernel of the port launches, no remainder step runs; cache bytes
+    per request against the compressed pool; one 16-step decode chunk of a
+    full 4-row pool under the profiler."""
+    import torch
+    t_phase = time.perf_counter()
+    cfg_std = cfg.with_attention_kind("standard")
+    lin_bytes = serve_engine(dev, cfg, params).cache_bytes(4) // 4
+    res = {}
+    for tag, kw in (("serve-standard", {}),
+                    ("serve-standard-chunked",
+                     dict(prefill_chunk=SERVE_PREFILL_CHUNK))):
+        eng = serve_engine(dev, cfg_std, params, **kw)
+        run = run_serve(tag, eng, prompts, ())
+        outs = run.outs
+        ran = {k: v for k, v in run.launches.items() if v}
+        if ran:
+            raise AssertionError(f"{tag}: the port's kernels {ran} launched "
+                                 "on the standard path")
+        if "pool_prefill_remainder" in run.walls or eng._block() != 1:
+            raise AssertionError(
+                f"{tag}: remainder steps ran "
+                f"({run.walls.get('pool_prefill_remainder')})")
+        per_req = eng.cache_bytes(4) // 4
+        log(f"  cache bytes per request (max_seq 4096, bf16): full "
+            f"{per_req} ({per_req / 1e6:.1f} MB) against the compressed "
+            f"pool's {lin_bytes} ({lin_bytes / 1e6:.1f} MB): "
+            f"{per_req / lin_bytes:.2f}x")
+        res[tag] = outs
+        if kw:
+            same = sum(a == b for a, b in zip(outs, res["serve-standard"]))
+            log(f"  chunked vs monolithic (standard): {same} of "
+                f"{len(outs)} requests token-identical")
+        else:
+            same = sum(a == b for a, b in zip(outs, mono_outs))
+            log(f"  standard vs linformer_causal monolithic: {same} of "
+                f"{len(outs)} requests token-identical (other attention, "
+                "other tokens expected)")
+            pool = eng.init_pool_cache(4)
+            firsts = []
+            for row, p in enumerate(prompts[:4]):
+                slot_cache, first = eng.prefill_request(p)
+                eng.write_pool_slot(pool, slot_cache, row)
+                firsts.append(first)
+            cur = torch.tensor(firsts, device=dev)
+            fin = torch.zeros(4, dtype=torch.bool, device=dev)
+            lengths = pool["lengths"].clone()
+
+            def decode_chunk():
+                pool["lengths"].copy_(lengths)
+                eng.decode_chunk_fn(cur, fin, pool, 16)
+
+            timed_profile("standard prefill", lambda: eng.prefill_request(
+                prompts[4]))
+            timed_profile("standard decode_chunk", decode_chunk)
+            del pool
+        del eng
+    log(f"  [serve-standard] both serves {time.perf_counter() - t_phase:.1f}"
+        " s")
+
+
+def serve_standard_parity_phase(dev, cfg):
+    """2-layer full-width fp32 qwen3-8b, kind "standard": chunked against
+    monolithic admission (tokens), and the prefill forward's logits at
+    every position against the plain decode-by-decode run over the full
+    cache (LOGITS_TOL)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving import ServingEngine
+    t_phase = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32") \
+        .with_attention_kind("standard")
+    params2 = tmodel.init_params(cfg2, seed=1, device=dev)
+    rng = np.random.default_rng(1)
+    prompts2 = [list(map(int, rng.integers(4, cfg.vocab_size, n)))
+                for n in (261, 521)]
+
+    def engine(**kw):
+        return ServingEngine(params2, cfg2, max_seq=4096, device=dev,
+                             cache_dtype=torch.float32, decode_chunk=16,
+                             **kw)
+
+    mono = engine().serve(prompts2, 16, max_batch=2)
+    chunked = engine(prefill_chunk=SERVE_PREFILL_CHUNK).serve(
+        prompts2, 16, max_batch=2)
+    log(f"[serve-standard-parity] 2-layer fp32: chunked admission "
+        f"token-identical to monolithic: {chunked == mono}")
+    if chunked != mono:
+        raise AssertionError(f"chunked {chunked} vs monolithic {mono}")
+    toks = torch.tensor([prompts2[0]], device=dev)
+    with torch.no_grad():
+        logits, _, _ = tmodel.forward(params2, cfg2, {"tokens": toks})
+        cache = tmodel.init_cache(cfg2, batch=1, max_seq=4096,
+                                  dtype=torch.float32, device=dev)
+        steps = []
+        for t in range(toks.shape[1]):
+            lg, cache = tmodel.decode_step(params2, cfg2, toks[:, t:t + 1],
+                                           cache)
+            steps.append(lg[:, 0])
+    dl = (logits[0] - torch.stack(steps, dim=1)[0]).abs().max().item()
+    log(f"  prefill logits at all {toks.shape[1]} positions against "
+        f"decode step by step: max |diff| = {dl:.3e} (tol {LOGITS_TOL:g}); "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not dl <= LOGITS_TOL or not torch.isfinite(logits).all():
+        raise AssertionError(f"standard prefill vs decode: {dl}")
+
+
+def figure1_phase(dev, cfg, params, batch):
+    """Paper Figure 1 on the card (core/low_rank.py): P = softmax(QKᵀ/√d)
+    per layer and head of the [train-mlm-standard] model at n = 512 for
+    the first sequence of an MLM batch, the cumulative singular-value mass
+    at rank 128 (mean over heads, per layer), and the JL (Theorem 1) and
+    Theorem-2 errors at k = 128 for the first head of the first and last
+    layers."""
+    import torch
+    from repro_torch.core import low_rank
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.parallel import plan as plan_lib
+    t_phase = time.perf_counter()
+    plan = plan_lib.resolve_attention_plan(cfg.attention)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    energy, ranks, errs = [], [], {}
+    with torch.no_grad():
+        x = transformer.embed_inputs(params, batch["tokens"][:1])
+        S = x.shape[1]
+        k = min(128, S)                 # the paper's 128 of n = 512
+        for i in range(cfg.num_layers):
+            lp = transformer.layer_params(params, i)
+            q, kk, v = attn_lib.project_qkv(
+                lp["attn"], L.rms_norm(lp["ln1"], x), cfg.attention, None)
+            qh, kh, vh = (t[0].transpose(0, 1).float() for t in (q, kk, v))
+            P = low_rank.context_mapping(qh, kh)              # (H, S, S)
+            energy.append(low_rank.energy_at_rank(P, k).mean().item())
+            ranks.append(low_rank.rank_for_energy(P, 0.9).float().mean()
+                         .item())
+            if i in (0, cfg.num_layers - 1):
+                w = torch.randn(S, generator=gen, device=dev)
+                a_row = (qh[0] @ kh[0].T)[0] * cfg.attention.head_dim ** -0.5
+                e2, ref = low_rank.theorem2_error(gen, a_row, vh[0], k)
+                errs[i] = (low_rank.jl_projection_error(gen, P[0], w,
+                                                        k).item(),
+                           (e2 / ref).item())
+            x = transformer.apply_block(lp, x, cfg, shared_lin=None,
+                                        plan=plan)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels, counted, _ = profile_kernels(lambda: step(params, state, batch))
-    log_profile("train-mlm step", wall, kernels, top=16)
-    require_profiled("train-mlm step", kernels, counted)
-    del trainer, params, state
-    return launches
+    log(f"[figure1] {cfg.name} standard, n={S}: cumulative singular-value "
+        f"mass at rank {k} per layer (mean of {cfg.attention.num_heads} "
+        f"heads): {[round(e, 4) for e in energy]}; mean rank for 90% of "
+        f"the mass per layer: {[round(r, 1) for r in ranks]}")
+    for i, (jl, t2) in errs.items():
+        log(f"  layer {i}, head 0, k={k}: JL error ||P RᵀR w - P w|| / "
+            f"||P w|| = {jl:.4f}; Theorem-2 relative error {t2:.4f}")
+    log(f"  these describe the [train-mlm-standard] model after "
+        f"{MLM_RUN['steps']} steps from a random init, near its init: not "
+        f"the paper's pretrained RoBERTa; {time.perf_counter() - t_phase:.1f}"
+        " s")
+    if not all(math.isfinite(e) and 0 < e <= 1 + 1e-6 for e in energy) \
+            or not all(math.isfinite(a) for v in errs.values() for a in v):
+        raise AssertionError(f"figure1: energies {energy}, errors {errs}")
+
+
+# [table3]: paper Table 3, linformer-paper CONFIG at max_seq_len = n, the
+# forward alone; 16 k tokens a batch (B = 16384 / n), Linformer alone at
+# n >= 32768 (B = 1): standard's fp32 scores would need B·12·n²·4 bytes
+TABLE3 = dict(ns=(512, 1024, 2048, 4096, 8192, 16384),
+              long_ns=(32768, 65536), ks=(128, 256), tokens=16384, reps=5)
+
+
+def table3_cfg(n, kind, k=128):
+    """linformer-paper CONFIG at max_seq_len n with the attention kind and
+    k replaced (benchmarks/figure3_pretrain.py `_cfg`, full width)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("linformer-paper"), max_seq_len=n)
+    att = dataclasses.replace(cfg.attention, kind=kind,
+                              linformer=dataclasses.replace(
+                                  cfg.attention.linformer, k=k))
+    return dataclasses.replace(cfg, attention=att)
+
+
+def table3_forward(dev, cfg, B, n):
+    """(median ms of TABLE3["reps"] forwards under torch.no_grad by CUDA
+    events after a warm-up, their peak bytes above the weights and inputs,
+    the peak of one forward of the encoder stack alone, return_hidden: the
+    (B, n, 50432) bf16 logits of the LM head, 1.65 GB at 16 k tokens,
+    are the same for both kinds and hide the attention's memory at small
+    n). The launch counters are reset just before every forward and read
+    just after it: a Linformer forward launches kernel 5 once and kernel 6
+    twice a layer, a standard one no kernel of the port."""
+    import torch
+    from repro_torch.models import model as tmodel
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(n)
+    toks = torch.randint(4, cfg.vocab_size, (B, n), generator=g, device=dev)
+    kind = cfg.attention.kind
+    want = {"linformer_attn": cfg.num_layers,
+            "seq_projection": 2 * cfg.num_layers} if kind == "linformer" \
+        else {}
+
+    def fwd(**kw):
+        with torch.no_grad():
+            return tmodel.forward(params, cfg, {"tokens": toks}, **kw)[0]
+
+    def require_counts(what):
+        ran = {k: v for k, v in read_launches().items() if v}
+        if ran != want:
+            raise AssertionError(f"[table3] {kind} n={n} {what}: launches "
+                                 f"{ran}, expected {want}")
+
+    reset_launches()
+    out = fwd()
+    require_counts("first forward")
+    if out.shape != (B, n, cfg.padded_vocab_size) \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"[table3] {cfg.attention.kind} n={n}: logits "
+                             f"{tuple(out.shape)} not finite or misshapen")
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TABLE3["reps"]):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        reset_launches()
+        e0.record()
+        out = fwd()
+        e1.record()
+        require_counts(f"timed forward {i}")
+        del out
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = fwd(return_hidden=True)
+    require_counts("stack forward")
+    torch.cuda.synchronize()
+    del out
+    stack = torch.cuda.max_memory_allocated() - base
+    del params, toks
+    torch.cuda.empty_cache()
+    return sorted(times)[len(times) // 2], peak, stack
+
+
+def table3_attention(dev, B, n, ks, with_standard):
+    """One layer's attention alone at (B, n, H=12, Dh=64) in bf16 by
+    CUDA-graph replay: the port's standard_attention (materialises the
+    scores, as the paper's baseline), the Linformer kernel route (kernel 6
+    for k, kernel 6 for v, kernel 5) per k, and one
+    F.scaled_dot_product_attention call (a yardstick only, never on the
+    port's path)."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.parallel import plan as plan_lib
+    H, Dh = 12, 64
+    plan = plan_lib.resolve_attention_plan(table3_cfg(n, "linformer")
+                                           .attention)
+    g = torch.Generator(device=dev).manual_seed(n + 1)
+    sets = [[torch.randn(B, n, H, Dh, generator=g, device=dev)
+             .to(torch.bfloat16) for _ in range(3)] for _ in range(2)]
+    iters = 60 if n <= 2048 else 12
+    out = {}
+    with torch.no_grad():
+        if with_standard:
+            out["standard"] = time_graph_ms(
+                lambda i: attn_lib.standard_attention(*sets[i],
+                                                      causal=False),
+                2, iters=max(3, iters // 4))
+            torch.cuda.empty_cache()
+        out["sdpa"] = time_graph_ms(
+            lambda i: Fn.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in sets[i])), 2, iters=iters)
+        for k in ks:
+            E = (torch.randn(n, k, generator=g, device=dev) * k ** -0.5) \
+                .to(torch.bfloat16)
+            out[k] = time_graph_ms(
+                lambda i: plan.exact_attention(
+                    *sets[i], E, E, projection="linear", scale=Dh ** -0.5),
+                2, iters=iters)
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def table3_phase(dev):
+    """Paper Table 3 on the card: the forward alone of linformer-paper at
+    full width and depth for the standard baseline and Linformer at k in
+    TABLE3["ks"] over n, 16 k tokens a batch; ms, tokens/s, peak memory
+    above the weights, time saved and memory saved (standard ÷ Linformer),
+    and one layer's attention alone (standard, the kernel route, SDPA)."""
+    import torch
+    t_phase = time.perf_counter()
+    log(f"[table3] linformer-paper CONFIG at max_seq_len = n (12 layers, "
+        f"d=768, H=12, Dh=64, layerwise E, learned positions), bf16, "
+        f"forward alone under torch.no_grad, median of {TABLE3['reps']} "
+        f"after a warm-up; B = {TABLE3['tokens']} / n; every forward's "
+        "launch counters read: 12 of kernel 5 and 24 of kernel 6 a "
+        "Linformer forward, none a standard one")
+    rows = []
+    for n in TABLE3["ns"] + TABLE3["long_ns"]:
+        B = max(1, TABLE3["tokens"] // n)
+        tok = B * n
+        with_std = n in TABLE3["ns"]
+        cell = {"n": n, "B": B}
+        if with_std:
+            cell["standard"] = table3_forward(
+                dev, table3_cfg(n, "standard"), B, n)
+        else:
+            log(f"  n={n}: standard not run; its fp32 scores alone would "
+                f"need B·12·n²·4 = {B * 12 * n * n * 4 / 1e9:.1f} GB per "
+                "tensor")
+        for k in TABLE3["ks"]:
+            cell[k] = table3_forward(dev, table3_cfg(n, "linformer", k),
+                                     B, n)
+        att = table3_attention(dev, B, n, TABLE3["ks"], with_std)
+        parts = []
+        if with_std:
+            ms, peak, stack = cell["standard"]
+            parts.append(f"standard {ms:.2f} ms, {1e3 * tok / ms:.0f} tok/s,"
+                         f" peak {peak / 1e9:.3f} GB (stack alone "
+                         f"{stack / 1e9:.3f})")
+        for k in TABLE3["ks"]:
+            ms, peak, stack = cell[k]
+            ratio = ""
+            if with_std:
+                sms, speak, sstack = cell["standard"]
+                ratio = (f", time saved {sms / ms:.2f}x, memory saved "
+                         f"{speak / peak:.2f}x (stack alone "
+                         f"{sstack / stack:.2f}x)")
+            parts.append(f"k={k} {ms:.2f} ms, {1e3 * tok / ms:.0f} tok/s, "
+                         f"peak {peak / 1e9:.3f} GB (stack alone "
+                         f"{stack / 1e9:.3f}){ratio}")
+        log(f"  n={n} B={B}: " + "; ".join(parts))
+        line = (f"    one layer's attention (graph replay): sdpa "
+                f"{att['sdpa']:.4f} ms")
+        if with_std:
+            line += f", standard_attention {att['standard']:.4f} ms"
+        for k in TABLE3["ks"]:
+            line += (f"; kernels 6+6+5 at k={k} {att[k]:.4f} ms ("
+                     + (f"standard/this {att['standard'] / att[k]:.2f}x, "
+                        if with_std else "")
+                     + f"sdpa/this {att['sdpa'] / att[k]:.2f}x)")
+        log(line)
+        cell["attention"] = att
+        rows.append(cell)
+    labels = {"standard": "standard", **{k: f"k{k}" for k in TABLE3["ks"]}}
+    log("[table3] summary " + json.dumps([
+        {"n": c["n"], "B": c["B"],
+         **{f"{label}_{what}": c[kind][i]
+            for kind, label in labels.items() if kind in c
+            for i, what in enumerate(("ms", "peak_bytes",
+                                      "stack_peak_bytes"))},
+         "attention_ms": {labels.get(a, a): t
+                          for a, t in c["attention"].items()}}
+        for c in rows]))
+    log(f"  [table3] {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -2099,10 +2611,12 @@ def main():
     chunked_launches = serve_chunked_phase(dev, cfg, params, prompts,
                                            mono_outs)
     paged_launches = serve_paged_phase(dev, cfg, params, prompts)
+    serve_standard_phases(dev, cfg, params, prompts, mono_outs)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     serve_parity_phase(dev, cfg)
+    serve_standard_parity_phase(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = train_phase(dev, cfg)
@@ -2120,7 +2634,8 @@ def main():
     require_routes("train-parity-bf16", "tensor cores")
     gc.collect()
     torch.cuda.empty_cache()
-    mlm_launches = train_mlm_phase(dev)
+    mlm = train_mlm_phase(dev)
+    mlm_launches = mlm["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     enc2 = dataclasses.replace(get_config("linformer-paper"),
@@ -2133,13 +2648,39 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_parity_bf16_phase(dev, enc2, mlm_batch, "train-mlm-parity-bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc = get_config("linformer-paper")
+    std = train_mlm_phase(dev, "train-mlm-standard",
+                          enc.with_attention_kind("standard"),
+                          keep_params=True)
+    figure1_phase(dev, enc.with_attention_kind("standard"), std.pop("params"),
+                  std.pop("batch"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lin = enc.attention.linformer
+    nonuni = train_mlm_phase(dev, "train-mlm-nonuniform", dataclasses.replace(
+        enc, scan_layers=False, attention=dataclasses.replace(
+            enc.attention, linformer=dataclasses.replace(lin, **NONUNIFORM))))
+    log(f"[train-mlm-nonuniform] against [train-mlm] (uniform K={lin.k}, "
+        f"scanned, remat {enc.remat}) and [train-mlm-standard]: step "
+        f"{nonuni['step_ms']:.1f} / {mlm['step_ms']:.1f} / "
+        f"{std['step_ms']:.1f} ms; forward alone {nonuni['fwd_ms']:.2f} / "
+        f"{mlm['fwd_ms']:.2f} / {std['fwd_ms']:.2f} ms; peak "
+        f"{nonuni['peak_gb']:.2f} / {mlm['peak_gb']:.2f} / "
+        f"{std['peak_gb']:.2f} GB (the unrolled layout runs without remat, "
+        "as in JAX: its peak is not comparable)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    table3_phase(dev)
 
     # launches: each kernel's count on its own main path, every path beside;
     # the prefix form's residual variant serves sequence-parallel training,
     # which is not ported, so no path launches it
     paths = {"serve": serve_launches, "serve-chunked": chunked_launches,
              "serve-paged": paged_launches, "train": train_launches,
-             "train-mlm": mlm_launches}
+             "train-mlm": mlm_launches,
+             "train-mlm-nonuniform": nonuni["launches"]}
     main_path = {"blockwise_causal_attn": "serve",
                  "decode_attn": "serve",
                  "blockwise_causal_attn(return_residuals)": "train",

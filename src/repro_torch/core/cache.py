@@ -1,7 +1,7 @@
-"""Decode-time Linformer-causal caches: the compressed cache and its paged,
-quantized sibling.
+"""Decode-time caches: the Linformer-causal compressed cache, its paged,
+quantized sibling, and the standard-attention baseline's full KV cache.
 
-Counterpart of the Linformer-causal half of ``repro/core/cache.py``. Per
+Counterpart of ``repro/core/cache.py``. Per
 layer the cache holds (a) a raw ring buffer for the current, incomplete
 block of K/V and (b) r compressed slots per completed block. A context of
 length n costs c + r·⌊n/c⌋ slots instead of n.
@@ -17,6 +17,10 @@ Caches are plain dicts of tensors with the layer axis leading:
 position counter per batch row: rows of a continuous batch sit at unequal
 positions, and every mask, ring write and block fold is per row.
 
+The full cache (:func:`init_full_cache`) holds every position's K/V,
+``k``/``v`` (L, B, max_seq, Hkv, Dh), and the same ``lengths``: the paper's
+softmax baseline, which Table 3 times against the compressed forms.
+
 Unlike the JAX package, whose arrays are immutable, the decode step updates
 the cache IN PLACE: the ring write and the block fold write into the layer
 slices they are given (views into the pool), so a step never copies the
@@ -30,7 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.causal import compress_blocks
+from repro_torch.core.causal import compress_blocks, masked_softmax
 
 
 def rowwise_t(t, batch: int, device) -> torch.Tensor:
@@ -440,3 +444,97 @@ def paged_prefill_chunk(
         q, k, v, gk, gv, gk_s, gv_s, blk0, block_size=c, block_slots=r,
         scale=scale_)
     return out, layer_cache
+
+
+# ---------------------------------------------------------------------------
+# Full KV cache (the standard-attention baseline)
+# ---------------------------------------------------------------------------
+
+
+def full_cache_spec(
+    *, num_layers: int, batch: int, max_seq: int, num_kv_heads: int,
+    head_dim: int, dtype=torch.bfloat16,
+) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{leaf: (shape, dtype)} of the full cache."""
+    kv = (num_layers, batch, max_seq, num_kv_heads, head_dim)
+    return {"k": (kv, dtype), "v": (kv, dtype),
+            "lengths": ((batch,), torch.int32)}
+
+
+def init_full_cache(*, device: torch.device, **kw) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in full_cache_spec(**kw).items()}
+
+
+def full_decode_attention(
+    q_t: torch.Tensor,           # (B, 1, H, Dh) — rope already applied
+    k_t: torch.Tensor,           # (B, 1, Hkv, Dh)
+    v_t: torch.Tensor,
+    layer_cache: Dict[str, torch.Tensor],   # k/v: (B, S, Hkv, Dh)
+    t,                           # () or (B,) int32 per-row positions
+    *,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step of standard causal attention over the full cache:
+    row b writes (k_t, v_t) at t[b] (clamped like dynamic_update_slice) and
+    attends positions <= t[b]. The cache is updated in place and
+    returned."""
+    ck, cv = layer_cache["k"], layer_cache["v"]
+    B, S, Hkv, Dh = ck.shape
+    H = q_t.shape[2]
+    scale_ = scale if scale is not None else Dh ** -0.5
+    t = rowwise_t(t, B, ck.device)
+    _row_update_(ck, k_t, t)
+    _row_update_(cv, v_t, t)
+    G = H // Hkv
+    dt = torch.promote_types(q_t.dtype, ck.dtype)   # as JAX's einsum
+    qg, ck_, cv_ = q_t.reshape(B, Hkv, G, Dh).to(dt), ck.to(dt), cv.to(dt)
+    # the cache is read in place, as (B, S, Hkv·Dh) matrices: the scores are
+    # one product of a block-diagonal q (query head h·G + g holds q in kv
+    # head h's Dh columns, zeros elsewhere; exact) with the transposed
+    # cache, where an einsum over (b, h) would first copy the cache into
+    # (B, Hkv, S, Dh); the value product gives every head against every kv
+    # head and keeps the diagonal
+    qbd = qg.new_zeros(B, Hkv, G, Hkv, Dh)
+    qbd.diagonal(dim1=1, dim2=3).copy_(qg.permute(0, 2, 3, 1))
+    ck_, cv_ = ck_.reshape(B, S, Hkv * Dh), cv_.reshape(B, S, Hkv * Dh)
+    s = qbd.reshape(B, H, Hkv * Dh) @ ck_.transpose(1, 2)          # (B,H,S)
+    ok = torch.arange(S, device=ck.device)[None, :] <= t[:, None]   # (B, S)
+    p = masked_softmax(s, ok[:, None, :], scale_, q_t.dtype)
+    pv = p.to(cv_.dtype) @ cv_                                  # (B,H,Hkv·Dh)
+    out = pv.view(B, Hkv, G, Hkv, Dh).diagonal(dim1=1, dim2=3)  # (B,G,Dh,Hkv)
+    return out.permute(0, 3, 1, 2).reshape(B, 1, H, Dh), layer_cache
+
+
+def full_prefill_chunk(
+    q: torch.Tensor,             # (B, P, H, Dh) — rope applied
+    k: torch.Tensor,             # (B, P, Hkv, Dh)
+    v: torch.Tensor,
+    layer_cache: Dict[str, torch.Tensor],   # k/v: (B, S, Hkv, Dh)
+    t0,                          # (B,) int32 — row's current length
+    *,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One chunked-prefill step of standard causal attention over the full
+    cache, in place: row b's chunk is written at [t0[b], t0[b] + P) (the
+    start clamped to S - P like dynamic_update_slice) and query i attends
+    positions <= t0[b] + i. Padded tail tokens write garbage that the
+    decode path overwrites position by position before its mask reaches
+    them."""
+    ck, cv = layer_cache["k"], layer_cache["v"]
+    B, S, Hkv, Dh = ck.shape
+    P, H = q.shape[1], q.shape[2]
+    scale_ = scale if scale is not None else Dh ** -0.5
+    t0 = rowwise_t(t0, B, ck.device)
+    _row_update_(ck, k, t0)
+    _row_update_(cv, v, t0)
+    qg = q.reshape(B, P, Hkv, H // Hkv, Dh)
+    qpos = t0[:, None] + torch.arange(P, device=ck.device)[None, :]
+    ok = torch.arange(S, device=ck.device)[None, None, :] \
+        <= qpos[:, :, None]                                      # (B, P, S)
+    dt = torch.promote_types(q.dtype, ck.dtype)     # as JAX's einsum
+    qg_, ck_, cv_ = qg.to(dt), ck.to(dt), cv.to(dt)
+    p = masked_softmax(torch.einsum("bphgd,bshd->bhgps", qg_, ck_),
+                       ok[:, None, None], scale_, q.dtype)
+    out = torch.einsum("bhgps,bshd->bphgd", p.to(cv_.dtype), cv_)
+    return out.reshape(B, P, H, Dh), layer_cache

@@ -11,7 +11,9 @@ These functions are the parity oracle of the port (``backend="reference"``)
 and mirror the JAX reference einsum for einsum, cast point for cast point:
 scores in fp32, masks as ``NEG_INF`` on the fp32 scores (never ``-inf``, so
 a row whose every entry is masked stays finite), softmax output cast to the
-query dtype before the value product.
+query dtype before the value product. :func:`masked_softmax` is that policy
+for one score tensor; the standard softmax baseline (models/attention.py,
+the full cache in core/cache.py) takes its p from it.
 """
 from __future__ import annotations
 
@@ -29,6 +31,23 @@ def _common(*xs: torch.Tensor):
     for x in xs[1:]:
         dt = torch.promote_types(dt, x.dtype)
     return [x.to(dt) for x in xs]
+
+
+def masked_softmax(s: torch.Tensor, ok: Optional[torch.Tensor],
+                   scale: float, dtype: torch.dtype,
+                   dim: int = -1) -> torch.Tensor:
+    """p from the raw scores `s` at the cast points above: s (a score
+    einsum's output in its operands' dtype, so bf16 scores are rounded
+    once) cast to fp32 and scaled, NEG_INF where the boolean `ok`
+    (broadcast to s; None: no mask) is False, softmax in fp32 along `dim`,
+    p cast to `dtype`. Works on s in place (autograd saves no tensor these
+    ops overwrite): pass the einsum's output and keep no reference to it,
+    and no second fp32 buffer of its size is live."""
+    s = s.to(torch.float32)
+    s.mul_(scale)
+    if ok is not None:
+        s.masked_fill_(~ok, NEG_INF)
+    return torch.softmax(s, dim=dim).to(dtype)
 
 
 def compress_blocks(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

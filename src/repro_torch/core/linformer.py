@@ -1,7 +1,8 @@
 """Linformer E/F projection parameters and the exact (bidirectional) form.
 
 Counterpart of ``repro/core/linformer.py``. The E/F leaves follow
-``AttentionConfig.kind``:
+``AttentionConfig.kind`` (the standard softmax baseline, ``"standard"``, has
+none):
 
 * ``"linformer"`` (the paper's exact form, Eq. 7): E/F ∈ R^{n×k} with
   n = max_seq, shape (max_seq, k), or (Hkv, max_seq, k) when nothing is
@@ -34,13 +35,21 @@ import torch
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import projections as proj
 
-KINDS = ("linformer", "linformer_causal")
+KINDS = ("standard", "linformer", "linformer_causal")
+LINFORMER_KINDS = KINDS[1:]
 
 
 def check_kind(cfg: AttentionConfig) -> None:
     if cfg.kind not in KINDS:
-        raise ValueError(f"the PyTorch port covers the Linformer kinds "
-                         f"{KINDS}, got {cfg.kind!r}")
+        raise ValueError(f"unknown attention kind {cfg.kind!r} (expected "
+                         f"one of {KINDS})")
+
+
+def uses_linformer(cfg: AttentionConfig) -> bool:
+    """Whether the kind has E/F parameters (every kind but the standard
+    baseline)."""
+    check_kind(cfg)
+    return cfg.kind in LINFORMER_KINDS
 
 
 def ef_shape(cfg: AttentionConfig, *, max_seq: int) -> Tuple[int, ...]:
@@ -61,7 +70,11 @@ def ef_shape(cfg: AttentionConfig, *, max_seq: int) -> Tuple[int, ...]:
 def linformer_param_shapes(cfg: AttentionConfig, *, num_layers: int,
                            max_seq: int
                            ) -> Dict[str, Dict[str, Tuple[int, ...]]]:
-    """Shapes of the E/F leaves, grouped like `init_linformer_params`."""
+    """Shapes of the E/F leaves, grouped as ``{"shared": {"E"}}`` or
+    ``{"per_layer": {"E"[, "F"]}}`` (leading layer axis); empty for the
+    standard baseline."""
+    if not uses_linformer(cfg):
+        return {}
     shape = ef_shape(cfg, max_seq=max_seq)
     sharing = cfg.linformer.sharing
     if sharing == "layerwise":
@@ -74,19 +87,18 @@ def linformer_param_shapes(cfg: AttentionConfig, *, num_layers: int,
     raise ValueError(f"unknown sharing mode {sharing!r}")
 
 
-def init_linformer_params(generator: torch.Generator, cfg: AttentionConfig,
-                          *, num_layers: int, max_seq: int,
-                          device: torch.device, dtype=torch.float32) -> Dict:
-    """Create E/F per the configured sharing mode: JL-style N(0, 1/k) (k the
-    projected length: lin.k for the exact form, r for the causal one), so
-    projected keys keep the scale of raw keys."""
-    shape = ef_shape(cfg, max_seq=max_seq)
-    std = shape[-1] ** -0.5
-    return {group: {name: torch.randn(shape, generator=generator,
-                                      device=device).mul_(std).to(dtype)
-                    for name, shape in leaves.items()}
-            for group, leaves in linformer_param_shapes(
-                cfg, num_layers=num_layers, max_seq=max_seq).items()}
+def init_linformer_params(generator: torch.Generator,
+                          shapes: Dict[str, Tuple[int, ...]], *,
+                          device: torch.device, dtype=torch.float32
+                          ) -> Dict[str, torch.Tensor]:
+    """Draw the E/F leaves {key: shape}, in order: JL-style N(0, 1/k), k =
+    shape[-1] the projected length (lin.k, or a layer's effective_k, for
+    the exact form; r for the causal one), so projected keys keep the scale
+    of raw keys. models/transformer.py ``init_params`` passes the E/F
+    leaves of its ``param_spec``."""
+    return {key: torch.randn(shape, generator=generator, device=device)
+            .mul_(shape[-1] ** -0.5).to(dtype)
+            for key, shape in shapes.items()}
 
 
 def num_projection_matrices(cfg: AttentionConfig, num_layers: int) -> int:

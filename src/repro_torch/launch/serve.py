@@ -8,9 +8,17 @@ scheduler (default) or the static bucketed baseline. Reports through
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
         --prefill-chunk 32
 
-Prompt lengths are drawn from {c/2, c, c + c/8, 2c} (c = the attention
-block size), so at full width (c = 256) most prompts reach the blockwise-
-causal prefill kernel and every remainder goes through decode steps.
+    python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
+        --attention standard
+
+--attention overrides the config's attention kind (standard |
+linformer_causal), as the JAX launcher's flag does. Prompt lengths are
+drawn from {c/2, c, c + c/8, 2c}, c the engine's admission block: the
+Linformer block size for linformer_causal (at full width, c = 256, most
+prompts reach the blockwise-causal prefill kernel and every remainder goes
+through decode steps); for the standard baseline, whose block is one token,
+from the JAX launcher's {8, 16, 16, 32}. The cache capacity (--max-seq)
+defaults to 16 Linformer blocks for either kind.
 """
 from __future__ import annotations
 
@@ -27,6 +35,9 @@ log = logging.getLogger("repro_torch.serve")
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--attention", default=None,
+                    choices=["standard", "linformer_causal"],
+                    help="override the config's attention kind")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config, in float32")
     ap.add_argument("--device", default="cuda",
@@ -60,8 +71,9 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.smoke:
         cfg = dataclasses.replace(cfg, dtype="float32")
-    c = cfg.attention.linformer.block_size
-    max_seq = args.max_seq or 16 * c
+    if args.attention:
+        cfg = cfg.with_attention_kind(args.attention)
+    max_seq = args.max_seq or 16 * cfg.attention.linformer.block_size
     params = M.init_params(cfg, seed=0, device=args.device)
     log.info("%s: %d layers, %.2f GB of params on %s", cfg.name,
              cfg.num_layers, param_bytes(params) / 1e9, args.device)
@@ -72,7 +84,8 @@ def main(argv=None):
                         attention_backend=args.backend,
                         prefill_chunk=args.prefill_chunk)
     rng = np.random.default_rng(0)
-    lengths = [c // 2, c, c + c // 8, 2 * c]
+    c = eng._block()
+    lengths = [c // 2, c, c + c // 8, 2 * c] if c > 1 else [8, 16, 16, 32]
     prompts = [list(rng.integers(4, cfg.vocab_size, int(rng.choice(lengths))))
                for _ in range(args.requests)]
     sync = torch.cuda.synchronize if eng.device.type == "cuda" else (

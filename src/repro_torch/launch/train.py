@@ -10,7 +10,12 @@ the paper's encoder (linformer-paper).
         --device cpu
     python -m repro_torch.launch.train --arch linformer-paper --seq 512 \
         --batch 32 --steps 8 --ckpt-every 0
+    python -m repro_torch.launch.train --arch linformer-paper --smoke \
+        --device cpu --attention standard
 
+--attention overrides the config's attention kind (standard | linformer |
+linformer_causal), as the JAX launcher's flag does: "standard" trains the
+paper's softmax baseline.
 Without --device the run needs a CUDA card (it raises otherwise).
 --backend picks the attention route for the run: "auto" (the config's
 default: the kernels), "reference" (the plain reference forms, the parity
@@ -38,6 +43,9 @@ log = logging.getLogger("repro_torch.train")
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--attention", default=None,
+                    choices=["standard", "linformer", "linformer_causal"],
+                    help="override the config's attention kind")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced config, in float32")
     ap.add_argument("--device", default="cuda",
@@ -71,6 +79,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, dtype="float32")
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.attention:
+        cfg = cfg.with_attention_kind(args.attention)
     seq = args.seq or (64 if args.smoke else 4096)
     batch = args.batch or (8 if args.smoke else 2)
     tcfg = TrainConfig(

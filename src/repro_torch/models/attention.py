@@ -1,14 +1,16 @@
-"""Attention block: QKV/output projections and the paper's Linformer forms:
-the exact bidirectional form (``kind="linformer"``, encoder training and
-inference) and the blockwise-causal form (``kind="linformer_causal"``:
-prefill, chunked prefill and decode, over the compressed cache or its
-paged, quantized sibling).
+"""Attention block: QKV/output projections and dispatch between the paper's
+softmax baseline (``kind="standard"``: full attention, full KV cache) and
+its Linformer forms: the exact bidirectional form (``kind="linformer"``,
+encoder training and inference) and the blockwise-causal form
+(``kind="linformer_causal"``: prefill, chunked prefill and decode, over the
+compressed cache or its paged, quantized sibling).
 
-Counterpart of ``repro/models/attention.py`` for the two Linformer kinds
-(the ``"standard"`` softmax baseline is not ported). The attention math
-dispatches through an :class:`AttentionPlan` (parallel/plan.py); this module
-never branches on backend strings. Per-layer E/F (every sharing mode but
-layerwise) live under the layer's ``lin`` leaves, laid out by
+Counterpart of ``repro/models/attention.py``. The Linformer math dispatches
+through an :class:`AttentionPlan` (parallel/plan.py); this module never
+branches on backend strings. The standard baseline is plain torch, as the
+JAX package's is plain jnp: it materialises the (S, S) scores, which is
+the cost the paper's Table 3 measures. Per-layer E/F (every sharing mode
+but layerwise) live under the layer's ``lin`` leaves, laid out by
 models/transformer.py ``param_spec``; the layerwise E arrives as
 `shared_lin`. The exact form has no decode cache: its decode and
 chunked-prefill entry points raise, as in the JAX package.
@@ -27,19 +29,22 @@ from repro_torch.models import layers as L
 from repro_torch.parallel import plan as plan_lib
 
 
-def _check_causal(cfg: AttentionConfig, what: str) -> None:
-    """The decode cache paths exist for the causal form only (the exact
-    form is bidirectional: encoder-only)."""
+def _check_cached(cfg: AttentionConfig, what: str) -> None:
+    """The decode cache paths exist for the causal form and the standard
+    baseline (the exact form is bidirectional: encoder-only)."""
     lin_lib.check_kind(cfg)
-    if cfg.kind != "linformer_causal":
+    if cfg.kind == "linformer":
         raise ValueError(
             f"attention kind {cfg.kind!r} has no {what} path "
             "(exact linformer is bidirectional/encoder-only)")
 
 
-def _qkv(params: Dict, x: torch.Tensor, cfg: AttentionConfig,
-         positions: Optional[torch.Tensor]
-         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def project_qkv(params: Dict, x: torch.Tensor, cfg: AttentionConfig,
+                positions: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The heads of x (B, S, D) as the attention sees them: q (B, S, H, Dh),
+    k and v (B, S, Hkv, Dh), biases, qk-norm and rope (at `positions`, or
+    0..S-1) applied (the JAX package's ``_qkv``)."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ params["wq"]
@@ -73,6 +78,28 @@ def _resolve_ef(params: Dict, shared_lin: Optional[Dict],
     return lp["E"], lp.get("F", lp["E"])
 
 
+def standard_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, causal: bool, scale: Optional[float] = None
+                       ) -> torch.Tensor:
+    """Full softmax attention (the paper's baseline), GQA-grouped, with the
+    JAX function's cast points (core/causal.masked_softmax): the score
+    einsum in the input dtype, then fp32; softmax in fp32; p cast to q's
+    dtype before the value product. q: (B, S, H, Dh); k, v: (B, S, Hkv,
+    Dh). Returns (B, S, H, Dh)."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    scale_ = scale if scale is not None else Dh ** -0.5
+    qg = q.reshape(B, S, Hkv, H // Hkv, Dh)
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device).tril_() \
+        if causal else None
+    # the fp32 scores are freed inside masked_softmax, before the value
+    # product: two (B, H, S, S) fp32 buffers fewer at the peak than JAX's
+    # new arrays, the same values
+    p = causal_lib.masked_softmax(
+        torch.einsum("bshgd,bthd->bhgst", qg, k), ok, scale_, q.dtype)
+    return torch.einsum("bhgst,bthd->bshgd", p, v).reshape(B, S, H, Dh)
+
+
 def apply_attention(
     params: Dict,
     x: torch.Tensor,
@@ -87,35 +114,49 @@ def apply_attention(
 
     With `cache_entry` — this layer's slices of a decode cache — also fills
     the cache from the SAME k/v (single-pass prefill, no second forward);
-    the causal form only."""
+    the causal form and the standard baseline."""
     lin_lib.check_kind(cfg)
-    if cache_entry is not None and cfg.kind != "linformer_causal":
+    if cache_entry is not None and cfg.kind == "linformer":
         raise ValueError(f"no decode cache for attention kind {cfg.kind!r}")
     B, S, _ = x.shape
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
-    q, k, v = _qkv(params, x, cfg, positions)
-    E, F = _resolve_ef(params, shared_lin, cfg)
-    if cfg.kind == "linformer":
+    q, k, v = project_qkv(params, x, cfg, positions)
+    ef = None
+    if cfg.kind == "standard":
+        out = standard_attention(q, k, v, causal=cfg.causal)
+    elif cfg.kind == "linformer":
+        E, F = _resolve_ef(params, shared_lin, cfg)
         out = plan.exact_attention(q, k, v, E, F,
                                    projection=cfg.linformer.projection,
                                    scale=cfg.head_dim ** -0.5)
     else:
-        out = plan.causal_attention(q, k, v, E, F,
+        ef = _resolve_ef(params, shared_lin, cfg)
+        out = plan.causal_attention(q, k, v, *ef,
                                     block_size=cfg.linformer.block_size,
                                     block_slots=cfg.linformer.block_slots,
                                     scale=cfg.head_dim ** -0.5)
     out = out.reshape(B, S, -1) @ params["wo"]
     if cache_entry is not None:
-        _entry_from_kv(k, v, cfg, (E, F), cache_entry)
+        _entry_from_kv(k, v, cfg, ef, cache_entry)
     return out
 
 
 def _entry_from_kv(k, v, cfg: AttentionConfig, ef,
                    entry: Dict[str, torch.Tensor]) -> None:
-    """Fill one layer's zero-initialized decode-cache slices (comp_k
-    (B, M, Hkv, Dh), ...) from prefilled k/v (rope applied): the first nb·r
-    slots take the compressed blocks; the ring stays empty at t = S."""
+    """Fill one layer's zero-initialized decode-cache slices from prefilled
+    k/v (rope applied). Compressed cache (comp_k (B, M, Hkv, Dh), ...): the
+    first nb·r slots take the compressed blocks; the ring stays empty at
+    t = S. Full cache (k (B, max_seq, Hkv, Dh), ...): the first S positions
+    take k/v, the rest stays zero (JAX's padded entry)."""
     B, S, Hkv, Dh = k.shape
+    if cfg.kind == "standard":
+        cap = entry["k"].shape[1]
+        if S > cap:
+            raise ValueError(f"prefill of {S} tokens exceeds the full "
+                             f"cache's {cap} positions")
+        entry["k"][:, :S] = k.to(entry["k"].dtype)
+        entry["v"][:, :S] = v.to(entry["v"].dtype)
+        return
     E, F = ef
     c = cfg.linformer.block_size
     r = cfg.linformer.block_slots
@@ -144,10 +185,15 @@ def apply_attention_decode(
     """One-token decode step against the layer's cache (updated in place).
     Each row decodes at its own position t[b]: rope, cache write and mask
     are all per row."""
-    _check_causal(cfg, "decode")
+    _check_cached(cfg, "decode")
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
     positions = t[:, None]                                   # (B, 1)
-    q, k, v = _qkv(params, x_t, cfg, positions=positions)
+    q, k, v = project_qkv(params, x_t, cfg, positions=positions)
+    B = x_t.shape[0]
+    if cfg.kind == "standard":
+        out, new_cache = cache_lib.full_decode_attention(q, k, v,
+                                                         layer_cache, t)
+        return out.reshape(B, 1, -1) @ params["wo"], new_cache
     E, F = _resolve_ef(params, shared_lin, cfg)
     # the paged, quantized cache routes on its page_table leaf: the same
     # attention math over another storage
@@ -155,7 +201,6 @@ def apply_attention_decode(
                  if "page_table" in layer_cache
                  else cache_lib.compressed_decode_attention)
     out, new_cache = decode_fn(q, k, v, layer_cache, E, F, t, plan=plan)
-    B = x_t.shape[0]
     return out.reshape(B, 1, -1) @ params["wo"], new_cache
 
 
@@ -173,27 +218,39 @@ def apply_attention_prefill_chunk(
     """Chunked-prefill attention at a per-row offset against the layer's
     slot-resident cache (updated in place): row b's chunk covers absolute
     positions [t0[b], t0[b] + P); t0 and P are multiples of the block
-    size. Returns (out (B, P, D'), the cache)."""
-    _check_causal(cfg, "chunked-prefill")
+    size (standard attention takes any offset). Returns (out (B, P, D'),
+    the cache)."""
+    _check_cached(cfg, "chunked-prefill")
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
     if positions is None:
         positions = t0[:, None] + torch.arange(x.shape[1], device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions=positions)
+    q, k, v = project_qkv(params, x, cfg, positions=positions)
+    B, P = x.shape[:2]
+    if cfg.kind == "standard":
+        out, new_cache = cache_lib.full_prefill_chunk(q, k, v, layer_cache,
+                                                      t0)
+        return out.reshape(B, P, -1) @ params["wo"], new_cache
     E, F = _resolve_ef(params, shared_lin, cfg)
     prefill_fn = (cache_lib.paged_prefill_chunk
                   if "page_table" in layer_cache
                   else cache_lib.compressed_prefill_chunk)
     out, new_cache = prefill_fn(q, k, v, layer_cache, E, F, t0, plan=plan)
-    B, P = x.shape[:2]
     return out.reshape(B, P, -1) @ params["wo"], new_cache
 
 
 def decode_cache_spec(cfg: AttentionConfig, *, num_layers: int, batch: int,
                       max_seq: int, dtype=torch.bfloat16):
-    """{leaf: (shape, dtype)} of this attention kind's decode cache."""
+    """{leaf: (shape, dtype)} of this attention kind's decode cache: the
+    compressed cache for the causal form, the full cache for the standard
+    baseline."""
     lin_lib.check_kind(cfg)
-    if cfg.kind != "linformer_causal":
+    if cfg.kind == "linformer":
         raise ValueError(f"no decode cache for attention kind {cfg.kind!r}")
+    if cfg.kind == "standard":
+        return cache_lib.full_cache_spec(
+            num_layers=num_layers, batch=batch, max_seq=max_seq,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            dtype=dtype)
     return cache_lib.compressed_cache_spec(
         num_layers=num_layers, batch=batch, max_seq=max_seq,
         block_size=cfg.linformer.block_size,

@@ -1,23 +1,37 @@
 """Dense transformer: the qwen3-style decoder LM (RMSNorm, RoPE, qk-norm,
-GQA, SwiGLU, blockwise-causal Linformer attention) and the paper's encoder
-(learned positions, GELU MLP, exact bidirectional Linformer attention).
+GQA, SwiGLU; blockwise-causal Linformer attention or the standard softmax
+baseline) and the paper's encoder (learned positions, GELU MLP, exact
+bidirectional Linformer attention or the standard baseline).
 
 Counterpart of the dense half of ``repro/models/transformer.py``. Parameters
-are nested dicts of tensors laid out exactly like the JAX package's pytree
-with scanned (stacked) layers: every leaf under ``layers`` carries a leading
-layer axis, e.g. ``layers/attn/wq`` (L, d, H·Dh). Layer i runs on views
-``a[i]`` of the stacked leaves; the forward without a cache, the one a
-backward runs through, takes them with one ``unbind`` per leaf, so the
-backward stacks each leaf's gradient once instead of once per layer.
+are nested dicts of tensors laid out exactly like the JAX package's pytree,
+in its two layer layouts:
+
+* scanned (``cfg.scan_layers``, the default): every leaf under ``layers``
+  carries a leading layer axis, e.g. ``layers/attn/wq`` (L, d, H·Dh). Layer
+  i runs on views ``a[i]`` of the stacked leaves; the forward without a
+  cache, the one a backward runs through, takes them with one ``unbind``
+  per leaf, so the backward stacks each leaf's gradient once instead of
+  once per layer.
+* unrolled (``scan_layers=False``): ``layers_list`` holds one subtree per
+  layer, keyed by the layer's index as a string ("0", "1", ...), so that
+  :func:`flatten` gives the JAX checkpointer's keys for its list,
+  ``layers_list/{i}/attn/wq``. Only this layout gives each layer its own
+  Linformer k: with ``kind="linformer"`` and per-layer E/F, layer i's E
+  (and F) is (n, effective_k(k, k_decay, i, L)) (paper §4, non-uniform
+  projected dimension); a layerwise-shared E keeps k.
 
 Rematerialisation (the JAX package's ``remat_wrap``): with ``cfg.remat``
-"full" each block runs under :class:`_Recompute`, which keeps only the
-block's inputs and recomputes the block inside the backward. "dots" maps to
-"full": PyTorch has no counterpart of JAX's dots-saveable policy, so every
-activation is recomputed.
+"full" each block of the scanned layout runs under :class:`_Recompute`,
+which keeps only the block's inputs and recomputes the block inside the
+backward. "dots" maps to "full": PyTorch has no counterpart of JAX's
+dots-saveable policy, so every activation is recomputed. The unrolled
+layout applies no remat, as the JAX package's unrolled loop calls
+``apply_block`` directly: its activations stay alive through the backward.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -25,14 +39,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import linformer as lin_lib
+from repro_torch.core.projections import effective_k
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.parallel import plan as plan_lib
 
 # init kinds of param_spec
 _ONES, _ZEROS, _EMBED, _DENSE, _LIN = "ones", "zeros", "embed", "dense", "lin"
-# core/linformer.py parameter groups -> their place in the params tree
-_LIN_GROUPS = {"shared": "shared/lin", "per_layer": "layers/attn/lin"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -41,10 +54,52 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.moe.num_experts or cfg.embedding_inputs \
-            or cfg.frontend_embed_len or not cfg.scan_layers:
+            or cfg.frontend_embed_len:
         raise ValueError(
             f"config {cfg.name!r}: the PyTorch port covers the dense family "
-            "with token inputs and stacked layers only")
+            "with token inputs only")
+
+
+def _layer_lin_shapes(cfg: ModelConfig, i: int
+                      ) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of layer i's own E/F leaves in the unrolled layout (empty for
+    layerwise sharing and the standard baseline): the exact form's k
+    follows effective_k, as JAX's init_block(lin_k=...)."""
+    a = cfg.attention
+    if a.kind == "linformer":
+        lin = a.linformer
+        a = dataclasses.replace(a, linformer=dataclasses.replace(
+            lin, k=effective_k(lin.k, lin.k_decay, i, cfg.num_layers)))
+    per = lin_lib.linformer_param_shapes(a, num_layers=1,
+                                         max_seq=cfg.max_seq_len)
+    return {name: shape[1:] for name, shape in per.get("per_layer",
+                                                       {}).items()}
+
+
+def _block_spec(cfg: ModelConfig, lin: Dict[str, Tuple[int, ...]]
+                ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """One block's {key: (shape, init kind)}, without a layer axis; `lin`
+    gives its own E/F shapes."""
+    a, d = cfg.attention, cfg.d_model
+    H, Hkv, Dh = a.num_heads, a.num_kv_heads, a.head_dim
+    spec: Dict[str, Tuple[Tuple[int, ...], str]] = {
+        "ln1/scale": ((d,), _ONES), "ln2/scale": ((d,), _ONES),
+        "attn/wq": ((d, H * Dh), _DENSE), "attn/wk": ((d, Hkv * Dh), _DENSE),
+        "attn/wv": ((d, Hkv * Dh), _DENSE), "attn/wo": ((H * Dh, d), _DENSE)}
+    if a.qkv_bias:
+        for n, w in (("bq", H), ("bk", Hkv), ("bv", Hkv)):
+            spec[f"attn/{n}"] = ((w * Dh,), _ZEROS)
+    if a.qk_norm:
+        spec["attn/q_norm/scale"] = ((Dh,), _ONES)
+        spec["attn/k_norm/scale"] = ((Dh,), _ONES)
+    for name, shape in lin.items():
+        spec[f"attn/lin/{name}"] = (shape, _LIN)
+    ff = cfg.mlp.d_ff
+    spec["mlp/w_in"] = ((d, ff), _DENSE)
+    spec["mlp/w_out"] = ((ff, d), _DENSE)
+    if cfg.mlp.activation == "swiglu":
+        spec["mlp/w_gate"] = ((d, ff), _DENSE)
+    return spec
 
 
 def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
@@ -52,7 +107,6 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     package's checkpoints (checkpoint/checkpointer.py ``_flatten``)."""
     _check_family(cfg)
     a, d, nl = cfg.attention, cfg.d_model, cfg.num_layers
-    H, Hkv, Dh = a.num_heads, a.num_kv_heads, a.head_dim
     spec: Dict[str, Tuple[Tuple[int, ...], str]] = {
         "embed/tok": ((cfg.padded_vocab_size, d), _EMBED)}
     if not a.use_rope:                 # learned positions, N(0, 0.02)
@@ -60,26 +114,16 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     lin = lin_lib.linformer_param_shapes(a, num_layers=nl,
                                          max_seq=cfg.max_seq_len)
     for name, shape in lin.get("shared", {}).items():
-        spec[f"{_LIN_GROUPS['shared']}/{name}"] = (shape, _LIN)
-    spec["layers/ln1/scale"] = ((nl, d), _ONES)
-    spec["layers/ln2/scale"] = ((nl, d), _ONES)
-    spec["layers/attn/wq"] = ((nl, d, H * Dh), _DENSE)
-    spec["layers/attn/wk"] = ((nl, d, Hkv * Dh), _DENSE)
-    spec["layers/attn/wv"] = ((nl, d, Hkv * Dh), _DENSE)
-    spec["layers/attn/wo"] = ((nl, H * Dh, d), _DENSE)
-    if a.qkv_bias:
-        for n, w in (("bq", H), ("bk", Hkv), ("bv", Hkv)):
-            spec[f"layers/attn/{n}"] = ((nl, w * Dh), _ZEROS)
-    if a.qk_norm:
-        spec["layers/attn/q_norm/scale"] = ((nl, Dh), _ONES)
-        spec["layers/attn/k_norm/scale"] = ((nl, Dh), _ONES)
-    for name, shape in lin.get("per_layer", {}).items():
-        spec[f"{_LIN_GROUPS['per_layer']}/{name}"] = (shape, _LIN)
-    ff = cfg.mlp.d_ff
-    spec["layers/mlp/w_in"] = ((nl, d, ff), _DENSE)
-    spec["layers/mlp/w_out"] = ((nl, ff, d), _DENSE)
-    if cfg.mlp.activation == "swiglu":
-        spec["layers/mlp/w_gate"] = ((nl, d, ff), _DENSE)
+        spec[f"shared/lin/{name}"] = (shape, _LIN)
+    if cfg.scan_layers:
+        per = {n: shape[1:] for n, shape in lin.get("per_layer", {}).items()}
+        for key, (shape, kind) in _block_spec(cfg, per).items():
+            spec[f"layers/{key}"] = ((nl,) + shape, kind)
+    else:
+        for i in range(nl):
+            block = _block_spec(cfg, _layer_lin_shapes(cfg, i))
+            for key, val in block.items():
+                spec[f"layers_list/{i}/{key}"] = val
     spec["final_norm/scale"] = ((d,), _ONES)
     if not cfg.tie_embeddings:
         spec["lm_head"] = ((d, cfg.padded_vocab_size), _DENSE)
@@ -115,6 +159,14 @@ def layer_slice(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
+def layer_params(params: Dict, i: int) -> Dict:
+    """Layer i's parameters in either layout: views of the stacked
+    ``layers`` or the ``layers_list`` entry."""
+    if "layers_list" in params:
+        return params["layers_list"][str(i)]
+    return layer_slice(params["layers"], i)
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device: torch.device) -> Dict:
     """Random parameters with the JAX package's distributions (fan-in
@@ -122,8 +174,9 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     N(0, 1/r)), drawn from `generator` (on `device`). The values differ
     from the JAX init: parity tests bridge JAX weights instead."""
     dt = torch_dtype(cfg.dtype)
+    spec = param_spec(cfg)
     flat = {}
-    for key, (shape, kind) in param_spec(cfg).items():
+    for key, (shape, kind) in spec.items():
         if kind in (_ONES, _ZEROS):
             fill = 1.0 if kind == _ONES else 0.0
             flat[key] = torch.full(shape, fill, dtype=dt, device=device)
@@ -131,14 +184,10 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
             std = 0.02 if kind == _EMBED else shape[-2] ** -0.5
             w = torch.randn(shape, generator=generator, device=device)
             flat[key] = w.mul_(std).to(dt)
-    lin = lin_lib.init_linformer_params(generator, cfg.attention,
-                                        num_layers=cfg.num_layers,
-                                        max_seq=cfg.max_seq_len,
-                                        device=device, dtype=dt)
-    for group, leaves in lin.items():
-        for name, w in leaves.items():
-            flat[f"{_LIN_GROUPS[group]}/{name}"] = w
-    return nest(flat)
+    flat.update(lin_lib.init_linformer_params(
+        generator, {key: shape for key, (shape, kind) in spec.items()
+                    if kind == _LIN}, device=device, dtype=dt))
+    return nest({key: flat[key] for key in spec})
 
 
 class _Recompute(torch.autograd.Function):
@@ -284,10 +333,11 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     norm instead of the logits.
 
     With return_cache=True the sequence length must be a multiple of the
-    Linformer block size; the cache is built in the same pass (the config's
-    single_pass_cache) and positioned at t = S, ready for decode_step.
-    When autograd records, each block runs under the config's remat
-    policy."""
+    Linformer block size (standard attention: any length); the cache is
+    built in the same pass (the config's single_pass_cache) and positioned
+    at t = S, ready for decode_step. When autograd records, each block of
+    the scanned layout runs under the config's remat policy; the unrolled
+    layout runs its blocks as they are (no remat, as in JAX)."""
     if return_cache and not cfg.single_pass_cache:
         raise ValueError("only the single-pass prefill cache is ported")
     plan = plan if plan is not None \
@@ -300,11 +350,12 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         cache = init_cache(cfg, batch=B,
                            max_seq=cache_max_seq or cfg.max_seq_len,
                            dtype=cache_dtype, device=x.device)
-    if cache is not None:
+    if cache is not None or not cfg.scan_layers:
         for i in range(cfg.num_layers):
-            x = apply_block(layer_slice(params["layers"], i), x, cfg,
+            x = apply_block(layer_params(params, i), x, cfg,
                             shared_lin=shared_lin,
-                            cache_entry=_layer_caches(cache, i), plan=plan)
+                            cache_entry=None if cache is None
+                            else _layer_caches(cache, i), plan=plan)
     else:
         layers = flatten(params["layers"])
         per_layer = [leaf.unbind(0) for leaf in layers.values()]
@@ -336,7 +387,7 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + params["embed"]["pos"][t.long()][:, None]     # (B, 1, D)
     shared_lin = params.get("shared", {}).get("lin")
     for i in range(cfg.num_layers):
-        x = apply_block_decode(layer_slice(params["layers"], i), x,
+        x = apply_block_decode(layer_params(params, i), x,
                                _layer_caches(cache, i), t, cfg,
                                shared_lin=shared_lin, plan=plan)
     logits = logits_from_hidden(params, cfg, x)
@@ -369,7 +420,7 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     shared_lin = params.get("shared", {}).get("lin")
     for i in range(cfg.num_layers):
         x = apply_block_prefill_chunk(
-            layer_slice(params["layers"], i), x, _layer_caches(cache, i), t0,
+            layer_params(params, i), x, _layer_caches(cache, i), t0,
             cfg, positions=positions, shared_lin=shared_lin, plan=plan)
     last = (n_valid - 1).long()[:, None, None].expand(B, 1, x.shape[-1])
     logits = logits_from_hidden(params, cfg, x.gather(1, last))

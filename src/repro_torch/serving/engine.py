@@ -25,8 +25,11 @@ Every cache write, rope position, mask and block fold is per row, so a slot
 decodes identically whatever its neighbours do: continuous scheduling gives
 the same tokens as the static bucketed baseline (`serve_static`).
 
-Pool storage (`cache_format`): "dense" is the compressed cache in
-`cache_dtype`; "paged" keeps the ring and the compressed slots as int8 or
+Pool storage (`cache_format`): "dense" is the attention kind's decode
+cache in `cache_dtype` (the compressed cache for ``linformer_causal``, the
+full KV cache for the ``standard`` baseline, whose block is 1 token: its
+prompts prefill whole, monolithic or in P-token chunks, with no remainder
+steps); "paged" keeps the ring and the compressed slots as int8 or
 fp8 codes with fp32 scales (`page_dtype`), the slots in a shared arena of
 pages (`arena_pages`, default capacity-equivalent to the dense pool) behind
 a per-row page table that the scheduler's page allocator fills.
@@ -131,7 +134,13 @@ class ServingEngine:
     # -- internals ------------------------------------------------------
 
     def _block(self) -> int:
-        return self.cfg.attention.linformer.block_size
+        """Token granularity of admission: the Linformer block for the
+        causal form, 1 for the standard baseline's full cache (a prompt
+        prefills whole, with no remainder steps)."""
+        a = self.cfg.attention
+        if a.kind == "linformer_causal":
+            return a.linformer.block_size
+        return 1
 
     @property
     def paged(self) -> bool:

@@ -256,9 +256,9 @@ def test_ef_shapes_and_counts_match_jax(kind, sharing):
             for g, leaves in want.items()} == got
     assert tlin.num_projection_matrices(att_t, L) == \
         jlin.num_projection_matrices(att_j, L)
-    init = tlin.init_linformer_params(
-        torch.Generator().manual_seed(0), att_t, num_layers=L, max_seq=n,
-        device=torch.device("cpu"))
+    init = {g: tlin.init_linformer_params(
+        torch.Generator().manual_seed(0), leaves, device=torch.device("cpu"))
+        for g, leaves in got.items()}
     for leaves in init.values():
         for a in leaves.values():
             assert abs(a.std().item() * a.shape[-1] ** 0.5 - 1.0) < 0.1

@@ -31,6 +31,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.cache import (dequantize_blockwise,
                                     quantize_blockwise, resolve_page_dtype)
 from repro_torch.core.causal import NEG_INF, compress_blocks
+from repro_torch.core.projections import effective_k
 from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
 from repro_torch.kernels import ops as tops
@@ -945,3 +946,52 @@ def test_smoke_encoder_train_step_through_kernels_matches_reference(cuda):
         1e-5 * abs(res["reference"][0])
     for a, b_ in zip(res["auto"][1], res["reference"][1]):
         _assert_grad_close(a, b_)
+
+
+# the nonuniform path's per-layer K (linformer-paper, k = 128, k_decay 0.5,
+# 12 layers): kernels 5 and 6 at the paper's full width, B=32, H=12,
+# S=512, Dh=64; only 128 and 64 are multiples of the MMA tiles
+NONUNIFORM_K = tuple(effective_k(128, 0.5, i, 12) for i in range(12))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", NONUNIFORM_K)
+def test_exact_kernels_at_the_nonuniform_k(cuda, K, dtype):
+    B, H, S, Dh = 32, 12, 512, 64
+    args = _exact_inputs(B, H, H, S, K, Dh, dtype, cuda, seed=K)
+    out = la.linformer_attn(*args, scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    _assert_close(out, la.linformer_attn_plain(*args, scale=Dh ** -0.5),
+                  (args[2],))
+    x, E = _sp_inputs(B, H, S, K, Dh, 512, dtype, cuda, seed=K)
+    out = sp.seq_projection(x, E)
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, K, Dh)
+    _assert_grad_close(out, sp.seq_projection_plain(x, E))
+
+
+def test_full_width_standard_decode_step_matches_the_cpu(cuda):
+    """qwen3-8b at full width (cut to 2 layers), kind "standard", fp32: a
+    64-token prefill into the full cache and one decode step on the card
+    give the CPU's logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import nest
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              dtype="float32").with_attention_kind("standard")
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(4, cfg.vocab_size, (2, 65),
+                         generator=torch.Generator().manual_seed(0))
+    got = []
+    for dev in ("cpu", cuda):
+        p = params if dev == "cpu" else nest(
+            {k: v.to(dev) for k, v in flatten(params).items()})
+        with torch.no_grad():
+            lg, _, cache = tmodel.forward(
+                p, cfg, {"tokens": toks[:, :64].to(dev)}, return_cache=True,
+                cache_max_seq=128, cache_dtype=torch.float32)
+            step, cache = tmodel.decode_step(p, cfg, toks[:, 64:].to(dev),
+                                             cache)
+        assert cache["lengths"].tolist() == [65, 65]
+        got.append((lg[:, -1].cpu(), step[:, 0].cpu(), cache["k"].cpu()))
+    for a, b in zip(*got):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
