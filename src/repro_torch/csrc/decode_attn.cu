@@ -158,6 +158,14 @@ __device__ __forceinline__ void wait_for_primary_grid() {
 #endif
 }
 
+// max that propagates NaN (fmaxf drops it): a visible key whose score is
+// NaN (a poisoned row's K or scale) makes the running max, hence the row's
+// output, NaN, as in the plain version, so the serving NaN guard sees it.
+// Masked keys are never scored (-inf), so no masked NaN reaches here.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
 // exp(m - mx), the weight of a softmax state of running max m under the
 // joint max mx; a state that saw no key (m = -inf) weighs 0, also when mx
 // is -inf itself.
@@ -296,8 +304,8 @@ __global__ void __launch_bounds__(DecodeCfg<S, Dh>::kThreads,
     for (int g = 0; g < kGroupRows; ++g) {
       float mt = s[0][g];
 #pragma unroll
-      for (int i = 1; i < kKeys; ++i) mt = fmaxf(mt, s[i][g]);
-      const float mn = fmaxf(m[g], mt);
+      for (int i = 1; i < kKeys; ++i) mt = nan_max(mt, s[i][g]);
+      const float mn = nan_max(m[g], mt);
       if (mn == neg_inf()) continue;  // no key of this group in the tile
       const float alpha = expf(m[g] - mn);
       l[g] *= alpha;
@@ -326,7 +334,7 @@ __global__ void __launch_bounds__(DecodeCfg<S, Dh>::kThreads,
     for (int g = 0; g < kGroupRows; ++g) {
       const float mo = __shfl_xor_sync(kFull, m[g], off);
       const float lo = __shfl_xor_sync(kFull, l[g], off);
-      const float mn = fmaxf(m[g], mo);
+      const float mn = nan_max(m[g], mo);
       const float a = state_weight(m[g], mn), w = state_weight(mo, mn);
       l[g] = l[g] * a + lo * w;
 #pragma unroll
@@ -358,7 +366,7 @@ __global__ void __launch_bounds__(DecodeCfg<S, Dh>::kThreads,
     const int g = idx / Dh, d = idx % Dh;
     float mx = neg_inf();
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int w = 0; w < kWarps; ++w) mx = nan_max(mx, sm_m[w][g]);
     float lsum = 0.f, o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
@@ -397,7 +405,7 @@ __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(DecodeP
     const int g = idx / Dh, d = idx % Dh;
     float mx = neg_inf();
 #pragma unroll 4
-    for (int s = 0; s < ns; ++s) mx = fmaxf(mx, PM[s * G + g]);
+    for (int s = 0; s < ns; ++s) mx = nan_max(mx, PM[s * G + g]);
     float lsum = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
     for (int s = 0; s < ns; ++s) {

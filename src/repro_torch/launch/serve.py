@@ -10,6 +10,9 @@ scheduler (default) or the static bucketed baseline. Reports through
 
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
         --attention standard
+    python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
+        --requests 12 --max-batch 2 --priority-classes 3 --deadline-ticks 8 \
+        --max-queue 6
 
 --attention overrides the config's attention kind (standard |
 linformer_causal), as the JAX launcher's flag does. Prompt lengths are
@@ -19,6 +22,13 @@ prompts reach the blockwise-causal prefill kernel and every remainder goes
 through decode steps); for the standard baseline, whose block is one token,
 from the JAX launcher's {8, 16, 16, 32}. The cache capacity (--max-seq)
 defaults to 16 Linformer blocks for either kind.
+
+--temperature (default: ServeConfig's, 0 = greedy) samples from a
+generator seeded 0 on the device. The SLO flags are assigned as the JAX
+launcher assigns them: --priority-classes k puts request i in class i mod k
+(0 most urgent), --deadline-ticks gives the priority-0 requests that
+absolute deadline, --max-queue bounds the admission queue. The scheduler's
+counters line and one SHED line per shed request are logged.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ import logging
 import time
 
 import numpy as np
+
+from repro_torch.configs.base import ServeConfig
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -59,6 +71,20 @@ def main(argv=None):
                          "-> CUDA kernels for CUDA tensors)")
     ap.add_argument("--scheduler", default="continuous",
                     choices=["continuous", "static"])
+    ap.add_argument("--temperature", type=float,
+                    default=ServeConfig().temperature,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="request i gets priority i mod this (0 = most "
+                         "urgent; urgent arrivals preempt running "
+                         "lower-priority slots); 1 = plain FCFS")
+    ap.add_argument("--deadline-ticks", type=int, default=0,
+                    help="absolute deadline, in scheduler ticks, of every "
+                         "priority-0 request (0 = none); infeasible "
+                         "deadlines are shed at admission")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound the admission queue; overflow sheds the "
+                         "least valued entry (0 = unbounded)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[serve] %(message)s")
 
@@ -80,6 +106,7 @@ def main(argv=None):
 
     eng = ServingEngine(params, cfg, max_seq=max_seq, device=args.device,
                         cache_dtype=torch_dtype(cfg.dtype),
+                        temperature=args.temperature,
                         decode_chunk=args.decode_chunk,
                         attention_backend=args.backend,
                         prefill_chunk=args.prefill_chunk)
@@ -88,6 +115,12 @@ def main(argv=None):
     lengths = [c // 2, c, c + c // 8, 2 * c] if c > 1 else [8, 16, 16, 32]
     prompts = [list(rng.integers(4, cfg.vocab_size, int(rng.choice(lengths))))
                for _ in range(args.requests)]
+    prios = ([i % args.priority_classes for i in range(len(prompts))]
+             if args.priority_classes > 1 else None)
+    deadlines = None
+    if args.deadline_ticks:
+        deadlines = [args.deadline_ticks if (prios is None or p == 0)
+                     else None for p in (prios or [0] * len(prompts))]
     sync = torch.cuda.synchronize if eng.device.type == "cuda" else (
         lambda: None)
     sync()
@@ -96,18 +129,20 @@ def main(argv=None):
     if args.scheduler == "continuous":
         outs, sched = eng.serve(prompts, args.max_new_tokens,
                                 max_batch=args.max_batch,
+                                priorities=prios, deadlines=deadlines,
+                                max_queue=args.max_queue or None,
                                 return_scheduler=True)
     else:
         outs = eng.serve_static(prompts, args.max_new_tokens,
                                 max_batch=args.max_batch)
     sync()
     dt = time.perf_counter() - t0
-    n_tok = sum(len(o) for o in outs)
+    shed = [o for o in outs if not isinstance(o, list)]
+    n_tok = sum(len(o) for o in outs if isinstance(o, list))
     occ = ""
     if sched is not None:
         occ = (f", occupancy {sched.stats.mean_occupancy:.2f} over "
-               f"{sched.stats.chunks} chunks, {sched.stats.bad_rows} "
-               "rows flagged non-finite")
+               f"{sched.stats.chunks} chunks")
         if args.prefill_chunk:
             occ += (f"; chunked prefill: {sched.stats.prefill_forwards} "
                     f"forwards for {sched.stats.prefill_tokens} prompt "
@@ -116,9 +151,15 @@ def main(argv=None):
              "cache/request %d B", args.scheduler, len(prompts), n_tok, dt,
              n_tok / dt, occ, eng.cache_bytes(args.max_batch)
              // args.max_batch)
+    if sched is not None:
+        log.info("%s", sched.stats.counters_line())
+    for o in shed:
+        log.info("  req%d SHED at tick %d: %s (priority %d)", o.rid, o.tick,
+                 o.reason, o.priority)
     for i, o in enumerate(outs[:4]):
-        log.info("  req%d (%d prompt toks) -> %s", i, len(prompts[i]),
-                 o[:10])
+        if isinstance(o, list):
+            log.info("  req%d (%d prompt toks) -> %s", i, len(prompts[i]),
+                     o[:10])
     return outs
 
 

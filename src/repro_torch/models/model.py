@@ -52,6 +52,25 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                                      plan=plan)
 
 
+def sample(logits: torch.Tensor, temperature: float = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Next tokens from (..., V) logits: argmax at temperature 0, else a
+    draw from softmax(logits / T) by the Gumbel-max trick, the method
+    `jax.random.categorical` uses: argmax(logits / T - log(-log u)) with u
+    uniform from `generator`, which must live on the logits' device. No
+    host sync."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    if generator is None:
+        raise ValueError(f"temperature={temperature} sampling needs an "
+                         "explicit torch.Generator")
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits.to(torch.float32) / temperature + gumbel,
+                        dim=-1)
+
+
 def decode_scan(
     params,
     cfg: ModelConfig,
@@ -61,10 +80,13 @@ def decode_scan(
     *,
     n_steps: int,
     eos_id: int,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
     plan: Optional[plan_lib.AttentionPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
-    """Device-resident multi-token greedy decode: `n_steps` decode steps
-    with on-device argmax and on-device EOS masking. Nothing here waits for
+    """Device-resident multi-token decode: `n_steps` decode steps with
+    on-device sampling (`sample`: argmax at temperature 0, Gumbel-max from
+    `generator` above it) and on-device EOS masking. Nothing here waits for
     the device: the caller syncs ONCE per chunk on the returned tensors.
 
     Each step emits `cur` (frozen to eos_id for finished rows), feeds it back
@@ -87,7 +109,7 @@ def decode_scan(
                                        cache["lengths"])
         last = logits[:, 0]
         bad = bad | (~torch.isfinite(last).all(dim=-1) & ~finished)
-        cur = torch.argmax(last, dim=-1).to(cur.dtype)
+        cur = sample(last, temperature, generator).to(cur.dtype)
         toks.append(tok)
     return torch.stack(toks, dim=1), cur, finished, bad, cache
 

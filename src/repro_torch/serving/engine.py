@@ -1,9 +1,9 @@
 """Serving engine: slot-based continuous batching over device-resident decode.
 
-Counterpart of the FCFS subset of ``repro/serving/engine.py``. The engine
-owns a fixed pool of `max_batch` cache slots (rows of one pool cache) and a
-FCFS `Scheduler` (serving/scheduler.py) that admits and retires requests
-between decode chunks:
+Counterpart of ``repro/serving/engine.py`` (all but its telemetry). The
+engine owns a fixed pool of `max_batch` cache slots (rows of one pool cache)
+and an SLO-aware `Scheduler` (serving/scheduler.py) that admits, preempts,
+quarantines and retires requests between decode chunks:
 
 * admission: with `prefill_chunk=0` (monolithic) a queued request is
   prefilled alone (B=1): its whole blocks run through one forward that also
@@ -18,8 +18,16 @@ between decode chunks:
   remainder length (`pool_prefill_remainder`);
 * decode: the whole pool decodes `decode_chunk` tokens on the device
   (model.decode_scan), idle slots riding along finished-masked, and the
-  host syncs once per chunk;
-* retirement: EOS or an exhausted token budget frees the slot.
+  host syncs once per chunk; tokens are the argmax at `temperature` 0,
+  else Gumbel-max draws from an explicit `torch.Generator` on the engine's
+  device (`model.sample`);
+* retirement: EOS or an exhausted token budget frees the slot;
+* row surgery between chunks (the scheduler's preemption and fault
+  recovery): `snapshot_pool_rows` copies rows to the host without
+  touching the pool, `restore_pool_rows(_paged)` writes a snapshot back
+  (a paged one into freshly allocated pages), `scrub_pool_row` zeroes a
+  quarantined row, `corrupt_pool_row(_paged)` is the fault injector's
+  corruption, with JAX's arithmetic in each leaf's dtype.
 
 Every cache write, rope position, mask and block fold is per row, so a slot
 decodes identically whatever its neighbours do: continuous scheduling gives
@@ -58,6 +66,8 @@ DEFAULT_DECODE_CHUNK = 32
 # physical page (L, Np, ...), not by pool row: per-row gathers pass them
 # whole (rows reach them only through their page tables).
 PAGED_ARENA_KEYS = ("page_k", "page_v", "page_k_s", "page_v_s")
+# The paged pool's per-row payload: the quantized ring and its scales.
+PAGED_RING_KEYS = ("raw_k_q", "raw_v_q", "raw_k_s", "raw_v_s")
 
 
 def bucket_requests(prompts: Sequence[Sequence[int]], max_batch: int
@@ -93,6 +103,7 @@ class ServingEngine:
         max_seq: int,
         device: Union[str, torch.device] = "cuda",
         cache_dtype=torch.bfloat16,
+        temperature: float = 0.0,
         decode_chunk: Optional[int] = None,
         attention_backend: Optional[str] = None,
         prefill_chunk: int = 0,
@@ -108,6 +119,7 @@ class ServingEngine:
         self.cfg = cfg
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
+        self.temperature = temperature
         self.decode_chunk = max(1, decode_chunk or DEFAULT_DECODE_CHUNK)
         self.prefill_chunk = int(prefill_chunk)
         if cache_format not in ("dense", "paged"):
@@ -158,6 +170,26 @@ class ServingEngine:
             return self.arena_pages
         return max_batch * self.max_pages_per_row() + 1
 
+    def resolve_generator(self,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Generator:
+        """`generator`, checked to live on the engine's device (a generator
+        elsewhere raises; it is never moved), or a fresh one seeded 0
+        there."""
+        if generator is None:
+            return torch.Generator(device=self.device).manual_seed(0)
+        gd = generator.device
+        if gd.type != self.device.type or (
+                self.device.index is not None and gd.index is not None
+                and gd.index != self.device.index):
+            raise ValueError(f"generator on {gd}, engine on {self.device}: "
+                             "pass a torch.Generator on the engine's device")
+        return generator
+
+    def _sample(self, logits: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        return model_lib.sample(logits, self.temperature, generator)
+
     @torch.no_grad()
     def prefill(self, tokens: np.ndarray) -> Tuple[Dict, torch.Tensor]:
         """tokens: (B, S) prompt. Returns (cache at t=S, last-token logits).
@@ -189,13 +221,16 @@ class ServingEngine:
 
     @torch.no_grad()
     def decode_chunk_fn(self, cur: torch.Tensor, finished: torch.Tensor,
-                        cache: Dict, n: int):
-        """One n-step device-resident decode chunk (model.decode_scan);
-        updates `cache` in place. Returns (tokens, cur, finished, bad,
-        cache), all on the device."""
+                        cache: Dict, n: int,
+                        generator: Optional[torch.Generator] = None):
+        """One n-step device-resident decode chunk (model.decode_scan),
+        sampling at the engine's temperature from `generator`; updates
+        `cache` in place. Returns (tokens, cur, finished, bad, cache), all
+        on the device."""
         return model_lib.decode_scan(
             self.params, self.cfg, cur, finished, cache, n_steps=n,
-            eos_id=EOS, plan=self.plan)
+            eos_id=EOS, temperature=self.temperature, generator=generator,
+            plan=self.plan)
 
     # -- slot-pool surface (consumed by serving/scheduler.py) -------------
 
@@ -398,35 +433,177 @@ class ServingEngine:
         before its pages return to the free list."""
         return self.write_table_row(pool, row, ())
 
-    def prefill_request(self, tokens: Sequence[int]) -> Tuple[Dict, int]:
+    def prefill_request(self, tokens: Sequence[int],
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[Dict, int]:
         """Prefill ONE request (B=1). Returns (slot cache positioned at the
-        prompt length, first greedy token); one host sync."""
+        prompt length, first sampled token); one host sync."""
         cache, logits = self.prefill(np.asarray([list(tokens)], np.int64))
-        return cache, int(torch.argmax(logits[0]).item())
+        return cache, int(self._sample(logits, generator)[0].item())
+
+    # -- row surgery (preemption, fault recovery, fault injection) ---------
+
+    def snapshot_pool_rows(self, pool: Dict, rows: Sequence[int]
+                           ) -> List[Dict]:
+        """Per-row B=1 sub-caches of pool rows `rows`, for `capture` to copy
+        to the host; the pool is not touched. Dense: views of the rows
+        (O(c + M) per row). Paged: the ring, counters and the row's
+        committed pages (`lengths // c`, gathered through its table), so a
+        snapshot holds no bytes of unallocated table entries."""
+        if not self.paged:
+            return [{k: (v[row:row + 1] if k == "lengths"
+                         else v[:, row:row + 1]) for k, v in pool.items()}
+                    for row in rows]
+        sub = self._gather_rows_paged(
+            pool, torch.as_tensor(list(rows), device=self.device))
+        c = self._block()
+        npv = (sub["lengths"] // c).tolist()
+        out = []
+        for j in range(len(rows)):
+            out.append({k: (v[j:j + 1] if k == "lengths" else
+                            v[:, j, :npv[j]] if k.startswith("pages_") else
+                            v[:, j:j + 1]) for k, v in sub.items()})
+        return out
+
+    @staticmethod
+    def _gather_rows_paged(pool: Dict, idx: torch.Tensor) -> Dict:
+        """Snapshot gather of a paged pool: per-row ring and lengths, plus
+        the payload and scale of EVERY table entry (unallocated entries
+        clamp to page 0; `snapshot_pool_rows` keeps only the committed
+        pages)."""
+        g = {k: v.index_select(0 if k == "lengths" else 1, idx)
+             for k, v in pool.items() if k not in PAGED_ARENA_KEYS}
+        Np = pool["page_k"].shape[1]
+        safe = g.pop("page_table")[0].clamp(0, Np - 1).long()    # (g, maxp)
+        for src, dst in (("page_k", "pages_k"), ("page_v", "pages_v"),
+                         ("page_k_s", "pages_k_s"),
+                         ("page_v_s", "pages_v_s")):
+            g[dst] = pool[src][:, safe]          # (L, g, maxp, ...)
+        return g
+
+    def restore_pool_rows(self, pool: Dict, sub: Dict, row: int) -> Dict:
+        """Write a dense snapshot's B=1 sub-cache back into pool row `row`,
+        in place: the byte-exact inverse of `snapshot_pool_rows`."""
+        for k, v in pool.items():
+            src = sub[k].to(device=v.device, dtype=v.dtype)
+            if k == "lengths":
+                v[row] = src[0]
+            else:
+                v[:, row] = src[:, 0]
+        return pool
+
+    def restore_pool_rows_paged(self, pool: Dict, sub: Dict, row: int,
+                                page_ids: Sequence[int]) -> Dict:
+        """Paged inverse of `snapshot_pool_rows`, in place: the ring and
+        counter by row, the snapshot's pages into the freshly allocated
+        `page_ids` (as many as the snapshot holds), the table row pointing
+        at them. Physical placement may differ from capture; rows reach
+        pages only through the table, so the resumed math is the same.
+        Past the pages, zero pages land in TRASH, as in JAX."""
+        npv = len(page_ids)
+        for k, v in sub.items():
+            if k.startswith("pages_") and v.shape[1] != npv:
+                raise ValueError(f"snapshot holds {v.shape[1]} pages in {k} "
+                                 f"but {npv} pages were allocated")
+        for k in PAGED_RING_KEYS:
+            pool[k][:, row] = sub[k][:, 0].to(device=self.device,
+                                              dtype=pool[k].dtype)
+        trash = pool["page_k"].shape[1] - 1
+        pad = npv < self.max_pages_per_row()
+        ids = torch.as_tensor(list(page_ids) + [trash] * pad,
+                              device=self.device, dtype=torch.long)
+        for sk, pk in (("pages_k", "page_k"), ("pages_v", "page_v"),
+                       ("pages_k_s", "page_k_s"), ("pages_v_s", "page_v_s")):
+            v = sub[sk].to(device=self.device, dtype=pool[pk].dtype)
+            if pad:
+                v = torch.cat([v, v.new_zeros((v.shape[0], 1) + v.shape[2:])],
+                              dim=1)
+            pool[pk][:, ids] = v
+        pool["page_table"][:, row] = self._page_table_row(page_ids)
+        pool["lengths"][row] = sub["lengths"][0].to(self.device)
+        return pool
+
+    def scrub_pool_row(self, pool: Dict, row: int) -> Dict:
+        """Zero a quarantined row, in place: a faulty row may hold NaN,
+        which (unlike finite stale bytes) leaks through a later tenant's
+        additive masks in the plain route. Dense: every leaf of the row
+        and its counter. Paged: the ring and its scales, the counter and
+        the table row; the row's pages are zeroed by the allocator's
+        scrub-before-reuse when they are freed."""
+        if self.paged:
+            for k in PAGED_RING_KEYS:
+                pool[k][:, row] = 0
+            pool["page_table"][:, row] = -1
+            pool["lengths"][row] = 0
+            return pool
+        for k, v in pool.items():
+            if k == "lengths":
+                v[row] = 0
+            else:
+                v[:, row] = 0
+        return pool
+
+    @staticmethod
+    def corrupt_pool_row(pool: Dict, row: int, mode: str) -> Dict:
+        """Fault injection on a dense pool, in place: every leaf of row
+        `row` but `lengths` is poisoned with NaN (mode 'nan') or garbled
+        as x·(-1.5) + 0.25 in its own dtype (mode 'garble', finite)."""
+        if mode not in ("nan", "garble"):
+            raise ValueError(f"unknown corruption mode {mode!r}")
+        for k, v in pool.items():
+            if k != "lengths":
+                v[:, row] = _corrupt(v[:, row], mode, paged=False)
+        return pool
+
+    def corrupt_pool_row_paged(self, pool: Dict, row: int,
+                               page_ids: Sequence[int], mode: str) -> Dict:
+        """Fault injection on a paged pool, in place: the row's ring and the
+        pages it owns (TRASH too while its table is not full, as in JAX).
+        Integer payloads take x ^ 0x55 in 'garble' mode and stay intact in
+        'nan' mode, where NaN enters through the fp32 scales; float leaves
+        (the scales, fp8 payloads) as in `corrupt_pool_row`."""
+        if mode not in ("nan", "garble"):
+            raise ValueError(f"unknown corruption mode {mode!r}")
+        for k in PAGED_RING_KEYS:
+            pool[k][:, row] = _corrupt(pool[k][:, row], mode, paged=True)
+        trash = pool["page_k"].shape[1] - 1
+        ids = list(dict.fromkeys(
+            list(page_ids)
+            + [trash] * (len(page_ids) < self.max_pages_per_row())))
+        idx = torch.as_tensor(ids, device=self.device, dtype=torch.long)
+        for k in PAGED_ARENA_KEYS:
+            pool[k][:, idx] = _corrupt(pool[k][:, idx], mode, paged=True)
+        return pool
 
     # -- public API -------------------------------------------------------
 
-    def generate_batch(self, tokens: np.ndarray, max_new_tokens: int
+    def generate_batch(self, tokens: np.ndarray, max_new_tokens: int,
+                       generator: Optional[torch.Generator] = None
                        ) -> np.ndarray:
-        """Greedy generation for one equal-length batch.
+        """Greedy or temperature generation for one equal-length batch.
         tokens: (B, S). Returns (B, max_new_tokens), in device-resident
-        `decode_chunk`-token chunks with one host sync per chunk."""
+        `decode_chunk`-token chunks with one host sync per chunk.
+        `generator` (default: seeded 0 on the engine's device) feeds the
+        sampler at temperature > 0."""
         cache, logits = self.prefill(tokens)
-        return self.decode_tokens(cache, logits, max_new_tokens)
+        return self.decode_tokens(cache, logits, max_new_tokens, generator)
 
     def decode_tokens(self, cache: Dict, logits: torch.Tensor,
-                      max_new_tokens: int) -> np.ndarray:
+                      max_new_tokens: int,
+                      generator: Optional[torch.Generator] = None
+                      ) -> np.ndarray:
         """Decode phase given a prefilled cache (updated in place) and
         last-token logits."""
+        generator = self.resolve_generator(generator)
         B = logits.shape[0]
         outs = np.full((B, max_new_tokens), EOS, np.int64)
         finished = torch.zeros(B, dtype=torch.bool, device=self.device)
-        cur = torch.argmax(logits, dim=-1)
+        cur = self._sample(logits, generator)
         done = 0
         while done < max_new_tokens:
             n = min(self.decode_chunk, max_new_tokens - done)
             toks, cur, finished, _bad, cache = self.decode_chunk_fn(
-                cur, finished, cache, n)
+                cur, finished, cache, n, generator)
             host = torch.cat([toks, finished[:, None].to(toks.dtype)],
                              dim=1).cpu().numpy()      # the chunk's one sync
             outs[:, done:done + n] = host[:, :n]
@@ -452,31 +629,60 @@ class ServingEngine:
               max_batch: int = 8,
               *,
               arrival_chunks: Optional[Sequence[int]] = None,
+              priorities: Optional[Sequence[int]] = None,
+              deadlines: Optional[Sequence[Optional[int]]] = None,
+              max_queue: Optional[int] = None,
+              max_retries: int = 2,
+              snapshot_chunks: int = 0,
+              nan_guard: bool = True,
+              fault_injector=None,
               on_token: Optional[Callable[[int, int], None]] = None,
               on_complete: Optional[Callable[[int, List[int]], None]] = None,
+              generator: Optional[torch.Generator] = None,
               return_scheduler: bool = False):
-        """Serve mixed-length requests with slot-based continuous batching
-        (FCFS): a `max_batch`-slot pool, admission/retirement between
-        decode chunks. `max_new_tokens` is one int or one per request;
-        `arrival_chunks` optionally replays an arrival trace (request i is
-        admissible after that many chunks of virtual time). Returns outputs
-        ordered like `prompts`, a `ShedResult` in place of the tokens of a
-        request the paged pool can never hold (or (outputs, scheduler) with
+        """Serve mixed-length requests with slot-based continuous batching:
+        a `max_batch`-slot pool, admission/retirement between decode chunks
+        (serving/scheduler.py). `max_new_tokens` is one int or one per
+        request; `arrival_chunks` optionally replays an arrival trace
+        (request i is admissible after that many ticks of virtual time).
+
+        SLO knobs, all defaulting to plain FCFS: `priorities` (per-request
+        class, lower = more urgent; a strictly more urgent arrival preempts
+        the least urgent running slot), `deadlines` (absolute deadline in
+        ticks, None = none), `max_queue` (bounded admission queue: overflow
+        sheds the least valued entry), `max_retries` and `snapshot_chunks`
+        (fault recovery: retry budget, last-good-snapshot refresh period),
+        `nan_guard` (quarantine rows whose logits go non-finite),
+        `fault_injector` (serving/faults.py). `generator` feeds sampling at
+        temperature > 0 (default: a generator seeded 0 on the engine's
+        device; one on another device raises).
+
+        Returns outputs ordered like `prompts`, a `ShedResult` in place of
+        the tokens of a shed request (or (outputs, scheduler) with
         return_scheduler=True, for stats)."""
         from repro_torch.serving.scheduler import Request, Scheduler
         budgets = _per_request_max_new(max_new_tokens, len(prompts))
         n = len(prompts)
         arrivals = list(arrival_chunks) if arrival_chunks is not None \
             else [0] * n
-        if len(arrivals) != n:
-            raise ValueError(f"arrival_chunks has {len(arrivals)} entries "
-                             f"for {n} prompts")
+        prios = list(priorities) if priorities is not None else [0] * n
+        dls = list(deadlines) if deadlines is not None else [None] * n
+        for name, seq in (("arrival_chunks", arrivals),
+                          ("priorities", prios), ("deadlines", dls)):
+            if len(seq) != n:
+                raise ValueError(f"{name} has {len(seq)} entries "
+                                 f"for {n} prompts")
         self._check_budgets(prompts, budgets)
-        sched = Scheduler(self, max_batch)
+        sched = Scheduler(self, max_batch, generator,
+                          max_queue=max_queue, max_retries=max_retries,
+                          snapshot_chunks=snapshot_chunks,
+                          nan_guard=nan_guard, fault_injector=fault_injector)
         for i, p in enumerate(prompts):
             sched.submit(Request(rid=i, tokens=tuple(p),
                                  max_new_tokens=budgets[i],
-                                 arrival_chunk=arrivals[i]))
+                                 arrival_chunk=arrivals[i],
+                                 priority=prios[i],
+                                 deadline_ticks=dls[i]))
         results = sched.run(on_token=on_token, on_complete=on_complete)
         outputs = [results[i] for i in range(n)]
         if return_scheduler:
@@ -487,7 +693,8 @@ class ServingEngine:
                      max_new_tokens: Union[int, Sequence[int]],
                      max_batch: int = 8) -> List[List[int]]:
         """Static bucketed baseline: bucket by equal prompt length, decode
-        each bucket to its longest request budget."""
+        each bucket to its longest request budget (each bucket from a
+        generator seeded 0, as JAX's buckets each start from key 0)."""
         budgets = _per_request_max_new(max_new_tokens, len(prompts))
         self._check_budgets(prompts, budgets)
         results: List[Optional[List[int]]] = [None] * len(prompts)
@@ -518,3 +725,45 @@ class ServingEngine:
                 self.cfg.attention, num_layers=self.cfg.num_layers,
                 batch=batch, max_seq=self.max_seq, dtype=self.cache_dtype)
         return transformer.cache_nbytes(spec)
+
+
+def _round_fp8(x: torch.Tensor, nan_sign: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """fp32 -> float8_e4m3fn as JAX rounds it: to nearest even, and NaN
+    past the largest finite value (torch saturates there). Built on the
+    codes so every device gives the same bits: an overflow keeps x's sign;
+    a NaN takes `nan_sign` (0x80 or 0), the sign of the NaN it came from,
+    as XLA:CPU propagates it."""
+    ok = x.abs() <= 464.0
+    code = torch.where(ok, x, torch.zeros_like(x)).to(dtype).view(
+        torch.uint8)
+    sign = torch.where(torch.isnan(x), nan_sign,
+                       torch.signbit(x).to(torch.uint8) << 7)
+    return torch.where(ok, code, sign | 0x7F).view(dtype)
+
+
+def _corrupt(x: torch.Tensor, mode: str, *, paged: bool) -> torch.Tensor:
+    """The JAX engine's leaf corruption, bit for bit (held to JAX on the
+    CPU, and on the card to the CPU).
+
+    'nan': NaN for float leaves; integer leaves become 0 on a dense pool
+    (JAX's full_like(int, nan)) and stay intact on a paged pool. 'garble':
+    x·(-1.5) + 0.25 in the leaf's dtype. fp32 as XLA:CPU fuses it (one
+    rounding: exact in fp64, then rounded); bf16 one rounding per op;
+    float8_e4m3fn one rounding per op, computed in fp32 (torch has no fp8
+    arithmetic), overflow to NaN as in JAX; integers: the constants cast
+    to the dtype (-1 and 0) on a dense pool, x ^ 0x55 on a paged pool."""
+    if not x.dtype.is_floating_point:
+        if mode == "nan":
+            return x if paged else torch.zeros_like(x)
+        return x ^ 0x55 if paged else -x
+    if mode == "nan":
+        return torch.full_like(x, float("nan"))
+    if x.dtype == torch.float32:
+        return (x.double() * -1.5 + 0.25).float()
+    if x.element_size() == 1:                           # float8_e4m3fn
+        y = _round_fp8(x.float() * -1.5, x.view(torch.uint8) & 0x80,
+                       x.dtype)
+        return _round_fp8(y.float() + 0.25, y.view(torch.uint8) & 0x80,
+                          x.dtype)
+    return x * -1.5 + 0.25

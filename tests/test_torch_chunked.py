@@ -240,7 +240,7 @@ def test_chunked_serve_matches_jax_engine(served):
     assert sched.stats.prefill_tokens == jsched.stats.prefill_tokens \
         == sum(PROMPT_LENS)
     assert sched.stats.chunks == jsched.stats.chunks
-    assert sched.stats.bad_rows == 0
+    assert sched.stats.quarantines == 0
 
 
 def test_chunked_serve_matches_monolithic(served):

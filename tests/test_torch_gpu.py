@@ -995,3 +995,166 @@ def test_full_width_standard_decode_step_matches_the_cpu(cuda):
         got.append((lg[:, -1].cpu(), step[:, 0].cpu(), cache["k"].cpu()))
     for a, b in zip(*got):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+# -- SLO serving on the card: row surgery, snapshots, the NaN guard, sampling
+
+SURGERY_POOLS = {"dense-fp32": dict(cache_dtype=torch.float32),
+                 "dense-bf16": dict(cache_dtype=torch.bfloat16),
+                 "paged-int8": dict(cache_format="paged"),
+                 "paged-fp8": dict(cache_format="paged", page_dtype="fp8")}
+
+
+def _slo_engine(dev, pool, **kw):
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    opts = {"cache_dtype": torch.float32, **SURGERY_POOLS[pool], **kw}
+    return ServingEngine(params, cfg, max_seq=96, device=dev,
+                         decode_chunk=4, **opts)
+
+
+def _random_pool(eng, max_batch, seed=0):
+    """Every leaf of a CPU pool filled from a seeded generator: finite fp8
+    codes up to the largest (whose garble overflows), int8 codes, small
+    positive scales, page ids, lengths."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in eng.init_pool_cache(max_batch).items():
+        if k == "lengths":
+            out[k] = torch.randint(0, 40, v.shape, generator=g,
+                                   dtype=torch.int32)
+        elif k == "page_table":
+            out[k] = torch.randint(-1, 8, v.shape, generator=g,
+                                   dtype=torch.int32)
+        elif v.dtype == torch.int8:
+            out[k] = torch.randint(-128, 128, v.shape, generator=g,
+                                   dtype=torch.int8)
+        elif v.element_size() == 1:
+            codes = torch.randint(0, 0x7F, v.shape, generator=g,
+                                  dtype=torch.uint8)
+            sign = torch.randint(0, 2, v.shape, generator=g,
+                                 dtype=torch.uint8) << 7
+            out[k] = (codes | sign).view(v.dtype)
+        else:
+            x = torch.randn(v.shape, generator=g) * 3
+            out[k] = (x.abs() / 100 if k.endswith("_s") else x).to(v.dtype)
+    return out
+
+
+def _bytes(t):
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("op", ["garble", "nan", "scrub"])
+@pytest.mark.parametrize("pool", list(SURGERY_POOLS))
+def test_row_surgery_on_the_card_matches_the_cpu(cuda, pool, op):
+    """corrupt_pool_row(_paged) and scrub_pool_row on a CUDA pool give the
+    CPU's bytes (which tests/test_torch_faults.py holds to JAX's), fp8
+    overflow to NaN included; a scrubbed row reads exact zeros."""
+    ecpu, ecuda = _slo_engine("cpu", pool), _slo_engine(cuda, pool)
+    cpu = _random_pool(ecpu, 3)
+    dev = {k: v.to(cuda) for k, v in cpu.items()}
+    row, pages = 1, [4, 0, 6]
+    for eng, p in ((ecpu, cpu), (ecuda, dev)):
+        if op == "scrub":
+            eng.scrub_pool_row(p, row)
+        elif eng.paged:
+            eng.corrupt_pool_row_paged(p, row, pages, op)
+        else:
+            eng.corrupt_pool_row(p, row, op)
+    torch.cuda.synchronize()
+    for k in cpu:
+        assert torch.equal(_bytes(dev[k]), _bytes(cpu[k])), k
+    if op == "scrub":
+        keys = ("raw_k_q", "raw_v_q", "raw_k_s", "raw_v_s") \
+            if ecuda.paged else [k for k in dev if k != "lengths"]
+        for k in keys:
+            assert (_bytes(dev[k][:, row]) == 0).all(), k
+        assert dev["lengths"][row].item() == 0
+
+
+@pytest.mark.parametrize("pool", list(SURGERY_POOLS))
+def test_snapshot_round_trip_on_the_card(cuda, pool):
+    """A row snapshotted from a CUDA pool holds the CPU snapshot's bytes
+    (same checksum) and, restored into another row (a paged one into other
+    pages), reads back byte-identical."""
+    from repro_torch.serving.snapshot import capture
+    ecpu, ecuda = _slo_engine("cpu", pool), _slo_engine(cuda, pool)
+    cpu = _random_pool(ecpu, 3)
+    if ecuda.paged:                     # row 0 owns pages 2 and 5
+        cpu["page_table"][:] = -1
+        cpu["page_table"][:, 0, :2] = torch.tensor([2, 5], dtype=torch.int32)
+        cpu["lengths"][0] = 2 * 16 + 7
+    dev = {k: v.to(cuda) for k, v in cpu.items()}
+    snaps = [capture(rid=0, state="decoding", filled=1, cur=0,
+                     finished=False, emitted=[],
+                     cache_rows=eng.snapshot_pool_rows(p, [0])[0], tick=0)
+             for eng, p in ((ecpu, cpu), (ecuda, dev))]
+    assert snaps[0].checksum == snaps[1].checksum and snaps[1].verify()
+    if ecuda.paged:
+        ecuda.restore_pool_rows_paged(dev, snaps[1].cache_rows, 2, [7, 1])
+        for k in ("raw_k_q", "raw_v_q", "raw_k_s", "raw_v_s"):
+            assert torch.equal(_bytes(dev[k][:, 2]), _bytes(cpu[k][:, 0])), k
+        for k in ("page_k", "page_v", "page_k_s", "page_v_s"):
+            assert torch.equal(_bytes(dev[k][:, [7, 1]]),
+                               _bytes(cpu[k][:, [2, 5]])), k
+        assert dev["page_table"][0, 2, :3].tolist() == [7, 1, -1]
+    else:
+        ecuda.restore_pool_rows(dev, snaps[1].cache_rows, 2)
+        for k in cpu:
+            a = dev[k][2] if k == "lengths" else dev[k][:, 2]
+            b = cpu[k][0] if k == "lengths" else cpu[k][:, 0]
+            assert torch.equal(_bytes(a), _bytes(b)), k
+    assert dev["lengths"][2].item() == cpu["lengths"][0].item()
+
+
+@pytest.mark.parametrize("pool", ["dense-fp32", "paged-int8"])
+def test_nan_row_flagged_through_the_decode_kernels(cuda, pool):
+    """A NaN-poisoned row's live keys (dense) or scales (paged) make its
+    logits non-finite through kernel 3 / kernel 7: the guard quarantines
+    exactly that row (the kernels read no masked key, so no neighbour is
+    flagged) and the serve ends with the fault-free tokens."""
+    from repro_torch.serving import Fault, FaultInjector
+    eng = _slo_engine(cuda, pool, prefill_chunk=32)
+    kernel = la.decode_attn_q if eng.paged else la.decode_attn
+    prompts = [[5 + i] * n for i, n in enumerate([8, 19, 35, 48, 70])]
+    clean = eng.serve(prompts, 12, max_batch=3)
+    n0 = kernel.launches
+    out, sched = eng.serve(
+        prompts, 12, max_batch=3,
+        fault_injector=FaultInjector([Fault("nan_logits", chunk=1, row=0)]),
+        return_scheduler=True)
+    assert kernel.launches > n0
+    assert sched.stats.quarantines == 1 and sched.stats.retries == 1
+    assert out == clean
+
+
+def test_sampling_with_a_cuda_generator(cuda):
+    """Gumbel-max on the card: one CUDA generator seed gives one draw, a
+    CPU generator is refused by the engine, and 20000 draws from one
+    logits row sit within 0.02 total variation of softmax(logits / T) over
+    10 equal-mass bins."""
+    T = 0.8
+    g = torch.Generator(device="cpu").manual_seed(0)
+    logits = (torch.randn(1, 512, generator=g) * 2).to(cuda)
+    draw = lambda seed, n: tmodel.sample(  # noqa: E731
+        logits.expand(n, -1), T,
+        torch.Generator(device=cuda).manual_seed(seed))
+    assert torch.equal(draw(1, 64), draw(1, 64))
+    assert not torch.equal(draw(1, 64), draw(2, 64))
+    probs = torch.softmax(logits[0].double() / T, -1).cpu()
+    order = torch.argsort(probs, descending=True)
+    cum = torch.cumsum(probs[order], 0)
+    bin_of = torch.empty(512, dtype=torch.long)
+    bin_of[order] = torch.clamp((cum - probs[order] / 2) * 10, max=9).long()
+    n = 20000
+    got = torch.bincount(bin_of[draw(3, n).cpu()], minlength=10).double() / n
+    want = torch.zeros(10, dtype=torch.double).index_add_(0, bin_of, probs)
+    assert 0.5 * (got - want).abs().sum().item() <= 0.02
+    eng = _slo_engine(cuda, "dense-fp32", temperature=T)
+    with pytest.raises(ValueError, match="engine's device"):
+        eng.serve([[5] * 9], 4, generator=torch.Generator())
+    outs = [eng.serve([[5] * 9, [6] * 20], 8, max_batch=2,
+                      generator=torch.Generator(device=cuda).manual_seed(4))
+            for _ in range(2)]
+    assert outs[0] == outs[1]

@@ -408,15 +408,25 @@ def test_pages_exhausted_shed_as_in_jax(setup):
 
 
 @pytest.mark.parametrize("prefill_chunk", [0, 32])
-def test_page_pressure_raises_where_jax_preempts(setup, prefill_chunk):
-    """An arena too small for the pool's rows makes the JAX scheduler
-    preempt under page pressure; the port, without the snapshot machinery,
-    raises a RuntimeError that names the missing feature."""
+def test_page_pressure_preempts_as_in_jax(setup, prefill_chunk):
+    """An arena too small for the pool's rows: both schedulers preempt
+    under page pressure (snapshot, requeue, restore into fresh pages) with
+    the same decisions, so the same tokens and counters, and every page is
+    back in the free list afterwards."""
     *_, prompts = setup
     jeng, teng = _engines(setup, prefill_chunk=prefill_chunk,
                           arena_pages=10)
-    _, jsched = jeng.serve(prompts, BUDGETS, max_batch=3,
-                           return_scheduler=True)
+    want, jsched = jeng.serve(prompts, BUDGETS, max_batch=3,
+                              return_scheduler=True)
+    got, sched = teng.serve(prompts, BUDGETS, max_batch=3,
+                            return_scheduler=True)
     assert jsched.stats.page_preemptions > 0
-    with pytest.raises(RuntimeError, match="preemption under page pressure"):
-        teng.serve(prompts, BUDGETS, max_batch=3)
+    assert got == want
+    assert sched.stats.page_preemptions == jsched.stats.page_preemptions
+    assert sched.stats.preemptions == jsched.stats.preemptions
+    assert sched.stats.chunks == jsched.stats.chunks
+    alloc = sched.pool.alloc
+    alloc.check()
+    assert alloc.free_pages == alloc.usable_pages
+    assert sched.pool.pages_allocated == sched.pool.pages_freed \
+        == jsched.pool.pages_allocated

@@ -62,7 +62,7 @@ def test_serve_matches_jax_engine(setup, torch_engine):
     assert got == want
     assert [len(o) for o in got] == BUDGETS        # no EOS at random init
     assert sched.stats.prefill_forwards == len(prompts)
-    assert sched.stats.bad_rows == 0
+    assert sched.stats.quarantines == 0
 
 
 def test_continuous_matches_static(setup, torch_engine):
