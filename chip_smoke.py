@@ -43,7 +43,8 @@ error; none catches its own failure:
    the quantized ones with int8 pages; decode also at a B=1
    prompt-remainder step (logged); the tensor-core forward's and
    backward's registers and spills from -Xptxas -v beside their times;
-5. [serve] serve 8 requests through full-width, 36-layer qwen3-8b (random
+5. [serve] serve 8 requests through full-width qwen3-8b cut to
+   SERVE_LAYERS = 12 of its 36 layers (random
    bf16 weights from a seeded generator, bf16 cache, max_seq 4096,
    max_batch 4, decode_chunk 16), prompts of k·256+j tokens, with the
    kernels' launch counters reset just before and read just after; then a
@@ -100,7 +101,7 @@ error; none catches its own failure:
    pool, chunked tokens against monolithic; the profiles of one prefill
    and one 16-step decode chunk of a full 4-row pool;
 15. [serve-slo] (right after [serve-standard], on [serve]'s weights) the
-   SLO trace at full width, 36 layers, bf16, paged int8 pool, chunked
+   SLO trace at full width, SERVE_LAYERS, bf16, paged int8 pool, chunked
    admission (prefill_chunk=512), max_batch 4, decode_chunk 16: 8
    requests of 256·{1,2,3,4,1,2,3,4} tokens and 24 new, priorities
    2,2,1,1,0,0,0,1, arrivals 0,0,0,0,1,1,2,2, a deadline on priority 0,
@@ -149,7 +150,47 @@ error; none catches its own failure:
    memory above the weights, time saved and memory saved (standard ÷
    Linformer); one layer's attention alone by CUDA-graph replay
    (standard_attention, kernels 6, 6 and 5, and one SDPA call as a
-   yardstick).
+   yardstick);
+21. [per-token] (right after [sample], on [serve]'s weights) 4 prompts of
+   1024 tokens, 32 new: generate_batch's device-resident decode chunks
+   against the per-token loop (one host round trip a token), each after a
+   warm-up, launch counters reset around each: equal tokens; prefill and
+   decode walls, tok/s, the per-token ÷ scan decode wall;
+22. [serve-dense] (after [serve-standard-parity]) qwen3-14b and
+   nemotron-4-15b whole, qwen1.5-110b at full width cut to
+   SERVE_DENSE_LAYERS (bf16, random weights, seed 0; max_seq 4096,
+   max_batch 4, decode_chunk 16): 8 requests of 256·{1,2,3,4,1,2,3,4}
+   prompt tokens (whole blocks: no remainder step may run) and 16 new,
+   monolithic into the dense pool (kernels 1, 3) and chunked (P = 512)
+   into the paged int8 pool (kernels 8, 7), counters reset around each:
+   tok/s, peak memory, cache bytes a request, decode chunks, launches;
+   [serve-dense-parity] each config in fp32 as [parity], the paged legs
+   at 1 layer (both routes then write the same codes; past it they drift
+   by quantization flips, which scripts/paged_parity_spread.py counts);
+23. [train-dense] (after [train-parity-bf16]) two Trainer steps of each
+   dense config at full width cut to TRAIN_DENSE_LAYERS (bf16, remat full,
+   seq 4096, batch 1; kernels 1, 1r, 2 on the tensor cores at G = 5, 6,
+   8): step ms, peak; [train-dense-parity] the 2-layer fp32 cut's loss and
+   every gradient leaf through the kernels against the plain reference at
+   seq 1024 (within TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL; the reference's
+   gradients wait in host memory, and the AdamW update is not compared:
+   fp32 weights, two gradient copies and moments do not fit at once);
+24. [frontends] internvl2-2b (256 patch embeddings prepended) and
+   musicgen-large (frame embeddings in place of tokens) whole in bf16: a
+   forward building the cache over 2 × 1024 positions and 16 decode steps
+   (kernels 1, 3), then two train steps at 2 × 4096 through
+   make_train_step (1, 1r, 2; G = 2 at Dh = 128 and G = 1 at Dh = 64);
+   [frontends-parity] the 2-layer fp32 cut against the plain reference:
+   the forward's and 8 decode steps' logits within LOGITS_TOL, one train
+   step as [train-parity];
+25. [serve-ckpt] two Trainer steps of qwen3-8b SMOKE in bf16 saved to a
+   temporary directory, served by `launch/serve.py --ckpt-dir`: the
+   tokens of an engine over the trainer's in-memory params.
+
+[check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
+these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
+(the g*_c256 entries of TRAIN_EDGE_SHAPES, PREFIX_EDGE_SHAPES and
+DEC_EDGE_SHAPES; the last covers kernel 7 in int8 and fp8 too).
 
 Every torch.profiler breakdown is of the second of two runs, the first a
 discarded warm-up step (profile_kernels), and lists the port's kernels by
@@ -656,7 +697,7 @@ def log_snapshot_costs(acc):
 
 def serve_slo_phase(dev, cfg, params):
     """[serve-slo]: the SLO trace through the paged int8 pool under chunked
-    admission (kernels 8 and 7) at full width, 36 layers, bf16: launch
+    admission (kernels 8 and 7) at full width, SERVE_LAYERS, bf16: launch
     counters reset just before and read just after; priority and page
     preemptions, a checksum-caught snapshot, one quarantine per fault;
     pages all free afterwards; the snapshot capture and restore costs;
@@ -891,6 +932,15 @@ TRAIN_EDGE_SHAPES = {
     "offset_g6": ((1, 12, 2, 192, 64, 8, 64), [2], None),
     "shifted": ((2, 4, 2, 64, 16, 4, 64), None, "shifted"),
     "shifted_offset": ((2, 4, 2, 64, 16, 4, 64), [1, 2], "shifted"),
+    # the dense configs' GQA groups at their c = 256, Dh = 128: G = 2
+    # (internvl2-2b), 5 (qwen3-14b: one head a block, two stages), 8
+    # (qwen1.5-110b); musicgen-large's G = 1 at Dh = 64; G = 5 also with a
+    # start block
+    "g2_c256_dh128": ((1, 4, 2, 1024, 256, 16, 128), None, None),
+    "g5_c256_dh128": ((1, 10, 2, 1024, 256, 16, 128), None, None),
+    "g8_c256_dh128": ((1, 16, 2, 1024, 256, 16, 128), None, None),
+    "g1_c256_dh64": ((2, 4, 4, 1024, 256, 16, 64), None, None),
+    "g5_c256_offset": ((1, 10, 2, 1024, 256, 16, 128), [3], None),
 }
 # prefix form: (B, H, Hkv, P, c, r, Dh), per-row start blocks, slot buffer
 # M; full = the chunked serve's chunk forward (P = 512, M = (4096 + 512) /
@@ -914,6 +964,12 @@ PREFIX_EDGE_SHAPES = {
     "m0": ((2, 4, 2, 64, 16, 4, 32), [0, 3], 0, None),
     "last_start": ((2, 4, 2, 64, 32, 8, 64), [7, 0], 64, None),
     "shifted": ((2, 4, 2, 64, 16, 4, 64), [1, 2], 24, "shifted"),
+    # the dense configs' G = 2, 5 (one head a block), 8 at the chunked
+    # serve's c = 256, Dh = 128, P = 512, M = 288; g5's row 1 ends at slot
+    # (16 + 2)·16 = 288 = M
+    "g2_c256_dh128": ((2, 4, 2, 512, 256, 16, 128), [0, 5], 288, None),
+    "g5_c256_dh128": ((2, 10, 2, 512, 256, 16, 128), [3, 16], 288, None),
+    "g8_c256_dh128": ((2, 16, 2, 512, 256, 16, 128), [1, 9], 288, None),
 }
 # quantized decode: (B, Hkv, G, c, M, r, Dh), rows' positions
 DEC_Q_SHAPES = {"small": ((4, 2, 2, 16, 24, 4, 16), [0, 15, 23, 95]),
@@ -933,6 +989,13 @@ DEC_EDGE_SHAPES = {
                         "masked_row"),
     "shifted": ((2, 2, 3, 64, 70, 8, 64), [70, 300], "shifted"),
     "g6": ((1, 2, 6, 64, 64, 8, 32), [100], None),
+    # the dense configs at c = 256, M = 256: G = 2 (a half-filled block of
+    # four query rows), G = 5 (a block of four and a block of one), G = 8
+    # at Dh = 128; musicgen-large's G = 1 at Dh = 64
+    "g2_c256_dh128": ((2, 2, 2, 256, 256, 16, 128), [300, 3000], None),
+    "g5_c256_dh128": ((2, 2, 5, 256, 256, 16, 128), [700, 4000], None),
+    "g8_c256_dh128": ((2, 2, 8, 256, 256, 16, 128), [255, 2048], None),
+    "g1_c256_dh64": ((2, 4, 1, 256, 256, 16, 64), [10, 3900], None),
 }
 # [train]: depth cut, seq, global batch, steps; [train-parity]: seq
 TRAIN_RUN = dict(layers=8, seq=4096, batch=2, steps=4)
@@ -1865,6 +1928,11 @@ def require_launches(launches, names, path):
             raise AssertionError(f"{name} never launched on the {path} path")
 
 
+# the depth of [serve]'s model (qwen3-8b has 36 layers), shared by every
+# phase on its weights ([serve*], [sample], [per-token]): those phases are
+# host-bound (a decode step's launches grow with the layers) and took 644 s
+# of a slow host's run at 36 layers, so the script's run is cut by depth
+SERVE_LAYERS = 12
 SERVE_LENS = (3, 256 + 17, 230, 512 + 5, 768 + 30, 1, 256 + 9, 512 + 32)
 SERVE_BUDGETS = [32, 40, 40, 36, 48, 44, 32, 48]
 
@@ -1930,10 +1998,11 @@ def time_activities(eng):
 ServeRun = collections.namedtuple("ServeRun", "outs sched launches walls")
 
 
-def run_serve(tag, eng, prompts, kernels):
-    """One counted serve of the 8 requests (max_batch 4): launch counters
-    reset just before and read just after; each of `kernels` must have
-    launched; host wall by engine activity. Returns a ServeRun."""
+def run_serve(tag, eng, prompts, kernels, budgets=SERVE_BUDGETS):
+    """One counted serve of the requests (max_batch 4, new-token
+    `budgets`): launch counters reset just before and read just after;
+    each of `kernels` must have launched; host wall by engine activity.
+    Returns a ServeRun."""
     import torch
     from repro_torch.data.pipeline import EOS
     acc = time_activities(eng)
@@ -1941,7 +2010,7 @@ def run_serve(tag, eng, prompts, kernels):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    outs, sched = eng.serve(prompts, SERVE_BUDGETS, max_batch=4,
+    outs, sched = eng.serve(prompts, budgets, max_batch=4,
                             return_scheduler=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1966,7 +2035,7 @@ def run_serve(tag, eng, prompts, kernels):
     if st.quarantines:
         raise AssertionError(f"{st.quarantines} rows quarantined for "
                              "non-finite logits")
-    for o, b in zip(outs, SERVE_BUDGETS):
+    for o, b in zip(outs, budgets):
         if not isinstance(o, list) or not (0 < len(o) <= b) or EOS in o:
             raise AssertionError(f"output {o!r} for budget {b}")
         if len(o) < b:
@@ -2143,11 +2212,16 @@ def paged_chunk_profile(eng, cfg, prompts):
     del pool
 
 
-def serve_parity_phase(dev, cfg):
+def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
     """2-layer full-width fp32: the kernels against the plain reference on
     the dense pool (prefill logits, tokens), chunked against monolithic
     admission through the kernels (tokens), and the paged int8 and fp8
-    pools under chunked admission (chunk-forward logits, tokens)."""
+    pools under chunked admission (chunk-forward logits, tokens) at
+    `paged_layers` layers. Past the first layer the two routes' paged
+    legs are chaotic: a layer's K/V differ by the routes' rounding, a few
+    values cross a quantization boundary and take another int8/fp8 code,
+    and the logits move by up to ~6e-3 (`scripts/paged_parity_spread.py`);
+    in one layer both routes write the same codes."""
     import numpy as np
     import torch
     from repro_torch.models import model as tmodel
@@ -2164,10 +2238,11 @@ def serve_parity_phase(dev, cfg):
                              cache_dtype=torch.float32, decode_chunk=16,
                              attention_backend=backend, **kw)
 
-    def assert_parity(what, logits, outs):
+    def assert_parity(what, logits, outs, layers=2):
         dl = (logits["auto"] - logits["reference"]).abs().max().item()
         same = outs["auto"] == outs["reference"]
-        log(f"[parity] 2-layer fp32, {what}: logits max |auto - reference| "
+        log(f"[{tag}] {layers}-layer fp32, {what}: logits max |auto - "
+            f"reference| "
             f"= {dl:.3e} (tol {LOGITS_TOL:g}); first 16 greedy tokens "
             f"identical: {same}")
         if not dl <= LOGITS_TOL:
@@ -2186,12 +2261,15 @@ def serve_parity_phase(dev, cfg):
     assert_parity("dense pool, prefill", logits, outs)
     chunked = engine("auto", prefill_chunk=SERVE_PREFILL_CHUNK).serve(
         prompts2, 16, max_batch=2)
-    log(f"[parity] 2-layer fp32: chunked admission through the kernels "
+    log(f"[{tag}] 2-layer fp32: chunked admission through the kernels "
         f"token-identical to monolithic: {chunked == outs['auto']}")
     if chunked != outs["auto"]:
         raise AssertionError(f"chunked {chunked} vs monolithic "
                              f"{outs['auto']}")
     toks, n_valid = chunk_rows(prompts2, SERVE_PREFILL_CHUNK, c)
+    if paged_layers != 2:
+        cfg2 = dataclasses.replace(cfg2, num_layers=paged_layers)
+        params2 = tmodel.init_params(cfg2, seed=1, device=dev)
     for pd in ("int8", "fp8"):
         logits, outs = {}, {}
         for backend in ("auto", "reference"):
@@ -2206,28 +2284,20 @@ def serve_parity_phase(dev, cfg):
                                            pad_to=2)
             logits[backend], outs[backend] = lg.float(), eng.serve(
                 prompts2, 16, max_batch=2)
-        assert_parity(f"paged {pd} pool, chunk forward", logits, outs)
+        assert_parity(f"paged {pd} pool, chunk forward", logits, outs,
+                      paged_layers)
 
 
-def train_phase(dev, cfg):
+def counted_train(path, dev, cfg, tcfg):
+    """The Trainer's run of `tcfg` on `cfg`, launch counters reset just
+    before and read just after: each step's loss, grad norm, ms and
+    tokens/s, the peak memory; every loss finite; kernels 1, 1r and 2
+    launched at least once a layer a step, on the tensor cores. Returns
+    (trainer, launches)."""
     import torch
-    from repro_torch.configs.base import OptimizerConfig, TrainConfig
-    from repro_torch.data.pipeline import DataState, batches
     from repro_torch.models.transformer import flatten
-    from repro_torch.optim import adamw_init
     from repro_torch.train import Trainer
-    cfg8 = dataclasses.replace(cfg, num_layers=TRAIN_RUN["layers"])
-    tcfg = TrainConfig(seq_len=TRAIN_RUN["seq"],
-                       global_batch=TRAIN_RUN["batch"],
-                       steps=TRAIN_RUN["steps"], log_every=1,
-                       checkpoint_every=0, seed=0,
-                       optimizer=OptimizerConfig(lr=3e-4, warmup_steps=1,
-                                                 total_steps=4))
-    log(f"[train] {cfg8.name} cut to {cfg8.num_layers} layers, d="
-        f"{cfg8.d_model}, vocab {cfg8.padded_vocab_size}, {cfg8.dtype}, "
-        f"remat {cfg8.remat}, seq {tcfg.seq_len}, global batch "
-        f"{tcfg.global_batch}, {tcfg.steps} steps")
-    trainer = Trainer(cfg8, tcfg, device=dev, log_fn=log)
+    trainer = Trainer(cfg, tcfg, device=dev, log_fn=log)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2244,20 +2314,40 @@ def train_phase(dev, cfg):
             f"{h['tokens_per_s']:.1f} tokens/s")
     log(f"  {n_params / 1e9:.3f} B params; run {wall:.1f} s (parameter "
         f"init included); peak memory {peak / 1e9:.2f} GB; launches "
-        f"{launches}")
+        f"{ {k: v for k, v in launches.items() if v} }")
     if len(trainer.history) != tcfg.steps or not all(
             math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
             for h in trainer.history):
         raise AssertionError(f"non-finite or missing losses: "
                              f"{trainer.history}")
-    need = cfg8.num_layers * tcfg.steps
+    need = cfg.num_layers * tcfg.steps
     for name in ("blockwise_causal_attn",
                  "blockwise_causal_attn(return_residuals)",
                  "blockwise_causal_attn_bwd"):
         if launches[name] < need:
             raise AssertionError(f"{name}: {launches[name]} launches on the "
-                                 f"train path, expected at least {need}")
-    require_routes("train", "tensor cores")
+                                 f"{path} path, expected at least {need}")
+    require_routes(path, "tensor cores")
+    return trainer, launches
+
+
+def train_phase(dev, cfg):
+    import torch
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import DataState, batches
+    from repro_torch.optim import adamw_init
+    cfg8 = dataclasses.replace(cfg, num_layers=TRAIN_RUN["layers"])
+    tcfg = TrainConfig(seq_len=TRAIN_RUN["seq"],
+                       global_batch=TRAIN_RUN["batch"],
+                       steps=TRAIN_RUN["steps"], log_every=1,
+                       checkpoint_every=0, seed=0,
+                       optimizer=OptimizerConfig(lr=3e-4, warmup_steps=1,
+                                                 total_steps=4))
+    log(f"[train] {cfg8.name} cut to {cfg8.num_layers} layers, d="
+        f"{cfg8.d_model}, vocab {cfg8.padded_vocab_size}, {cfg8.dtype}, "
+        f"remat {cfg8.remat}, seq {tcfg.seq_len}, global batch "
+        f"{tcfg.global_batch}, {tcfg.steps} steps")
+    trainer, launches = counted_train("train", dev, cfg8, tcfg)
 
     # where the time goes: one more step (fresh optimizer state, the next
     # batch) under torch.profiler, after the counted run
@@ -2293,7 +2383,8 @@ def train_parity_phase(dev, cfg2, batch, tag):
     from repro_torch.train import make_train_step
     opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=10)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    B, S = batch["tokens"].shape
+    B, S = batch["labels"].shape
+    S += cfg2.frontend_embed_len
     res = {}
     for backend in ("auto", "reference"):
         c = cfg2.with_attention_backend(backend)
@@ -2666,7 +2757,8 @@ def figure1_phase(dev, cfg, params, batch):
     gen = torch.Generator(device=dev).manual_seed(0)
     energy, ranks, errs = [], [], {}
     with torch.no_grad():
-        x = transformer.embed_inputs(params, batch["tokens"][:1])
+        x = transformer.embed_inputs(params, cfg,
+                                     {"tokens": batch["tokens"][:1]})
         S = x.shape[1]
         k = min(128, S)                 # the paper's 128 of n = 512
         for i in range(cfg.num_layers):
@@ -2902,6 +2994,450 @@ def table3_phase(dev):
     log(f"  [table3] {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- the other dense configs, the frontends, the per-token baseline and
+# checkpoint-restored serving ------------------------------------------------
+
+DENSE_ARCHS = ("qwen3-14b", "nemotron-4-15b", "qwen1.5-110b")
+FRONTEND_ARCHS = ("internvl2-2b", "musicgen-large")
+# [serve-dense]: the depth each config is served at (None: whole). qwen1.5-
+# 110b takes 2.72 GB a layer in bf16 (80 layers, ~222 GB whole): 22 layers
+# and its 4.98 GB of embedding and LM head leave ~14 GB of the card's 80 GB
+# to the pools, the activations and the allocator
+SERVE_DENSE_LAYERS = {"qwen3-14b": None, "nemotron-4-15b": None,
+                      "qwen1.5-110b": 22}
+SERVE_DENSE_BLOCKS = (1, 2, 3, 4, 1, 2, 3, 4)   # prompt lengths, in blocks
+SERVE_DENSE_NEW = 16
+# [train-dense]: the depth at which bf16 params and gradients, fp32 AdamW
+# moments (12 bytes a parameter), the clip's second gradient copy and the
+# update's fp32 temporaries of the largest leaf fit on the card beside the
+# activations of one 4096-token row
+TRAIN_DENSE_LAYERS = {"qwen3-14b": 8, "nemotron-4-15b": 2,
+                      "qwen1.5-110b": 1}
+TRAIN_DENSE_RUN = dict(seq=4096, batch=1, steps=2)
+# [frontends]: the forward and cache build over S tokens (internvl2-2b: its
+# 256 patch embeddings and S - 256 text tokens; musicgen-large: S frames),
+# decode steps, and the train steps' batch
+FRONTEND_RUN = dict(batch=2, seq=1024, decode=16, train_batch=2,
+                    train_seq=4096, steps=2)
+# [per-token]: [serve]'s model and prompts of whole blocks
+PER_TOKEN_RUN = dict(batch=4, prompt=1024, new=32)
+
+
+def serve_dense_phase(dev, arch):
+    """[serve-dense]: the config at full width (cut in depth as
+    SERVE_DENSE_LAYERS says), random bf16 weights (seed 0), 8 requests of
+    256·SERVE_DENSE_BLOCKS prompt tokens (whole blocks: no remainder step)
+    and SERVE_DENSE_NEW new tokens, served twice: monolithic into the
+    dense pool (kernels 1 and 3), then chunked (P = 512) into the paged
+    int8 pool (kernels 8 and 7). Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import param_bytes
+    full = get_config(arch)
+    cfg = full if SERVE_DENSE_LAYERS[arch] is None else dataclasses.replace(
+        full, num_layers=SERVE_DENSE_LAYERS[arch])
+    a = cfg.attention
+    log(f"[serve-dense] {arch}: {cfg.num_layers} of {full.num_layers} "
+        f"layers, d={cfg.d_model}, H={a.num_heads}/{a.num_kv_heads} (G="
+        f"{a.q_per_kv}), Dh={a.head_dim}, d_ff={cfg.mlp.d_ff} "
+        f"{cfg.mlp.activation}, qk_norm {a.qk_norm}, qkv_bias {a.qkv_bias}, "
+        f"vocab {cfg.padded_vocab_size}, {cfg.dtype}")
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  params: {param_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    c = a.linformer.block_size
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(4, cfg.vocab_size, n * c)))
+               for n in SERVE_DENSE_BLOCKS]
+    budgets = [SERVE_DENSE_NEW] * len(prompts)
+    launches, outs = {}, {}
+    for mode, kw, kernels in (
+            ("dense", {}, ("blockwise_causal_attn", "decode_attn")),
+            ("paged", dict(prefill_chunk=SERVE_PREFILL_CHUNK,
+                           cache_format="paged",
+                           page_dtype=SERVE_PAGE_DTYPE),
+             ("blockwise_causal_prefix_attn_q", "decode_attn_q"))):
+        eng = serve_engine(dev, cfg, params, **kw)
+        tag = f"serve-dense {arch} {mode}"
+        run = run_serve(tag, eng, prompts, kernels, budgets)
+        if "pool_prefill_remainder" in run.walls:
+            raise AssertionError(f"{tag}: a remainder step ran on prompts "
+                                 "of whole blocks")
+        log(f"  cache bytes a request: {eng.cache_bytes(4) // 4} "
+            f"({'paged ' + SERVE_PAGE_DTYPE if eng.paged else 'dense bf16'}"
+            f", max_seq {eng.max_seq})")
+        if eng.paged:
+            require_pages_free(tag, run.sched)
+        launches[f"serve-dense-{mode} {arch}"] = run.launches
+        outs[mode] = run.outs
+        del eng, run
+    agree = sum(sum(x == y for x, y in zip(p, q))
+                for p, q in zip(outs["dense"], outs["paged"]))
+    log(f"  paged int8 chunked vs dense monolithic: {agree} of "
+        f"{sum(map(len, outs['dense']))} tokens equal position by position "
+        "(int8 slots and other GEMM shapes round differently)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def require_pages_free(tag, sched):
+    """Clean page accounting after a paged serve: every page back in the
+    free list. (A helper, so that no caller keeps the allocator, which
+    holds its engine and so the weights, alive.)"""
+    alloc = sched.pool.alloc
+    alloc.check()
+    if alloc.free_pages != alloc.usable_pages:
+        raise AssertionError(f"{tag}: "
+                             f"{alloc.usable_pages - alloc.free_pages} pages "
+                             "leaked")
+
+
+def train_dense_phase(dev, arch):
+    """[train-dense]: TRAIN_DENSE_RUN["steps"] Trainer steps of the config
+    at full width cut to TRAIN_DENSE_LAYERS (bf16, remat "full", seq 4096,
+    batch 1), launch counters reset just before and read just after:
+    kernels 1, 1r and 2 on the tensor cores, once a layer a step each."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_DENSE_LAYERS[arch])
+    run = TRAIN_DENSE_RUN
+    tcfg = TrainConfig(seq_len=run["seq"], global_batch=run["batch"],
+                       steps=run["steps"], log_every=1, checkpoint_every=0,
+                       seed=0, optimizer=OptimizerConfig(
+                           lr=3e-4, warmup_steps=1,
+                           total_steps=run["steps"]))
+    log(f"[train-dense] {arch} cut to {cfg.num_layers} of "
+        f"{full.num_layers} layers, G={cfg.attention.q_per_kv}, "
+        f"vocab {cfg.padded_vocab_size}, {cfg.dtype}, remat {cfg.remat}, "
+        f"seq {tcfg.seq_len}, batch {tcfg.global_batch}, {tcfg.steps} "
+        "steps")
+    trainer, launches = counted_train(f"train-dense {arch}", dev, cfg, tcfg)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grad_parity_phase(dev, cfg2, batch, tag):
+    """The loss and every gradient leaf of the fp32 config `cfg2` on
+    `batch` (numpy) through the plain reference and then through the
+    kernels, from the same parameters, within TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_RTOL (relative norm error), as [train-parity]. For models
+    whose fp32 parameters, two gradient copies and AdamW moments do not fit
+    on the card at once: the reference's gradients wait in host memory and
+    are compared leaf by leaf, and the AdamW update is not compared."""
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    B, S = batch["labels"].shape
+    ref, errs = None, {}
+    for backend in ("reference", "auto"):
+        c = cfg2.with_attention_backend(backend)
+        params = tmodel.init_params(c, seed=1, device=dev)
+        leaves = flatten(params)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        reset_launches()
+        loss, _ = tmodel.loss_fn(params, c, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        launches = read_launches()
+        log(f"  [{tag}] {backend}: loss {loss.item():.6f}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if ref is None:
+            ref = (loss.item(), {k: g.cpu() for k, g in zip(leaves, grads)})
+        else:
+            for k, g in zip(leaves, grads):
+                want = ref[1][k].to(dev)
+                errs[k] = ((g - want).norm() / want.norm()).item()
+            loss_a = loss.item()
+        del params, leaves, grads, loss
+        torch.cuda.empty_cache()
+    loss_err = abs(loss_a - ref[0]) / abs(ref[0])
+    worst = max(errs, key=errs.get)
+    log(f"[{tag}] {cfg2.num_layers}-layer fp32, B={B}, S={S}: loss rel err "
+        f"{loss_err:.2e} (tol {TRAIN_LOSS_RTOL:g}); worst gradient leaf "
+        f"{worst} of {len(errs)} rel norm err {errs[worst]:.2e} (tol "
+        f"{TRAIN_GRAD_RTOL:g})")
+    if not math.isfinite(loss_a) or not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"losses differ: {loss_a} vs {ref[0]}")
+    if not errs[worst] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"gradient {worst} differs: {errs[worst]}")
+
+
+def frontend_batch(cfg, B, S, seed):
+    """A numpy batch of S positions for a frontend config: frame
+    embeddings (audio) or patch embeddings and S - P text tokens (vlm),
+    labels and a loss mask over the text positions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    D = cfg.d_model
+    if cfg.embedding_inputs:
+        text = S
+        b = {"embeds": rng.standard_normal((B, S, D), np.float32)}
+    else:
+        text = S - cfg.frontend_embed_len
+        b = {"tokens": rng.integers(4, cfg.vocab_size, (B, text)),
+             "frontend_embeds": rng.standard_normal(
+                 (B, cfg.frontend_embed_len, D), np.float32)}
+    b["labels"] = rng.integers(4, cfg.vocab_size, (B, text))
+    b["loss_mask"] = np.ones((B, text), np.int32)
+    return b
+
+
+def frontend_decode(params, cfg, cache, B, n, seed, dev):
+    """n decode steps from a prefilled cache, fed seeded random inputs:
+    tokens for a token config, (B, 1, D) frame embeddings for an
+    embedding-input one. Returns (the steps' logits (B, n, V), cache)."""
+    import torch
+    from repro_torch.models import model as tmodel
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        if cfg.embedding_inputs:
+            e = torch.randn(B, 1, cfg.d_model, generator=g, device=dev)
+            lg, cache = tmodel.decode_step(params, cfg, None, cache,
+                                           embeds=e)
+        else:
+            tok = torch.randint(4, cfg.vocab_size, (B, 1), generator=g,
+                                device=dev)
+            lg, cache = tmodel.decode_step(params, cfg, tok, cache)
+        out.append(lg[:, 0])
+    return torch.stack(out, 1), cache
+
+
+def frontend_phase(dev, arch):
+    """[frontends]: the config whole in bf16 (random weights, seed 0): a
+    forward that builds the cache over FRONTEND_RUN["seq"] positions,
+    decode steps (seeded random tokens, or frame embeddings), then train
+    steps through
+    make_train_step (the Trainer's corpus holds tokens only) at batch 2 ×
+    4096, launch counters reset around each; then the 2-layer fp32 cut
+    against the plain reference route: the forward's and the decode
+    steps' logits within LOGITS_TOL, and one train step as
+    [train-parity]. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten, param_bytes
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    cfg = get_config(arch)
+    a, run = cfg.attention, FRONTEND_RUN
+    log(f"[frontends] {arch} ({cfg.family}): {cfg.num_layers} layers, d="
+        f"{cfg.d_model}, H={a.num_heads}/{a.num_kv_heads} (G={a.q_per_kv}), "
+        f"Dh={a.head_dim}, {cfg.mlp.activation}, vocab "
+        f"{cfg.padded_vocab_size}, frontend_embed_len "
+        f"{cfg.frontend_embed_len}, embedding_inputs {cfg.embedding_inputs}")
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    log(f"  params: {param_bytes(params) / 1e9:.2f} GB")
+    to_dev = lambda b: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                        for k, v in b.items()}
+    B, S = run["batch"], run["seq"]
+    inputs = {k: v for k, v in to_dev(frontend_batch(cfg, B, S, 0)).items()
+              if k in ("tokens", "embeds", "frontend_embeds")}
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _, cache = tmodel.forward(params, cfg, inputs,
+                                          return_cache=True,
+                                          cache_max_seq=4096)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps, cache = frontend_decode(params, cfg, cache, B,
+                                       run["decode"], 1, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches[f"frontends-infer {arch}"] = n = read_launches()
+    log(f"  forward + cache over {B}×{S} ({cfg.frontend_embed_len} frontend "
+        f"positions a row): {1e3 * (t1 - t0):.1f} ms; {run['decode']} decode "
+        f"steps on {'embeddings' if cfg.embedding_inputs else 'tokens'}: "
+        f"{1e3 * (t2 - t1) / run['decode']:.2f} ms a step; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{ {k: v for k, v in n.items() if v} }")
+    if logits.shape != (B, S, cfg.padded_vocab_size) \
+            or not torch.isfinite(logits).all() \
+            or not torch.isfinite(steps).all():
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} or "
+                             "non-finite values")
+    if cache["lengths"].tolist() != [S + run["decode"]] * B:
+        raise AssertionError(f"cache lengths {cache['lengths'].tolist()}")
+    if n["blockwise_causal_attn"] < cfg.num_layers \
+            or n["decode_attn"] < cfg.num_layers * run["decode"]:
+        raise AssertionError(f"{arch}: kernels 1 and 3 launched {n}")
+    del logits, cache, steps
+
+    # train steps, batch 2 × 4096
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=1, total_steps=run["steps"])
+    state = adamw_init(params, opt)
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = []
+    for i in range(run["steps"]):
+        batch = to_dev(frontend_batch(cfg, run["train_batch"],
+                                      run["train_seq"], 10 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        loss = float(met["loss"])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        log(f"  train step {i + 1}: loss {loss:.4f}, grad norm "
+            f"{float(met['grad_norm']):.4f}, {ms[-1]:.1f} ms")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{arch}: non-finite loss")
+    launches[f"frontends-train {arch}"] = n = read_launches()
+    log(f"  train batch {run['train_batch']}×{run['train_seq']}: peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{ {k: v for k, v in n.items() if v} }")
+    need = cfg.num_layers * run["steps"]
+    for name in ("blockwise_causal_attn",
+                 "blockwise_causal_attn(return_residuals)",
+                 "blockwise_causal_attn_bwd"):
+        if n[name] < need:
+            raise AssertionError(f"{arch}: {name} launched {n[name]} times, "
+                                 f"expected {need}")
+    require_routes(f"frontends {arch}", "tensor cores")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2-layer fp32: kernels against the plain reference
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    got = {}
+    for backend in ("auto", "reference"):
+        c2 = cfg2.with_attention_backend(backend)
+        p2 = tmodel.init_params(c2, seed=1, device=dev)
+        with torch.no_grad():
+            lg, _, cache = tmodel.forward(p2, c2, inputs, return_cache=True,
+                                          cache_max_seq=4096,
+                                          cache_dtype=torch.float32)
+            steps, _ = frontend_decode(p2, c2, cache, B, 8, 1, dev)
+        got[backend] = (lg, steps)
+        del p2, cache
+    dl = max((x - y).abs().max().item()
+             for x, y in zip(got["auto"], got["reference"]))
+    log(f"[frontends-parity] {arch} 2-layer fp32: forward and 8 decode "
+        f"steps' logits max |auto - reference| = {dl:.3e} (tol "
+        f"{LOGITS_TOL:g})")
+    if not dl <= LOGITS_TOL:
+        raise AssertionError(f"{arch}: logits differ by {dl}")
+    del got
+    torch.cuda.empty_cache()
+    train_parity_phase(dev, cfg2, frontend_batch(cfg2, 1, TRAIN_PARITY_SEQ,
+                                                 20),
+                       f"frontends-parity {arch}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def per_token_phase(dev, cfg, params):
+    """[per-token]: [serve]'s model, PER_TOKEN_RUN["batch"] prompts of
+    1024 tokens, 32 new: the per-token loop (one host round trip a token)
+    against the device-resident chunks of generate_batch (decode_chunk
+    16): equal tokens; prefill and decode walls, tok/s and launches of
+    each, after one warm-up call of each."""
+    import numpy as np
+    import torch
+    run = PER_TOKEN_RUN
+    eng = serve_engine(dev, cfg, params)
+    toks = np.random.default_rng(5).integers(
+        4, cfg.vocab_size, (run["batch"], run["prompt"]))
+    res = {}
+    for name, decode in (("scan", eng.decode_tokens),
+                         ("per-token", eng.decode_tokens_per_token)):
+        cache, logits = eng.prefill(toks)
+        decode(cache, logits, 4)                           # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        cache, logits = eng.prefill(toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = decode(cache, logits, run["new"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n = read_launches()
+        res[name] = (out, t2 - t1)
+        log(f"[per-token] {name}: prefill {run['batch']}×{run['prompt']} "
+            f"{1e3 * (t1 - t0):.1f} ms, decode {run['new']} tokens "
+            f"{1e3 * (t2 - t1):.1f} ms: "
+            f"{run['batch'] * run['new'] / (t2 - t1):.1f} tok/s; launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+        require_launches(n, ("blockwise_causal_attn", "decode_attn"),
+                         f"per-token {name}")
+        del cache, logits
+    same = np.array_equal(res["scan"][0], res["per-token"][0])
+    log(f"  per-token decode wall / scan decode wall "
+        f"{res['per-token'][1] / res['scan'][1]:.3f}; tokens equal: {same}")
+    if not same:
+        raise AssertionError("per-token and scan tokens differ")
+    del eng
+
+
+def serve_ckpt_phase(dev):
+    """[serve-ckpt]: the Trainer takes two steps of qwen3-8b SMOKE in bf16
+    on the card and saves; the serve launcher with --ckpt-dir serves the
+    latest step (its SMOKE config in fp32) and must give the tokens of an
+    engine built the same way over the trainer's in-memory params."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models.transformer import flatten, nest
+    from repro_torch.serving import ServingEngine
+    from repro_torch.train import Trainer
+    cfg = get_smoke_config("qwen3-8b")
+    requests, new = 8, 16
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainConfig(seq_len=64, global_batch=8, steps=2,
+                           checkpoint_every=1, checkpoint_dir=d, log_every=1,
+                           optimizer=OptimizerConfig(lr=1e-2, warmup_steps=1,
+                                                     total_steps=2))
+        trainer = Trainer(cfg, tcfg, device=dev, log_fn=log)
+        trainer.run()
+        reset_launches()
+        outs = serve_launch.main([
+            "--arch", "qwen3-8b", "--smoke", "--device", dev.type,
+            "--ckpt-dir", d, "--requests", str(requests),
+            "--max-new-tokens", str(new)])
+        launches = read_launches()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = nest({k: v.detach().float()
+                     for k, v in flatten(trainer._params).items()})
+    c = cfg.attention.linformer.block_size
+    eng = ServingEngine(params32, cfg32, max_seq=16 * c, device=dev,
+                        cache_dtype=torch.float32, decode_chunk=32)
+    want = eng.serve(serve_launch.synthetic_prompts(cfg.vocab_size,
+                                                    eng._block(), requests),
+                     new, max_batch=4)
+    log(f"[serve-ckpt] {cfg.name} bf16, 2 Trainer steps saved and served "
+        f"through --ckpt-dir: {sum(map(len, outs))} tokens, equal to the "
+        f"in-memory params' engine: {outs == want}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    require_launches(launches, ("blockwise_causal_attn", "decode_attn"),
+                     "serve-ckpt")
+    if outs != want:
+        raise AssertionError(f"--ckpt-dir tokens {outs} vs {want}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2921,27 +3457,57 @@ def main():
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    t_lap = [t_start]
+
+    def lap(name):
+        """Log the wall of the phases since the last lap, and the run's."""
+        now = time.perf_counter()
+        log(f"[wall] {name}: {now - t_lap[0]:.1f} s ({now - t_start:.1f} s "
+            "into the run)")
+        t_lap[0] = now
 
     build_phase()
+    lap("build")
     errs = check_phase(dev)
+    lap("check")
     records = time_phase(dev, errs)
+    lap("time")
     cfg = get_config("qwen3-8b")
-    params, prompts = serve_setup(dev, cfg)
-    mono_outs, serve_launches = serve_phase(dev, cfg, params, prompts)
-    chunked_launches = serve_chunked_phase(dev, cfg, params, prompts,
+    scfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS)
+    params, prompts = serve_setup(dev, scfg)
+    mono_outs, serve_launches = serve_phase(dev, scfg, params, prompts)
+    lap("serve")
+    chunked_launches = serve_chunked_phase(dev, scfg, params, prompts,
                                            mono_outs)
-    paged_launches = serve_paged_phase(dev, cfg, params, prompts)
-    serve_standard_phases(dev, cfg, params, prompts, mono_outs)
-    slo_launches = serve_slo_phase(dev, cfg, params)
-    sample_phase(dev, cfg, params, prompts, mono_outs)
+    lap("serve-chunked")
+    paged_launches = serve_paged_phase(dev, scfg, params, prompts)
+    lap("serve-paged")
+    serve_standard_phases(dev, scfg, params, prompts, mono_outs)
+    lap("serve-standard, serve-standard-chunked")
+    slo_launches = serve_slo_phase(dev, scfg, params)
+    lap("serve-slo")
+    sample_phase(dev, scfg, params, prompts, mono_outs)
+    lap("sample")
+    per_token_phase(dev, scfg, params)
+    lap("per-token")
     slo_parity_launches = serve_slo_parity_phase(dev, cfg)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    lap("serve-slo-parity")
     serve_parity_phase(dev, cfg)
     serve_standard_parity_phase(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("parity, serve-standard-parity")
+    new_paths = {}
+    for arch in DENSE_ARCHS:
+        new_paths.update(serve_dense_phase(dev, arch))
+        serve_parity_phase(dev, get_config(arch),
+                           f"serve-dense-parity {arch}", paged_layers=1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"serve-dense and its parity, {arch}")
     train_launches = train_phase(dev, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2949,6 +3515,7 @@ def main():
     parity_batch = make_causal_batch(
         SyntheticCorpus(cfg2.vocab_size, seed=0), DataState(0, 0), batch=1,
         seq=TRAIN_PARITY_SEQ)
+    lap("train")
     train_parity_phase(dev, cfg2, parity_batch, "train-parity")
     require_routes("train-parity (fp32)", "simt")
     gc.collect()
@@ -2957,10 +3524,29 @@ def main():
     require_routes("train-parity-bf16", "tensor cores")
     gc.collect()
     torch.cuda.empty_cache()
+    lap("train-parity, train-parity-bf16")
+    for arch in DENSE_ARCHS:
+        new_paths[f"train-dense {arch}"] = train_dense_phase(dev, arch)
+        dense2 = dataclasses.replace(get_config(arch), num_layers=2,
+                                     dtype="float32")
+        grad_parity_phase(dev, dense2, make_causal_batch(
+            SyntheticCorpus(dense2.vocab_size, seed=0), DataState(0, 0),
+            batch=1, seq=TRAIN_PARITY_SEQ), f"train-dense-parity {arch}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"train-dense and its parity, {arch}")
+    for arch in FRONTEND_ARCHS:
+        new_paths.update(frontend_phase(dev, arch))
+        lap(f"frontends, {arch}")
+    serve_ckpt_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve-ckpt")
     mlm = train_mlm_phase(dev)
     mlm_launches = mlm["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    lap("train-mlm")
     enc2 = dataclasses.replace(get_config("linformer-paper"),
                                num_layers=MLM_PARITY["layers"],
                                dtype="float32")
@@ -2973,6 +3559,7 @@ def main():
     train_parity_bf16_phase(dev, enc2, mlm_batch, "train-mlm-parity-bf16")
     gc.collect()
     torch.cuda.empty_cache()
+    lap("train-mlm-parity, train-mlm-parity-bf16")
     enc = get_config("linformer-paper")
     std = train_mlm_phase(dev, "train-mlm-standard",
                           enc.with_attention_kind("standard"),
@@ -2981,6 +3568,7 @@ def main():
                   std.pop("batch"))
     gc.collect()
     torch.cuda.empty_cache()
+    lap("train-mlm-standard, figure1")
     lin = enc.attention.linformer
     nonuni = train_mlm_phase(dev, "train-mlm-nonuniform", dataclasses.replace(
         enc, scan_layers=False, attention=dataclasses.replace(
@@ -2995,7 +3583,9 @@ def main():
         "as in JAX: its peak is not comparable)")
     gc.collect()
     torch.cuda.empty_cache()
+    lap("train-mlm-nonuniform")
     table3_phase(dev)
+    lap("table3")
 
     # launches: each kernel's count on its own main path, every path beside;
     # the prefix form's residual variant serves sequence-parallel training,
@@ -3005,7 +3595,7 @@ def main():
              "serve-slo-parity": slo_parity_launches,
              "train": train_launches,
              "train-mlm": mlm_launches,
-             "train-mlm-nonuniform": nonuni["launches"]}
+             "train-mlm-nonuniform": nonuni["launches"], **new_paths}
     main_path = {"blockwise_causal_attn": "serve",
                  "decode_attn": "serve",
                  "blockwise_causal_attn(return_residuals)": "train",

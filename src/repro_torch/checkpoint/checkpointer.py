@@ -111,3 +111,12 @@ class Checkpointer:
         with open(os.path.join(d, "metadata.json")) as f:
             meta = json.load(f)
         return out, meta
+
+    def restore_latest(self, templates: Dict[str, Any]
+                       ) -> Tuple[Optional[Dict[str, Any]], Optional[Dict]]:
+        """`restore` of the newest step; (None, None) when the directory
+        holds no step."""
+        step = self.latest_step()
+        if step is None:
+            return None, None
+        return self.restore(step, templates)

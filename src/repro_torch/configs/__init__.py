@@ -2,8 +2,12 @@
 
 The config dataclasses in ``base.py`` are copies of the JAX package's, field
 for field, so ``dataclasses.asdict`` of a JAX config rebuilds the same config
-here. The port covers the dense ``qwen3-8b`` decoder and the paper's
-``linformer-paper`` encoder.
+here. The port covers every dense-transformer config: the decoders
+``qwen3-8b``, ``qwen3-14b``, ``nemotron-4-15b`` and ``qwen1.5-110b``, the
+decoders behind stub frontends ``internvl2-2b`` (vision patches prepended)
+and ``musicgen-large`` (frame embeddings in place of tokens), and the
+paper's ``linformer-paper`` encoder. MoE, SSM and hybrid configs are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +27,11 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exported)
 # arch id (public, dashed) -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-8b": "qwen3_8b",
+    "qwen3-14b": "qwen3_14b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "internvl2-2b": "internvl2_2b",
+    "musicgen-large": "musicgen_large",
     "linformer-paper": "linformer_paper",
 }
 

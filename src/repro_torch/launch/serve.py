@@ -13,6 +13,16 @@ scheduler (default) or the static bucketed baseline. Reports through
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
         --requests 12 --max-batch 2 --priority-classes 3 --deadline-ticks 8 \
         --max-queue 6
+    python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
+        --ckpt-dir "$TMPDIR/repro_torch_train_ckpt/qwen3-8b"
+
+--arch takes every token-input config of the port: qwen3-8b, qwen3-14b,
+nemotron-4-15b, qwen1.5-110b (the engine refuses the frontend configs
+internvl2-2b and musicgen-large). --ckpt-dir restores the params of the
+latest step a Trainer saved there (the train launcher's
+--ckpt-dir/<arch>), in the config's dtype (float32 with --smoke), and
+logs the step; a directory without a step raises. Without it the weights
+are random from seed 0.
 
 --attention overrides the config's attention kind (standard |
 linformer_causal), as the JAX launcher's flag does. Prompt lengths are
@@ -44,6 +54,17 @@ from repro_torch.configs.base import ServeConfig
 log = logging.getLogger("repro_torch.serve")
 
 
+def synthetic_prompts(vocab_size: int, block: int, requests: int):
+    """The launcher's traffic: `requests` prompts of tokens drawn from seed
+    0, their lengths from {c/2, c, c + c/8, 2c} for an admission block c > 1,
+    else from {8, 16, 16, 32}."""
+    rng = np.random.default_rng(0)
+    c = block
+    lengths = [c // 2, c, c + c // 8, 2 * c] if c > 1 else [8, 16, 16, 32]
+    return [list(rng.integers(4, vocab_size, int(rng.choice(lengths))))
+            for _ in range(requests)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -54,6 +75,10 @@ def main(argv=None):
                     help="the arch's reduced config, in float32")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the latest step saved in "
+                         "this checkpoint directory (the Trainer's "
+                         "checkpoint_dir, e.g. <train --ckpt-dir>/<arch>)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -89,6 +114,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="[serve] %(message)s")
 
     import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import model as M
     from repro_torch.models.transformer import param_bytes, torch_dtype
@@ -101,6 +127,14 @@ def main(argv=None):
         cfg = cfg.with_attention_kind(args.attention)
     max_seq = args.max_seq or 16 * cfg.attention.linformer.block_size
     params = M.init_params(cfg, seed=0, device=args.device)
+    if args.ckpt_dir:
+        restored, meta = Checkpointer(args.ckpt_dir).restore_latest(
+            {"params": params})
+        if restored is None:
+            raise FileNotFoundError(f"--ckpt-dir {args.ckpt_dir!r} holds no "
+                                    "checkpoint step")
+        params = restored["params"]
+        log.info("restored step %d from %s", meta["step"], args.ckpt_dir)
     log.info("%s: %d layers, %.2f GB of params on %s", cfg.name,
              cfg.num_layers, param_bytes(params) / 1e9, args.device)
 
@@ -110,11 +144,7 @@ def main(argv=None):
                         decode_chunk=args.decode_chunk,
                         attention_backend=args.backend,
                         prefill_chunk=args.prefill_chunk)
-    rng = np.random.default_rng(0)
-    c = eng._block()
-    lengths = [c // 2, c, c + c // 8, 2 * c] if c > 1 else [8, 16, 16, 32]
-    prompts = [list(rng.integers(4, cfg.vocab_size, int(rng.choice(lengths))))
-               for _ in range(args.requests)]
+    prompts = synthetic_prompts(cfg.vocab_size, eng._block(), args.requests)
     prios = ([i % args.priority_classes for i in range(len(prompts))]
              if args.priority_classes > 1 else None)
     deadlines = None

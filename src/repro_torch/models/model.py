@@ -1,8 +1,9 @@
 """Unified model API and the device-resident decode loop.
 
-Counterpart of ``repro/models/model.py`` for the dense family: params,
-forward, decode, and the training losses. Entry points take an explicit
-device; randomness comes from an explicit ``torch.Generator``.
+Counterpart of ``repro/models/model.py`` for the dense, vlm and audio
+families: params, forward, decode, and the training losses. Entry points
+take an explicit device; randomness comes from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -14,8 +15,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import transformer
 from repro_torch.parallel import plan as plan_lib
-
-_TRANSFORMER_FAMILIES = ("dense",)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -38,9 +37,13 @@ def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
                                   dtype=dtype, device=resolve_device(device))
 
 
-def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict,
-                *, plan: Optional[plan_lib.AttentionPlan] = None):
-    return transformer.decode_step(params, cfg, tokens, cache, plan=plan)
+def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+                cache: Dict, *, embeds: Optional[torch.Tensor] = None,
+                plan: Optional[plan_lib.AttentionPlan] = None):
+    """One decode step on tokens (B, 1), or on ``embeds`` (B, 1, D) for a
+    config with ``embedding_inputs``; see transformer.decode_step."""
+    return transformer.decode_step(params, cfg, tokens, cache,
+                                   embeds=embeds, plan=plan)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -161,19 +164,23 @@ def chunked_head_ce(params, cfg: ModelConfig, hidden: torch.Tensor,
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
             plan: Optional[plan_lib.AttentionPlan] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens (B, S), labels (B, S), loss_mask (B, S). Causal LM:
-    labels are the inputs shifted by one (built by the data pipeline).
+    """batch: tokens (B, S) or, with ``embedding_inputs``, embeds
+    (B, S, D); with ``frontend_embed_len`` P also frontend_embeds (B, P, D);
+    labels (B, S) and loss_mask (B, S) over the text positions. Causal LM:
+    labels are the inputs shifted by one (built by the data pipeline). The
+    first P positions of the output (the frontend's) take no loss.
     Returns (loss, metrics): loss, aux_loss, tokens, perplexity."""
     labels = batch["labels"]
     mask = batch["loss_mask"].to(torch.float32)
+    P = cfg.frontend_embed_len
     if cfg.chunked_ce > 0:
         hidden, aux, _ = forward(params, cfg, batch, return_hidden=True,
                                  plan=plan)
-        nll_sum, denom = chunked_head_ce(params, cfg, hidden, labels, mask,
-                                         chunk=cfg.chunked_ce)
+        nll_sum, denom = chunked_head_ce(params, cfg, hidden[:, P:], labels,
+                                         mask, chunk=cfg.chunked_ce)
     else:
         logits, aux, _ = forward(params, cfg, batch, plan=plan)
-        nll_sum, denom = cross_entropy(logits, labels, mask)
+        nll_sum, denom = cross_entropy(logits[:, P:], labels, mask)
     loss = nll_sum / torch.clamp(denom, min=1.0)
     metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
                "perplexity": torch.exp(torch.clamp(loss, max=20.0))}

@@ -1,11 +1,13 @@
-"""Dense transformer: the qwen3-style decoder LM (RMSNorm, RoPE, qk-norm,
-GQA, SwiGLU; blockwise-causal Linformer attention or the standard softmax
-baseline) and the paper's encoder (learned positions, GELU MLP, exact
-bidirectional Linformer attention or the standard baseline).
+"""Dense transformer: the decoder LMs (RMSNorm, RoPE, optional qk-norm and
+QKV bias, GQA, a SwiGLU, squared-ReLU or GELU MLP; blockwise-causal Linformer
+attention or the standard softmax baseline), the same decoder behind the
+stub vision and audio frontends (:func:`embed_inputs`), and the paper's
+encoder (learned positions, GELU MLP, exact bidirectional Linformer
+attention or the standard baseline).
 
-Counterpart of the dense half of ``repro/models/transformer.py``. Parameters
-are nested dicts of tensors laid out exactly like the JAX package's pytree,
-in its two layer layouts:
+Counterpart of the dense, vlm and audio half of
+``repro/models/transformer.py``. Parameters are nested dicts of tensors laid
+out exactly like the JAX package's pytree, in its two layer layouts:
 
 * scanned (``cfg.scan_layers``, the default): every leaf under ``layers``
   carries a leading layer axis, e.g. ``layers/attn/wq`` (L, d, H·Dh). Layer
@@ -46,18 +48,25 @@ from repro_torch.parallel import plan as plan_lib
 
 # init kinds of param_spec
 _ONES, _ZEROS, _EMBED, _DENSE, _LIN = "ones", "zeros", "embed", "dense", "lin"
+# init_params draws a leaf whole up to this many elements (an 8 GiB fp32
+# draw), the size of every leaf of the configs ported before the larger
+# dense ones, whose weights from a seed thus stay as they were
+_WHOLE_DRAW_MAX = 2 ** 31
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+_FAMILIES = ("dense", "vlm", "audio")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe.num_experts or cfg.embedding_inputs \
-            or cfg.frontend_embed_len:
+    if cfg.family not in _FAMILIES or cfg.moe.num_experts:
         raise ValueError(
-            f"config {cfg.name!r}: the PyTorch port covers the dense family "
-            "with token inputs only")
+            f"config {cfg.name!r} (family {cfg.family!r}): the PyTorch port "
+            f"covers the dense transformer families {_FAMILIES} without "
+            "MoE layers")
 
 
 def _layer_lin_shapes(cfg: ModelConfig, i: int
@@ -107,8 +116,9 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     package's checkpoints (checkpoint/checkpointer.py ``_flatten``)."""
     _check_family(cfg)
     a, d, nl = cfg.attention, cfg.d_model, cfg.num_layers
-    spec: Dict[str, Tuple[Tuple[int, ...], str]] = {
-        "embed/tok": ((cfg.padded_vocab_size, d), _EMBED)}
+    spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    if not cfg.embedding_inputs:       # frame embeddings replace tokens
+        spec["embed/tok"] = ((cfg.padded_vocab_size, d), _EMBED)
     if not a.use_rope:                 # learned positions, N(0, 0.02)
         spec["embed/pos"] = ((cfg.max_seq_len, d), _EMBED)
     lin = lin_lib.linformer_param_shapes(a, num_layers=nl,
@@ -125,7 +135,7 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
             for key, val in block.items():
                 spec[f"layers_list/{i}/{key}"] = val
     spec["final_norm/scale"] = ((d,), _ONES)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.embedding_inputs:
         spec["lm_head"] = ((d, cfg.padded_vocab_size), _DENSE)
     return spec
 
@@ -171,8 +181,12 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device: torch.device) -> Dict:
     """Random parameters with the JAX package's distributions (fan-in
     scaled normal weights, N(0, 0.02) embeddings, unit norm scales, E/F
-    N(0, 1/r)), drawn from `generator` (on `device`). The values differ
-    from the JAX init: parity tests bridge JAX weights instead."""
+    N(0, 1/r)), drawn from `generator` (on `device`). A layer-stacked
+    leaf of more than _WHOLE_DRAW_MAX elements is drawn one layer at a
+    time, so that its fp32 draw stays one layer's slice (qwen1.5-110b's
+    stacked MLP leaves would take 35 GB at 22 layers); every smaller leaf
+    is drawn whole. The values differ from the JAX init: parity tests
+    bridge JAX weights instead."""
     dt = torch_dtype(cfg.dtype)
     spec = param_spec(cfg)
     flat = {}
@@ -182,8 +196,12 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
             flat[key] = torch.full(shape, fill, dtype=dt, device=device)
         elif kind != _LIN:
             std = 0.02 if kind == _EMBED else shape[-2] ** -0.5
-            w = torch.randn(shape, generator=generator, device=device)
-            flat[key] = w.mul_(std).to(dt)
+            w = torch.empty(shape, dtype=dt, device=device)
+            by_layer = len(shape) == 3 and w.numel() > _WHOLE_DRAW_MAX
+            for part in (w if by_layer else [w]):
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       device=device).mul_(std))
+            flat[key] = w
     flat.update(lin_lib.init_linformer_params(
         generator, {key: shape for key, (shape, kind) in spec.items()
                     if kind == _LIN}, device=device, dtype=dt))
@@ -271,11 +289,22 @@ def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
                            cfg.mlp)
 
 
-def embed_inputs(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) input stream: token embeddings plus, for a model with
-    learned positions, the first S rows of ``embed/pos``."""
-    x = L.embed_tokens(params["embed"]["tok"], tokens)
-    pos = params["embed"].get("pos")
+def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
+                 ) -> torch.Tensor:
+    """(B, S, D) input stream from tokens and/or stub-frontend embeddings:
+    with ``embedding_inputs`` the batch's ``embeds`` (B, S, D) replace the
+    tokens (audio frames); with ``frontend_embed_len`` P the batch's
+    ``frontend_embeds`` (B, P, D) are prepended to the token embeddings in
+    the model dtype (vision patches). A model with learned positions then
+    adds the first S rows of ``embed/pos``."""
+    if cfg.embedding_inputs:
+        x = batch["embeds"].to(torch_dtype(cfg.dtype))
+    else:
+        x = L.embed_tokens(params["embed"]["tok"], batch["tokens"])
+        if cfg.frontend_embed_len > 0:
+            fe = batch["frontend_embeds"].to(x.dtype)
+            x = torch.cat([fe, x], dim=1)
+    pos = params.get("embed", {}).get("pos")
     if pos is not None:
         S = x.shape[1]
         if S > pos.shape[0]:
@@ -342,7 +371,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         raise ValueError("only the single-pass prefill cache is ported")
     plan = plan if plan is not None \
         else plan_lib.resolve_attention_plan(cfg.attention)
-    x = embed_inputs(params, batch["tokens"])
+    x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     shared_lin = params.get("shared", {}).get("lin")
     cache = None
@@ -371,19 +400,27 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     return logits, aux, cache
 
 
-def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Dict, *,
+def decode_step(params: Dict, cfg: ModelConfig,
+                tokens: Optional[torch.Tensor], cache: Dict, *,
+                embeds: Optional[torch.Tensor] = None,
                 plan: Optional[plan_lib.AttentionPlan] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-    """One decode step. tokens: (B, 1). Row b decodes at
-    cache["lengths"][b]. Returns (logits (B, 1, V), cache): the cache
+    """One decode step. tokens: (B, 1); with ``embedding_inputs`` the step
+    takes ``embeds`` (B, 1, D) instead (tokens may be None). Row b decodes
+    at cache["lengths"][b]. Returns (logits (B, 1, V), cache): the cache
     leaves are updated in place; the returned dict carries a new
     ``lengths`` = old + 1."""
     plan = plan if plan is not None \
         else plan_lib.resolve_attention_plan(cfg.attention)
     t = cache["lengths"]
-    x = L.embed_tokens(params["embed"]["tok"], tokens)
-    if "pos" in params["embed"]:
+    if cfg.embedding_inputs:
+        if embeds is None:
+            raise ValueError(f"config {cfg.name!r} decodes from embeds "
+                             "(B, 1, D), not tokens")
+        x = embeds.to(torch_dtype(cfg.dtype))
+    else:
+        x = L.embed_tokens(params["embed"]["tok"], tokens)
+    if "pos" in params.get("embed", {}):
         x = x + params["embed"]["pos"][t.long()][:, None]     # (B, 1, D)
     shared_lin = params.get("shared", {}).get("lin")
     for i in range(cfg.num_layers):
@@ -407,6 +444,8 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     the absolute positions and each layer's K/V state is written at the
     row's offset, in place. Returns (logits at each row's last real token
     (B, V), cache with ``lengths`` advanced by n_valid)."""
+    if cfg.embedding_inputs or cfg.frontend_embed_len > 0:
+        raise ValueError("chunked prefill supports token inputs only")
     plan = plan if plan is not None \
         else plan_lib.resolve_attention_plan(cfg.attention)
     t0 = cache["lengths"]

@@ -112,6 +112,12 @@ class ServingEngine:
         page_dtype: str = "int8",
     ):
         self.device = resolve_device(device)
+        if cfg.embedding_inputs or cfg.frontend_embed_len > 0:
+            raise ValueError(
+                f"config {cfg.name!r} (family {cfg.family!r}) takes "
+                "frontend embeddings, but the engine serves token prompts "
+                "only: drive model.forward and decode_step with the "
+                "embeddings instead")
         if attention_backend is not None:
             cfg = cfg.with_attention_backend(attention_backend)
         self.plan = resolve_attention_plan(cfg.attention)
@@ -610,6 +616,42 @@ class ServingEngine:
             done += n
             if host[:, n].all():
                 break
+        return outs
+
+    def generate_batch_per_token(self, tokens: np.ndarray,
+                                 max_new_tokens: int,
+                                 generator: Optional[torch.Generator] = None
+                                 ) -> np.ndarray:
+        """`generate_batch` by the per-token decode loop, one host round
+        trip a token: the baseline the device-resident chunks are measured
+        against. Same tokens as `generate_batch` at temperature 0."""
+        cache, logits = self.prefill(tokens)
+        return self.decode_tokens_per_token(cache, logits, max_new_tokens,
+                                            generator)
+
+    def decode_tokens_per_token(self, cache: Dict, logits: torch.Tensor,
+                                max_new_tokens: int,
+                                generator: Optional[torch.Generator] = None
+                                ) -> np.ndarray:
+        """Per-token decode phase (the baseline counterpart of
+        `decode_tokens`): one decode step and one host sync per token;
+        finished rows emit EOS."""
+        generator = self.resolve_generator(generator)
+        B = logits.shape[0]
+        outs = np.zeros((B, max_new_tokens), np.int64)
+        finished = torch.zeros(B, dtype=torch.bool, device=self.device)
+        cur = self._sample(logits, generator)
+        for i in range(max_new_tokens):
+            cur = torch.where(finished, torch.full_like(cur, EOS), cur)
+            finished = finished | (cur == EOS)
+            host = torch.stack([cur, finished.to(cur.dtype)]).cpu().numpy()
+            outs[:, i] = host[0]                    # the token's one sync
+            if host[1].all():
+                outs[:, i + 1:] = EOS
+                break
+            logits_t, cache = model_lib.decode_step(
+                self.params, self.cfg, cur[:, None], cache, plan=self.plan)
+            cur = self._sample(logits_t[:, 0], generator)
         return outs
 
     def _check_budgets(self, prompts, budgets) -> None:

@@ -53,7 +53,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         if not microbatch:
             grads, metrics = grads_of(params, batch)
             return nest(grads), metrics
-        gb = batch["tokens"].shape[0]
+        gb = batch["labels"].shape[0]
         if gb % microbatch != 0:
             raise ValueError(f"global batch {gb} is not a multiple of "
                              f"microbatch {microbatch}")
@@ -113,6 +113,11 @@ class Trainer:
             cfg = cfg.with_attention_backend(attention_backend)
         if backward_impl is not None:
             cfg = cfg.with_backward_impl(backward_impl)
+        if cfg.embedding_inputs or cfg.frontend_embed_len > 0:
+            raise ValueError(
+                f"config {cfg.name!r}: the Trainer's synthetic corpus yields "
+                "token batches only; train a frontend config through "
+                "make_train_step with a batch holding its embeddings")
         if tcfg.compressed_pod_grads:
             raise ValueError("compressed_pod_grads needs a multi-GPU mesh, "
                              "which the port does not have yet")

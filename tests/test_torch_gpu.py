@@ -263,7 +263,8 @@ def test_smoke_serving_through_kernels_matches_reference(cuda):
 # rest are chip_smoke's PREFIX_EDGE_SHAPES: the bf16 kernel's 64-row query
 # tile spans 4, 2 or non-dividing blocks at c = 16, 32, 48 (c16's second
 # tile ragged, its row 1 clamped at M), G = 1, 3, 6, M = 0, a start block at
-# M/r - 1, every operand one element into its buffer (no 16-byte loads)
+# M/r - 1, every operand one element into its buffer (no 16-byte loads),
+# and the dense configs' G = 2, 5 (one head a block), 8 at c = 256, Dh = 128
 PREFIX_SHAPES = {
     "smoke": ((3, 4, 2, 32, 16, 4, 16), [0, 5, 9], 40, None),
     "full": ((4, 32, 8, 512, 256, 16, 128), [0, 3, 7, 14], 288, None),
@@ -274,6 +275,9 @@ PREFIX_SHAPES = {
     "m0": ((2, 4, 2, 64, 16, 4, 32), [0, 3], 0, None),
     "last_start": ((2, 4, 2, 64, 32, 8, 64), [7, 0], 64, None),
     "shifted": ((2, 4, 2, 64, 16, 4, 64), [1, 2], 24, "shifted"),
+    "g2_c256_dh128": ((2, 4, 2, 512, 256, 16, 128), [0, 5], 288, None),
+    "g5_c256_dh128": ((2, 10, 2, 512, 256, 16, 128), [3, 16], 288, None),
+    "g8_c256_dh128": ((2, 16, 2, 512, 256, 16, 128), [1, 9], 288, None),
 }
 
 
@@ -465,7 +469,8 @@ def test_backward_kernels_run_their_routes_design(cuda, dtype):
 # blocks that do not divide them at c = 48 (a ragged S of 144); G = 1, 3, 6;
 # Dh 16-128; S = 1024 gives each slot tile two row splits, the first of
 # slot tiles 2 and 3 empty; shifted: q, k, v, slots and dO one element into
-# their buffers
+# their buffers; the dense configs' G = 2, 5, 8 at c = 256, Dh = 128 (G = 5
+# also with a start block) and musicgen-large's G = 1 at Dh = 64
 TRAIN_EDGES = {
     "c16_dh16_g1": ((2, 2, 2, 96, 16, 4, 16), None, None),
     "c32_dh32_g3": ((2, 6, 2, 128, 32, 8, 32), None, None),
@@ -476,6 +481,11 @@ TRAIN_EDGES = {
     "offset_g6": ((1, 12, 2, 192, 64, 8, 64), [2], None),
     "shifted": ((2, 4, 2, 64, 16, 4, 64), None, "shifted"),
     "shifted_offset": ((2, 4, 2, 64, 16, 4, 64), [1, 2], "shifted"),
+    "g2_c256_dh128": ((1, 4, 2, 1024, 256, 16, 128), None, None),
+    "g5_c256_dh128": ((1, 10, 2, 1024, 256, 16, 128), None, None),
+    "g8_c256_dh128": ((1, 16, 2, 1024, 256, 16, 128), None, None),
+    "g1_c256_dh64": ((2, 4, 4, 1024, 256, 16, 64), None, None),
+    "g5_c256_offset": ((1, 10, 2, 1024, 256, 16, 128), [3], None),
 }
 
 
@@ -608,7 +618,9 @@ def test_decode_q_kernel_matches_plain(cuda, shape, dtype, page_dtype):
 # multiple of the tile; masked_row_dh16: row 1 masks every key (the plain
 # version's uniform average); shifted_dh64: ring and slots one element
 # into their buffers (no 16-byte loads), G = 3; g6_dh32: G = 6, two
-# blocks of query rows a kv head
+# blocks of query rows a kv head; the dense configs' G = 2 (a half-filled
+# block of four query rows), 5 (blocks of four and one), 8 at Dh = 128 and
+# musicgen-large's G = 1 at Dh = 64
 DECODE_EDGES = {
     "b1_split_empty": ((1, 8, 4, 256, 256, 16, 128), [10], None),
     "b4_full": ((4, 8, 4, 256, 256, 16, 128), [0, 255, 1380, 4095], None),
@@ -617,6 +629,10 @@ DECODE_EDGES = {
                         "masked_row"),
     "shifted_dh64": ((2, 2, 3, 64, 70, 8, 64), [70, 300], "shifted"),
     "g6_dh32": ((1, 2, 6, 64, 64, 8, 32), [100], None),
+    "g2_c256_dh128": ((2, 2, 2, 256, 256, 16, 128), [300, 3000], None),
+    "g5_c256_dh128": ((2, 2, 5, 256, 256, 16, 128), [700, 4000], None),
+    "g8_c256_dh128": ((2, 2, 8, 256, 256, 16, 128), [255, 2048], None),
+    "g1_c256_dh64": ((2, 4, 1, 256, 256, 16, 64), [10, 3900], None),
 }
 
 
