@@ -2215,7 +2215,8 @@ def paged_chunk_profile(eng, cfg, prompts):
 def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
     """2-layer full-width fp32: the kernels against the plain reference on
     the dense pool (prefill logits, tokens), chunked against monolithic
-    admission through the kernels (tokens), and the paged int8 and fp8
+    admission through the kernels (tokens; with experts, chunked admission
+    through both routes instead), and the paged int8 and fp8
     pools under chunked admission (chunk-forward logits, tokens) at
     `paged_layers` layers. Past the first layer the two routes' paged
     legs are chaotic: a layer's K/V differ by the routes' rounding, a few
@@ -2225,9 +2226,13 @@ def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
     import numpy as np
     import torch
     from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import param_bytes
     from repro_torch.serving import ServingEngine
     cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
     params2 = tmodel.init_params(cfg2, seed=1, device=dev)
+    log(f"[{tag}] params {param_bytes(params2) / 1e9:.2f} GB (2 layers, "
+        "fp32)")
     c = cfg.attention.linformer.block_size
     rng = np.random.default_rng(1)
     prompts2 = [list(map(int, rng.integers(4, cfg.vocab_size, n)))
@@ -2263,7 +2268,18 @@ def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
         prompts2, 16, max_batch=2)
     log(f"[{tag}] 2-layer fp32: chunked admission through the kernels "
         f"token-identical to monolithic: {chunked == outs['auto']}")
-    if chunked != outs["auto"]:
+    if cfg.moe.num_experts:
+        # capacity couples the rows routed together, and chunked admission
+        # routes the two prompts' chunks in one batch where monolithic
+        # admission routes each alone: the tokens may differ by design, so
+        # the chunked serve is held to the reference route's chunked serve
+        ref = engine("reference", prefill_chunk=SERVE_PREFILL_CHUNK).serve(
+            prompts2, 16, max_batch=2)
+        log(f"[{tag}] 2-layer fp32: chunked admission, kernels vs "
+            f"reference route token-identical: {chunked == ref}")
+        if chunked != ref:
+            raise AssertionError(f"chunked {chunked} vs reference {ref}")
+    elif chunked != outs["auto"]:
         raise AssertionError(f"chunked {chunked} vs monolithic "
                              f"{outs['auto']}")
     toks, n_valid = chunk_rows(prompts2, SERVE_PREFILL_CHUNK, c)
@@ -2286,6 +2302,8 @@ def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
                 prompts2, 16, max_batch=2)
         assert_parity(f"paged {pd} pool, chunk forward", logits, outs,
                       paged_layers)
+    log(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
 
 
 def counted_train(path, dev, cfg, tcfg):
@@ -2777,8 +2795,8 @@ def figure1_phase(dev, cfg, params, batch):
                 errs[i] = (low_rank.jl_projection_error(gen, P[0], w,
                                                         k).item(),
                            (e2 / ref).item())
-            x = transformer.apply_block(lp, x, cfg, shared_lin=None,
-                                        plan=plan)
+            x, _ = transformer.apply_block(lp, x, cfg, shared_lin=None,
+                                           plan=plan)
     torch.cuda.synchronize()
     log(f"[figure1] {cfg.name} standard, n={S}: cumulative singular-value "
         f"mass at rank {k} per layer (mean of {cfg.attention.num_heads} "
@@ -3053,28 +3071,8 @@ def serve_dense_phase(dev, arch):
     rng = np.random.default_rng(0)
     prompts = [list(map(int, rng.integers(4, cfg.vocab_size, n * c)))
                for n in SERVE_DENSE_BLOCKS]
-    budgets = [SERVE_DENSE_NEW] * len(prompts)
-    launches, outs = {}, {}
-    for mode, kw, kernels in (
-            ("dense", {}, ("blockwise_causal_attn", "decode_attn")),
-            ("paged", dict(prefill_chunk=SERVE_PREFILL_CHUNK,
-                           cache_format="paged",
-                           page_dtype=SERVE_PAGE_DTYPE),
-             ("blockwise_causal_prefix_attn_q", "decode_attn_q"))):
-        eng = serve_engine(dev, cfg, params, **kw)
-        tag = f"serve-dense {arch} {mode}"
-        run = run_serve(tag, eng, prompts, kernels, budgets)
-        if "pool_prefill_remainder" in run.walls:
-            raise AssertionError(f"{tag}: a remainder step ran on prompts "
-                                 "of whole blocks")
-        log(f"  cache bytes a request: {eng.cache_bytes(4) // 4} "
-            f"({'paged ' + SERVE_PAGE_DTYPE if eng.paged else 'dense bf16'}"
-            f", max_seq {eng.max_seq})")
-        if eng.paged:
-            require_pages_free(tag, run.sched)
-        launches[f"serve-dense-{mode} {arch}"] = run.launches
-        outs[mode] = run.outs
-        del eng, run
+    launches, outs = serve_modes(dev, cfg, arch, "serve-dense", params,
+                                 prompts, ("dense", "paged"))
     agree = sum(sum(x == y for x, y in zip(p, q))
                 for p, q in zip(outs["dense"], outs["paged"]))
     log(f"  paged int8 chunked vs dense monolithic: {agree} of "
@@ -3136,16 +3134,19 @@ def grad_parity_phase(dev, cfg2, batch, tag):
     are compared leaf by leaf, and the AdamW update is not compared."""
     import torch
     from repro_torch.models import model as tmodel
-    from repro_torch.models.transformer import flatten
+    from repro_torch.models.transformer import flatten, param_bytes
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     B, S = batch["labels"].shape
     ref, errs = None, {}
+    torch.cuda.reset_peak_memory_stats()
     for backend in ("reference", "auto"):
         c = cfg2.with_attention_backend(backend)
         params = tmodel.init_params(c, seed=1, device=dev)
         leaves = flatten(params)
         for p in leaves.values():
             p.requires_grad_(True)
+        if ref is None:
+            log(f"  [{tag}] params {param_bytes(params) / 1e9:.2f} GB")
         reset_launches()
         loss, _ = tmodel.loss_fn(params, c, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()))
@@ -3166,7 +3167,8 @@ def grad_parity_phase(dev, cfg2, batch, tag):
     log(f"[{tag}] {cfg2.num_layers}-layer fp32, B={B}, S={S}: loss rel err "
         f"{loss_err:.2e} (tol {TRAIN_LOSS_RTOL:g}); worst gradient leaf "
         f"{worst} of {len(errs)} rel norm err {errs[worst]:.2e} (tol "
-        f"{TRAIN_GRAD_RTOL:g})")
+        f"{TRAIN_GRAD_RTOL:g}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not math.isfinite(loss_a) or not loss_err <= TRAIN_LOSS_RTOL:
         raise AssertionError(f"losses differ: {loss_a} vs {ref[0]}")
     if not errs[worst] <= TRAIN_GRAD_RTOL:
@@ -3438,6 +3440,194 @@ def serve_ckpt_phase(dev):
         raise AssertionError(f"--ckpt-dir tokens {outs} vs {want}")
 
 
+# -- the MoE family ------------------------------------------------------------
+
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
+# [serve-moe]: the depth each config is served at. qwen3-moe-30b-a3b takes
+# 1.246 GB a layer in bf16 (61.1 GB whole with its 1.24 GB of embedding and
+# LM head): all 48 layers fit beside the pools. kimi-k2-1t-a32b takes 33.9 GB
+# a layer (384 experts of d 7168 × 2048) and 4.7 GB of embedding and LM
+# head: one layer fits, two do not
+SERVE_MOE_LAYERS = {"qwen3-moe-30b-a3b": 48, "kimi-k2-1t-a32b": 1}
+# [serve-moe]'s two serves of qwen3-moe (kimi-k2 serves the dense pool only)
+SERVE_MOE_MODES = {"qwen3-moe-30b-a3b": ("dense", "paged"),
+                   "kimi-k2-1t-a32b": ("dense",)}
+# the decode chunk [serve-moe] profiles: 4 steps of the 4-row pool. At 48
+# layers a step launches ~9100 kernels, and the profiler took longer to
+# digest a 16-step chunk's than the rest of the phase took to run; the
+# share of each operation is that of any step
+SERVE_MOE_PROFILE_STEPS = 4
+# [train-moe]: bf16 params and gradients and fp32 AdamW moments, ~14 bytes
+# a parameter with the update's temporaries: ~43 GB at 4 layers of
+# qwen3-moe (3.1 B parameters); 6 layers do not fit beside the activations
+# of one 4096-token row
+TRAIN_MOE_LAYERS = 4
+TRAIN_MOE_RUN = dict(seq=4096, batch=1, steps=2)
+
+
+def serve_modes(dev, cfg, arch, tag, params, prompts, modes):
+    """Serve `prompts` (SERVE_DENSE_NEW new tokens each, max_batch 4) once
+    per mode: "dense", monolithic admission into the dense pool (kernels
+    1 and 3), "paged", chunked admission (P = 512) into the paged int8
+    pool (kernels 8 and 7), which must end with every page free. Returns
+    ({path: launches}, {mode: outputs})."""
+    budgets = [SERVE_DENSE_NEW] * len(prompts)
+    kinds = {"dense": ({}, ("blockwise_causal_attn", "decode_attn")),
+             "paged": (dict(prefill_chunk=SERVE_PREFILL_CHUNK,
+                            cache_format="paged",
+                            page_dtype=SERVE_PAGE_DTYPE),
+                       ("blockwise_causal_prefix_attn_q", "decode_attn_q"))}
+    launches, outs = {}, {}
+    for mode in modes:
+        kw, kernels = kinds[mode]
+        eng = serve_engine(dev, cfg, params, **kw)
+        run = run_serve(f"{tag} {arch} {mode}", eng, prompts, kernels,
+                        budgets)
+        if "pool_prefill_remainder" in run.walls:
+            raise AssertionError(f"{tag} {arch} {mode}: a remainder step "
+                                 "ran on prompts of whole blocks")
+        log(f"  cache bytes a request: {eng.cache_bytes(4) // 4} "
+            f"({'paged ' + SERVE_PAGE_DTYPE if eng.paged else 'dense bf16'}"
+            f", max_seq {eng.max_seq})")
+        if eng.paged:
+            require_pages_free(f"{tag} {arch} {mode}", run.sched)
+        launches[f"{tag}-{mode} {arch}"] = run.launches
+        outs[mode] = run.outs
+        del eng, run
+    return launches, outs
+
+
+def moe_drops(fn):
+    """fn() with the port's MoE routing observed: (fn's result, the
+    share of (token, expert) choices that capacity dropped, the routing
+    calls, their token counts)."""
+    from repro_torch.models import moe as tmoe
+    route, seen = tmoe.route, []
+
+    def counting(router, x, cfg):
+        r = route(router, x, cfg)
+        seen.append((x.shape[0], r["keep"].numel(),
+                     int((~r["keep"]).sum())))
+        return r
+
+    tmoe.route = counting
+    try:
+        out = fn()
+    finally:
+        tmoe.route = route
+    choices = sum(n for _, n, _ in seen)
+    return out, sum(d for _, _, d in seen) / max(choices, 1), len(seen), \
+        sorted({t for t, _, _ in seen})
+
+
+def serve_moe_phase(dev, arch):
+    """[serve-moe]: the config at full width, cut in depth as
+    SERVE_MOE_LAYERS says, random bf16 weights (seed 0), [serve-dense]'s
+    8 requests (256·SERVE_DENSE_BLOCKS prompt tokens, SERVE_DENSE_NEW new
+    tokens, max_batch 4, max_seq 4096), served as SERVE_MOE_MODES says;
+    then a 4-row pool's decode chunk of SERVE_MOE_PROFILE_STEPS steps
+    profiled, and the share of routing
+    choices that capacity dropped in one admission prefill and in one
+    decode step of that pool. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import param_bytes
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SERVE_MOE_LAYERS[arch])
+    a, m = cfg.attention, cfg.moe
+    log(f"[serve-moe] {arch}: {cfg.num_layers} of {full.num_layers} "
+        f"layers, d={cfg.d_model}, H={a.num_heads}/{a.num_kv_heads} (G="
+        f"{a.q_per_kv}), Dh={a.head_dim}, qk_norm {a.qk_norm}, "
+        f"{m.num_experts} experts top {m.top_k}, expert d_ff "
+        f"{m.expert_d_ff} {cfg.mlp.activation}, capacity factor "
+        f"{m.capacity_factor}, vocab {cfg.padded_vocab_size}, {cfg.dtype}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  params: {param_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    c = a.linformer.block_size
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(4, cfg.vocab_size, n * c)))
+               for n in SERVE_DENSE_BLOCKS]
+    launches, outs = serve_modes(dev, cfg, arch, "serve-moe", params,
+                                 prompts, SERVE_MOE_MODES[arch])
+    if "paged" in outs:
+        agree = sum(sum(x == y for x, y in zip(p, q))
+                    for p, q in zip(outs["dense"], outs["paged"]))
+        log(f"  paged int8 chunked vs dense monolithic: {agree} of "
+            f"{sum(map(len, outs['dense']))} tokens equal position by "
+            "position (int8 slots and other GEMM shapes round differently,"
+            " and capacity couples the rows of a batch)")
+    eng = serve_engine(dev, cfg, params)
+    pool = eng.init_pool_cache(4)
+    firsts = []
+    for row, p in enumerate(prompts[:4]):
+        slot_cache, first = eng.prefill_request(p)
+        eng.write_pool_slot(pool, slot_cache, row)
+        firsts.append(first)
+    cur = torch.tensor(firsts, device=dev)
+    fin = torch.zeros(4, dtype=torch.bool, device=dev)
+    for what, fn in (
+            (f"one admission prefill ({len(prompts[3])} tokens)",
+             lambda: eng.prefill_request(prompts[3])),
+            ("one decode step of the 4-row pool",
+             lambda: eng.decode_chunk_fn(cur, fin, pool, 1))):
+        _, share, calls, tokens = moe_drops(fn)
+        log(f"  [serve-moe] {arch}, {what}: {100 * share:.2f}% of the "
+            f"(token, expert) choices dropped by capacity over {calls} "
+            f"routing calls of {tokens} tokens (capacity factor "
+            f"{m.capacity_factor}, floor 1)")
+    timed_profile(f"serve-moe {arch} decode_chunk ({SERVE_MOE_PROFILE_STEPS}"
+                  " steps, 4 rows)", lambda: eng.decode_chunk_fn(
+                      cur, fin, pool, SERVE_MOE_PROFILE_STEPS), top=10)
+    torch.cuda.synchronize()
+    log(f"  [serve-moe] {arch}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng, pool, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_moe_phase(dev, arch="qwen3-moe-30b-a3b"):
+    """[train-moe]: TRAIN_MOE_RUN["steps"] Trainer steps of the config at
+    full width cut to TRAIN_MOE_LAYERS (bf16, remat "full", seq 4096,
+    batch 1), launch counters reset just before and read just after:
+    kernels 1, 1r and 2 on the tensor cores, once a layer a step each;
+    each step's loss and aux loss logged."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.models.transformer import param_bytes
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_MOE_LAYERS)
+    run = TRAIN_MOE_RUN
+    tcfg = TrainConfig(seq_len=run["seq"], global_batch=run["batch"],
+                       steps=run["steps"], log_every=1, checkpoint_every=0,
+                       seed=0, optimizer=OptimizerConfig(
+                           lr=3e-4, warmup_steps=1,
+                           total_steps=run["steps"]))
+    log(f"[train-moe] {arch} cut to {cfg.num_layers} of {full.num_layers} "
+        f"layers, {cfg.moe.num_experts} experts top {cfg.moe.top_k}, "
+        f"aux_loss_weight {cfg.moe.aux_loss_weight}, {cfg.dtype}, remat "
+        f"{cfg.remat}, seq {tcfg.seq_len}, batch {tcfg.global_batch}, "
+        f"{tcfg.steps} steps")
+    trainer, launches = counted_train(f"train-moe {arch}", dev, cfg, tcfg)
+    log(f"  params {param_bytes(trainer._params) / 1e9:.2f} GB")
+    for h in trainer.history:
+        log(f"  step {h['step']}: aux loss {h['aux_loss']:.4f}")
+        if not (math.isfinite(h["aux_loss"]) and h["aux_loss"] > 0):
+            raise AssertionError(f"aux loss {h['aux_loss']}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3538,6 +3728,23 @@ def main():
     for arch in FRONTEND_ARCHS:
         new_paths.update(frontend_phase(dev, arch))
         lap(f"frontends, {arch}")
+    for arch in MOE_ARCHS:
+        new_paths.update(serve_moe_phase(dev, arch))
+        lap(f"serve-moe, {arch}")
+    moe = get_config(MOE_ARCHS[0])
+    serve_parity_phase(dev, moe, f"serve-moe-parity {moe.name}",
+                       paged_layers=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("serve-moe-parity")
+    new_paths[f"train-moe {moe.name}"] = train_moe_phase(dev, moe.name)
+    moe2 = dataclasses.replace(moe, num_layers=2, dtype="float32")
+    grad_parity_phase(dev, moe2, make_causal_batch(
+        SyntheticCorpus(moe2.vocab_size, seed=0), DataState(0, 0), batch=1,
+        seq=TRAIN_PARITY_SEQ), f"train-moe-parity {moe.name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train-moe and train-moe-parity")
     serve_ckpt_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()

@@ -8,6 +8,7 @@ weight orientation, so bridging is a checked copy, never a transpose.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Mapping, Union
 
@@ -26,10 +27,14 @@ def params_from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *,
 
     Every key of the model's parameter layout must be present with its
     shape; extra keys are an error too (a checkpoint of another config).
-    `dtype` defaults to the config's."""
+    Each leaf takes its dtype from the parameter spec: the config's, or
+    `dtype` where given, for all but the fp32 MoE router, which stays
+    fp32."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg.dtype) if dtype is None else (
-        torch_dtype(dtype) if isinstance(dtype, str) else dtype)
+    if dtype is not None:
+        if not isinstance(dtype, str):
+            dtype = {torch_dtype(n): n for n in ("float32", "bfloat16")}[dtype]
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     spec = param_spec(cfg)
     missing = sorted(set(spec) - set(flat))
     extra = sorted(set(flat) - set(spec))
@@ -37,14 +42,14 @@ def params_from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *,
         raise KeyError(f"checkpoint does not match {cfg.name!r}: missing "
                        f"{missing}, unexpected {extra}")
     out = {}
-    for key, (shape, _) in spec.items():
+    for key, (shape, _, leaf_dt) in spec.items():
         arr = np.asarray(flat[key])
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"shape mismatch for {key}: checkpoint "
                              f"{arr.shape} vs model {shape}")
         # np.array copies: a read-only buffer would make torch warn
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        out[key] = t.to(device=dev, dtype=dt)
+        out[key] = t.to(device=dev, dtype=leaf_dt)
     return nest(out)
 
 

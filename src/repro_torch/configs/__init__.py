@@ -6,8 +6,9 @@ here. The port covers every dense-transformer config: the decoders
 ``qwen3-8b``, ``qwen3-14b``, ``nemotron-4-15b`` and ``qwen1.5-110b``, the
 decoders behind stub frontends ``internvl2-2b`` (vision patches prepended)
 and ``musicgen-large`` (frame embeddings in place of tokens), and the
-paper's ``linformer-paper`` encoder. MoE, SSM and hybrid configs are not
-ported yet.
+paper's ``linformer-paper`` encoder; and the MoE decoders
+``qwen3-moe-30b-a3b`` and ``kimi-k2-1t-a32b`` (models/moe.py, on one
+device). SSM and hybrid configs are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "internvl2-2b": "internvl2_2b",
     "musicgen-large": "musicgen_large",
     "linformer-paper": "linformer_paper",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 

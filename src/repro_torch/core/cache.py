@@ -322,6 +322,16 @@ def _paged_leaves(layer_cache):
         "page_k_s", "page_v_s", "page_table"))
 
 
+def last_writes(dst: torch.Tensor, trash: int) -> torch.Tensor:
+    """Page ids `dst` (N,) of a batched arena write, each page but TRASH
+    kept only at its last position and the earlier writes sent to TRASH:
+    the write is then deterministic with JAX's outcome (its scatter lands
+    the last of duplicate indices) where rows repeat, as the padding rows
+    of a batched admission do; under MoE their pages differ."""
+    later = torch.triu(dst[:, None] == dst[None, :], diagonal=1).any(1)
+    return dst.masked_fill(later, trash)
+
+
 def paged_decode_attention(
     q_t: torch.Tensor,           # (B, 1, H, Dh) — rope already applied at pos t
     k_t: torch.Tensor,           # (B, 1, Hkv, Dh)
@@ -377,7 +387,9 @@ def paged_decode_attention(
     eq = "bchd,cr->brhd" if E.ndim == 2 else "bchd,hcr->brhd"
     pt_blk = pt.gather(1, blk.clamp(0, maxp - 1).long()[:, None])[:, 0]
     commit = (pos == c - 1) & (pt_blk >= 0) & (blk < maxp)
-    dst = torch.where(commit, pt_blk, torch.full_like(pt_blk, trash)).long()
+    dst = last_writes(torch.where(commit, pt_blk,
+                                  torch.full_like(pt_blk, trash)).long(),
+                      trash)
     for ring, ring_s, W, page, page_s in ((rk_q, rk_s, E, pk, pk_s),
                                           (rv_q, rv_s, F, pv, pv_s)):
         folded = torch.einsum(eq, dequantize_blockwise(ring, ring_s),
@@ -427,8 +439,9 @@ def paged_prefill_chunk(
     blk0 = torch.div(t0, c, rounding_mode="floor")
     abs_blk = blk0[:, None] + torch.arange(nb, device=k.device)[None, :]
     pids = pt.gather(1, abs_blk.clamp(0, maxp - 1).long())
-    dst = torch.where((pids >= 0) & (abs_blk < maxp), pids,
-                      torch.full_like(pids, trash)).reshape(-1).long()
+    dst = last_writes(torch.where((pids >= 0) & (abs_blk < maxp), pids,
+                                  torch.full_like(pids, trash)
+                                  ).reshape(-1).long(), trash)
     for x, W, page, page_s in ((k, E, pk, pk_s), (v, F, pv, pv_s)):
         xbar = compress_blocks(
             x.to(torch.float32).reshape(B, nb, c, Hkv, Dh),

@@ -17,8 +17,10 @@ scheduler (default) or the static bucketed baseline. Reports through
         --ckpt-dir "$TMPDIR/repro_torch_train_ckpt/qwen3-8b"
 
 --arch takes every token-input config of the port: qwen3-8b, qwen3-14b,
-nemotron-4-15b, qwen1.5-110b (the engine refuses the frontend configs
-internvl2-2b and musicgen-large). --ckpt-dir restores the params of the
+nemotron-4-15b, qwen1.5-110b, qwen3-moe-30b-a3b and kimi-k2-1t-a32b (the
+engine refuses the frontend configs internvl2-2b and musicgen-large; the
+whole kimi-k2, 2 TB in bf16, fits no single card, so serve its --smoke
+config). --ckpt-dir restores the params of the
 latest step a Trainer saved there (the train launcher's
 --ckpt-dir/<arch>), in the config's dtype (float32 with --smoke), and
 logs the step; a directory without a step raises. Without it the weights

@@ -1,14 +1,20 @@
 """Training launcher of the PyTorch port: random weights from the run's
 seed, the synthetic corpus, the Trainer. Reports through `logging`. The
 config's objective picks the batches: causal LM for the decoders
-(qwen3-8b, qwen3-14b, nemotron-4-15b, qwen1.5-110b), masked LM for the
-paper's encoder (linformer-paper). The frontend configs (internvl2-2b,
+(qwen3-8b, qwen3-14b, nemotron-4-15b, qwen1.5-110b and the MoE decoders
+qwen3-moe-30b-a3b and kimi-k2-1t-a32b, whose loss adds the weighted
+load-balance loss and whose step logs it), masked LM for the paper's
+encoder (linformer-paper). The frontend configs (internvl2-2b,
 musicgen-large) train through make_train_step with embedding batches: the
 Trainer's corpus yields tokens only and refuses them.
 
     python -m repro_torch.launch.train --arch qwen3-8b --smoke --device cpu
     python -m repro_torch.launch.train --arch qwen3-14b --layers 8 --steps 4 \
         --ckpt-every 0
+    python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \
+        --device cpu
+    python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --layers 4 \
+        --steps 2 --batch 1 --ckpt-every 0
     python -m repro_torch.launch.train --arch qwen3-8b --layers 8 --steps 4 \
         --ckpt-every 0 [--backend reference]
     python -m repro_torch.launch.train --arch linformer-paper --smoke \

@@ -1,8 +1,8 @@
 """Unified model API and the device-resident decode loop.
 
-Counterpart of ``repro/models/model.py`` for the dense, vlm and audio
-families: params, forward, decode, and the training losses. Entry points
-take an explicit device; randomness comes from an explicit
+Counterpart of ``repro/models/model.py`` for the dense, moe, vlm and
+audio families: params, forward, decode, and the training losses. Entry
+points take an explicit device; randomness comes from an explicit
 ``torch.Generator``.
 """
 from __future__ import annotations
@@ -169,7 +169,11 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
     labels (B, S) and loss_mask (B, S) over the text positions. Causal LM:
     labels are the inputs shifted by one (built by the data pipeline). The
     first P positions of the output (the frontend's) take no loss.
-    Returns (loss, metrics): loss, aux_loss, tokens, perplexity."""
+    Returns (total, metrics): the total is the mean CE, plus
+    ``moe.aux_loss_weight`` times the MoE load-balance loss summed over
+    the layers where the config has experts; metrics are the CE alone
+    (loss), that raw sum (aux_loss), tokens and perplexity, as JAX reports
+    them."""
     labels = batch["labels"]
     mask = batch["loss_mask"].to(torch.float32)
     P = cfg.frontend_embed_len
@@ -182,6 +186,9 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
         logits, aux, _ = forward(params, cfg, batch, plan=plan)
         nll_sum, denom = cross_entropy(logits[:, P:], labels, mask)
     loss = nll_sum / torch.clamp(denom, min=1.0)
+    total = loss
+    if cfg.moe.num_experts > 0:
+        total = total + cfg.moe.aux_loss_weight * aux
     metrics = {"loss": loss, "aux_loss": aux, "tokens": denom,
                "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
-    return loss, metrics
+    return total, metrics

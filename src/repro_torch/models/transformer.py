@@ -1,11 +1,11 @@
-"""Dense transformer: the decoder LMs (RMSNorm, RoPE, optional qk-norm and
-QKV bias, GQA, a SwiGLU, squared-ReLU or GELU MLP; blockwise-causal Linformer
-attention or the standard softmax baseline), the same decoder behind the
-stub vision and audio frontends (:func:`embed_inputs`), and the paper's
-encoder (learned positions, GELU MLP, exact bidirectional Linformer
-attention or the standard baseline).
+"""Transformer: the decoder LMs (RMSNorm, RoPE, optional qk-norm and QKV
+bias, GQA, a SwiGLU, squared-ReLU or GELU MLP or a mixture of such experts;
+blockwise-causal Linformer attention or the standard softmax baseline), the
+same decoder behind the stub vision and audio frontends
+(:func:`embed_inputs`), and the paper's encoder (learned positions, GELU
+MLP, exact bidirectional Linformer attention or the standard baseline).
 
-Counterpart of the dense, vlm and audio half of
+Counterpart of the dense, moe, vlm and audio part of
 ``repro/models/transformer.py``. Parameters are nested dicts of tensors laid
 out exactly like the JAX package's pytree, in its two layer layouts:
 
@@ -23,11 +23,19 @@ out exactly like the JAX package's pytree, in its two layer layouts:
   (and F) is (n, effective_k(k, k_decay, i, L)) (paper §4, non-uniform
   projected dimension); a layerwise-shared E keeps k.
 
+A block with experts (``cfg.moe.num_experts > 0``) has ``moe/router`` (D,
+E) in fp32 whatever the model dtype, and ``moe/w_in``, ``moe/w_gate`` and
+``moe/w_out`` in place of the ``mlp`` leaves; every block returns its MoE
+load-balance loss (None without experts), which :func:`forward` sums over
+the layers as JAX does.
+
 Rematerialisation (the JAX package's ``remat_wrap``): with ``cfg.remat``
 "full" each block of the scanned layout runs under :class:`_Recompute`,
 which keeps only the block's inputs and recomputes the block inside the
-backward. "dots" maps to "full": PyTorch has no counterpart of JAX's
-dots-saveable policy, so every activation is recomputed. The unrolled
+backward; the block's two outputs, the stream and the aux loss, both carry
+their gradients across it. "dots" maps to "full": PyTorch has no
+counterpart of JAX's dots-saveable policy, so every activation is
+recomputed. The unrolled
 layout applies no remat, as the JAX package's unrolled loop calls
 ``apply_block`` directly: its activations stay alive through the backward.
 """
@@ -44,13 +52,15 @@ from repro_torch.core import linformer as lin_lib
 from repro_torch.core.projections import effective_k
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.parallel import plan as plan_lib
 
 # init kinds of param_spec
 _ONES, _ZEROS, _EMBED, _DENSE, _LIN = "ones", "zeros", "embed", "dense", "lin"
 # init_params draws a leaf whole up to this many elements (an 8 GiB fp32
 # draw), the size of every leaf of the configs ported before the larger
-# dense ones, whose weights from a seed thus stay as they were
+# dense ones, whose weights from a seed thus stay as they were; a larger
+# leaf is drawn in parts along its leading axes (see init_params)
 _WHOLE_DRAW_MAX = 2 ** 31
 
 
@@ -58,15 +68,14 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-_FAMILIES = ("dense", "vlm", "audio")
+_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES or cfg.moe.num_experts:
+    if cfg.family not in _FAMILIES:
         raise ValueError(
             f"config {cfg.name!r} (family {cfg.family!r}): the PyTorch port "
-            f"covers the dense transformer families {_FAMILIES} without "
-            "MoE layers")
+            f"covers the transformer families {_FAMILIES}")
 
 
 def _layer_lin_shapes(cfg: ModelConfig, i: int
@@ -85,58 +94,71 @@ def _layer_lin_shapes(cfg: ModelConfig, i: int
                                                        {}).items()}
 
 
-def _block_spec(cfg: ModelConfig, lin: Dict[str, Tuple[int, ...]]
-                ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """One block's {key: (shape, init kind)}, without a layer axis; `lin`
-    gives its own E/F shapes."""
+Spec = Dict[str, Tuple[Tuple[int, ...], str, torch.dtype]]
+
+
+def _block_spec(cfg: ModelConfig, lin: Dict[str, Tuple[int, ...]]) -> Spec:
+    """One block's {key: (shape, init kind, dtype)}, without a layer axis;
+    `lin` gives its own E/F shapes."""
     a, d = cfg.attention, cfg.d_model
     H, Hkv, Dh = a.num_heads, a.num_kv_heads, a.head_dim
-    spec: Dict[str, Tuple[Tuple[int, ...], str]] = {
-        "ln1/scale": ((d,), _ONES), "ln2/scale": ((d,), _ONES),
-        "attn/wq": ((d, H * Dh), _DENSE), "attn/wk": ((d, Hkv * Dh), _DENSE),
-        "attn/wv": ((d, Hkv * Dh), _DENSE), "attn/wo": ((H * Dh, d), _DENSE)}
+    dt = torch_dtype(cfg.dtype)
+    spec: Spec = {
+        "ln1/scale": ((d,), _ONES, dt), "ln2/scale": ((d,), _ONES, dt),
+        "attn/wq": ((d, H * Dh), _DENSE, dt),
+        "attn/wk": ((d, Hkv * Dh), _DENSE, dt),
+        "attn/wv": ((d, Hkv * Dh), _DENSE, dt),
+        "attn/wo": ((H * Dh, d), _DENSE, dt)}
     if a.qkv_bias:
         for n, w in (("bq", H), ("bk", Hkv), ("bv", Hkv)):
-            spec[f"attn/{n}"] = ((w * Dh,), _ZEROS)
+            spec[f"attn/{n}"] = ((w * Dh,), _ZEROS, dt)
     if a.qk_norm:
-        spec["attn/q_norm/scale"] = ((Dh,), _ONES)
-        spec["attn/k_norm/scale"] = ((Dh,), _ONES)
+        spec["attn/q_norm/scale"] = ((Dh,), _ONES, dt)
+        spec["attn/k_norm/scale"] = ((Dh,), _ONES, dt)
     for name, shape in lin.items():
-        spec[f"attn/lin/{name}"] = (shape, _LIN)
+        spec[f"attn/lin/{name}"] = (shape, _LIN, dt)
+    if cfg.moe.num_experts > 0:
+        for name, (shape, ldt) in moe_lib.moe_param_shapes(
+                d, cfg.moe, cfg.mlp, dt).items():
+            spec[f"moe/{name}"] = (shape, _DENSE, ldt)
+        return spec
     ff = cfg.mlp.d_ff
-    spec["mlp/w_in"] = ((d, ff), _DENSE)
-    spec["mlp/w_out"] = ((ff, d), _DENSE)
+    spec["mlp/w_in"] = ((d, ff), _DENSE, dt)
+    spec["mlp/w_out"] = ((ff, d), _DENSE, dt)
     if cfg.mlp.activation == "swiglu":
-        spec["mlp/w_gate"] = ((d, ff), _DENSE)
+        spec["mlp/w_gate"] = ((d, ff), _DENSE, dt)
     return spec
 
 
-def param_spec(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """Flat {"/"-joined key: (shape, init kind)}, keyed exactly like the JAX
-    package's checkpoints (checkpoint/checkpointer.py ``_flatten``)."""
+def param_spec(cfg: ModelConfig) -> Spec:
+    """Flat {"/"-joined key: (shape, init kind, dtype)}, keyed exactly like
+    the JAX package's checkpoints (checkpoint/checkpointer.py
+    ``_flatten``). Every leaf is in the config's dtype but the MoE router,
+    which is fp32 (as JAX's ``init_moe`` makes it)."""
     _check_family(cfg)
     a, d, nl = cfg.attention, cfg.d_model, cfg.num_layers
-    spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    dt = torch_dtype(cfg.dtype)
+    spec: Spec = {}
     if not cfg.embedding_inputs:       # frame embeddings replace tokens
-        spec["embed/tok"] = ((cfg.padded_vocab_size, d), _EMBED)
+        spec["embed/tok"] = ((cfg.padded_vocab_size, d), _EMBED, dt)
     if not a.use_rope:                 # learned positions, N(0, 0.02)
-        spec["embed/pos"] = ((cfg.max_seq_len, d), _EMBED)
+        spec["embed/pos"] = ((cfg.max_seq_len, d), _EMBED, dt)
     lin = lin_lib.linformer_param_shapes(a, num_layers=nl,
                                          max_seq=cfg.max_seq_len)
     for name, shape in lin.get("shared", {}).items():
-        spec[f"shared/lin/{name}"] = (shape, _LIN)
+        spec[f"shared/lin/{name}"] = (shape, _LIN, dt)
     if cfg.scan_layers:
         per = {n: shape[1:] for n, shape in lin.get("per_layer", {}).items()}
-        for key, (shape, kind) in _block_spec(cfg, per).items():
-            spec[f"layers/{key}"] = ((nl,) + shape, kind)
+        for key, (shape, kind, ldt) in _block_spec(cfg, per).items():
+            spec[f"layers/{key}"] = ((nl,) + shape, kind, ldt)
     else:
         for i in range(nl):
             block = _block_spec(cfg, _layer_lin_shapes(cfg, i))
             for key, val in block.items():
                 spec[f"layers_list/{i}/{key}"] = val
-    spec["final_norm/scale"] = ((d,), _ONES)
+    spec["final_norm/scale"] = ((d,), _ONES, dt)
     if not cfg.tie_embeddings or cfg.embedding_inputs:
-        spec["lm_head"] = ((d, cfg.padded_vocab_size), _DENSE)
+        spec["lm_head"] = ((d, cfg.padded_vocab_size), _DENSE, dt)
     return spec
 
 
@@ -177,42 +199,58 @@ def layer_params(params: Dict, i: int) -> Dict:
     return layer_slice(params["layers"], i)
 
 
+def _draw_parts(w: torch.Tensor):
+    """The views `init_params` draws `w` in, in order: `w` whole up to
+    _WHOLE_DRAW_MAX elements, else each slice along its leading axis,
+    split again the same way while a slice is still larger (qwen3-moe's
+    (L, E, D, ff) expert leaves go by layer, kimi-k2's by layer and
+    expert). A (L, d, ff) leaf thus goes by layer, as before the expert
+    leaves came."""
+    if w.numel() <= _WHOLE_DRAW_MAX or w.ndim == 1:
+        return [w]
+    return [part for sl in w for part in _draw_parts(sl)]
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device: torch.device) -> Dict:
     """Random parameters with the JAX package's distributions (fan-in
     scaled normal weights, N(0, 0.02) embeddings, unit norm scales, E/F
-    N(0, 1/r)), drawn from `generator` (on `device`). A layer-stacked
-    leaf of more than _WHOLE_DRAW_MAX elements is drawn one layer at a
-    time, so that its fp32 draw stays one layer's slice (qwen1.5-110b's
-    stacked MLP leaves would take 35 GB at 22 layers); every smaller leaf
-    is drawn whole. The values differ from the JAX init: parity tests
-    bridge JAX weights instead."""
+    N(0, 1/r)), drawn from `generator` (on `device`), each leaf in its
+    spec dtype (the MoE router in fp32). A leaf of more than
+    _WHOLE_DRAW_MAX elements is drawn in parts (`_draw_parts`), so that its
+    fp32 draw stays one slice (qwen1.5-110b's stacked MLP leaves would take
+    35 GB at 22 layers, qwen3-moe's expert leaves 39 GB); every smaller
+    leaf is drawn whole. The rule keeps each earlier config's weights from
+    a seed as they were, which matters: the bf16 train-parity gate's loss
+    term moves with the draw. The values differ from the JAX init: parity
+    tests bridge JAX weights instead."""
     dt = torch_dtype(cfg.dtype)
     spec = param_spec(cfg)
     flat = {}
-    for key, (shape, kind) in spec.items():
+    for key, (shape, kind, ldt) in spec.items():
         if kind in (_ONES, _ZEROS):
             fill = 1.0 if kind == _ONES else 0.0
-            flat[key] = torch.full(shape, fill, dtype=dt, device=device)
+            flat[key] = torch.full(shape, fill, dtype=ldt, device=device)
         elif kind != _LIN:
             std = 0.02 if kind == _EMBED else shape[-2] ** -0.5
-            w = torch.empty(shape, dtype=dt, device=device)
-            by_layer = len(shape) == 3 and w.numel() > _WHOLE_DRAW_MAX
-            for part in (w if by_layer else [w]):
+            w = torch.empty(shape, dtype=ldt, device=device)
+            for part in _draw_parts(w):
                 part.copy_(torch.randn(part.shape, generator=generator,
                                        device=device).mul_(std))
             flat[key] = w
     flat.update(lin_lib.init_linformer_params(
-        generator, {key: shape for key, (shape, kind) in spec.items()
+        generator, {key: shape for key, (shape, kind, _) in spec.items()
                     if kind == _LIN}, device=device, dtype=dt))
     return nest({key: flat[key] for key in spec})
 
 
 class _Recompute(torch.autograd.Function):
-    """Activation rematerialisation of `fn(*args)` (one tensor out): the
-    forward runs under no_grad and keeps only `args`; the backward reruns
-    `fn` with grad enabled and differentiates it. Every tensor `fn` depends
-    on must be among `args`: a tensor it closes over gets no gradient."""
+    """Activation rematerialisation of `fn(*args)` (a tensor or a tuple of
+    tensors and Nones out): the forward runs under no_grad and keeps only `args`; the
+    backward reruns `fn` with grad enabled and differentiates each output
+    that depends on `args` against its incoming gradient. Every tensor `fn`
+    depends on must be among `args`: a tensor it closes over gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, fn, *args):
@@ -221,14 +259,18 @@ class _Recompute(torch.autograd.Function):
         return fn(*args)
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grad_outs):
         need = ctx.needs_input_grad[1:]
         args = [a.detach().requires_grad_(n)
                 for a, n in zip(ctx.saved_tensors, need)]
         with torch.enable_grad():
-            out = ctx.fn(*args)
+            outs = ctx.fn(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        live = [(o, g) for o, g in zip(outs, grad_outs)
+                if o is not None and o.requires_grad]
         wrt = [a for a, n in zip(args, need) if n]
-        grads = iter(torch.autograd.grad(out, wrt, grad_out,
+        grads = iter(torch.autograd.grad([o for o, _ in live], wrt,
+                                         [g for _, g in live],
                                          allow_unused=True))
         return (None, *(next(grads) if n else None for n in need))
 
@@ -250,16 +292,29 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
     return wrapped
 
 
+def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's feed-forward on the normed stream: the MoE layer where
+    the config has experts (its B·S tokens routed together), else the MLP.
+    Returns (out, aux): the MoE load-balance loss (fp32), or None without
+    experts."""
+    if cfg.moe.num_experts > 0:
+        return moe_lib.apply_moe(params["moe"], x, cfg.moe, cfg.mlp)
+    return L.apply_mlp(params["mlp"], x, cfg.mlp), None
+
+
 def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 shared_lin: Optional[Dict],
                 cache_entry: Optional[Dict] = None,
-                plan: plan_lib.AttentionPlan) -> torch.Tensor:
+                plan: plan_lib.AttentionPlan
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (x, the block's MoE aux loss, None without experts)."""
     h = attn_lib.apply_attention(params["attn"], L.rms_norm(params["ln1"], x),
                                  cfg.attention, shared_lin=shared_lin,
                                  cache_entry=cache_entry, plan=plan)
     x = x + h
-    return x + L.apply_mlp(params["mlp"], L.rms_norm(params["ln2"], x),
-                           cfg.mlp)
+    h, aux = _ffn(params, L.rms_norm(params["ln2"], x), cfg)
+    return x + h, aux
 
 
 def apply_block_decode(params: Dict, x_t: torch.Tensor, layer_cache: Dict,
@@ -270,8 +325,7 @@ def apply_block_decode(params: Dict, x_t: torch.Tensor, layer_cache: Dict,
         params["attn"], L.rms_norm(params["ln1"], x_t), layer_cache, t,
         cfg.attention, shared_lin=shared_lin, plan=plan)
     x_t = x_t + h
-    return x_t + L.apply_mlp(params["mlp"], L.rms_norm(params["ln2"], x_t),
-                             cfg.mlp)
+    return x_t + _ffn(params, L.rms_norm(params["ln2"], x_t), cfg)[0]
 
 
 def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
@@ -285,8 +339,7 @@ def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
         params["attn"], L.rms_norm(params["ln1"], x), layer_cache, t0,
         cfg.attention, shared_lin=shared_lin, positions=positions, plan=plan)
     x = x + h
-    return x + L.apply_mlp(params["mlp"], L.rms_norm(params["ln2"], x),
-                           cfg.mlp)
+    return x + _ffn(params, L.rms_norm(params["ln2"], x), cfg)[0]
 
 
 def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
@@ -341,7 +394,8 @@ def _layer_caches(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
 def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
               shared_keys) -> Callable:
     """apply_block as a function of tensors alone, (x, *layer leaves,
-    *shared E/F leaves), so that remat sees every tensor it depends on."""
+    *shared E/F leaves) -> (x, aux or None), so that remat sees every
+    tensor it depends on."""
     n = len(keys)
 
     def fn(x, *leaves):
@@ -366,7 +420,9 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     built in the same pass (the config's single_pass_cache) and positioned
     at t = S, ready for decode_step. When autograd records, each block of
     the scanned layout runs under the config's remat policy; the unrolled
-    layout runs its blocks as they are (no remat, as in JAX)."""
+    layout runs its blocks as they are (no remat, as in JAX). `aux` is the
+    fp32 sum over layers of the blocks' MoE load-balance losses (zero
+    without experts)."""
     if return_cache and not cfg.single_pass_cache:
         raise ValueError("only the single-pass prefill cache is ported")
     plan = plan if plan is not None \
@@ -379,12 +435,14 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         cache = init_cache(cfg, batch=B,
                            max_seq=cache_max_seq or cfg.max_seq_len,
                            dtype=cache_dtype, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is not None or not cfg.scan_layers:
         for i in range(cfg.num_layers):
-            x = apply_block(layer_params(params, i), x, cfg,
-                            shared_lin=shared_lin,
-                            cache_entry=None if cache is None
-                            else _layer_caches(cache, i), plan=plan)
+            x, a = apply_block(layer_params(params, i), x, cfg,
+                               shared_lin=shared_lin,
+                               cache_entry=None if cache is None
+                               else _layer_caches(cache, i), plan=plan)
+            aux = aux if a is None else aux + a
     else:
         layers = flatten(params["layers"])
         per_layer = [leaf.unbind(0) for leaf in layers.values()]
@@ -392,11 +450,12 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         block = remat_wrap(_block_fn(cfg, plan, list(layers), list(shared)),
                            cfg.remat)
         for i in range(cfg.num_layers):
-            x = block(x, *(views[i] for views in per_layer), *shared.values())
+            x, a = block(x, *(views[i] for views in per_layer),
+                         *shared.values())
+            aux = aux if a is None else aux + a
     logits = x if return_hidden else logits_from_hidden(params, cfg, x)
     if cache is not None:
         cache["lengths"].fill_(S)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, cache
 
 

@@ -288,25 +288,32 @@ class ServingEngine:
                     v.index_select(0 if k == "lengths" else 1, idx))
                 for k, v in pool.items()}
 
-    @staticmethod
-    def _scatter_rows(pool: Dict, sub: Dict, idx: torch.Tensor) -> None:
-        """Write a sub-cache back into pool rows `idx` (the inverse of
-        `_gather_rows`), in place. Duplicate indices carry identical rows
-        (the padding of `_pad_rows`), so which copy lands is immaterial."""
+    def _scatter_rows(self, pool: Dict, sub: Dict, rows: Sequence[int]
+                      ) -> None:
+        """Write a sub-cache back into pool rows `rows` (the inverse of
+        `_gather_rows`), in place. Of a row listed more than once (the
+        padding of `_pad_rows`) the last copy lands, as in the JAX
+        engine's scatter: the copies differ under MoE, where a duplicate
+        competes with its original for expert capacity and drops first."""
+        last = {row: j for j, row in enumerate(rows)}
+        idx = torch.as_tensor(list(last), device=self.device)
+        src = torch.as_tensor(list(last.values()), device=self.device)
         for k, v in pool.items():
             if k in PAGED_ARENA_KEYS:
                 continue
             if k == "lengths":
-                v[idx] = sub[k]
+                v[idx] = sub[k][src]
             else:
-                v[:, idx] = sub[k]
+                v[:, idx] = sub[k][:, src]
 
     @staticmethod
     def _pad_rows(rows: Sequence[int], *arrays: np.ndarray, pad_to: int):
         """Pad a row batch to exactly `pad_to` by duplicating the last row
-        (and the matching rows of every per-row array): the duplicate
-        writes the same state twice. The scheduler pads to its pool size,
-        so every admission round runs the same shapes."""
+        (and the matching rows of every per-row array), as the JAX engine
+        does: a dense model's duplicate writes the same state twice; an
+        MoE model's duplicates take part in the routing (see
+        `_scatter_rows`). The scheduler pads to its pool size, so every
+        admission round runs the same shapes."""
         g = len(rows)
         if g == 0:
             raise ValueError("empty prefill row batch")
@@ -335,7 +342,7 @@ class ServingEngine:
             torch.as_tensor(np.asarray(tokens, np.int64), device=self.device),
             sub, torch.as_tensor(np.asarray(n_valid), device=self.device),
             plan=self.plan)
-        self._scatter_rows(pool, sub, idx)
+        self._scatter_rows(pool, sub, rows)
         return pool, logits[:g]
 
     @torch.no_grad()
@@ -358,7 +365,7 @@ class ServingEngine:
                                             toks[:, t:t + 1], sub,
                                             plan=self.plan)
             logits = lg[:, 0]
-        self._scatter_rows(pool, sub, idx)
+        self._scatter_rows(pool, sub, rows)
         return pool, logits[:g]
 
     def reset_pool_row(self, pool: Dict, row: int) -> Dict:

@@ -96,8 +96,8 @@ class Trainer:
     * straggler watchdog: logs steps slower than 2× the running median.
 
     ``checkpoint_every <= 0`` turns checkpoints off (no resume, no saves).
-    The run's per-step records (loss, grad norm, ms, tokens/s) are kept in
-    ``history``. Runs on CUDA unless `device` says otherwise.
+    The run's per-step records (loss, the MoE aux loss, grad norm, ms,
+    tokens/s) are kept in ``history``. Runs on CUDA unless `device` says otherwise.
     """
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
@@ -189,12 +189,15 @@ class Trainer:
             self._watchdog(step, dt)
             self.history.append({
                 "step": step + 1, "loss": metrics["loss"],
+                "aux_loss": metrics["aux_loss"],
                 "grad_norm": metrics["grad_norm"], "ms": dt * 1e3,
                 "tokens_per_s": metrics["tokens"] / dt})
             last_metrics = metrics
             if (step + 1) % tcfg.log_every == 0:
+                aux = (f"aux={metrics['aux_loss']:.4f} "
+                       if self.cfg.moe.num_experts > 0 else "")
                 self.log(f"[trainer] step {step + 1} "
-                         f"loss={metrics['loss']:.4f} "
+                         f"loss={metrics['loss']:.4f} {aux}"
                          f"gnorm={metrics['grad_norm']:.3f} {dt * 1e3:.0f}ms")
             if tcfg.checkpoint_every > 0 \
                     and (step + 1) % tcfg.checkpoint_every == 0:

@@ -291,7 +291,7 @@ def test_param_layout_matches_jax(sharing):
     spec = ttransformer.param_spec(cfg_t)
     assert {"/".join(p.key for p in path): tuple(a.shape) for path, a in
             jax.tree_util.tree_flatten_with_path(want)[0]} == \
-        {k: tuple(s) for k, (s, _) in spec.items()}
+        {k: tuple(s) for k, (s, *_) in spec.items()}
     assert spec["embed/pos"][0] == (cfg_t.max_seq_len, cfg_t.d_model)
     params = tmodel.init_params(cfg_t, seed=0, device="cpu")
     assert abs(params["embed"]["pos"].std().item() - 0.02) < 2e-3
@@ -302,7 +302,7 @@ def test_full_config_matches_jax_and_counts_162m_params():
     cfg_j = jax_config("linformer-paper")
     cfg_t = get_config("linformer-paper")
     assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_j)
-    n = sum(np.prod(s) for s, _ in ttransformer.param_spec(cfg_t).values())
+    n = sum(np.prod(s) for s, *_ in ttransformer.param_spec(cfg_t).values())
     assert cfg_t.padded_vocab_size == 50432 and 162e6 < n < 163e6
 
 

@@ -254,12 +254,10 @@ def test_refusals(setup, tmp_path):
                 device="cpu")
 
 
-def test_moe_ssm_and_hybrid_stay_refused():
-    from repro_torch.configs.base import MoEConfig
+def test_ssm_and_hybrid_stay_refused():
     cfg = config_from_dict(dataclasses.asdict(
         jax_smoke_config("qwen3-8b")))
-    for bad in (dataclasses.replace(cfg, moe=MoEConfig(num_experts=4)),
-                dataclasses.replace(cfg, family="ssm"),
+    for bad in (dataclasses.replace(cfg, family="ssm"),
                 dataclasses.replace(cfg, family="hybrid")):
-        with pytest.raises(ValueError, match="dense transformer families"):
+        with pytest.raises(ValueError, match="transformer families"):
             ttransformer.param_spec(bad)

@@ -21,7 +21,10 @@ versions read identical int8/fp8 codes and scales and compute in fp32: the
 same bounds, the bf16 one applying to a bf16 q's output. The exact form:
 linformer_attn (kernel 5) under the attention bounds above; seq_projection
 (kernel 6, fp32 sums of the same inputs, one rounding to the output dtype)
-and the exact form's gradients under the backward's bounds."""
+and the exact form's gradients under the backward's bounds. The MoE layer
+(plain torch on the card, no kernel of its own): in fp32 the same routes
+and drops as on the CPU and outputs within 1e-5; in bf16 two calls
+bit-identical."""
 import dataclasses
 
 import pytest
@@ -36,7 +39,9 @@ from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import seq_projection as sp
+from repro_torch.configs.base import MLPConfig, MoEConfig
 from repro_torch.models import model as tmodel
+from repro_torch.models import moe as tmoe
 from repro_torch.models.transformer import flatten
 from repro_torch.serving import ServingEngine
 
@@ -1174,3 +1179,38 @@ def test_sampling_with_a_cuda_generator(cuda):
                       generator=torch.Generator(device=cuda).manual_seed(4))
             for _ in range(2)]
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("cf", [0.5, 1.25])
+def test_apply_moe_on_cuda_matches_cpu_and_is_deterministic(cuda, cf):
+    """qwen3-moe's routing (128 experts, top 8) at d = 256 over 3 × 40
+    tokens, capacity dropping: fp32 routes and drops equal to the CPU's,
+    outputs within 1e-5; bf16 (the router fp32) bit-identical across two
+    calls."""
+    D, E, ff = 256, 128, 64
+    cfg = MoEConfig(num_experts=E, top_k=8, expert_d_ff=ff,
+                    capacity_factor=cf)
+    mlp = MLPConfig(d_ff=ff)
+    g = torch.Generator().manual_seed(0)
+    params = {"router": torch.randn(D, E, generator=g) * D ** -0.5,
+              "w_in": torch.randn(E, D, ff, generator=g) * D ** -0.5,
+              "w_gate": torch.randn(E, D, ff, generator=g) * D ** -0.5,
+              "w_out": torch.randn(E, ff, D, generator=g) * ff ** -0.5}
+    x = torch.randn(3, 40, D, generator=g)
+    out_c, aux_c = tmoe.apply_moe(params, x, cfg, mlp)
+    gp = {k: v.to(cuda) for k, v in params.items()}
+    out_g, aux_g = tmoe.apply_moe(gp, x.to(cuda), cfg, mlp)
+    r_c = tmoe.route(params["router"], x.reshape(-1, D), cfg)
+    r_g = tmoe.route(gp["router"], x.to(cuda).reshape(-1, D), cfg)
+    assert torch.equal(r_c["top_i"], r_g["top_i"].cpu())
+    assert torch.equal(r_c["keep"], r_g["keep"].cpu())
+    assert not r_g["keep"].all()
+    assert (out_g.cpu() - out_c).abs().max().item() <= 1e-5
+    assert abs(aux_g.item() - aux_c.item()) <= 1e-5
+    bf = {k: v if k == "router" else v.to(torch.bfloat16)
+          for k, v in gp.items()}
+    xb = x.to(cuda, torch.bfloat16)
+    a, aux_a = tmoe.apply_moe(bf, xb, cfg, mlp)
+    b, aux_b = tmoe.apply_moe(bf, xb, cfg, mlp)
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert torch.equal(aux_a, aux_b)

@@ -104,7 +104,7 @@ def test_param_layout_matches_jax(sharing):
     assert {"/".join(str(p.key) if hasattr(p, "key") else str(p.idx)
                      for p in path): tuple(a.shape) for path, a in
             jax.tree_util.tree_flatten_with_path(want)[0]} == \
-        {k: tuple(s) for k, (s, _) in spec.items()}
+        {k: tuple(s) for k, (s, *_) in spec.items()}
     ks = [effective_k(K, K_DECAY, i, LAYERS) for i in range(LAYERS)]
     assert ks[0] == K and ks[-1] == 4
     if sharing == "layerwise":
@@ -115,7 +115,7 @@ def test_param_layout_matches_jax(sharing):
     params = tmodel.init_params(cfg_t, seed=0, device="cpu")
     assert {k: tuple(v.shape) for k, v in
             ttransformer.flatten(params).items()} == \
-        {k: tuple(s) for k, (s, _) in spec.items()}
+        {k: tuple(s) for k, (s, *_) in spec.items()}
     flat = ttransformer.flatten(params)
     assert ttransformer.flatten(ttransformer.nest(flat)).keys() == flat.keys()
 
