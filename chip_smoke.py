@@ -187,6 +187,29 @@ error; none catches its own failure:
    temporary directory, served by `launch/serve.py --ckpt-dir`: the
    tokens of an engine over the trainer's in-memory params.
 
+26. [serve-hybrid], [serve-ssm] (after [train-moe-parity]) zamba2-1.2b
+   (38 layers: a Mamba2 trunk and one shared attention + MLP block,
+   blockwise-causal Linformer, after every 6 trunk layers) and rwkv6-1.6b
+   (24 attention-free RWKV6 layers) whole in bf16 (random weights, seed
+   0; max_seq 4096, max_batch 4, decode_chunk 16): 8 requests of
+   SERVE_SSM_LENS prompt tokens and 128 new through serve(), which takes
+   the static bucketed path (the caches keep one scalar position); the
+   counters reset around the serve must read kernel 1 once per shared
+   block invocation of each forward and kernel 3 once per invocation of
+   each decode step for zamba2 (6 each), no kernel for rwkv6; tok/s, peak
+   memory, cache bytes a request, a profiled 4-step decode chunk of a
+   4-row batch; [serve-hybrid-parity] zamba2 cut to 7 layers in fp32, the
+   kernels against the plain reference: forward logits within LOGITS_TOL,
+   the same 16 tokens at 600-token prompts (remainder steps) and 200
+   (every prompt token a decode step); [serve-ssm-parity] rwkv6 cut to 2
+   layers in fp32 at S = 512 and 600: forward's logits against a loop of
+   decode_step over the same tokens within SSM_STEPWISE_TOL, all finite;
+27. [train-hybrid], [train-ssm] 4 Trainer steps of each config whole
+   (bf16, remat full on the trunk, 2 × 4096): step ms, tokens/s, peak
+   memory, loss; zamba2 launches kernels 1r and 2 six times a step each
+   (on the tensor cores), rwkv6 none; each with a parity leg as
+   [train-parity] at the cut depth of its serve parity (fp32, 1 × 1024).
+
 [check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
 these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
 (the g*_c256 entries of TRAIN_EDGE_SHAPES, PREFIX_EDGE_SHAPES and
@@ -3628,6 +3651,307 @@ def train_moe_phase(dev, arch="qwen3-moe-30b-a3b"):
     return launches
 
 
+# -- the ssm and hybrid families ---------------------------------------------
+
+HYBRID_ARCH, SSM_ARCH = "zamba2-1.2b", "rwkv6-1.6b"
+# [serve-hybrid] and [serve-ssm]: 8 requests of these prompt lengths, in
+# turn, SERVE_SSM_NEW new tokens each, max_batch 4, max_seq 4096. serve()
+# takes the static bucketed path (one bucket per length). zamba2's shared
+# block folds 256-token blocks: 512 and 768 prefill whole, 600 prefills
+# 512 and decodes its 88 remainder tokens step by step; rwkv6 prefills
+# every prompt whole (512: whole chunks; 600: whole chunks and a tail)
+SERVE_SSM_LENS = {HYBRID_ARCH: (512, 768, 600), SSM_ARCH: (512, 600)}
+SERVE_SSM_NEW = 128
+SERVE_SSM_REQUESTS = 8
+SERVE_SSM_PROFILE_STEPS = 4
+# [serve-hybrid-parity] and [train-hybrid]'s parity leg: zamba2 at full
+# width cut to 7 layers (one attention invocation and a trailing trunk
+# layer); rwkv6's legs at 2 layers
+SSM_PARITY_LAYERS = {HYBRID_ARCH: 7, SSM_ARCH: 2}
+# [serve-ssm-parity]: forward's logits against the decode_step loop over
+# the same tokens, fp32 on the card (chunked against stepwise summation
+# over up to 600 steps)
+SSM_STEPWISE_TOL = 2e-3
+TRAIN_SSM_RUN = dict(seq=4096, batch=2, steps=4)
+
+
+def ssm_prompts(cfg, lens, n, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(4, cfg.vocab_size, lens[i % len(
+        lens)]))) for i in range(n)]
+
+
+def count_model_calls(fn):
+    """fn() with the model's forward and decode_step counted (the engine's
+    prefill and decode_scan call them through the module): (fn's result,
+    forwards, decode steps)."""
+    from repro_torch.models import model as tmodel
+    fwd, step, calls = tmodel.forward, tmodel.decode_step, [0, 0]
+
+    def forward(*a, **kw):
+        calls[0] += 1
+        return fwd(*a, **kw)
+
+    def decode_step(*a, **kw):
+        calls[1] += 1
+        return step(*a, **kw)
+
+    tmodel.forward, tmodel.decode_step = forward, decode_step
+    try:
+        out = fn()
+    finally:
+        tmodel.forward, tmodel.decode_step = fwd, step
+    return out, calls[0], calls[1]
+
+
+def require_ssm_launches(tag, cfg, launches, forwards, steps):
+    """zamba2: kernel 1 once per shared-block invocation of each forward,
+    kernel 3 once per invocation of each decode step, nothing else;
+    rwkv6: no kernel of the port."""
+    from repro_torch.models import zamba
+    n_inv = zamba.n_attn_invocations(cfg) if cfg.family == "hybrid" else 0
+    want = {name: 0 for name in launches}
+    want["blockwise_causal_attn"] = n_inv * forwards
+    want["decode_attn"] = n_inv * steps
+    log(f"  [{tag}] {forwards} forwards, {steps} decode steps; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (expected "
+        f"{ {k: v for k, v in want.items() if v} })")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+
+
+def serve_ssm_phase(dev, arch, tag):
+    """[serve-hybrid] / [serve-ssm]: the config whole (bf16, random weights
+    from seed 0), SERVE_SSM_REQUESTS requests through serve(), which must
+    take the static bucketed path (no scheduler), counters reset just
+    before and read just after and held to the per-forward and per-step
+    counts; tok/s, peak memory, cache bytes a request; then a 4-row pool's
+    decode chunk of SERVE_SSM_PROFILE_STEPS steps profiled, and the launch
+    counts of one counted prefill and one counted decode step. Returns
+    {path: launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import EOS
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import param_bytes
+    cfg = get_config(arch)
+    log(f"[{tag}] {arch}: {cfg.num_layers} layers (family {cfg.family}), "
+        f"d={cfg.d_model}, vocab {cfg.padded_vocab_size}, {cfg.dtype}"
+        + (f", shared block every {cfg.hybrid_attn_every} layers, "
+           f"H={cfg.attention.num_heads}, Dh={cfg.attention.head_dim}, "
+           f"c={cfg.attention.linformer.block_size}, "
+           f"r={cfg.attention.linformer.block_slots}, SSM N="
+           f"{cfg.ssm.state_dim}, P={cfg.ssm.head_dim}, chunk "
+           f"{cfg.ssm.chunk_size}" if cfg.family == "hybrid" else
+           f", RWKV head dim {cfg.rwkv.head_dim}, chunk "
+           f"{cfg.rwkv.chunk_size}"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  params: {param_bytes(params) / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = ssm_prompts(cfg, SERVE_SSM_LENS[arch], SERVE_SSM_REQUESTS)
+    eng = serve_engine(dev, cfg, params)
+    if eng.supports_continuous_batching:
+        raise AssertionError(f"{arch}: continuous batching claimed")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs, forwards, steps = count_model_calls(
+        lambda: eng.serve(prompts, SERVE_SSM_NEW, max_batch=4))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_tok = sum(len(o) for o in outs)
+    log(f"[{tag}] static fallback: {len(prompts)} requests (prompts "
+        f"{[len(p) for p in prompts]}), {n_tok} tokens in {wall:.2f} s: "
+        f"{n_tok / wall:.1f} tok/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; cache "
+        f"{eng.cache_bytes(4) / 4e6:.2f} MB a request (dense "
+        f"{eng.cache_dtype}, max_seq {eng.max_seq})")
+    require_ssm_launches(tag, cfg, launches, forwards, steps)
+    for o in outs:
+        if not isinstance(o, list) or not 0 < len(o) <= SERVE_SSM_NEW \
+                or EOS in o:
+            raise AssertionError(f"output {o!r}")
+        if len(o) < SERVE_SSM_NEW:
+            log(f"  a request ended at EOS after {len(o)} tokens")
+    toks = np.asarray(prompts[:1] * 4)
+    reset_launches()
+    (cache, logits), fw, st = count_model_calls(lambda: eng.prefill(toks))
+    require_ssm_launches(f"{tag} one prefill of 4 × {toks.shape[1]}", cfg,
+                         read_launches(), fw, st)
+    cur = torch.argmax(logits, dim=-1)
+    fin = torch.zeros(4, dtype=torch.bool, device=dev)
+    reset_launches()
+    _, fw, st = count_model_calls(
+        lambda: eng.decode_chunk_fn(cur, fin, cache, 1))
+    require_ssm_launches(f"{tag} one decode step of 4 rows", cfg,
+                         read_launches(), fw, st)
+    timed_profile(f"{tag} decode_chunk ({SERVE_SSM_PROFILE_STEPS} steps, "
+                  "4 rows)", lambda: eng.decode_chunk_fn(
+                      cur, fin, cache, SERVE_SSM_PROFILE_STEPS), top=10)
+    torch.cuda.synchronize()
+    log(f"  [{tag}] peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del eng, cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {tag: launches}
+
+
+def serve_hybrid_parity_phase(dev):
+    """[serve-hybrid-parity]: zamba2 at full width cut to
+    SSM_PARITY_LAYERS layers in fp32, the kernel route (backend "auto":
+    kernels 1 and 3) against the plain reference route from the same
+    weights: the forward's logits over 2 × 512 tokens within LOGITS_TOL,
+    and 16 greedy tokens identical for two prompts of 600 tokens (a whole
+    block prefill and 88 remainder steps) and two of 200 (shorter than a
+    block: every prompt token a decode step)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              num_layers=SSM_PARITY_LAYERS[HYBRID_ARCH],
+                              dtype="float32")
+    params = tmodel.init_params(cfg, seed=1, device=dev)
+    toks = np.random.default_rng(1).integers(4, cfg.vocab_size, (2, 512))
+    prompts = {n: ssm_prompts(cfg, (n,), 2, seed=n) for n in (600, 200)}
+    logits, outs, launches = {}, {}, {}
+    for backend in ("auto", "reference"):
+        c = cfg.with_attention_backend(backend)
+        reset_launches()
+        with torch.no_grad():
+            logits[backend] = tmodel.forward(
+                params, c, {"tokens": torch.from_numpy(toks).to(dev)})[0]
+        eng = ServingEngine(params, c, max_seq=4096, device=dev,
+                            cache_dtype=torch.float32, decode_chunk=16)
+        outs[backend] = {n: eng.serve(p, 16, max_batch=2)
+                         for n, p in prompts.items()}
+        launches[backend] = read_launches()
+        log(f"  [serve-hybrid-parity] {backend}: launches "
+            f"{ {k: v for k, v in launches[backend].items() if v} }")
+    dl = (logits["auto"] - logits["reference"]).abs().max().item()
+    log(f"[serve-hybrid-parity] {cfg.num_layers}-layer fp32: forward logits"
+        f" max |auto - reference| = {dl:.3e} (tol {LOGITS_TOL:g}); 16 "
+        f"greedy tokens identical at 600 tokens: "
+        f"{outs['auto'][600] == outs['reference'][600]}, at 200 (all "
+        f"decode): {outs['auto'][200] == outs['reference'][200]}")
+    if not all(torch.isfinite(v).all() for v in logits.values()):
+        raise AssertionError("non-finite logits")
+    if not dl <= LOGITS_TOL:
+        raise AssertionError(f"logits differ by {dl}")
+    if outs["auto"] != outs["reference"]:
+        raise AssertionError(f"tokens differ: {outs}")
+    require_launches(launches["auto"], ("blockwise_causal_attn",
+                                        "decode_attn"), "serve-hybrid-parity")
+    if any(launches["reference"].values()):
+        raise AssertionError("the reference route launched a kernel")
+    del params
+    torch.cuda.empty_cache()
+
+
+def serve_ssm_parity_phase(dev):
+    """[serve-ssm-parity]: rwkv6 at full width cut to 2 layers in fp32,
+    S = 512 (whole chunks) and 600 (whole chunks and a tail): forward's
+    logits at every position against a loop of decode_step over the same
+    tokens from the zero state, within SSM_STEPWISE_TOL; all finite."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              num_layers=SSM_PARITY_LAYERS[SSM_ARCH],
+                              dtype="float32")
+    params = tmodel.init_params(cfg, seed=1, device=dev)
+    for S in (512, 600):
+        toks = torch.from_numpy(np.random.default_rng(S).integers(
+            4, cfg.vocab_size, (2, S))).to(dev)
+        with torch.no_grad():
+            full = tmodel.forward(params, cfg, {"tokens": toks})[0]
+            cache = tmodel.init_cache(cfg, batch=2, max_seq=S,
+                                      dtype=torch.float32, device=dev)
+            steps = []
+            for t in range(S):
+                lg, cache = tmodel.decode_step(params, cfg,
+                                               toks[:, t:t + 1], cache)
+                steps.append(lg[:, 0])
+        steps = torch.stack(steps, dim=1)
+        err = (full - steps).abs().max().item()
+        finite = bool(torch.isfinite(full).all() and
+                      torch.isfinite(steps).all())
+        log(f"[serve-ssm-parity] {cfg.num_layers}-layer fp32, 2 × {S}: "
+            f"forward vs decode_step loop, logits max |diff| {err:.3e} "
+            f"(tol {SSM_STEPWISE_TOL:g}); finite {finite}")
+        if not finite or not err <= SSM_STEPWISE_TOL:
+            raise AssertionError(f"S={S}: chunked vs stepwise {err}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def train_ssm_phase(dev, arch, tag):
+    """[train-hybrid] / [train-ssm]: TRAIN_SSM_RUN["steps"] Trainer steps
+    (make_train_step) of the config at full width and depth (bf16, remat
+    "full" on the trunk, seq 4096, batch 2), launch counters reset just
+    before and read just after: zamba2 launches kernels 1r and 2 once per
+    shared-block invocation a step (the shared block has no remat, so
+    kernel 1 does not run), rwkv6 no kernel. Returns {path: launches}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.models import zamba
+    from repro_torch.train import Trainer
+    cfg = get_config(arch)
+    run = TRAIN_SSM_RUN
+    tcfg = TrainConfig(seq_len=run["seq"], global_batch=run["batch"],
+                       steps=run["steps"], log_every=1, checkpoint_every=0,
+                       seed=0, optimizer=OptimizerConfig(
+                           lr=3e-4, warmup_steps=1,
+                           total_steps=run["steps"]))
+    log(f"[{tag}] {arch}: {cfg.num_layers} layers (family {cfg.family}), "
+        f"{cfg.dtype}, remat {cfg.remat}, seq {tcfg.seq_len}, batch "
+        f"{tcfg.global_batch}, {tcfg.steps} steps")
+    trainer = Trainer(cfg, tcfg, device=dev, log_fn=log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for h in trainer.history:
+        log(f"  step {h['step']}: loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, {h['ms']:.1f} ms, "
+            f"{h['tokens_per_s']:.1f} tokens/s")
+    log(f"  run {wall:.1f} s (parameter init included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if len(trainer.history) != tcfg.steps or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in trainer.history):
+        raise AssertionError(f"non-finite or missing losses: "
+                             f"{trainer.history}")
+    n = zamba.n_attn_invocations(cfg) * tcfg.steps \
+        if cfg.family == "hybrid" else 0
+    want = {name: 0 for name in launches}
+    want["blockwise_causal_attn(return_residuals)"] = n
+    want["blockwise_causal_attn_bwd"] = n
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    if n:
+        require_routes(tag, "tensor cores")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {tag: launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3745,6 +4069,23 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lap("train-moe and train-moe-parity")
+    for arch, tag in ((HYBRID_ARCH, "serve-hybrid"), (SSM_ARCH, "serve-ssm")):
+        new_paths.update(serve_ssm_phase(dev, arch, tag))
+        lap(tag)
+    serve_hybrid_parity_phase(dev)
+    serve_ssm_parity_phase(dev)
+    lap("serve-hybrid-parity, serve-ssm-parity")
+    for arch, tag in ((HYBRID_ARCH, "train-hybrid"), (SSM_ARCH, "train-ssm")):
+        new_paths.update(train_ssm_phase(dev, arch, tag))
+        cut = dataclasses.replace(get_config(arch),
+                                  num_layers=SSM_PARITY_LAYERS[arch],
+                                  dtype="float32")
+        train_parity_phase(dev, cut, make_causal_batch(
+            SyntheticCorpus(cut.vocab_size, seed=0), DataState(0, 0),
+            batch=1, seq=TRAIN_PARITY_SEQ), f"{tag}-parity")
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f"{tag} and {tag}-parity")
     serve_ckpt_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()

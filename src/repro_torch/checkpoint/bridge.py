@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.transformer import nest, param_spec, torch_dtype
+from repro_torch.models.model import param_spec
+from repro_torch.models.transformer import nest, torch_dtype
 
 
 def params_from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *,
@@ -28,7 +29,8 @@ def params_from_flat(flat: Mapping[str, np.ndarray], cfg: ModelConfig, *,
     Every key of the model's parameter layout must be present with its
     shape; extra keys are an error too (a checkpoint of another config).
     Each leaf takes its dtype from the parameter spec: the config's, or
-    `dtype` where given, for all but the fp32 MoE router, which stays
+    `dtype` where given, for all but the leaves JAX keeps in fp32 (the MoE
+    router; the SSM families' decay, skip and bonus leaves), which stay
     fp32."""
     dev = resolve_device(device)
     if dtype is not None:

@@ -8,7 +8,10 @@ decoders behind stub frontends ``internvl2-2b`` (vision patches prepended)
 and ``musicgen-large`` (frame embeddings in place of tokens), and the
 paper's ``linformer-paper`` encoder; and the MoE decoders
 ``qwen3-moe-30b-a3b`` and ``kimi-k2-1t-a32b`` (models/moe.py, on one
-device). SSM and hybrid configs are not ported yet.
+device); the attention-free RWKV6 ``rwkv6-1.6b`` (family ssm,
+models/rwkv_model.py) and the Mamba2 hybrid ``zamba2-1.2b`` (family
+hybrid, models/zamba.py), whose shared attention block is blockwise-causal
+Linformer.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "linformer-paper": "linformer_paper",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 

@@ -65,11 +65,14 @@ def _forward_only(name: str, *xs: torch.Tensor) -> None:
 
 
 def _compress_kv(x, W, block_size, block_slots):
-    """(B, S, Hkv, Dh) × E/F → (B, nb·r, Hkv, Dh) compressed slots."""
+    """(B, S, Hkv, Dh) × E/F → (B, nb·r, Hkv, Dh) compressed slots, Dh
+    contiguous as the kernels take them (einsum may hand back a permuted
+    layout: at nb = 1, Dh-strided)."""
     B, S, Hkv, Dh = x.shape
     nb = S // block_size
     xbar = compress_blocks(x.reshape(B, nb, block_size, Hkv, Dh), W)
-    return xbar.reshape(B, nb * block_slots, Hkv, Dh)
+    xbar = xbar.reshape(B, nb * block_slots, Hkv, Dh)
+    return xbar if xbar.stride(-1) == 1 else xbar.contiguous()
 
 
 class BlockwiseCausalAttnFn(torch.autograd.Function):

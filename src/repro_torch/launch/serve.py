@@ -16,11 +16,18 @@ scheduler (default) or the static bucketed baseline. Reports through
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
         --ckpt-dir "$TMPDIR/repro_torch_train_ckpt/qwen3-8b"
 
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
+
 --arch takes every token-input config of the port: qwen3-8b, qwen3-14b,
-nemotron-4-15b, qwen1.5-110b, qwen3-moe-30b-a3b and kimi-k2-1t-a32b (the
-engine refuses the frontend configs internvl2-2b and musicgen-large; the
-whole kimi-k2, 2 TB in bf16, fits no single card, so serve its --smoke
-config). --ckpt-dir restores the params of the
+nemotron-4-15b, qwen1.5-110b, qwen3-moe-30b-a3b, kimi-k2-1t-a32b,
+rwkv6-1.6b and zamba2-1.2b (the engine refuses the frontend configs
+internvl2-2b and musicgen-large; the whole kimi-k2, 2 TB in bf16, fits no
+single card, so serve its --smoke config). The ssm and hybrid configs
+(rwkv6-1.6b, zamba2-1.2b) keep one scalar position for every row: the
+continuous scheduler falls back to the static bucketed one, with a logged
+line saying so, as the JAX launcher does, and --attention leaves the
+attention-free rwkv6 as it is. --ckpt-dir restores the params of the
 latest step a Trainer saved there (the train launcher's
 --ckpt-dir/<arch>), in the config's dtype (float32 with --smoke), and
 logs the step; a directory without a step raises. Without it the weights
@@ -125,7 +132,7 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.smoke:
         cfg = dataclasses.replace(cfg, dtype="float32")
-    if args.attention:
+    if args.attention and cfg.family != "ssm":
         cfg = cfg.with_attention_kind(args.attention)
     max_seq = args.max_seq or 16 * cfg.attention.linformer.block_size
     params = M.init_params(cfg, seed=0, device=args.device)
@@ -155,10 +162,15 @@ def main(argv=None):
                      else None for p in (prios or [0] * len(prompts))]
     sync = torch.cuda.synchronize if eng.device.type == "cuda" else (
         lambda: None)
+    mode = args.scheduler
+    if mode == "continuous" and not eng.supports_continuous_batching:
+        log.info("%r cache has no per-row positions; falling back to the "
+                 "static bucketed scheduler", cfg.family)
+        mode = "static"
     sync()
     t0 = time.perf_counter()
     sched = None
-    if args.scheduler == "continuous":
+    if mode == "continuous":
         outs, sched = eng.serve(prompts, args.max_new_tokens,
                                 max_batch=args.max_batch,
                                 priorities=prios, deadlines=deadlines,
@@ -180,7 +192,7 @@ def main(argv=None):
                     f"forwards for {sched.stats.prefill_tokens} prompt "
                     "tokens")
     log.info("%s: %d requests, %d tokens in %.2fs (%.1f tok/s)%s; "
-             "cache/request %d B", args.scheduler, len(prompts), n_tok, dt,
+             "cache/request %d B", mode, len(prompts), n_tok, dt,
              n_tok / dt, occ, eng.cache_bytes(args.max_batch)
              // args.max_batch)
     if sched is not None:

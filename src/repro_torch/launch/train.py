@@ -4,7 +4,8 @@ config's objective picks the batches: causal LM for the decoders
 (qwen3-8b, qwen3-14b, nemotron-4-15b, qwen1.5-110b and the MoE decoders
 qwen3-moe-30b-a3b and kimi-k2-1t-a32b, whose loss adds the weighted
 load-balance loss and whose step logs it), masked LM for the paper's
-encoder (linformer-paper). The frontend configs (internvl2-2b,
+encoder (linformer-paper); causal LM too for the attention-free RWKV6
+(rwkv6-1.6b) and the Mamba2 hybrid (zamba2-1.2b). The frontend configs (internvl2-2b,
 musicgen-large) train through make_train_step with embedding batches: the
 Trainer's corpus yields tokens only and refuses them.
 
@@ -23,10 +24,14 @@ Trainer's corpus yields tokens only and refuses them.
         --batch 32 --steps 8 --ckpt-every 0
     python -m repro_torch.launch.train --arch linformer-paper --smoke \
         --device cpu --attention standard
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu
+    python -m repro_torch.launch.train --arch zamba2-1.2b --steps 4 \
+        --ckpt-every 0
 
 --attention overrides the config's attention kind (standard | linformer |
 linformer_causal), as the JAX launcher's flag does: "standard" trains the
-paper's softmax baseline.
+paper's softmax baseline. The attention-free rwkv6-1.6b ignores it, as in
+JAX.
 Without --device the run needs a CUDA card (it raises otherwise).
 --backend picks the attention route for the run: "auto" (the config's
 default: the kernels), "reference" (the plain reference forms, the parity
@@ -90,7 +95,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, dtype="float32")
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    if args.attention:
+    if args.attention and cfg.family != "ssm":
         cfg = cfg.with_attention_kind(args.attention)
     seq = args.seq or (64 if args.smoke else 4096)
     batch = args.batch or (8 if args.smoke else 2)

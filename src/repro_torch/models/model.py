@@ -1,9 +1,10 @@
 """Unified model API and the device-resident decode loop.
 
-Counterpart of ``repro/models/model.py`` for the dense, moe, vlm and
-audio families: params, forward, decode, and the training losses. Entry
-points take an explicit device; randomness comes from an explicit
-``torch.Generator``.
+Counterpart of ``repro/models/model.py``: dispatches on ``cfg.family`` (the
+transformer families dense, moe, vlm and audio to models/transformer.py,
+hybrid to models/zamba.py, ssm to models/rwkv_model.py) for params,
+forward and decode, and provides the training losses. Entry points take an
+explicit device; randomness comes from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -13,8 +14,26 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv_model, transformer, zamba
 from repro_torch.parallel import plan as plan_lib
+
+TRANSFORMER_FAMILIES = transformer.TRANSFORMER_FAMILIES
+
+
+def _impl(cfg: ModelConfig):
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer
+    if cfg.family == "hybrid":
+        return zamba
+    if cfg.family == "ssm":
+        return rwkv_model
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def param_spec(cfg: ModelConfig) -> transformer.Spec:
+    """Flat {key: (shape, init kind, dtype)} of the config's parameters,
+    keyed as the JAX checkpointer's."""
+    return _impl(cfg).param_spec(cfg)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -23,36 +42,43 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     on `device` (CUDA unless the caller asks for the CPU)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return transformer.init_params(cfg, generator=gen, device=dev)
+    return _impl(cfg).init_params(cfg, generator=gen, device=dev)
 
 
 def forward(params, cfg: ModelConfig, batch: Dict, **kw):
-    return transformer.forward(params, cfg, batch, **kw)
+    return _impl(cfg).forward(params, cfg, batch, **kw)
 
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
                dtype=torch.bfloat16,
                device: Union[str, torch.device] = "cuda") -> Dict:
-    return transformer.init_cache(cfg, batch=batch, max_seq=max_seq,
-                                  dtype=dtype, device=resolve_device(device))
+    return _impl(cfg).init_cache(cfg, batch=batch, max_seq=max_seq,
+                                 dtype=dtype, device=resolve_device(device))
 
 
 def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                 cache: Dict, *, embeds: Optional[torch.Tensor] = None,
                 plan: Optional[plan_lib.AttentionPlan] = None):
     """One decode step on tokens (B, 1), or on ``embeds`` (B, 1, D) for a
-    config with ``embedding_inputs``; see transformer.decode_step."""
-    return transformer.decode_step(params, cfg, tokens, cache,
-                                   embeds=embeds, plan=plan)
+    config with ``embedding_inputs``; see transformer.decode_step (and the
+    ssm and hybrid modules' own, whose rows share one scalar length)."""
+    return _impl(cfg).decode_step(params, cfg, tokens, cache, embeds=embeds,
+                                  plan=plan)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: Dict, n_valid, *,
                   plan: Optional[plan_lib.AttentionPlan] = None):
     """Prefill-at-offset forward of one fixed-size chunk per row (serving's
-    chunked-admission path); see transformer.prefill_chunk."""
-    return transformer.prefill_chunk(params, cfg, tokens, cache, n_valid,
-                                     plan=plan)
+    chunked-admission path); see transformer.prefill_chunk. Transformer
+    families only: ssm/hybrid caches have no per-row positions to chunk
+    against."""
+    impl = _impl(cfg)
+    if not hasattr(impl, "prefill_chunk"):
+        raise ValueError(
+            f"family {cfg.family!r} has no chunked-prefill path")
+    return impl.prefill_chunk(params, cfg, tokens, cache, n_valid,
+                              plan=plan)
 
 
 def sample(logits: torch.Tensor, temperature: float = 0.0,
@@ -95,7 +121,8 @@ def decode_scan(
     Each step emits `cur` (frozen to eos_id for finished rows), feeds it back
     through `decode_step`, and samples the next token. Finished rows freeze
     their position counter (cache["lengths"]), so an idle slot of a pool
-    never advances past the cache capacity. A per-row `bad` flag latches
+    never advances past the cache capacity; an ssm/hybrid cache keeps one
+    scalar ``length`` for every row, which advances. A per-row `bad` flag latches
     when a still-live row's logits go non-finite.
     Returns (tokens (B, n_steps), next cur, finished, bad, cache)."""
     plan = plan if plan is not None \
@@ -105,11 +132,12 @@ def decode_scan(
     for _ in range(n_steps):
         tok = torch.where(finished, torch.full_like(cur, eos_id), cur)
         finished = finished | (tok == eos_id)
-        prev_lengths = cache["lengths"]
+        prev_lengths = cache.get("lengths")
         logits, cache = decode_step(params, cfg, tok[:, None], cache,
                                     plan=plan)
-        cache["lengths"] = torch.where(finished, prev_lengths,
-                                       cache["lengths"])
+        if prev_lengths is not None:    # ssm/hybrid caches keep a scalar
+            cache["lengths"] = torch.where(finished, prev_lengths,
+                                           cache["lengths"])
         last = logits[:, 0]
         bad = bad | (~torch.isfinite(last).all(dim=-1) & ~finished)
         cur = sample(last, temperature, generator).to(cur.dtype)
@@ -177,7 +205,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
     labels = batch["labels"]
     mask = batch["loss_mask"].to(torch.float32)
     P = cfg.frontend_embed_len
-    if cfg.chunked_ce > 0:
+    if cfg.chunked_ce > 0 and cfg.family in TRANSFORMER_FAMILIES:
         hidden, aux, _ = forward(params, cfg, batch, return_hidden=True,
                                  plan=plan)
         nll_sum, denom = chunked_head_ce(params, cfg, hidden[:, P:], labels,

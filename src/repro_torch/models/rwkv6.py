@@ -1,0 +1,227 @@
+"""RWKV6 "Finch" block (data-dependent decay linear attention), attention
+free.
+
+Counterpart of ``repro/models/rwkv6.py``. Per head (head dim P), with a
+per-channel data-dependent decay w_t ∈ (0, 1):
+
+    y_t = r_t · ( S_{t-1} + diag(u) · k_t ⊗ v_t )
+    S_t = diag(w_t) · S_{t-1} + k_t ⊗ v_t              S ∈ R^{P×P}
+
+Token-shift "ddlerp" mixing and the decay follow the Finch low-rank
+parameterisation; the log decay is clamped to [-2, -1e-6] a step, at
+training and decode time alike, as in JAX.
+
+`time_mix` computes the recurrence that JAX's stepwise `step_time_mix`
+defines, in chunks: exact sums inside a chunk, factored as
+exp(cum_prev[t]) · exp(-cum[s]), and a sequential scan over the chunk
+states. Where it differs from JAX's chunked form, on purpose: those
+factors are finite only while a chunk spans at most ~44 steps (the clamp
+lets |cum| grow by 2 a step, and fp32 overflows near e^88.7). JAX's
+chunk is the config's (128 for rwkv6-1.6b), and a length the chunk does
+not divide runs as ONE chunk of the whole sequence; there JAX's output is
+not finite (on the CPU, head dim 64, D = 128, S = 256, seed 0: at chunk
+128, 78 of 256 rows non-finite and the finite ones up to 0.79 off the
+stepwise form; at the SMOKE chunk 16, S = 90 and 100 are non-finite).
+This module caps the chunk at MAX_CHUNK = 32 steps (|cum| ≤ 64, e^64 ≈
+6e27) and runs a length the chunk does not divide as whole chunks plus
+one shorter tail chunk. Chunking is exact algebra, so this changes only
+rounding; at the SMOKE chunk and a length it divides the algorithm is
+JAX's as is.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as Fn
+
+from repro_torch.configs.base import RWKVConfig
+from repro_torch.models import transformer as T
+
+TM_DIM = 32          # ddlerp low-rank dim
+TD_DIM = 64          # decay low-rank dim
+LOG_W_MIN = -2.0
+LOG_W_MAX = -1e-6
+MAX_CHUNK = 32       # steps a chunk spans at most: |cum| ≤ 2·32 = 64
+
+
+def rwkv6_spec(d_model: int, d_ff: int, dtype: torch.dtype) -> T.Spec:
+    """One block's {key: (shape, init kind, dtype)}, the leaves of JAX's
+    ``init_rwkv6`` with its inits: the token-shift mixes 0, the low-rank
+    mixing and decay weights dense_init(scale=1e-2), decay_base 0 and
+    bonus_u N(0, 0.1) in fp32, the projections fan-in scaled, the group
+    norm's scale 1 and bias 0."""
+    D, f32 = d_model, torch.float32
+    dense = lambda *s: (s, T._DENSE, dtype)           # noqa: E731
+    small = lambda *s: (s, T._DENSE_SMALL, dtype)     # noqa: E731
+    zeros = lambda *s: (s, T._ZEROS, dtype)           # noqa: E731
+    return {
+        "maa_x": zeros(D), "maa": zeros(5, D),
+        "tm_w1": small(D, 5 * TM_DIM), "tm_w2": small(5, TM_DIM, D),
+        "td_w1": small(D, TD_DIM), "td_w2": small(TD_DIM, D),
+        "decay_base": ((D,), T._ZEROS, f32),
+        "bonus_u": ((D,), T._NORMAL_TENTH, f32),
+        "w_r": dense(D, D), "w_k": dense(D, D), "w_v": dense(D, D),
+        "w_g": dense(D, D), "w_o": dense(D, D),
+        "ln_x/scale": ((D,), T._ONES, dtype), "ln_x/bias": zeros(D),
+        "cm_maa_k": zeros(D), "cm_maa_r": zeros(D),
+        "cm_w_k": dense(D, d_ff), "cm_w_v": dense(d_ff, D),
+        "cm_w_r": dense(D, D),
+    }
+
+
+def _shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Token shift: x_{t-1}, with `prev` (B, D) as the t = 0 left context
+    (the dtypes promote, as JAX's concatenate does)."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+def _ddlerp(params: Dict, x: torch.Tensor, xx: torch.Tensor):
+    """Data-dependent lerp: the 5 mixed inputs [xw, xk, xv, xr, xg]."""
+    B, S, D = x.shape
+    dx = xx - x
+    base = x + dx * params["maa_x"]
+    k5 = torch.tanh(base @ params["tm_w1"]).reshape(B, S, 5, TM_DIM)
+    deltas = torch.einsum("bsnt,ntd->nbsd", k5, params["tm_w2"])
+    return [x + dx * (params["maa"][i] + deltas[i]) for i in range(5)]
+
+
+def _log_decay(params: Dict, xw: torch.Tensor) -> torch.Tensor:
+    """The clamped log decay (B, S, D), fp32."""
+    ww = params["decay_base"] + (torch.tanh(xw @ params["td_w1"])
+                                 @ params["td_w2"]).to(torch.float32)
+    return torch.clamp(-torch.exp(ww), LOG_W_MIN, LOG_W_MAX)
+
+
+def _group_norm(p: Dict, y: torch.Tensor, H: int) -> torch.Tensor:
+    """Per-head layer norm in fp32; y: (B, S, H, P) -> (B, S, D) fp32."""
+    B, S, _, P_ = y.shape
+    y32 = y.to(torch.float32)
+    mu = y32.mean(-1, keepdim=True)
+    var = y32.var(-1, unbiased=False, keepdim=True)
+    yn = ((y32 - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, H * P_)
+    return yn * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+
+
+def _wkv_chunks(r, k, v, lw, u, h0, Lc: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked WKV over S = nc·Lc tokens. r, k, v, lw: (B, S, H, P)
+    fp32, lw the log decay; u: (H, P); h0: (B, H, P, P) the state before
+    the first token. Returns (y (B, S, H, P), the state after the last
+    token). Lc ≤ MAX_CHUNK keeps every exp(±cum) finite."""
+    B, S, H, P_ = r.shape
+    nc = S // Lc
+    rc, kc, vc, lwc = (a.reshape(B, nc, Lc, H, P_) for a in (r, k, v, lw))
+    cum = torch.cumsum(lwc, dim=2)                     # inclusive, ≤ 0
+    cum_prev = cum - lwc                               # decay up to t - 1
+    cum_end = cum[:, :, -1:]                           # (B, nc, 1, H, P)
+
+    # intra-chunk, strict lower triangle (the bonus takes the diagonal):
+    # score[t, s] = Σ_i r_t[i] k_s[i] exp(cum_prev[t, i] - cum[s, i]), s < t
+    q_f = rc * torch.exp(cum_prev)
+    k_f = kc * torch.exp(-cum)
+    sc = torch.einsum("bcthi,bcshi->bchts", q_f, k_f)
+    below = torch.ones((Lc, Lc), dtype=torch.bool, device=r.device).tril_(-1)
+    sc = torch.where(below, sc, torch.zeros_like(sc))
+    y = torch.einsum("bchts,bcshj->bcthj", sc, vc)
+    y = y + (rc * u * kc).sum(-1, keepdim=True) * vc   # bonus: the token
+
+    # chunk states and the inter-chunk scan
+    S_c = torch.einsum("bcshi,bcshj->bchij", kc * torch.exp(cum_end - cum),
+                       vc)                             # (B, nc, H, P, P)
+    a_c = torch.exp(cum_end[:, :, 0])                  # (B, nc, H, P)
+    h = h0
+    h_prev = []                                        # state BEFORE chunk
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * a_c[:, c, :, :, None] + S_c[:, c]      # decays keys axis i
+    y = y + torch.einsum("bcthi,bchij->bcthj", q_f,
+                         torch.stack(h_prev, dim=1))
+    return y.reshape(B, S, H, P_), h
+
+
+def time_mix(params: Dict, x: torch.Tensor, cfg: RWKVConfig,
+             shift_prev: torch.Tensor, wkv_state: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunked parallel WKV. x: (B, S, D); wkv_state (B, H, P, P) the state
+    before the first token. Returns (out, new shift x[:, -1], new state
+    fp32). Chunks of min(chunk_size, MAX_CHUNK) tokens, the remainder as
+    one tail chunk (see the module docstring)."""
+    B, S, D = x.shape
+    P_ = cfg.head_dim
+    H = D // P_
+    f32 = torch.float32
+    xw, xk, xv, xr, xg = _ddlerp(params, x, _shift(x, shift_prev))
+    r = (xr @ params["w_r"]).reshape(B, S, H, P_).to(f32)
+    k = (xk @ params["w_k"]).reshape(B, S, H, P_).to(f32)
+    v = (xv @ params["w_v"]).reshape(B, S, H, P_).to(f32)
+    g = Fn.silu(xg @ params["w_g"])
+    lw = _log_decay(params, xw).reshape(B, S, H, P_)
+    u = params["bonus_u"].reshape(H, P_).to(f32)
+
+    Lc = min(cfg.chunk_size, MAX_CHUNK)
+    n_full = (S // Lc) * Lc
+    h = wkv_state.to(f32)
+    ys = []
+    for lo, hi, chunk in ((0, n_full, Lc), (n_full, S, S - n_full)):
+        if hi > lo:
+            y, h = _wkv_chunks(r[:, lo:hi], k[:, lo:hi], v[:, lo:hi],
+                               lw[:, lo:hi], u, h, chunk)
+            ys.append(y)
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    out = _group_norm(params["ln_x"], y, H).to(x.dtype) * g
+    return out @ params["w_o"], x[:, -1], h
+
+
+def channel_mix(params: Dict, x: torch.Tensor, shift_prev: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    xx = _shift(x, shift_prev)
+    dx = xx - x
+    xk = x + dx * params["cm_maa_k"]
+    xr = x + dx * params["cm_maa_r"]
+    kk = torch.square(torch.relu(xk @ params["cm_w_k"]))
+    out = torch.sigmoid(xr @ params["cm_w_r"]) * (kk @ params["cm_w_v"])
+    return out, x[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Recurrent step (decode and the oracle)
+# ---------------------------------------------------------------------------
+
+
+def init_rwkv6_state(batch: int, d_model: int, cfg: RWKVConfig,
+                     dtype=torch.float32, *,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    P_ = cfg.head_dim
+    H = d_model // P_
+    return {
+        "wkv": torch.zeros((batch, H, P_, P_), dtype=torch.float32,
+                           device=device),
+        "tm_shift": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "cm_shift": torch.zeros((batch, d_model), dtype=dtype, device=device),
+    }
+
+
+def step_time_mix(params: Dict, x_t: torch.Tensor, cfg: RWKVConfig,
+                  state: Dict) -> Tuple[torch.Tensor, Dict]:
+    """x_t: (B, 1, D) -> (out (B, 1, D), {wkv fp32, tm_shift x_t[:, 0]})."""
+    B, _, D = x_t.shape
+    P_ = cfg.head_dim
+    H = D // P_
+    f32 = torch.float32
+    xx = state["tm_shift"][:, None].to(x_t.dtype)
+    xw, xk, xv, xr, xg = _ddlerp(params, x_t, xx)
+    r = (xr @ params["w_r"]).reshape(B, H, P_).to(f32)
+    k = (xk @ params["w_k"]).reshape(B, H, P_).to(f32)
+    v = (xv @ params["w_v"]).reshape(B, H, P_).to(f32)
+    g = Fn.silu(xg @ params["w_g"])
+    w = torch.exp(_log_decay(params, xw).reshape(B, H, P_))
+    u = params["bonus_u"].reshape(H, P_)
+
+    S = state["wkv"]
+    kv = k[..., :, None] * v[..., None, :]                   # (B, H, P, P)
+    y = torch.einsum("bhi,bhij->bhj", r, S + u[None, :, :, None] * kv)
+    S_new = S * w[..., None] + kv
+    out = _group_norm(params["ln_x"], y.reshape(B, 1, H, P_), H)
+    out = out.to(x_t.dtype) * g
+    return out @ params["w_o"], {"wkv": S_new, "tm_shift": x_t[:, 0]}

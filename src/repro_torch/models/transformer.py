@@ -5,9 +5,12 @@ same decoder behind the stub vision and audio frontends
 (:func:`embed_inputs`), and the paper's encoder (learned positions, GELU
 MLP, exact bidirectional Linformer attention or the standard baseline).
 
-Counterpart of the dense, moe, vlm and audio part of
-``repro/models/transformer.py``. Parameters are nested dicts of tensors laid
-out exactly like the JAX package's pytree, in its two layer layouts:
+Counterpart of ``repro/models/transformer.py``, the module of the dense,
+moe, vlm and audio families (models/model.py dispatches the ssm and hybrid
+families to models/rwkv_model.py and models/zamba.py, which share its
+layout helpers, init, remat and LM head). Parameters are nested dicts of
+tensors laid out exactly like the JAX package's pytree, in its two layer
+layouts:
 
 * scanned (``cfg.scan_layers``, the default): every leaf under ``layers``
   carries a leading layer axis, e.g. ``layers/attn/wq`` (L, d, H·Dh). Layer
@@ -55,8 +58,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.parallel import plan as plan_lib
 
-# init kinds of param_spec
+# init kinds of param_spec: constants, N(0, 0.02) embeddings, fan-in scaled
+# normal weights, Linformer E/F, and the SSM leaves' other JAX inits:
+# N(0, 0.1) (mamba2 conv_w, rwkv6 bonus_u) and dense_init(scale=1e-2)
+# (rwkv6's low-rank mixing and decay weights)
 _ONES, _ZEROS, _EMBED, _DENSE, _LIN = "ones", "zeros", "embed", "dense", "lin"
+_NEG_ONES, _NORMAL_TENTH, _DENSE_SMALL = "neg_ones", "normal_0.1", "dense_0.01"
+_FILL = {_ONES: 1.0, _ZEROS: 0.0, _NEG_ONES: -1.0}
+_STD = {_EMBED: 0.02, _NORMAL_TENTH: 0.1, _DENSE_SMALL: 1e-2}
 # init_params draws a leaf whole up to this many elements (an 8 GiB fp32
 # draw), the size of every leaf of the configs ported before the larger
 # dense ones, whose weights from a seed thus stay as they were; a larger
@@ -68,14 +77,15 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-_FAMILIES = ("dense", "moe", "vlm", "audio")
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
+    if cfg.family not in TRANSFORMER_FAMILIES:
         raise ValueError(
-            f"config {cfg.name!r} (family {cfg.family!r}): the PyTorch port "
-            f"covers the transformer families {_FAMILIES}")
+            f"config {cfg.name!r} (family {cfg.family!r}) is not a "
+            f"transformer family {TRANSFORMER_FAMILIES}: build it through "
+            "models/model.py, which dispatches on the family")
 
 
 def _layer_lin_shapes(cfg: ModelConfig, i: int
@@ -213,10 +223,19 @@ def _draw_parts(w: torch.Tensor):
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device: torch.device) -> Dict:
-    """Random parameters with the JAX package's distributions (fan-in
-    scaled normal weights, N(0, 0.02) embeddings, unit norm scales, E/F
-    N(0, 1/r)), drawn from `generator` (on `device`), each leaf in its
-    spec dtype (the MoE router in fp32). A leaf of more than
+    """Random parameters of a transformer-family config (`init_from_spec`
+    of its `param_spec`)."""
+    return init_from_spec(param_spec(cfg), cfg, generator=generator,
+                          device=device)
+
+
+def init_from_spec(spec: Spec, cfg: ModelConfig, *,
+                   generator: torch.Generator, device: torch.device) -> Dict:
+    """Random parameters of `spec` with the JAX package's distributions
+    (fan-in scaled normal weights, N(0, 0.02) embeddings, the constants and
+    scaled normals of the SSM leaves, E/F N(0, 1/r)), drawn from
+    `generator` (on `device`), each leaf in its spec dtype (the MoE router
+    and the SSM decay and skip leaves in fp32). A leaf of more than
     _WHOLE_DRAW_MAX elements is drawn in parts (`_draw_parts`), so that its
     fp32 draw stays one slice (qwen1.5-110b's stacked MLP leaves would take
     35 GB at 22 layers, qwen3-moe's expert leaves 39 GB); every smaller
@@ -225,14 +244,14 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     term moves with the draw. The values differ from the JAX init: parity
     tests bridge JAX weights instead."""
     dt = torch_dtype(cfg.dtype)
-    spec = param_spec(cfg)
     flat = {}
     for key, (shape, kind, ldt) in spec.items():
-        if kind in (_ONES, _ZEROS):
-            fill = 1.0 if kind == _ONES else 0.0
-            flat[key] = torch.full(shape, fill, dtype=ldt, device=device)
+        if kind in _FILL:
+            flat[key] = torch.full(shape, _FILL[kind], dtype=ldt,
+                                   device=device)
         elif kind != _LIN:
-            std = 0.02 if kind == _EMBED else shape[-2] ** -0.5
+            std = _STD.get(kind, shape[-2] ** -0.5 if len(shape) > 1
+                           else shape[0] ** -0.5)
             w = torch.empty(shape, dtype=ldt, device=device)
             for part in _draw_parts(w):
                 part.copy_(torch.randn(part.shape, generator=generator,

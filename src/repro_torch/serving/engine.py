@@ -44,6 +44,14 @@ a per-row page table that the scheduler's page allocator fills.
 
 The pool cache is updated in place (the JAX engine donates buffers to the
 same effect); the scheduler's `SlotPool` is its only owner.
+
+The ssm and hybrid families (rwkv6-1.6b, zamba2-1.2b) keep one scalar
+``length`` for every row of a cache, so no row can be admitted or retired
+alone: `serve` falls back to the static bucketed path for them
+(`supports_continuous_batching`), as JAX's does, and refuses what only the
+scheduler offers. Their prompts prefill whole through one forward where
+the admission block is 1 (rwkv6: no attention) and as whole Linformer
+blocks plus decode steps for the rest (zamba2's shared block, c = 256).
 """
 from __future__ import annotations
 
@@ -141,6 +149,14 @@ class ServingEngine:
                     f"attention family, got {cfg.attention.kind!r} (the "
                     "page size IS the attention block fold)")
             _, self._page_qmax = cache_lib.resolve_page_dtype(page_dtype)
+        if not self.supports_continuous_batching and (
+                self.paged or self.prefill_chunk):
+            raise ValueError(
+                f"family {cfg.family!r} has a shared-scalar cache: serve "
+                "runs the static bucketed path, which prefills whole prompts"
+                " into a dense cache, so cache_format='paged' and "
+                "prefill_chunk > 0 (the continuous scheduler's pool and "
+                "admission) do not apply")
         if self.prefill_chunk:
             blk = self._block()
             if self.prefill_chunk < blk or self.prefill_chunk % blk != 0:
@@ -661,6 +677,13 @@ class ServingEngine:
             cur = self._sample(logits_t[:, 0], generator)
         return outs
 
+    @property
+    def supports_continuous_batching(self) -> bool:
+        """Slot scheduling needs per-row position counters, which only the
+        transformer-family caches carry; ssm/hybrid caches share a scalar
+        position."""
+        return self.cfg.family in model_lib.TRANSFORMER_FAMILIES
+
     def _check_budgets(self, prompts, budgets) -> None:
         for i, p in enumerate(prompts):
             if len(p) == 0:
@@ -708,9 +731,37 @@ class ServingEngine:
 
         Returns outputs ordered like `prompts`, a `ShedResult` in place of
         the tokens of a shed request (or (outputs, scheduler) with
-        return_scheduler=True, for stats)."""
+        return_scheduler=True, for stats).
+
+        Families whose cache has no per-row positions (ssm/hybrid) fall
+        back to `serve_static`, as in JAX: the scheduler's options
+        (`return_scheduler`, `arrival_chunks` and the SLO knobs
+        `priorities`, `deadlines`, `max_queue`, `fault_injector`,
+        `snapshot_chunks`) raise ValueError; `generator` is not used (each
+        bucket samples from a generator seeded 0, as JAX's fallback
+        ignores its key); the streaming callbacks fire after the serve."""
         from repro_torch.serving.scheduler import Request, Scheduler
         budgets = _per_request_max_new(max_new_tokens, len(prompts))
+        if not self.supports_continuous_batching:
+            slo = (priorities is not None or deadlines is not None
+                   or max_queue is not None or fault_injector is not None
+                   or snapshot_chunks)
+            if return_scheduler or arrival_chunks is not None or slo:
+                raise ValueError(
+                    f"family {self.cfg.family!r} has a shared-scalar cache: "
+                    "no continuous scheduler (serve falls back to the "
+                    "static bucketed path, which has no scheduler stats, "
+                    "no SLO/fault handling, and cannot replay an arrival "
+                    "trace)")
+            outputs = self.serve_static(prompts, budgets,
+                                        max_batch=max_batch)
+            for i, out in enumerate(outputs):
+                if on_token is not None:
+                    for tok in out:
+                        on_token(i, tok)
+                if on_complete is not None:
+                    on_complete(i, out)
+            return outputs
         n = len(prompts)
         arrivals = list(arrival_chunks) if arrival_chunks is not None \
             else [0] * n
@@ -759,21 +810,23 @@ class ServingEngine:
         return results  # type: ignore
 
     def cache_bytes(self, batch: int) -> int:
-        """Decode-cache footprint of a `batch`-row pool, in bytes. In paged
-        mode: the quantized ring, its scales, the page arena
-        (`arena_pages`, or the capacity-equivalent default) and the
-        table."""
-        from repro_torch.models import attention as attn_lib
+        """Decode-cache footprint of a `batch`-row pool, in bytes: every
+        leaf of the model's decode cache (the family's layout: the
+        compressed or full KV cache; the recurrent states, with the shared
+        block's compressed entries for the hybrid), or in paged mode the
+        quantized ring, its scales, the page arena (`arena_pages`, or the
+        capacity-equivalent default) and the table."""
         if self.paged:
-            spec = attn_lib.paged_decode_cache_spec(
+            from repro_torch.models import attention as attn_lib
+            return transformer.cache_nbytes(attn_lib.paged_decode_cache_spec(
                 self.cfg.attention, num_layers=self.cfg.num_layers,
                 batch=batch, max_seq=self.max_seq,
-                arena_pages=self.arena_pages, page_dtype=self.page_dtype)
-        else:
-            spec = attn_lib.decode_cache_spec(
-                self.cfg.attention, num_layers=self.cfg.num_layers,
-                batch=batch, max_seq=self.max_seq, dtype=self.cache_dtype)
-        return transformer.cache_nbytes(spec)
+                arena_pages=self.arena_pages, page_dtype=self.page_dtype))
+        cache = model_lib.init_cache(self.cfg, batch=batch,
+                                     max_seq=self.max_seq,
+                                     dtype=self.cache_dtype, device="meta")
+        return sum(v.numel() * v.element_size()
+                   for v in transformer.flatten(cache).values())
 
 
 def _round_fp8(x: torch.Tensor, nan_sign: torch.Tensor,

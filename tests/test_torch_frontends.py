@@ -26,7 +26,7 @@ from repro.optim import adamw as jadamw
 from repro.train import trainer as jtrainer
 
 from repro_torch.checkpoint import bridge
-from repro_torch.configs import config_from_dict
+from repro_torch.configs import config_from_dict, get_smoke_config
 from repro_torch.configs.base import OptimizerConfig, TrainConfig
 from repro_torch.models import model as tmodel
 from repro_torch.models import transformer as ttransformer
@@ -255,9 +255,16 @@ def test_refusals(setup, tmp_path):
 
 
 def test_ssm_and_hybrid_stay_refused():
+    """The transformer module refuses the ssm and hybrid families (the
+    model API dispatches them to their own modules, which build them), and
+    the model API refuses an unknown family, as JAX's ``_impl`` does."""
     cfg = config_from_dict(dataclasses.asdict(
         jax_smoke_config("qwen3-8b")))
     for bad in (dataclasses.replace(cfg, family="ssm"),
                 dataclasses.replace(cfg, family="hybrid")):
-        with pytest.raises(ValueError, match="transformer families"):
+        with pytest.raises(ValueError, match="not a transformer family"):
             ttransformer.param_spec(bad)
+    for arch in ("rwkv6-1.6b", "zamba2-1.2b"):
+        assert tmodel.param_spec(get_smoke_config(arch))
+    with pytest.raises(ValueError, match="unknown family"):
+        tmodel.param_spec(dataclasses.replace(cfg, family="vision"))

@@ -1214,3 +1214,97 @@ def test_apply_moe_on_cuda_matches_cpu_and_is_deterministic(cuda, cf):
     b, aux_b = tmoe.apply_moe(bf, xb, cfg, mlp)
     assert a.dtype == torch.bfloat16 and torch.equal(a, b)
     assert torch.equal(aux_a, aux_b)
+
+
+# -- the ssm and hybrid families ---------------------------------------------
+
+# full width; zamba2 cut to 7 layers (one shared-block invocation and a
+# trailing trunk layer), rwkv6 to 2; the prefill a whole Linformer block
+SSM_CUTS = {"zamba2-1.2b": (7, 256), "rwkv6-1.6b": (2, 64)}
+
+
+@pytest.mark.parametrize("arch", list(SSM_CUTS))
+def test_ssm_and_hybrid_decode_step_matches_the_cpu(cuda, arch):
+    """fp32 at full width: a prefill and one decode step on the card give
+    the CPU's logits within 1e-4 and its cache leaves within 1e-4 (plus
+    1e-4 relative: the summed recurrent states grow past 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import nest
+    layers, S = SSM_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device="cpu")
+    toks = torch.randint(4, cfg.vocab_size, (2, S + 1),
+                         generator=torch.Generator().manual_seed(0))
+    got = []
+    for dev in ("cpu", cuda):
+        p = params if dev == "cpu" else nest(
+            {k: v.to(dev) for k, v in flatten(params).items()})
+        with torch.no_grad():
+            lg, _, cache = tmodel.forward(
+                p, cfg, {"tokens": toks[:, :S].to(dev)}, return_cache=True,
+                cache_max_seq=512, cache_dtype=torch.float32)
+            step, cache = tmodel.decode_step(p, cfg, toks[:, S:].to(dev),
+                                             cache)
+        assert int(cache["length"]) == S + 1
+        got.append((lg[:, -1].cpu(), step[:, 0].cpu(),
+                    {k: v.cpu() for k, v in flatten(cache).items()}))
+    for a, b in zip(got[0][:2], got[1][:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    for k, v in got[0][2].items():
+        torch.testing.assert_close(got[1][2][k], v, rtol=1e-4, atol=1e-4,
+                                   msg=k)
+
+
+def test_rwkv6_chunked_form_finite_at_chunk_128_and_4096_tokens(cuda):
+    """rwkv6-1.6b at full width (chunk 128), 1 layer, fp32, 4096 tokens:
+    JAX's single-chunk factorisation overflows there; the port's capped
+    chunks keep every logit finite and its last 8 positions within 2e-3
+    of the decode_step loop over the same tokens."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=1,
+                              dtype="float32")
+    assert cfg.rwkv.chunk_size == 128
+    params = tmodel.init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(4, cfg.vocab_size, (1, 4096), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    with torch.no_grad():
+        full = tmodel.forward(params, cfg, {"tokens": toks})[0]
+        cache = tmodel.init_cache(cfg, batch=1, max_seq=4096,
+                                  dtype=torch.float32, device=cuda)
+        for t in range(4096):
+            step, cache = tmodel.decode_step(params, cfg, toks[:, t:t + 1],
+                                             cache)
+            if t >= 4088:
+                torch.testing.assert_close(step[:, 0], full[:, t], rtol=0,
+                                           atol=2e-3)
+    assert torch.isfinite(full).all()
+
+
+def test_zamba2_kernel_counters_on_prefill_and_decode_step(cuda):
+    """zamba2 SMOKE (two shared-block invocations) in fp32 on the card: a
+    prefill forward launches kernel 1 once per invocation and nothing
+    else, a decode step kernel 3 once per invocation; the logits match the
+    reference route's within 1e-4."""
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"),
+                              dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(4, cfg.vocab_size, (2, 33), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    n_inv = cfg.num_layers // cfg.hybrid_attn_every
+    got = {}
+    for backend in ("auto", "reference"):
+        c = cfg.with_attention_backend(backend)
+        bca.blockwise_causal_attn.launches = 0
+        la.decode_attn.launches = 0
+        with torch.no_grad():
+            lg, _, cache = tmodel.forward(
+                params, c, {"tokens": toks[:, :32]}, return_cache=True,
+                cache_max_seq=64, cache_dtype=torch.float32)
+            prefill = bca.blockwise_causal_attn.launches
+            step, _ = tmodel.decode_step(params, c, toks[:, 32:], cache)
+        counts = (prefill, la.decode_attn.launches)
+        assert counts == ((n_inv, n_inv) if backend == "auto" else (0, 0))
+        got[backend] = (lg, step)
+    for a, b in zip(got["auto"], got["reference"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)

@@ -41,6 +41,17 @@ POOLS = {"dense-mono": dict(),
                              arena_pages=7)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port while this module runs: its
+    SMOKE-sized ops gain nothing from more, and under the test run's
+    parallel workers more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg_j = dataclasses.replace(jax_smoke_config("qwen3-8b"),
