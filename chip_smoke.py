@@ -209,6 +209,22 @@ error; none catches its own failure:
    memory, loss; zamba2 launches kernels 1r and 2 six times a step each
    (on the tensor cores), rwkv6 none; each with a parity leg as
    [train-parity] at the cut depth of its serve parity (fp32, 1 × 1024).
+28. [telemetry] (after [per-token]) the port's telemetry on a full-width
+   overload serve: qwen3-8b at SERVE_LAYERS in bf16, the paged int8 pool
+   with chunked admission (kernels 8 and 7), the JAX package's overload
+   trace shape (TEL_* constants: a priority-2 backlog oversubscribing the
+   pool, a bounded queue shedding part of it as queue_full, priority-0
+   arrivals with deadlines preempting their way in with a snapshot and a
+   restore, two priority-1 requests with infeasible deadlines shed as
+   deadline_infeasible, a snapshot of every row every TEL_SNAPSHOT_CHUNKS
+   chunks; no request may end on EOS). Served with telemetry off (a
+   warm-up), on, and off again: the same outputs, ShedResults, scheduler
+   counters and launches of each kernel; the walls on and off; the share
+   of the `serve` span in each scheduler span; TTFT and TPOT by priority;
+   the Perfetto trace and the metrics JSONL exported to a temporary
+   directory must pass `scripts/check_trace.py` with no dropped event.
+   [train] runs its Trainer with a `Telemetry`: one `train_step` span and
+   record a step, its step_ms and loss equal to `Trainer.history`'s.
 
 [check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
 these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
@@ -827,8 +843,8 @@ def serve_slo_parity_phase(dev, cfg):
         ref_outs, ref_sched, _ = slo_serve(engine("reference"), prompts)
         clean = eng.serve(prompts, SLO_BUDGET, max_batch=4)
         same_ref = outs == ref_outs and \
-            dataclasses.asdict(sched.stats) == \
-            dataclasses.asdict(ref_sched.stats)
+            sched.stats.counter_records() == \
+            ref_sched.stats.counter_records()
         same_clean = all(not isinstance(o, list) or o == c
                          for o, c in zip(outs, clean))
         log(f"[serve-slo-parity] 2-layer fp32, {mode}: launches "
@@ -902,6 +918,272 @@ def sample_phase(dev, cfg, params, prompts, mono_outs):
             and tv <= 0.02):
         raise AssertionError(f"[sample]: runs {runs}, greedy {greedy} vs "
                              f"{want}, refused {refused}, tv {tv}")
+
+
+# [telemetry]: the JAX package's overload trace
+# (benchmarks/serving_throughput.py `_overload_trace`, quick mode: a 4-row
+# pool, 4-token decode chunks, 12 priority-2 requests of 16 tokens,
+# priority-0 arrivals at ticks 2, 4, 6, 8 with 4 tokens due 4 ticks later,
+# two priority-1 requests due at tick 2 that need 4 chunks, a queue of
+# 8 + 2) at c = 256: backlog prompts of 1, 2 + 8/c and 3 blocks (the 8
+# tokens past 2 blocks run the remainder steps), urgent prompts of 8 tokens
+TEL_POOL = 4
+TEL_DCHUNK = 4
+TEL_LOW = 12
+TEL_LOW_BUDGET = 16
+TEL_HI_ARRIVALS = (2, 4, 6, 8)
+TEL_HI_BUDGET = 4
+TEL_HI_MARGIN = 4
+TEL_INFEASIBLE = 2
+TEL_MAX_QUEUE = 8 + TEL_INFEASIBLE
+TEL_SNAPSHOT_CHUNKS = 2
+TEL_MAX_SEQ = 1024
+TEL_SPANS = ("decode_chunk", "prefill_chunk_forward",
+             "prefill_remainder_forward", "snapshot_capture")
+
+
+def overload_trace(cfg):
+    """(prompts, budgets, serve() keywords) of the [telemetry] trace."""
+    import numpy as np
+    c = cfg.attention.linformer.block_size
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return list(map(int, rng.integers(4, cfg.vocab_size, n)))
+
+    prompts, budgets, arrivals, prios, deadlines = [], [], [], [], []
+    for _ in range(TEL_LOW):
+        prompts.append(prompt(int(rng.choice([c, 2 * c + 8, 3 * c]))))
+        budgets.append(TEL_LOW_BUDGET)
+        arrivals.append(0)
+        prios.append(2)
+        deadlines.append(None)
+    for a in TEL_HI_ARRIVALS:
+        prompts.append(prompt(8))
+        budgets.append(TEL_HI_BUDGET)
+        arrivals.append(a)
+        prios.append(0)
+        deadlines.append(a + TEL_HI_MARGIN)
+    for _ in range(TEL_INFEASIBLE):
+        prompts.append(prompt(8))
+        budgets.append(TEL_LOW_BUDGET)
+        arrivals.append(1)
+        prios.append(1)
+        deadlines.append(2)
+    return prompts, budgets, dict(
+        max_batch=TEL_POOL, arrival_chunks=arrivals, priorities=prios,
+        deadlines=deadlines, max_queue=TEL_MAX_QUEUE,
+        snapshot_chunks=TEL_SNAPSHOT_CHUNKS)
+
+
+def telemetry_serve(eng, prompts, budgets, kw, tel=None):
+    """One counted serve of the overload trace: (outputs, scheduler,
+    launches, wall seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs, sched = eng.serve(prompts, budgets, return_scheduler=True,
+                            telemetry=tel, **kw)
+    torch.cuda.synchronize()
+    return outs, sched, read_launches(), time.perf_counter() - t0
+
+
+def span_shares(tel):
+    """{span name: (count, ms)} of the scheduler spans inside the one
+    `serve` span, the rest under "rest", and the serve span's ms."""
+    events = [e for e in tel.tracer.chrome_events() if e["ph"] == "X"]
+    serve = [e for e in events if e["name"] == "serve"]
+    if len(serve) != 1:
+        raise AssertionError(f"[telemetry] {len(serve)} serve spans")
+    out = {name: [0, 0.0] for name in TEL_SPANS}
+    for e in events:
+        if e["name"] in out:
+            out[e["name"]][0] += 1
+            out[e["name"]][1] += e["dur"] / 1e3
+    total = serve[0]["dur"] / 1e3
+    out["rest"] = [0, total - sum(ms for _, ms in out.values())]
+    return out, total
+
+
+def slo_percentiles(tel):
+    """{(metric, priority): (count, p50, p99)} of the run's TTFT (ms and
+    ticks) and TPOT (ms) histograms."""
+    out = {}
+    for r in tel.metrics_records():
+        if r.get("metric") in ("serving_ttft_ms", "serving_ttft_ticks",
+                               "serving_tpot_ms") and r["count"]:
+            out[(r["metric"], r["labels"]["priority"])] = (
+                r["count"], r["p50"], r["p99"])
+    return out
+
+
+def sync_spans(eng, prompts, budgets, kw):
+    """{span name: (spans, spans holding a synchronizing call)}: one more
+    traced serve under torch.cuda.set_sync_debug_mode("warn"), which warns
+    at each call that waits for the device; each span counts the warnings
+    raised between its entry and its exit. A span without one times the
+    host's dispatch only."""
+    import warnings
+    import torch
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.telemetry import trace as ttrace
+    caught, stack, out = [], [], {}
+    enter, leave = ttrace._Span.__enter__, ttrace._Span.__exit__
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def span_enter(span):
+        stack.append(len(caught))
+        return enter(span)
+
+    def span_exit(span, *exc):
+        n = out.setdefault(span._name, [0, 0, collections.Counter()])
+        start = stack.pop()
+        n[0] += 1
+        n[1] += len(caught) > start
+        for w in caught[start:]:
+            n[2][f"{os.path.relpath(w.filename, root)}:{w.lineno}"] += 1
+        return leave(span, *exc)
+
+    ttrace._Span.__enter__, ttrace._Span.__exit__ = span_enter, span_exit
+    try:
+        with warnings.catch_warnings(record=True) as caught_list:
+            warnings.simplefilter("always")
+            caught = caught_list
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.serve(prompts, budgets, telemetry=Telemetry(), **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        ttrace._Span.__enter__, ttrace._Span.__exit__ = enter, leave
+    return {k: (n, w, dict(where)) for k, (n, w, where) in out.items()}
+
+
+def instrumentation_us():
+    """Host microseconds of one span (entry and exit, two args) and of one
+    timeline stamp (two fields, its instant event included) on a fresh
+    `Telemetry`, over 20000 of each: the instrumentation's own cost, which
+    a serve's wall is too noisy to show."""
+    from repro_torch.telemetry import Telemetry
+    n = 20000
+    tel = Telemetry(trace_capacity=4 * n)
+    tl = tel.new_timelines("probe")
+    t0 = time.perf_counter()
+    for i in range(n):
+        with tel.span("probe", cat="scheduler", rows=4, tick=i):
+            pass
+    t1 = time.perf_counter()
+    for i in range(n):
+        tl.stamp(i, "prefill_chunk", i, filled=i, total=n)
+    t2 = time.perf_counter()
+    return (t1 - t0) / n * 1e6, (t2 - t1) / n * 1e6
+
+
+def telemetry_phase(dev, cfg, params):
+    """[telemetry]: see the module docstring, item 28."""
+    import tempfile
+    import torch
+    from repro_torch.serving import ServingEngine, ShedResult
+    from repro_torch.telemetry import Telemetry
+    t_phase = time.perf_counter()
+    prompts, budgets, kw = overload_trace(cfg)
+    eng = ServingEngine(params, cfg, max_seq=TEL_MAX_SEQ, device=dev,
+                        cache_dtype=torch.bfloat16, decode_chunk=TEL_DCHUNK,
+                        prefill_chunk=SERVE_PREFILL_CHUNK,
+                        cache_format="paged", page_dtype=SERVE_PAGE_DTYPE)
+    warm = telemetry_serve(eng, prompts, budgets, kw)
+    # on and off in turns (on, off, off, on, on, off) after the warm-up;
+    # the first traced run is the one exported
+    tel = Telemetry()
+    on = telemetry_serve(eng, prompts, budgets, kw, tel)
+    off = telemetry_serve(eng, prompts, budgets, kw)
+    walls = {"on": [on[3]], "off": [off[3]]}
+    for turn in ("off", "on", "on", "off"):
+        walls[turn].append(telemetry_serve(
+            eng, prompts, budgets, kw,
+            Telemetry() if turn == "on" else None)[3])
+    outs, sched, launches, _ = on
+    st = sched.stats
+    log(f"[telemetry] {card_line()}; {cfg.name} at {cfg.num_layers} "
+        f"layers, paged {SERVE_PAGE_DTYPE}, prefill_chunk "
+        f"{SERVE_PREFILL_CHUNK}, {len(prompts)} requests (prompt lengths "
+        f"{sorted(set(len(p) for p in prompts))}), pool {TEL_POOL}, "
+        f"decode_chunk {TEL_DCHUNK}, max_queue {TEL_MAX_QUEUE}, snapshots "
+        f"every {TEL_SNAPSHOT_CHUNKS} chunks: {st.counters_line()}; chunks "
+        f"{st.chunks}, idle ticks {st.idle_ticks}, snapshots "
+        f"{st.snapshots}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"  serve wall (in turns on, off, off, on, on, off): telemetry off "
+        f"{', '.join(f'{w:.3f}' for w in walls['off'])} s, on "
+        f"{', '.join(f'{w:.3f}' for w in walls['on'])} s; on / off "
+        f"{sum(walls['on']) / sum(walls['off']):.4f}; warm-up, off, "
+        f"{warm[3]:.3f} s")
+    per_span, per_stamp = instrumentation_us()
+    n_spans = sum(e["ph"] == "X" for e in tel.tracer.chrome_events())
+    n_stamps = len(tel.tracer.events()) - n_spans
+    log(f"  the instrumentation alone: {per_span:.2f} us a span, "
+        f"{per_stamp:.2f} us a stamp on this host; this serve's {n_spans} "
+        f"spans and {n_stamps} stamps: "
+        f"{(n_spans * per_span + n_stamps * per_stamp) / 1e3:.3f} ms")
+
+    # telemetry changes nothing the serve decides or launches
+    for tag, (o, s, n, _) in (("warm-up", warm), ("off", off)):
+        if o != outs or s.stats.counter_records() != st.counter_records() \
+                or n != launches or s.completed_at != sched.completed_at:
+            raise AssertionError(f"[telemetry] telemetry on and {tag} "
+                                 f"differ: {o} / {outs}, launches {n} / "
+                                 f"{launches}")
+    require_launches(launches, ("blockwise_causal_prefix_attn_q",
+                                "decode_attn_q"), "telemetry")
+    # every leg of the trace happened, and no request ended on EOS
+    sheds = [o.reason for o in outs if isinstance(o, ShedResult)]
+    hi = range(TEL_LOW, TEL_LOW + len(TEL_HI_ARRIVALS))
+    for o, b in zip(outs, budgets):
+        if not isinstance(o, ShedResult) and len(o) != b:
+            raise AssertionError(f"[telemetry] a request ended early: {o}")
+    if sheds.count("deadline_infeasible") != TEL_INFEASIBLE \
+            or "queue_full" not in sheds or st.preemptions < 1 \
+            or any(isinstance(outs[i], ShedResult) for i in hi) \
+            or any(sched.completed_at[i] > kw["deadlines"][i] for i in hi):
+        raise AssertionError(f"[telemetry] a leg is missing: sheds "
+                             f"{sheds}, preemptions {st.preemptions}, "
+                             f"completion ticks {sched.completed_at}")
+
+    shares, total = span_shares(tel)
+    rest = shares.pop("rest")[1]
+    log(f"  serve span {total:.1f} ms: " + ", ".join(
+        f"{name} {n}x {ms:.1f} ms ({100 * ms / total:.1f}%)"
+        for name, (n, ms) in shares.items())
+        + f", the rest {rest:.1f} ms ({100 * rest / total:.1f}%)")
+    waited = sync_spans(eng, prompts, budgets, kw)
+    log("  spans that wait for the device (a synchronizing call inside, "
+        "torch.cuda.set_sync_debug_mode):")
+    for name, (n, w, where) in sorted(waited.items()):
+        log(f"    {name}: {w} of {n}" + ("" if name == "serve" else
+                                         f"; calls {where}"))
+    for (metric, pri), (n, p50, p99) in sorted(slo_percentiles(tel).items()):
+        log(f"  {metric} priority {pri}: {n} requests, p50 {p50:.2f}, p99 "
+            f"{p99:.2f}")
+    with tempfile.TemporaryDirectory() as d:
+        trace = tel.export_trace(os.path.join(d, "trace.json"),
+                                 metadata={"arch": cfg.name})
+        metrics = tel.export_metrics_jsonl(os.path.join(d, "metrics.jsonl"))
+        res = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "scripts", "check_trace.py"), trace, metrics],
+            capture_output=True, text=True, timeout=120)
+        with open(trace) as fh:
+            dropped = json.load(fh)["metadata"]["dropped_events"]
+        sizes = (os.path.getsize(trace), os.path.getsize(metrics))
+    log(f"  scripts/check_trace.py: rc {res.returncode}: "
+        f"{res.stdout.strip()} {res.stderr.strip()}; dropped events "
+        f"{dropped}; trace {sizes[0]} B, metrics {sizes[1]} B, "
+        f"{len(tel.tracer.events())} events")
+    if res.returncode != 0 or dropped != 0 or tel.tracer.dropped != 0:
+        raise AssertionError("[telemetry] the export failed its check")
+    del eng, sched, warm, on, off
+    log(f"  [telemetry] {time.perf_counter() - t_phase:.1f} s")
 
 
 def card_line():
@@ -2329,16 +2611,16 @@ def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
         " GB")
 
 
-def counted_train(path, dev, cfg, tcfg):
-    """The Trainer's run of `tcfg` on `cfg`, launch counters reset just
-    before and read just after: each step's loss, grad norm, ms and
-    tokens/s, the peak memory; every loss finite; kernels 1, 1r and 2
-    launched at least once a layer a step, on the tensor cores. Returns
-    (trainer, launches)."""
+def counted_train(path, dev, cfg, tcfg, telemetry=None):
+    """The Trainer's run of `tcfg` on `cfg` (with `telemetry`, a
+    `Telemetry` or None), launch counters reset just before and read just
+    after: each step's loss, grad norm, ms and tokens/s, the peak memory;
+    every loss finite; kernels 1, 1r and 2 launched at least once a layer
+    a step, on the tensor cores. Returns (trainer, launches)."""
     import torch
     from repro_torch.models.transformer import flatten
     from repro_torch.train import Trainer
-    trainer = Trainer(cfg, tcfg, device=dev, log_fn=log)
+    trainer = Trainer(cfg, tcfg, device=dev, log_fn=log, telemetry=telemetry)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2377,6 +2659,7 @@ def train_phase(dev, cfg):
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
     from repro_torch.data.pipeline import DataState, batches
     from repro_torch.optim import adamw_init
+    from repro_torch.telemetry import Telemetry
     cfg8 = dataclasses.replace(cfg, num_layers=TRAIN_RUN["layers"])
     tcfg = TrainConfig(seq_len=TRAIN_RUN["seq"],
                        global_batch=TRAIN_RUN["batch"],
@@ -2388,7 +2671,24 @@ def train_phase(dev, cfg):
         f"{cfg8.d_model}, vocab {cfg8.padded_vocab_size}, {cfg8.dtype}, "
         f"remat {cfg8.remat}, seq {tcfg.seq_len}, global batch "
         f"{tcfg.global_batch}, {tcfg.steps} steps")
-    trainer, launches = counted_train("train", dev, cfg8, tcfg)
+    tel = Telemetry()
+    trainer, launches = counted_train("train", dev, cfg8, tcfg, tel)
+    # the Trainer's telemetry: one span and one record a step, equal to
+    # its history (the record rounds the step's ms to 3 decimals, as JAX's)
+    recs = [r for r in tel.records if r["kind"] == "train_step"]
+    spans = [e for e in tel.tracer.chrome_events()
+             if e["ph"] == "X" and e["name"] == "train_step"]
+    span_ms = ", ".join(f"{e['dur'] / 1e3:.1f}" for e in spans)
+    log(f"  telemetry: {len(recs)} train_step records, {len(spans)} spans "
+        f"({span_ms} ms), train_steps_total "
+        f"{tel.metrics.counter('train_steps_total').value:g}, "
+        f"train_tokens_total "
+        f"{tel.metrics.counter('train_tokens_total').value:g}")
+    if len(recs) != tcfg.steps or len(spans) != tcfg.steps or any(
+            r["step_ms"] != round(h["ms"], 3) or r["loss"] != h["loss"]
+            for r, h in zip(recs, trainer.history)):
+        raise AssertionError(f"[train] telemetry records {recs} against "
+                             f"the history {trainer.history}")
 
     # where the time goes: one more step (fresh optimizer state, the next
     # batch) under torch.profiler, after the counted run
@@ -4004,6 +4304,8 @@ def main():
     lap("sample")
     per_token_phase(dev, scfg, params)
     lap("per-token")
+    telemetry_phase(dev, scfg, params)
+    lap("telemetry")
     slo_parity_launches = serve_slo_parity_phase(dev, cfg)
     del params
     gc.collect()

@@ -38,6 +38,16 @@ BACKWARD_ROUTES: Dict[str, str] = {
     "reference": "plain",
 }
 
+# AttentionConfig.backend -> the backend name after resolution, as the JAX
+# package's plan records it (its `resolve_backend` on the CPU and the TPU):
+# "auto" runs the kernels, so it resolves to "fused". Read by the cost
+# attribution (telemetry/cost.py), never by dispatch.
+RESOLVED_BACKENDS: Dict[str, str] = {
+    "auto": "fused",
+    "fused": "fused",
+    "reference": "reference",
+}
+
 # Shared memory one thread block may use on an H100 (227 KB); above 48 KB
 # only as dynamic shared memory after cudaFuncSetAttribute.
 MAX_SMEM_PER_BLOCK = 232448

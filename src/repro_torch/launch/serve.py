@@ -16,6 +16,9 @@ scheduler (default) or the static bucketed baseline. Reports through
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
         --ckpt-dir "$TMPDIR/repro_torch_train_ckpt/qwen3-8b"
 
+    python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \
+        --trace-out trace.json --metrics-out metrics.jsonl
+
     python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu
 
@@ -48,6 +51,12 @@ launcher assigns them: --priority-classes k puts request i in class i mod k
 (0 most urgent), --deadline-ticks gives the priority-0 requests that
 absolute deadline, --max-queue bounds the admission queue. The scheduler's
 counters line and one SHED line per shed request are logged.
+
+--trace-out and --metrics-out, as in the JAX launcher, turn telemetry on
+and export a Chrome-trace/Perfetto JSON (host spans, one lane per request)
+and a metrics JSONL (scheduler counters, per-priority TTFT/TPOT/queue-wait
+histograms, the plan's cost attribution); the paths are logged.
+`scripts/check_trace.py` validates an overload run's pair.
 """
 from __future__ import annotations
 
@@ -119,6 +128,15 @@ def main(argv=None):
     ap.add_argument("--max-queue", type=int, default=0,
                     help="bound the admission queue; overflow sheds the "
                          "least valued entry (0 = unbounded)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace/Perfetto JSON of the run "
+                         "(host spans + one lane per request) to this path; "
+                         "enables telemetry")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics dump (scheduler counters, "
+                         "per-priority TTFT/TPOT/queue-wait histograms, "
+                         "plan cost attribution) as JSONL to this path; "
+                         "enables telemetry")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[serve] %(message)s")
 
@@ -128,6 +146,7 @@ def main(argv=None):
     from repro_torch.models import model as M
     from repro_torch.models.transformer import param_bytes, torch_dtype
     from repro_torch.serving import ServingEngine
+    from repro_torch.telemetry import Telemetry
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.smoke:
@@ -147,12 +166,15 @@ def main(argv=None):
     log.info("%s: %d layers, %.2f GB of params on %s", cfg.name,
              cfg.num_layers, param_bytes(params) / 1e9, args.device)
 
+    telemetry = (Telemetry() if args.trace_out or args.metrics_out
+                 else None)
     eng = ServingEngine(params, cfg, max_seq=max_seq, device=args.device,
                         cache_dtype=torch_dtype(cfg.dtype),
                         temperature=args.temperature,
                         decode_chunk=args.decode_chunk,
                         attention_backend=args.backend,
-                        prefill_chunk=args.prefill_chunk)
+                        prefill_chunk=args.prefill_chunk,
+                        telemetry=telemetry)
     prompts = synthetic_prompts(cfg.vocab_size, eng._block(), args.requests)
     prios = ([i % args.priority_classes for i in range(len(prompts))]
              if args.priority_classes > 1 else None)
@@ -204,6 +226,15 @@ def main(argv=None):
         if isinstance(o, list):
             log.info("  req%d (%d prompt toks) -> %s", i, len(prompts[i]),
                      o[:10])
+    if telemetry is not None and args.trace_out:
+        telemetry.export_trace(args.trace_out,
+                               metadata={"arch": args.arch,
+                                         "scheduler": mode})
+        log.info("trace -> %s (load at https://ui.perfetto.dev)",
+                 args.trace_out)
+    if telemetry is not None and args.metrics_out:
+        telemetry.export_metrics_jsonl(args.metrics_out)
+        log.info("metrics -> %s", args.metrics_out)
     return outs
 
 

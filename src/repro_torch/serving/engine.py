@@ -1,9 +1,11 @@
 """Serving engine: slot-based continuous batching over device-resident decode.
 
-Counterpart of ``repro/serving/engine.py`` (all but its telemetry). The
-engine owns a fixed pool of `max_batch` cache slots (rows of one pool cache)
-and an SLO-aware `Scheduler` (serving/scheduler.py) that admits, preempts,
-quarantines and retires requests between decode chunks:
+Counterpart of ``repro/serving/engine.py``, its telemetry included (the
+plan's cost attribution, the compile-cache counters, the `serve` span;
+the scheduler stamps the rest). The engine owns a fixed pool of
+`max_batch` cache slots (rows of one pool cache) and an SLO-aware
+`Scheduler` (serving/scheduler.py) that admits, preempts, quarantines and
+retires requests between decode chunks:
 
 * admission: with `prefill_chunk=0` (monolithic) a queued request is
   prefilled alone (B=1): its whole blocks run through one forward that also
@@ -67,6 +69,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import model as model_lib
 from repro_torch.models import transformer
 from repro_torch.parallel.plan import resolve_attention_plan
+from repro_torch.telemetry import as_telemetry, plan_attribution
 
 DEFAULT_DECODE_CHUNK = 32
 
@@ -118,6 +121,7 @@ class ServingEngine:
         cache_format: str = "dense",
         arena_pages: Optional[int] = None,
         page_dtype: str = "int8",
+        telemetry=None,
     ):
         self.device = resolve_device(device)
         if cfg.embedding_inputs or cfg.frontend_embed_len > 0:
@@ -164,6 +168,12 @@ class ServingEngine:
                     f"prefill_chunk={self.prefill_chunk} must be a positive "
                     f"multiple of the attention block size ({blk}) so chunk "
                     "boundaries land on block-fold boundaries")
+        self.telemetry = as_telemetry(telemetry)
+        # shape-level compile-cache proxies (see _note_compile)
+        self._prefill_shapes: set = set()
+        self._chunk_lengths: set = set()
+        self._attributed: set = set()   # facades holding this plan's record
+        self._record_plan_attribution(self.telemetry)
 
     # -- internals ------------------------------------------------------
 
@@ -191,6 +201,28 @@ class ServingEngine:
         if self.arena_pages is not None:
             return self.arena_pages
         return max_batch * self.max_pages_per_row() + 1
+
+    def _record_plan_attribution(self, tel) -> None:
+        """Emit the plan's cost-attribution record (backend, per-form FLOPs
+        and comm-bytes estimates) into `tel`, once a facade, so a per-run
+        `serve(telemetry=...)` override gets it too."""
+        if not tel.enabled or tel in self._attributed:
+            return
+        self._attributed.add(tel)
+        rec = plan_attribution(self.plan, self.cfg.attention,
+                               max_seq=self.max_seq,
+                               prefill_chunk=self.prefill_chunk or None)
+        tel.record(rec.pop("kind"), **rec)
+
+    def _note_compile(self, fn_name: str, hit: bool) -> None:
+        """Count a shape-level compile-cache hit or miss under JAX's names.
+        Nothing here compiles a shape: the counters keep JAX's proxy, a miss
+        the first time a shape is seen (where JAX's jit would trace and
+        compile) and a hit after."""
+        if self.telemetry.enabled:
+            self.telemetry.metrics.counter(
+                "serving_compile_cache_hit_total" if hit
+                else "serving_compile_cache_miss_total", fn=fn_name).inc()
 
     def resolve_generator(self,
                           generator: Optional[torch.Generator] = None
@@ -220,6 +252,9 @@ class ServingEngine:
         B, S = tokens.shape
         c = self._block()
         nfull = (S // c) * c
+        shape = (B, nfull)
+        self._note_compile("prefill", hit=shape in self._prefill_shapes)
+        self._prefill_shapes.add(shape)
         toks = torch.as_tensor(np.asarray(tokens, np.int64),
                                device=self.device)
         logits = None
@@ -244,11 +279,19 @@ class ServingEngine:
     @torch.no_grad()
     def decode_chunk_fn(self, cur: torch.Tensor, finished: torch.Tensor,
                         cache: Dict, n: int,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        note_compile: bool = True):
         """One n-step device-resident decode chunk (model.decode_scan),
         sampling at the engine's temperature from `generator`; updates
         `cache` in place. Returns (tokens, cur, finished, bad, cache), all
-        on the device."""
+        on the device. `note_compile` counts the chunk length in the
+        compile-cache proxies, as each call of JAX's `_chunk_fn` does (the
+        scheduler's pool counts each length once, as JAX's pool resolves
+        it once)."""
+        if note_compile:
+            self._note_compile("decode_chunk",
+                               hit=n in self._chunk_lengths)
+            self._chunk_lengths.add(n)
         return model_lib.decode_scan(
             self.params, self.cfg, cur, finished, cache, n_steps=n,
             eos_id=EOS, temperature=self.temperature, generator=generator,
@@ -711,7 +754,8 @@ class ServingEngine:
               on_token: Optional[Callable[[int, int], None]] = None,
               on_complete: Optional[Callable[[int, List[int]], None]] = None,
               generator: Optional[torch.Generator] = None,
-              return_scheduler: bool = False):
+              return_scheduler: bool = False,
+              telemetry=None):
         """Serve mixed-length requests with slot-based continuous batching:
         a `max_batch`-slot pool, admission/retirement between decode chunks
         (serving/scheduler.py). `max_new_tokens` is one int or one per
@@ -728,6 +772,10 @@ class ServingEngine:
         `fault_injector` (serving/faults.py). `generator` feeds sampling at
         temperature > 0 (default: a generator seeded 0 on the engine's
         device; one on another device raises).
+
+        `telemetry` overrides the engine's `Telemetry` facade for this run
+        (span trace, per-request timelines, per-priority SLO histograms);
+        None uses the engine's own, by default the disabled no-op.
 
         Returns outputs ordered like `prompts`, a `ShedResult` in place of
         the tokens of a shed request (or (outputs, scheduler) with
@@ -773,17 +821,22 @@ class ServingEngine:
                 raise ValueError(f"{name} has {len(seq)} entries "
                                  f"for {n} prompts")
         self._check_budgets(prompts, budgets)
+        tel = telemetry if telemetry is not None else self.telemetry
+        self._record_plan_attribution(tel)
         sched = Scheduler(self, max_batch, generator,
                           max_queue=max_queue, max_retries=max_retries,
                           snapshot_chunks=snapshot_chunks,
-                          nan_guard=nan_guard, fault_injector=fault_injector)
+                          nan_guard=nan_guard, fault_injector=fault_injector,
+                          telemetry=tel)
         for i, p in enumerate(prompts):
             sched.submit(Request(rid=i, tokens=tuple(p),
                                  max_new_tokens=budgets[i],
                                  arrival_chunk=arrivals[i],
                                  priority=prios[i],
                                  deadline_ticks=dls[i]))
-        results = sched.run(on_token=on_token, on_complete=on_complete)
+        with tel.span("serve", cat="engine", n_requests=n,
+                      max_batch=max_batch):
+            results = sched.run(on_token=on_token, on_complete=on_complete)
         outputs = [results[i] for i in range(n)]
         if return_scheduler:
             return outputs, sched

@@ -1,10 +1,13 @@
 """SLO-aware slot-based continuous-batching scheduler over the
 device-resident decode loop.
 
-Counterpart of ``repro/serving/scheduler.py`` without its telemetry (the
-stamps, spans, page gauges and per-priority histograms): the same
-decisions on the same trace, so the same tokens, `ShedResult`s and
-`ScheduleStats` counters. The counters keep JAX's attribute names.
+Counterpart of ``repro/serving/scheduler.py``: the same decisions on the
+same trace, so the same tokens, `ShedResult`s and `ScheduleStats`
+counters, and the same telemetry (`telemetry=`): lifecycle stamps, the
+`admission_prefill`, `prefill_chunk_forward`, `prefill_remainder_forward`,
+`snapshot_capture` and `decode_chunk` spans, the page gauges and the
+per-priority SLO histograms. `ScheduleStats` is JAX's view over a metrics
+registry, under JAX's counter names.
 
 The unit of work is a *slot*: one row of a fixed (max_batch)-row pool
 cache, mutated only between decode chunks:
@@ -60,6 +63,7 @@ import torch
 from repro_torch.data.pipeline import EOS
 from repro_torch.serving.paged import PageAllocator, pages_needed
 from repro_torch.serving.snapshot import SlotSnapshot, capture
+from repro_torch.telemetry import MetricsRegistry, as_telemetry
 
 _INF = float("inf")
 
@@ -152,26 +156,58 @@ def _slot_sort_key(slot: _Slot) -> Tuple[int, float, int]:
     return (slot.request.priority, _INF if dl is None else dl, slot.seq)
 
 
-@dataclasses.dataclass
-class ScheduleStats:
-    """Scheduler counters, under the attribute names of JAX's
-    ScheduleStats (which keeps them in a metrics registry)."""
+# ScheduleStats attribute -> metric name in the backing registry (JAX's
+# names): one increment is visible to the scheduler and to the export.
+_STAT_COUNTERS = {
+    "chunks": "serving_chunks_total",              # decode chunks executed
+    "idle_ticks": "serving_idle_ticks_total",      # no-decode ticks (pool
+    #                                                empty or all prefilling)
+    "row_steps": "serving_row_steps_total",        # DECODING-slot steps
+    "occupancy_sum": "serving_occupancy_sum",      # Σ per-chunk occupied frac
+    "prefill_forwards": "serving_prefill_forwards_total",  # prefill launches
+    "prefill_tokens": "serving_prefill_tokens_total",  # real prompt tokens
+    "preemptions": "serving_preemptions_total",    # snapshot + requeue evicts
+    "sheds": "serving_sheds_total",                # explicit ShedResults
+    "deadline_misses": "serving_deadline_misses_total",  # late completions
+    "retries": "serving_retries_total",            # fault requeues
+    "quarantines": "serving_quarantines_total",    # faulty rows isolated
+    "snapshots": "serving_snapshots_total",        # snapshots captured
+    "snapshot_corruptions": "serving_snapshot_corruptions_total",
+    "page_preemptions": "serving_page_preemptions_total",  # evictions forced
+    #                                                by arena-page pressure
+}
 
-    chunks: int = 0                # decode chunks executed
-    idle_ticks: int = 0            # no-decode ticks (pool empty or all
-    #                                prefilling)
-    row_steps: int = 0             # DECODING-slot steps
-    occupancy_sum: float = 0.0     # Σ per-chunk occupied fraction
-    prefill_forwards: int = 0      # prefill launches (B=1, chunk, remainder)
-    prefill_tokens: int = 0        # real prompt tokens prefilled
-    preemptions: int = 0           # snapshot + requeue evictions
-    sheds: int = 0                 # explicit ShedResults
-    deadline_misses: int = 0       # late completions
-    retries: int = 0               # fault requeues
-    quarantines: int = 0           # faulty rows isolated
-    snapshots: int = 0             # snapshots captured
-    snapshot_corruptions: int = 0  # checksum failures at restore
-    page_preemptions: int = 0      # evictions forced by arena-page pressure
+
+class ScheduleStats:
+    """Scheduler counters, stored in a `telemetry.MetricsRegistry`.
+
+    A view: `stats.chunks` reads, and `stats.chunks += 1` writes, the
+    `serving_chunks_total` counter of `stats.registry` (`_STAT_COUNTERS`
+    maps every name), so the same numbers flow into the Prometheus and
+    JSONL exports. Each Scheduler owns a fresh registry, which a
+    `Telemetry` facade adopts per run. Every attribute but
+    `occupancy_sum` reads back as an int."""
+
+    __slots__ = ("registry", "_c")
+
+    def __init__(self):
+        object.__setattr__(self, "registry", MetricsRegistry())
+        object.__setattr__(self, "_c", {
+            attr: self.registry.counter(name)
+            for attr, name in _STAT_COUNTERS.items()})
+
+    def __getattr__(self, name):
+        try:
+            c = object.__getattribute__(self, "_c")[name]
+        except KeyError:
+            raise AttributeError(name) from None
+        return c.value if name == "occupancy_sum" else int(c.value)
+
+    def __setattr__(self, name, value):
+        c = self._c.get(name)
+        if c is None:
+            raise AttributeError(f"ScheduleStats has no counter {name!r}")
+        c.value = float(value)
 
     @property
     def ticks(self) -> int:
@@ -181,6 +217,15 @@ class ScheduleStats:
     @property
     def mean_occupancy(self) -> float:
         return self.occupancy_sum / max(self.chunks, 1)
+
+    def counter_records(self) -> List[Dict]:
+        """The records (JSONL schema) of the counters `_STAT_COUNTERS`
+        names, in name order: comparable across two runs, telemetry on or
+        off (the registry also holds what telemetry and a paged pool
+        add)."""
+        names = set(_STAT_COUNTERS.values())
+        return [r for r in self.registry.jsonl_records()
+                if r["metric"] in names]
 
     def counters_line(self) -> str:
         """One-line SLO counter summary (logged by launch/serve.py)."""
@@ -207,8 +252,12 @@ class SlotPool:
         self.slots: List[Optional[_Slot]] = [None] * max_batch
         self.paged: bool = engine.paged
         self.alloc: Optional[PageAllocator] = None
-        self.pages_allocated = 0           # cumulative
+        self.pages_allocated = 0           # cumulative, for telemetry
         self.pages_freed = 0
+        self.quant_error_bound = 0.0       # Σ 0.5·scale over snapshotted
+        #                                    pages (worst-case abs error of
+        #                                    symmetric int8 rounding)
+        self._chunk_lengths: Set[int] = set()  # decode-chunk lengths run
         if self.paged:
             self.alloc = PageAllocator(engine.resolved_arena_pages(max_batch),
                                        scrub=self._scrub_freed_pages)
@@ -285,6 +334,14 @@ class SlotPool:
                 rid=slot.request.rid, state=slot.state, filled=slot.filled,
                 cur=int(self.cur[row]), finished=bool(self.finished[row]),
                 emitted=slot.emitted, cache_rows=sub, tick=tick))
+        if self.paged:
+            # worst-case |error| of symmetric round-to-nearest int8 is
+            # 0.5·scale an element: summed over the snapshotted pages'
+            # scales, from the host copies `capture` made
+            for snap in out:
+                for k in ("pages_k_s", "pages_v_s"):
+                    self.quant_error_bound += 0.5 * float(
+                        snap.cache_rows[k].numpy().sum())
         return out
 
     def restore(self, row: int, request: Request,
@@ -397,10 +454,14 @@ class SlotPool:
         place), sampling from `generator`. Returns (tokens (max_batch, n),
         bad (max_batch,)) after ONE device-to-host copy."""
         dev = self.engine.device
+        # the engine counts a chunk length once a pool, as JAX's pool
+        # resolves its jitted chunk once a length
+        first = n not in self._chunk_lengths
+        self._chunk_lengths.add(n)
         toks, cur, finished, bad, self.cache = self.engine.decode_chunk_fn(
             torch.as_tensor(self.cur, device=dev),
             torch.as_tensor(self.finished, device=dev), self.cache, n,
-            generator)
+            generator, note_compile=first)
         host = torch.cat([toks, cur[:, None], finished[:, None].long(),
                           bad[:, None].long()], dim=1).cpu().numpy()
         self.cur = host[:, n].copy()
@@ -421,12 +482,18 @@ class Scheduler:
                  max_retries: int = 2,
                  snapshot_chunks: int = 0,
                  nan_guard: bool = True,
-                 fault_injector=None):
+                 fault_injector=None,
+                 telemetry=None):
         self.engine = engine
         self.pool = SlotPool(engine, max_batch)
         self.waiting: List[_QueueEntry] = []
         self.generator = engine.resolve_generator(generator)
         self.stats = ScheduleStats()
+        # a fresh timeline namespace and stats registry per scheduler: warm
+        # reruns reuse request ids, so runs must share neither
+        self.telemetry = as_telemetry(telemetry)
+        self.timelines = self.telemetry.new_timelines("serving")
+        self.telemetry.adopt_registry(self.stats.registry, "serving")
         self.max_queue = max_queue
         self.max_retries = max_retries
         # snapshot_chunks=k refreshes every occupied row's last good
@@ -442,12 +509,19 @@ class Scheduler:
         #                                      mark (a requeued request must
         #                                      not stream tokens twice)
         self._seq = 0
+        self._page_stats_last = None  # last published page-gauge tuple:
+        #                               unchanged rounds skip the refresh
 
     def submit(self, request: Request) -> None:
         """Queue a request. Past `max_queue`, shed the entry EDF values
         least (possibly the incoming one) with an explicit ShedResult."""
         entry = _QueueEntry(request=request, seq=self._seq)
         self._seq += 1
+        self.timelines.stamp(request.rid, "queued", self.stats.ticks,
+                             priority=request.priority,
+                             deadline=request.deadline_ticks,
+                             prompt_len=len(request.tokens),
+                             budget=request.max_new_tokens)
         if self.max_queue is not None and len(self.waiting) >= self.max_queue:
             victim = max(self.waiting + [entry],
                          key=lambda e: e.sort_key())
@@ -460,10 +534,13 @@ class Scheduler:
     # -- internals -------------------------------------------------------
 
     def _shed(self, entry: _QueueEntry, reason: str) -> None:
-        self.shed[entry.request.rid] = ShedResult(
-            rid=entry.request.rid, reason=reason, tick=self.stats.ticks,
-            priority=entry.request.priority)
+        sr = ShedResult(rid=entry.request.rid, reason=reason,
+                        tick=self.stats.ticks,
+                        priority=entry.request.priority)
+        self.shed[entry.request.rid] = sr
         self.stats.sheds += 1
+        self.timelines.stamp(entry.request.rid, "shed", sr.tick,
+                             reason=reason)
 
     def _needed_ticks(self, entry: _QueueEntry) -> int:
         """Optimistic lower bound on ticks to completion if admitted NOW:
@@ -529,20 +606,28 @@ class Scheduler:
                 self.pool.restore(row, entry.request, entry.snapshot)
                 slot = self.pool.slots[row]
                 slot.seq, slot.retries = entry.seq, entry.retries
+                self.timelines.stamp(entry.request.rid, "restored",
+                                     self.stats.ticks, row=row)
                 return
             # corrupt snapshot, caught before its bytes reach the pool:
             # re-run from the prompt
             self.stats.snapshot_corruptions += 1
             entry.snapshot = None
         req = entry.request
+        self.timelines.stamp(req.rid, "admitted", self.stats.ticks, row=row)
         if self.engine.prefill_chunk > 0:
             self.pool.begin_prefill(row, req)
         else:
-            slot_cache, first = self.engine.prefill_request(req.tokens,
-                                                            self.generator)
+            # the span ends at prefill_request's first-token read, so it
+            # times the forward's device work too
+            with self.telemetry.span("admission_prefill", cat="scheduler",
+                                     rid=req.rid, tokens=len(req.tokens)):
+                slot_cache, first = self.engine.prefill_request(
+                    req.tokens, self.generator)
             self.stats.prefill_forwards += 1      # one B=1 forward each
             self.stats.prefill_tokens += len(req.tokens)
             self.pool.admit(row, req, slot_cache, first)
+            self.timelines.stamp(req.rid, "first_token", self.stats.ticks)
         slot = self.pool.slots[row]
         slot.seq, slot.retries = entry.seq, entry.retries
 
@@ -552,12 +637,16 @@ class Scheduler:
         slot = self.pool.slots[row]
         snap = self.pool.snapshot_rows([row], self.stats.ticks)[0]
         self.stats.snapshots += 1
+        self.timelines.stamp(slot.request.rid, "snapshot", self.stats.ticks,
+                             row=row)
         self.waiting.append(_QueueEntry(
             request=slot.request, seq=slot.seq, snapshot=snap,
             retries=slot.retries))
         self.snapshots.pop(row, None)
         self.pool.retire(row)
         self.stats.preemptions += 1
+        self.timelines.stamp(slot.request.rid, "preempted", self.stats.ticks,
+                             row=row)
 
     def _admit_ready(self) -> None:
         """Fill free slots with arrived requests in EDF-within-priority
@@ -631,12 +720,20 @@ class Scheduler:
             for j, (row, s, n) in enumerate(chunk_rows):
                 toks[j, :n] = s.request.tokens[s.filled:s.filled + n]
                 n_valid[j] = n
-            logits = self.pool.prefill_chunk_rows(
-                [row for row, _, _ in chunk_rows], toks, n_valid)
+            # no sync inside: the span times the dispatch, and the next
+            # sync (the first-token read or the decode chunk) the device
+            with self.telemetry.span("prefill_chunk_forward",
+                                     cat="scheduler", rows=g,
+                                     tokens=int(n_valid.sum())):
+                logits = self.pool.prefill_chunk_rows(
+                    [row for row, _, _ in chunk_rows], toks, n_valid)
             self.stats.prefill_forwards += 1
             self.stats.prefill_tokens += int(n_valid.sum())
             for j, (row, s, n) in enumerate(chunk_rows):
                 s.filled += n
+                self.timelines.stamp(s.request.rid, "prefill_chunk",
+                                     self.stats.ticks, filled=s.filled,
+                                     total=len(s.request.tokens))
                 if s.filled == len(s.request.tokens):
                     final[row] = logits[j]
 
@@ -648,12 +745,18 @@ class Scheduler:
         for rem, group in sorted(rem_groups.items()):
             toks = np.asarray([s.request.tokens[s.filled:s.filled + rem]
                                for _, s in group], np.int64)
-            logits = self.pool.prefill_remainder_rows(
-                [row for row, _ in group], toks)
+            with self.telemetry.span("prefill_remainder_forward",
+                                     cat="scheduler", rows=len(group),
+                                     tokens=rem * len(group)):
+                logits = self.pool.prefill_remainder_rows(
+                    [row for row, _ in group], toks)
             self.stats.prefill_forwards += 1
             self.stats.prefill_tokens += rem * len(group)
             for j, (row, s) in enumerate(group):
                 s.filled += rem
+                self.timelines.stamp(s.request.rid, "prefill_chunk",
+                                     self.stats.ticks, filled=s.filled,
+                                     total=len(s.request.tokens))
                 final[row] = logits[j]
 
         if final:
@@ -664,6 +767,9 @@ class Scheduler:
                 self.generator).cpu().tolist()
             for row, first in zip(rows, firsts):
                 self.pool.activate(row, first)
+                # after the read: the token is on the host
+                self.timelines.stamp(self.pool.slots[row].request.rid,
+                                     "first_token", self.stats.ticks)
 
         if starved and not chunk_rows and not rem_groups \
                 and self.pool.decoding_count == 0:
@@ -722,10 +828,15 @@ class Scheduler:
         rows = self.pool.occupied_rows()
         if not rows:
             return
-        for row, snap in zip(rows, self.pool.snapshot_rows(
-                rows, self.stats.ticks)):
+        # the host copies inside end in a sync: the span times the copy
+        with self.telemetry.span("snapshot_capture", cat="scheduler",
+                                 rows=len(rows)):
+            snaps = self.pool.snapshot_rows(rows, self.stats.ticks)
+        for row, snap in zip(rows, snaps):
             self.snapshots[row] = snap
             self.stats.snapshots += 1
+            self.timelines.stamp(snap.rid, "snapshot", self.stats.ticks,
+                                 row=row)
 
     def _quarantine(self, row: int) -> None:
         """Isolate a faulty row: drop its poisoned chunk, scrub the row, and
@@ -734,6 +845,9 @@ class Scheduler:
         rows are untouched."""
         slot = self.pool.slots[row]
         self.stats.quarantines += 1
+        self.timelines.stamp(slot.request.rid, "quarantined",
+                             self.stats.ticks, row=row,
+                             retries=slot.retries + 1)
         snap = self.snapshots.pop(row, None)
         if snap is not None and snap.rid != slot.request.rid:
             snap = None                    # snapshot of a previous tenant
@@ -794,6 +908,10 @@ class Scheduler:
                 dl = slot.request.deadline_ticks
                 if dl is not None and self.stats.ticks > dl:
                     self.stats.deadline_misses += 1
+                    self.timelines.stamp(rid, "deadline_miss",
+                                         self.stats.ticks, deadline=dl)
+                self.timelines.stamp(rid, "retired", self.stats.ticks,
+                                     n_tokens=len(slot.emitted))
                 if on_complete is not None:
                     on_complete(rid, slot.emitted)
                 self.snapshots.pop(row, None)
@@ -814,6 +932,8 @@ class Scheduler:
             if self.engine.prefill_chunk:
                 self._advance_prefill()
             self._ensure_decode_pages(chunk)
+            if self.pool.paged:
+                self._publish_page_stats()
             decoding = self.pool.decoding_count
             if not decoding:
                 # nothing to decode yet (empty pool, or every occupied slot
@@ -826,7 +946,12 @@ class Scheduler:
             if self.fault_injector is not None:
                 self.fault_injector.before_chunk(self.pool, self.snapshots,
                                                  self.stats.chunks)
-            toks, bad = self.pool.decode_chunk(chunk, self.generator)
+            # one span a chunk, closed at the chunk's one host sync: it
+            # times the chunk's device work and adds no sync
+            with self.telemetry.span("decode_chunk", cat="scheduler",
+                                     rows=decoding, chunk=chunk,
+                                     tick=self.stats.ticks):
+                toks, bad = self.pool.decode_chunk(chunk, self.generator)
             faulted = self._collect_faults(bad)
             self.stats.chunks += 1
             self.stats.row_steps += decoding * chunk
@@ -836,4 +961,27 @@ class Scheduler:
                 self._quarantine(row)      # retires the row: drain skips it
             self._drain_chunk(toks, on_token, on_complete, results)
         results.update(self.shed)
+        # fold the lifecycle stamps into this run's per-priority SLO
+        # histograms (queue wait, TTFT, TPOT, deadline slack)
+        self.timelines.finalize(self.stats.registry)
         return results
+
+    def _publish_page_stats(self) -> None:
+        """Page-occupancy gauges and the allocation and quantization-error
+        counters, written when the allocator's state changed since the
+        last publish (steady decode rounds skip it)."""
+        pool = self.pool
+        page_stats = (pool.alloc.used_pages, pool.pages_allocated,
+                      pool.pages_freed, pool.quant_error_bound)
+        if page_stats == self._page_stats_last:
+            return
+        self._page_stats_last = page_stats
+        reg = self.stats.registry
+        reg.gauge("serving_pages_in_use").set(pool.alloc.used_pages)
+        reg.gauge("serving_pages_free").set(pool.alloc.free_pages)
+        reg.counter("serving_pages_allocated_total").value = \
+            float(pool.pages_allocated)
+        reg.counter("serving_pages_freed_total").value = \
+            float(pool.pages_freed)
+        reg.counter("serving_quant_error_bound_sum").value = \
+            float(pool.quant_error_bound)

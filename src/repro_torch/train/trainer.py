@@ -2,8 +2,10 @@
 fp32), checkpoint/auto-resume fault tolerance, preemption handling and a
 straggler watchdog.
 
-Counterpart of ``repro/train/trainer.py`` on one device: no mesh, no
-compressed cross-pod gradients, no telemetry (those come with later slices).
+Counterpart of ``repro/train/trainer.py`` on one device, its telemetry
+included (a `train_step` span and JSONL record per step, the plan's cost
+attribution): no mesh and no compressed cross-pod gradients (those come
+with the multi-GPU slice).
 The step is eager PyTorch: forward, ``torch.autograd.grad``, global-norm
 clip, AdamW in place.
 """
@@ -25,6 +27,7 @@ from repro_torch.models.transformer import flatten, nest
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                make_schedule)
 from repro_torch.parallel import plan as plan_lib
+from repro_torch.telemetry import MS_BUCKETS, as_telemetry, plan_attribution
 
 log = logging.getLogger("repro_torch.train")
 
@@ -98,6 +101,9 @@ class Trainer:
     ``checkpoint_every <= 0`` turns checkpoints off (no resume, no saves).
     The run's per-step records (loss, the MoE aux loss, grad norm, ms,
     tokens/s) are kept in ``history``. Runs on CUDA unless `device` says otherwise.
+    `telemetry` (a `Telemetry`; None is the disabled no-op) gets a
+    `train_step` span, a `train_step` JSONL record and metrics per step, and
+    the plan's cost attribution once.
     """
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
@@ -105,7 +111,8 @@ class Trainer:
                  preempt_check: Optional[Callable[[], bool]] = None,
                  log_fn: Optional[Callable[[str], None]] = None,
                  attention_backend: Optional[str] = None,
-                 backward_impl: Optional[str] = None):
+                 backward_impl: Optional[str] = None,
+                 telemetry=None):
         # attention_backend / backward_impl override the config's knobs for
         # this run (None keeps them); the plan validates both here, before
         # the first step.
@@ -131,6 +138,12 @@ class Trainer:
                      if tcfg.checkpoint_every > 0 else None)
         self.corpus = SyntheticCorpus(cfg.vocab_size, seed=tcfg.seed)
         self.history: List[Dict[str, float]] = []
+        self.telemetry = as_telemetry(telemetry)
+        if self.telemetry.enabled:
+            rec = plan_attribution(self.plan, cfg.attention,
+                                   max_seq=tcfg.seq_len,
+                                   batch=tcfg.global_batch)
+            self.telemetry.record(rec.pop("kind"), **rec)
         self.train_step = make_train_step(cfg, tcfg.optimizer,
                                           microbatch=tcfg.microbatch,
                                           plan=self.plan)
@@ -181,12 +194,15 @@ class Trainer:
                      for k, v in np_batch.items()}
             sync()
             t0 = time.perf_counter()
-            params, opt_state, metrics = self.train_step(params, opt_state,
-                                                         batch)
-            # float() is the step's host sync: the time covers device work
-            metrics = {k: float(v) for k, v in metrics.items()}
+            with self.telemetry.span("train_step", cat="trainer", step=step):
+                params, opt_state, metrics = self.train_step(
+                    params, opt_state, batch)
+                # float() is the step's host sync: inside the span and the
+                # time, so both cover the device work
+                metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             self._watchdog(step, dt)
+            self._record_step(step, dt, metrics)
             self.history.append({
                 "step": step + 1, "loss": metrics["loss"],
                 "aux_loss": metrics["aux_loss"],
@@ -211,6 +227,27 @@ class Trainer:
         self.save(steps, params, opt_state, dstate)
         self._params = params
         return last_metrics
+
+    def _record_step(self, step: int, dt: float,
+                     metrics: Dict[str, float]) -> None:
+        """One JSONL record and the histogram, counter and gauge updates
+        per executed step (JAX's names and fields)."""
+        if not self.telemetry.enabled:
+            return
+        tokens = metrics["tokens"]
+        tokens_per_s = tokens / dt if dt > 0 else 0.0
+        self.telemetry.record(
+            "train_step", step=step, step_ms=round(dt * 1e3, 3),
+            tokens_per_s=round(tokens_per_s, 1),
+            loss=metrics.get("loss"), grad_norm=metrics.get("grad_norm"),
+            lr=metrics.get("lr"))
+        reg = self.telemetry.metrics
+        reg.histogram("train_step_ms", buckets=MS_BUCKETS).observe(dt * 1e3)
+        reg.counter("train_steps_total").inc()
+        reg.counter("train_tokens_total").inc(tokens)
+        reg.gauge("train_loss").set(metrics.get("loss", float("nan")))
+        reg.gauge("train_grad_norm").set(
+            metrics.get("grad_norm", float("nan")))
 
     def _watchdog(self, step: int, dt: float, factor: float = 2.0):
         """Flag a step slower than `factor` × the median of the last 32

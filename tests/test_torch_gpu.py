@@ -1308,3 +1308,38 @@ def test_zamba2_kernel_counters_on_prefill_and_decode_step(cuda):
         got[backend] = (lg, step)
     for a, b in zip(got["auto"], got["reference"]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "paged-int8"])
+def test_telemetry_changes_no_token_and_no_launch(cuda, mode):
+    """qwen3-8b SMOKE in fp32 on the card, served with a `Telemetry` and
+    without, under priorities, a bounded queue and a preemption: the same
+    tokens, ShedResults, scheduler counters and launches of each kernel;
+    the traced run holds its serve and decode_chunk spans."""
+    from repro_torch.telemetry import Telemetry
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device=cuda)
+    prompts = [[5 + i] * n for i, n in enumerate([8, 19, 35, 48, 70, 16])]
+    kw = dict(prefill_chunk=32, cache_format="paged") \
+        if mode != "monolithic" else {}
+    counters = [(bca.blockwise_causal_attn, "launches"),
+                (bca.blockwise_causal_prefix_attn_q, "launches"),
+                (la.decode_attn, "launches"), (la.decode_attn_q, "launches")]
+    eng = ServingEngine(params, cfg, max_seq=96, device=cuda,
+                        cache_dtype=torch.float32, decode_chunk=4, **kw)
+    runs = []
+    for tel in (None, Telemetry()):
+        n0 = [getattr(f, a) for f, a in counters]
+        outs, sched = eng.serve(
+            prompts, 12, max_batch=3, priorities=[2, 2, 2, 1, 0, 0],
+            arrival_chunks=[0, 0, 0, 1, 2, 2], max_queue=4,
+            return_scheduler=True, telemetry=tel)
+        torch.cuda.synchronize()
+        runs.append((outs, sched.stats.counter_records(),
+                     [getattr(f, a) - n for (f, a), n in zip(counters, n0)],
+                     sched.completed_at))
+    assert runs[0] == runs[1]
+    assert sched.stats.preemptions > 0
+    assert sum(runs[1][2]) > 0
+    spans = {e["name"] for e in tel.tracer.chrome_events() if e["ph"] == "X"}
+    assert {"serve", "decode_chunk"} <= spans
