@@ -225,6 +225,29 @@ error; none catches its own failure:
    directory must pass `scripts/check_trace.py` with no dropped event.
    [train] runs its Trainer with a `Telemetry`: one `train_step` span and
    record a step, its step_ms and loss equal to `Trainer.history`'s.
+29. (after [train-parity-bf16]) [chunked-ref] one qwen3-8b attention
+   layer (B=1, H=32, Hkv=8, Dh=128, c=256, r=16): kernel 1 against the
+   chunked reference form (and the plain one) at S = 16384, against the
+   chunked form alone at S = 65536 (M = 4096), fp32 within FP32_TOL, bf16
+   within BF16_PARITY_FACTOR of the bf16 reference's error against the
+   fp32 reference of the same inputs; the peak memory of each; one fp32
+   gradient at S = 16384 through the plain backward route (the chunked
+   form) against kernels 1r and 2 within GRAD_TOL. [prefix-grad] the
+   prefix form's VJP (kernel 4r forward, kernel 2 with start blocks
+   backward) at B=4, P=512, M=288, start blocks 0, 3, 7, 14, fp32 and
+   bf16: against autograd through the plain prefix form and against the
+   plain twins, exact zeros on the slots no row sees, both kernels
+   launched; the offset backward timed by CUDA-graph replay beside the
+   masked SDPA backward. [train-leftovers] [train]'s shape (8 layers, 2 ×
+   4096, bf16) fed by document packing (FileCorpus over seeded .txt
+   files), one warm-up and two timed steps under remat none, dots and
+   full: the same first loss (REMAT_LOSS_RTOL) and grad norm
+   (REMAT_GNORM_RTOL), peak memory none > dots > full. [tune] the smoke
+   sweep of `repro_torch.tune.autotune` on the card (every trial logged,
+   the table valid), then under that table two serves of [serve]'s
+   requests on qwen3-8b at TUNE_SERVE_LAYERS layers, decode_chunk None
+   (tuned) and 32: token-identical, and table hits counted in the serve's
+   telemetry.
 
 [check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
 these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
@@ -1759,14 +1782,21 @@ def time_phase(dev, errs):
     records += time_decode_q(dev, errs)
     records += time_exact_kernels(dev, errs)
     for rec in records:
-        t_bytes = rec.pop("bytes") / H100_BYTES_PER_S
-        t_flops = rec.pop("flops") / H100_FLOPS[str(bf16)]
-        rec["bound_ms"] = 1e3 * max(t_bytes, t_flops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
-        log(f"  {rec['name']}: bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}), kernel at "
-            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
+        set_bound(rec)
     return records
+
+
+def set_bound(rec):
+    """Replace a bf16 record's `bytes` and `flops` by its bound: the larger
+    of the bytes over the card's memory rate and the operations over its
+    bf16 peak."""
+    t_bytes = rec.pop("bytes") / H100_BYTES_PER_S
+    t_flops = rec.pop("flops") / H100_FLOPS["torch.bfloat16"]
+    rec["bound_ms"] = 1e3 * max(t_bytes, t_flops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
+    log(f"  {rec['name']}: bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), kernel at "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
 
 
 def time_decode(dev, errs, B, t_rows):
@@ -2186,6 +2216,8 @@ LAUNCH_COUNTERS = (  # (record name, wrapper module, wrapper, counter)
      "blockwise_causal_attn", "residual_launches"),
     ("blockwise_causal_attn_bwd", "bca", "blockwise_causal_attn_bwd",
      "launches"),
+    ("blockwise_causal_attn_bwd(start_blocks)", "bca",
+     "blockwise_causal_attn_bwd", "offset_launches"),
     ("decode_attn", "la", "decode_attn", "launches"),
     ("blockwise_causal_prefix_attn", "bca", "blockwise_causal_prefix_attn",
      "launches"),
@@ -4252,6 +4284,485 @@ def train_ssm_phase(dev, arch, tag):
     return {tag: launches}
 
 
+# -- the training leftovers and the tuning table -------------------------------
+
+# [chunked-ref]: one qwen3-8b attention layer, (B, H, Hkv, c, r, Dh), at
+# S = 16384 (nb = 64, c + M = 1280: one plain fp32 score tensor is
+# 32·16384·1280·4 B = 2.68 GB) and S = 65536 (M = 4096 = MAX_PINNED_SLOTS,
+# c + M = 4352: a plain fp32 score tensor would be 36.5 GB and its softmax
+# as much again, so only the chunked form runs there); one fp32 gradient at
+# CHUNKED_REF_GRAD_SEQ through the plain backward route (chunked from the
+# tuned threshold on) against kernel 2's
+CHUNKED_REF_SHAPE = (1, 32, 8, 256, 16, 128)
+CHUNKED_REF_SEQS = (16384, 65536)
+CHUNKED_REF_GRAD_SEQ = 16384
+# [train-leftovers]: [train]'s shape, a FileCorpus batch; the depths tried
+# in turn until remat "none" fits on the card
+TRAIN_LEFTOVERS_RUN = dict(seq=4096, batch=2, steps=3)
+TRAIN_LEFTOVERS_DEPTHS = (8, 6, 4)
+REMAT_POLICIES = ("none", "dots", "full")
+REMAT_LOSS_RTOL = 1e-5
+REMAT_GNORM_RTOL = 1e-3
+# [tune]: the depth of the two qwen3-8b serves under the smoke table
+TUNE_SERVE_LAYERS = 2
+
+
+def causal_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev, seed):
+    """Model-layout q (B, S, H, Dh), k and v (B, S, Hkv, Dh), E and F
+    (c, r), from a seeded generator on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, Dh, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, Hkv, Dh, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    E, F = ((torch.randn(c, r, generator=g, device=dev) * r ** -0.5).to(dtype)
+            for _ in range(2))
+    return q, k, v, E, F
+
+
+def peak_above(fn):
+    """(fn(), the peak memory in GB above what was allocated before the
+    call, the call's wall in ms ending in a sync)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9, ms
+
+
+def check_bf16_route(name, out, ref32, ref16):
+    """A bf16 result against the fp32 reference on the same (upcast)
+    inputs: its max error at most BF16_PARITY_FACTOR times the plain bf16
+    reference's, plus BF16_PARITY_ABS. Returns the max error."""
+    e_k = (out.float() - ref32.float()).abs().max().item()
+    e_r = (ref16.float() - ref32.float()).abs().max().item()
+    log(f"  {name} bf16: max |kernel - fp32 reference| = {e_k:.3e}, the "
+        f"bf16 reference's {e_r:.3e} ({e_k / max(e_r, 1e-30):.2f}x)")
+    if not e_k <= BF16_PARITY_FACTOR * e_r + BF16_PARITY_ABS:
+        raise AssertionError(f"{name} bf16: error {e_k} beyond "
+                             f"{BF16_PARITY_FACTOR} x {e_r}")
+    return e_k
+
+
+def chunked_ref_phase(dev):
+    """Kernel 1 against the chunked reference form (and the plain one where
+    its scores fit) at one qwen3-8b layer, fp32 and bf16, with the peak
+    memory of each; then one fp32 gradient through the plain backward
+    route, now chunked, against kernels 1r and 2."""
+    import torch
+    from repro_torch.core import causal
+    from repro_torch.kernels import ops
+    from repro_torch.tune import table as tuning
+    B, H, Hkv, c, r, Dh = CHUNKED_REF_SHAPE
+    key = tuning.platform_key(dev)
+    threshold = causal.chunked_attention_min_seq(key)
+    log(f"[chunked-ref] one {B}-row qwen3-8b attention layer: H={H} "
+        f"Hkv={Hkv} c={c} r={r} Dh={Dh}; chunked_min_seq {threshold} on "
+        f"{key!r}")
+    kw = dict(block_size=c, scale=Dh ** -0.5)
+    f32 = torch.float32
+    for S in CHUNKED_REF_SEQS:
+        qcb = tuning.q_chunk_blocks_for(seq=S, platform=key)
+        with_plain = S <= CHUNKED_REF_GRAD_SEQ
+        for dtype in (f32, torch.bfloat16):
+            q, k, v, E, F = causal_inputs(B, H, Hkv, S, c, r, Dh, dtype, dev,
+                                          seed=60)
+            with torch.no_grad():
+                out, pk, tk = peak_above(
+                    lambda: ops.fused_blockwise_causal_attention(
+                        q, k, v, E, F, block_size=c, block_slots=r,
+                        scale=Dh ** -0.5))
+                chunk, pc, tc = peak_above(
+                    lambda: causal.blockwise_causal_attention_chunked(
+                        q, k, v, E, F, **kw))
+                plain = pp = tp = None
+                if with_plain:
+                    plain, pp, tp = peak_above(
+                        lambda: causal.blockwise_causal_attention(
+                            q, k, v, E, F, **kw))
+            tag = f"blockwise_causal_attn S={S}"
+            if dtype == f32:
+                check(f"{tag} vs the chunked reference", out, chunk, dtype,
+                      (v,))
+                if with_plain:
+                    check(f"{tag} vs the plain reference", out, plain, dtype,
+                          (v,))
+            else:
+                with torch.no_grad():
+                    ref32 = causal.blockwise_causal_attention_chunked(
+                        *(x.float() for x in (q, k, v, E, F)), **kw)
+                check_bf16_route(f"{tag} vs the chunked reference", out,
+                                 ref32, chunk)
+                if with_plain:
+                    check_bf16_route(f"{tag} vs the plain reference", out,
+                                     ref32, plain)
+                del ref32
+            same = "not run" if plain is None else \
+                f"{(chunk.float() - plain.float()).abs().max().item():.3e}"
+            log(f"  S={S} {str(dtype)[6:]}: peak above the inputs: kernel "
+                f"{pk:.3f} GB ({tk:.1f} ms), chunked reference "
+                f"(q_chunk_blocks {qcb}) {pc:.3f} GB ({tc:.1f} ms), plain "
+                f"reference " + ("not run (its scores would not fit)"
+                                 if plain is None else
+                                 f"{pp:.3f} GB ({tp:.1f} ms)")
+                + f"; max |chunked - plain| {same}")
+            del q, k, v, E, F, out, chunk, plain
+            gc.collect()
+            torch.cuda.empty_cache()
+    S = CHUNKED_REF_GRAD_SEQ
+    if S < threshold:
+        raise AssertionError(f"S={S} is under the chunked threshold "
+                             f"{threshold}: the plain backward would not "
+                             "run the chunked form")
+    xs = causal_inputs(B, H, Hkv, S, c, r, Dh, f32, dev, seed=61)
+    g = torch.Generator(device=dev).manual_seed(62)
+    do = torch.randn(xs[0].shape, generator=g, device=dev)
+    grads = {}
+    for impl in ("reference", "fused"):
+        leaves = [x.detach().requires_grad_() for x in xs]
+        reset_launches()
+        gs, pk, ms = peak_above(lambda: torch.autograd.grad(
+            ops.fused_blockwise_causal_attention(
+                *leaves, block_size=c, block_slots=r, scale=Dh ** -0.5,
+                backward_impl=impl), leaves, do))
+        launches = {k_: n for k_, n in read_launches().items() if n}
+        log(f"  gradient S={S} fp32, backward_impl {impl!r}: peak above "
+            f"the inputs {pk:.3f} GB, {ms:.1f} ms; launches {launches}")
+        if bool(launches) != (impl == "fused"):
+            raise AssertionError(f"backward_impl {impl!r}: launches "
+                                 f"{launches}")
+        grads[impl] = gs
+        del leaves
+    for name, got, want in zip(("dq", "dk", "dv", "dE", "dF"),
+                               grads["fused"], grads["reference"]):
+        check_grad(f"blockwise_causal_attn_bwd S={S} {name} vs the chunked "
+                   "plain backward", got, want)
+    del xs, do, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefix_grad_phase(dev):
+    """The prefix form's VJP (kernel 4r forward, kernel 2 with start
+    blocks backward) at the chunked serve's chunk shape, fp32 and bf16,
+    against autograd through the plain prefix form and against the plain
+    twins; exact zeros on slots no row sees; then the offset backward
+    timed. Returns (its kernels' record, the path's launches)."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.core import causal
+    from repro_torch.kernels import blockwise_causal_attn as bca
+    from repro_torch.kernels import ops
+    shape, start, M = PREFIX_SHAPES["full"]
+    B, H, Hkv, P, c, r, Dh = shape
+    G = H // Hkv
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    log(f"[prefix-grad] fused_chunk_prefill_attention's VJP: B={B} H={H} "
+        f"Hkv={Hkv} P={P} M={M} c={c} r={r} Dh={Dh}, start blocks {start}")
+    names = ("dq", "dk", "dv", "dcomp_k", "dcomp_v")
+    launches, err_bf16 = None, None
+    for dtype in (torch.float32, torch.bfloat16):
+        qk, kk, vk, ck, cv, sb = prefix_inputs(shape, start, M, dtype, dev,
+                                               seed=70)
+        ck, cv = ck.to(dtype), cv.to(dtype)
+        model = [x.movedim(1, 2).contiguous() for x in (qk, kk, vk, ck, cv)]
+        g = torch.Generator(device=dev).manual_seed(71)
+        do = torch.randn(model[0].shape, generator=g, device=dev).to(dtype)
+        leaves = [x.detach().requires_grad_() for x in model]
+        reset_launches()
+        got = torch.autograd.grad(ops.fused_chunk_prefill_attention(
+            *leaves, sb, **kw), leaves, do)
+        torch.cuda.synchronize()
+        run = read_launches()
+        launches = run if launches is None else {
+            k_: launches[k_] + n for k_, n in run.items()}
+        ref_leaves = [x.detach().requires_grad_() for x in model]
+        want = torch.autograd.grad(causal.blockwise_causal_prefix_attention(
+            *ref_leaves, sb, **kw), ref_leaves, do)
+        _, m, d = bca.blockwise_causal_attn_plain(
+            qk, kk, vk, ck, cv, start_blocks=sb, return_residuals=True, **kw)
+        twin = [t.movedim(1, 2) for t in bca.blockwise_causal_attn_bwd_plain(
+            qk, kk, vk, ck, cv, m, d, do.movedim(1, 2), start_blocks=sb,
+            **kw)]
+        tag = f"prefix VJP {str(dtype)[6:]}"
+        errs = [check_grad(f"{tag} {n} vs the plain twins", a, b)
+                for n, a, b in zip(names, got, twin)]
+        if dtype == torch.float32:
+            for n, a, b in zip(names, got, want):
+                check_grad(f"{tag} {n} vs autograd through the prefix "
+                           "reference", a, b)
+        else:
+            err_bf16 = max(errs)
+            leaves32 = [x.detach().float().requires_grad_() for x in model]
+            ref32 = torch.autograd.grad(
+                causal.blockwise_causal_prefix_attention(*leaves32, sb, **kw),
+                leaves32, do.float())
+            for n, a, b, w in zip(names, got, want, ref32):
+                check_bf16_route(f"{tag} {n} vs autograd through the prefix "
+                                 "reference", a, w, b)
+            del leaves32, ref32
+        slot_blk = torch.arange(M, device=dev) // r
+        unseen = slot_blk[None] >= (sb.long()[:, None] + P // c - 1)
+        zeros = all(bool(torch.all(g_[unseen] == 0)) for g_ in got[3:])
+        log(f"  {tag}: {int(unseen.sum())} slot rows no query sees, exact "
+            f"zeros in dcomp_k/dcomp_v: {zeros}; launches "
+            f"{ {k_: n for k_, n in run.items() if n} }")
+        if not zeros:
+            raise AssertionError("nonzero gradient on a slot no row sees")
+        del leaves, ref_leaves, got, want, twin, model
+    require_launches(launches, ("blockwise_causal_prefix_attn(return_residuals)",
+                                "blockwise_causal_attn_bwd(start_blocks)"),
+                     "prefix-grad")
+    # the offset backward at this shape, bf16, L2-cold inputs
+    bf16 = torch.bfloat16
+    n_sets = 4
+    sets, res, dos = [], [], []
+    for i in range(n_sets):
+        q, k, v, ck, cv, sb = prefix_inputs(shape, start, M, bf16, dev,
+                                            seed=72 + i)
+        sets.append((q, k, v, ck.to(bf16), cv.to(bf16), sb))
+        res.append(bca.blockwise_causal_prefix_attn(
+            *sets[-1], return_residuals=True, **kw)[1:])
+        g = torch.Generator(device=dev).manual_seed(80 + i)
+        dos.append(torch.randn(q.shape, generator=g, device=dev).to(bf16))
+    run = lambda i: bca.blockwise_causal_attn_bwd(  # noqa: E731
+        *sets[i][:5], *res[i], dos[i], start_blocks=sets[i][5], **kw)
+    ms = time_graph_ms(run, n_sets, iters=20)
+    eager_ms = time_ms(run, n_sets, iters=10)
+    plain_ms = time_ms(lambda i: bca.blockwise_causal_attn_bwd_plain(
+        *sets[i][:5], *res[i], dos[i], start_blocks=sets[i][5], **kw),
+        n_sets, iters=5)
+    mask = prefix_mask(P, c, r, M, sets[0][5])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    lib = []
+    with torch.cuda.stream(side):
+        for q, k, v, ck, cv, _ in sets:
+            xs = [x.contiguous().requires_grad_() for x in (
+                q, torch.cat([k, ck], 2).repeat_interleave(G, 1),
+                torch.cat([v, cv], 2).repeat_interleave(G, 1))]
+            lib.append((xs, Fn.scaled_dot_product_attention(
+                *xs, attn_mask=mask, scale=Dh ** -0.5)))
+    torch.cuda.synchronize()
+    dos_c = [do.contiguous() for do in dos]
+    lib_ms = time_graph_ms(lambda i: torch.autograd.grad(
+        lib[i][1], lib[i][0], dos_c[i], retain_graph=True), n_sets,
+        iters=10, stream=side)
+    pairs, slots = prefix_visible(P, c, r, M, start)
+    rows = B * H * P
+    # reads q, k, v, the visible slots and dO (bf16), (m, denom) (fp32);
+    # writes dq (bf16) and dk_loc, dv_loc and the full dk̄, dv̄ (fp32)
+    nbytes = (2 * (2 * rows * Dh + 2 * B * Hkv * P * Dh + 2 * slots * Hkv * Dh)
+              + 2 * 4 * rows + 2 * rows * Dh
+              + 4 * 2 * (B * Hkv * P * Dh + B * Hkv * M * Dh))
+    log(f"  blockwise_causal_attn_bwd(start_blocks) B={B} H={H} P={P} M={M}: "
+        f"kernel {ms:.4f} ms (eager loop {eager_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, masked sdpa backward {lib_ms:.4f} ms")
+    rec = dict(name="blockwise_causal_attn_bwd(start_blocks)", route="cuda",
+               source="src/repro_torch/csrc/blockwise_causal_attn_bwd.cu",
+               replaces="src/repro/kernels/blockwise_causal_attn.py:469",
+               ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bytes=nbytes, flops=10 * Dh * pairs * H,
+               max_abs_err=err_bf16)
+    set_bound(rec)
+    del sets, res, dos, lib, dos_c
+    return rec, launches
+
+
+def write_corpus(d, n_docs, seed):
+    """`n_docs` .txt files of seeded random words under `d`."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    for i in range(n_docs):
+        words = [bytes(rng.choice(letters, int(rng.integers(1, 10)))).decode()
+                 for _ in range(int(rng.integers(100, 250)))]
+        with open(os.path.join(d, f"doc{i:03d}.txt"), "w") as fh:
+            fh.write(" ".join(words) + ".\n")
+
+
+def remat_run(dev, cfg, batches):
+    """One warm-up step and the timed steps of make_train_step on `cfg`
+    from seeded params and fresh AdamW state: (losses, grad norms, ms of
+    the timed steps, peak GB)."""
+    import torch
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=1, total_steps=4)
+    state = adamw_init(params, opt)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, ms = [], [], []
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, b)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return losses, gnorms, ms[1:], peak
+
+
+def train_leftovers_phase(dev, cfg):
+    """[train]'s shape fed by document packing (FileCorpus over seeded
+    .txt files) under remat none, dots and full: the same first loss and
+    grad norm, peak memory none > dots > full. Returns the launches."""
+    import tempfile
+    import torch
+    from repro_torch.data import FileCorpus, packing_efficiency
+    seq, bsz, steps = (TRAIN_LEFTOVERS_RUN[k] for k in
+                       ("seq", "batch", "steps"))
+    with tempfile.TemporaryDirectory() as d:
+        write_corpus(d, 64, seed=0)
+        corpus = FileCorpus(d, seq, seed=0)
+        stream = corpus.batches(bsz)
+        host = [next(stream) for _ in range(steps)]
+    masked = sum(int((b["loss_mask"] == 0).sum()) for b in host)
+    log(f"[train-leftovers] {cfg.name} at {seq} tokens x {bsz} rows from "
+        f"FileCorpus (64 seeded .txt files, byte tokens): packing "
+        f"efficiency {packing_efficiency(host[0]):.4f}, {masked} of "
+        f"{steps * bsz * seq} labels masked across documents or padding")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in host]
+    res = None
+    for depth in TRAIN_LEFTOVERS_DEPTHS:
+        try:
+            reset_launches()
+            res = {pol: remat_run(dev, dataclasses.replace(
+                cfg, num_layers=depth, remat=pol), batches)
+                for pol in REMAT_POLICIES}
+            launches = read_launches()
+            break
+        except torch.cuda.OutOfMemoryError:
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"  remat 'none' does not fit at {depth} layers")
+    if res is None:
+        raise AssertionError("remat 'none' fits at none of the depths "
+                             f"{TRAIN_LEFTOVERS_DEPTHS}")
+    for pol, (losses, gnorms, ms, peak) in res.items():
+        log(f"  {depth} layers, remat {pol!r}: losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}; grad norms "
+            f"{', '.join(f'{x:.4f}' for x in gnorms)}; timed steps "
+            f"{', '.join(f'{x:.1f}' for x in ms)} ms; peak {peak:.2f} GB")
+    base = res["none"]
+    for pol in ("dots", "full"):
+        dl = abs(res[pol][0][0] - base[0][0]) / abs(base[0][0])
+        dg = abs(res[pol][1][0] - base[1][0]) / abs(base[1][0])
+        log(f"  remat {pol!r} against 'none': first loss {dl:.2e}, grad "
+            f"norm {dg:.2e} relative")
+        if not (dl <= REMAT_LOSS_RTOL and dg <= REMAT_GNORM_RTOL):
+            raise AssertionError(f"remat {pol!r}: loss {dl}, grad norm {dg}")
+    peaks = [res[pol][3] for pol in REMAT_POLICIES]
+    if not peaks[0] > peaks[1] > peaks[2]:
+        raise AssertionError(f"peaks none/dots/full {peaks} not in order")
+    require_launches(launches, ("blockwise_causal_attn(return_residuals)",
+                                "blockwise_causal_attn_bwd"),
+                     "train-leftovers")
+    return launches
+
+
+def tune_phase(dev, cfg, prompts):
+    """build_table("smoke") on the card, every trial logged; the table
+    valid; then, under it, two serves of qwen3-8b at full width and
+    TUNE_SERVE_LAYERS layers of [serve]'s requests, decode_chunk=None
+    (the tuned value) and 32: token-identical, and the serve's telemetry
+    counts table hits. Returns the launches of the sweep and the tuned
+    serve."""
+    import logging
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.serving import ServingEngine
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.tune import autotune
+    from repro_torch.tune import table as tuning
+
+    class _Log(logging.Handler):
+        def emit(self, record):
+            log(f"  {record.getMessage()}")
+
+    key = tuning.platform_key(dev)
+    log(f"[tune] the smoke sweep on {key!r}")
+    handler = _Log()
+    autotune.log.addHandler(handler)
+    autotune.log.setLevel(logging.INFO)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        table = autotune.build_table("smoke", platform=key, device=dev)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        autotune.log.removeHandler(handler)
+    errs = tuning.validate_doc(table.to_doc())
+    for e in table.entries:
+        log(f"  entry {e['form']} {e['bucket']}: {e['params']} "
+            f"({e['trial_us']} us, default {e['default_us']} us)")
+    log(f"  sweep {sweep_s:.1f} s; validate_doc: {errs or 'valid'}")
+    if errs:
+        raise AssertionError(f"the smoke table is invalid: {errs}")
+    scfg = dataclasses.replace(cfg, num_layers=TUNE_SERVE_LAYERS)
+    params = tmodel.init_params(scfg, seed=0, device=dev)
+    outs, walls = {}, {}
+    with tuning.override(table):
+        tuned = table.scalar("decode_chunk", 32, platform=key)
+        tuning.consume_stats()
+        tel = Telemetry()
+        for name, dc, t in (("tuned", None, tel), ("32", 32, None)):
+            eng = ServingEngine(params, scfg, max_seq=4096, device=dev,
+                                cache_dtype=torch.bfloat16, decode_chunk=dc,
+                                telemetry=t)
+            if name == "tuned" and eng.decode_chunk != tuned:
+                raise AssertionError(f"decode_chunk=None resolved to "
+                                     f"{eng.decode_chunk}, the table says "
+                                     f"{tuned}")
+            if name == "tuned":
+                reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = eng.serve(prompts, SERVE_BUDGETS, max_batch=4)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            if name == "tuned":
+                launches = {k_: launches[k_] + n
+                            for k_, n in read_launches().items()}
+            del eng
+    hits = tel.metrics.counter("tuning_table_hit_total").value
+    misses = tel.metrics.counter("tuning_table_miss_total").value
+    same = outs["tuned"] == outs["32"]
+    log(f"  {scfg.name} at {scfg.num_layers} layers, bf16, 8 requests: "
+        f"decode_chunk {tuned} (tuned) {walls['tuned']:.2f} s, 32 "
+        f"{walls['32']:.2f} s; token-identical: {same}; table hits {hits:g}, "
+        f"misses {misses:g}")
+    if not same:
+        raise AssertionError("the tuned decode chunk changed the tokens")
+    if hits < 1:
+        raise AssertionError("the tuned serve counted no table hit")
+    require_launches(launches, ("blockwise_causal_attn", "decode_attn"),
+                     "tune")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4341,6 +4852,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lap("train-parity, train-parity-bf16")
+    chunked_ref_phase(dev)
+    lap("chunked-ref")
+    prefix_rec, prefix_launches = prefix_grad_phase(dev)
+    records.append(prefix_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("prefix-grad")
+    leftover_launches = train_leftovers_phase(dev, cfg)
+    lap("train-leftovers")
+    tune_launches = tune_phase(dev, cfg, prompts)
+    lap("tune")
     for arch in DENSE_ARCHS:
         new_paths[f"train-dense {arch}"] = train_dense_phase(dev, arch)
         dense2 = dataclasses.replace(get_config(arch), num_layers=2,
@@ -4438,18 +4960,24 @@ def main():
     lap("table3")
 
     # launches: each kernel's count on its own main path, every path beside;
-    # the prefix form's residual variant serves sequence-parallel training,
-    # which is not ported, so no path launches it
+    # the prefix form's residual variant and the backward's offset form run
+    # on the prefix form's VJP ([prefix-grad])
     paths = {"serve": serve_launches, "serve-chunked": chunked_launches,
              "serve-paged": paged_launches, "serve-slo": slo_launches,
              "serve-slo-parity": slo_parity_launches,
              "train": train_launches,
              "train-mlm": mlm_launches,
-             "train-mlm-nonuniform": nonuni["launches"], **new_paths}
+             "train-mlm-nonuniform": nonuni["launches"],
+             "prefix-grad": prefix_launches,
+             "train-leftovers": leftover_launches, "tune": tune_launches,
+             **new_paths}
     main_path = {"blockwise_causal_attn": "serve",
                  "decode_attn": "serve",
                  "blockwise_causal_attn(return_residuals)": "train",
                  "blockwise_causal_attn_bwd": "train",
+                 "blockwise_causal_prefix_attn(return_residuals)":
+                     "prefix-grad",
+                 "blockwise_causal_attn_bwd(start_blocks)": "prefix-grad",
                  "blockwise_causal_prefix_attn": "serve-chunked",
                  "blockwise_causal_prefix_attn_q": "serve-paged",
                  "decode_attn_q": "serve-paged",

@@ -21,7 +21,26 @@ from typing import Optional
 
 import torch
 
+from repro_torch.tune import table as tuning
+
 NEG_INF = -1e30
+
+# Sequences at or above this length route the reference attention (the
+# plain forward route and the plain backward route of kernels/ops.py)
+# through the memory-bounded chunked form instead of the plain form, whose
+# (S × nb·r) global score tensor would be materialised whole. The JAX
+# package's value; the tuning table's ``chunked_min_seq`` scalar overrides it
+# per platform.
+CHUNKED_ATTENTION_MIN_SEQ = 8192
+
+
+def chunked_attention_min_seq(platform: Optional[str] = None) -> int:
+    """The chunked-against-plain routing threshold, after tuning: the
+    table's platform-wide ``chunked_min_seq`` scalar for `platform` (a
+    `tune.table.platform_key`; None: the card when there is one), else
+    CHUNKED_ATTENTION_MIN_SEQ."""
+    return tuning.scalar("chunked_min_seq", CHUNKED_ATTENTION_MIN_SEQ,
+                         platform=platform)
 
 
 def _common(*xs: torch.Tensor):
@@ -71,7 +90,8 @@ def blockwise_causal_attention(
 
     q: (B,S,H,Dh); k,v: (B,S,Hkv,Dh); E,F: (c,r) or (Hkv,c,r); S % c == 0.
     Returns (B,S,H,Dh). Materializes the (…, S, c + nb·r) joint score
-    tensor: fine at serving prefill lengths."""
+    tensor: fine at serving prefill lengths; long sequences take
+    :func:`blockwise_causal_attention_chunked`."""
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -206,3 +226,78 @@ def masked_decode_attention(
     p_glob, cv = _common(p[..., c:], comp_v)
     out = out + torch.einsum("bhgm,bmhd->bhgd", p_glob, cv)
     return out.reshape(B, 1, H, Dh)
+
+
+def blockwise_causal_attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    E: torch.Tensor,
+    F: torch.Tensor,
+    *,
+    block_size: int,
+    q_chunk_blocks: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Memory-bounded form of :func:`blockwise_causal_attention`: identical
+    math, with the query blocks taken `q_chunk_blocks` at a time (a Python
+    loop where the JAX package runs ``lax.map``), so that the forward holds
+    one chunk's (… × q_chunk_blocks·c × (c + nb·r)) scores at a time instead
+    of the whole (S × nb·r) tensor. A chunk's queries see their own block
+    causally and the slots of the blocks strictly before their own; one
+    fp32 softmax over [c | nb·r], p cast to q's dtype.
+
+    Under autograd every chunk's p stays alive for the backward (as JAX's
+    VJP of ``lax.map`` keeps its residuals), so the bound holds for the
+    forward only, not in training.
+
+    ``q_chunk_blocks`` is a performance knob (the math is chunk-invariant).
+    Unset, it resolves through the tuning table (form ``causal_chunked``,
+    bucketed on seq, for q's device) with a fallback to
+    kernels/common.DEFAULT_Q_CHUNK_BLOCKS; a count that does not divide the
+    number of blocks falls back to 1, as in the JAX package."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    c = block_size
+    if S % c != 0:
+        raise ValueError(f"S={S} must be a multiple of block_size={c}")
+    nb = S // c
+    r = E.shape[-1]
+    scale_ = scale if scale is not None else Dh ** -0.5
+    if q_chunk_blocks is None:
+        q_chunk_blocks = tuning.q_chunk_blocks_for(
+            seq=S, platform=tuning.platform_key(q.device))
+    if nb % q_chunk_blocks != 0:
+        q_chunk_blocks = 1
+    n_chunks = nb // q_chunk_blocks
+
+    kb = k.reshape(B, nb, c, Hkv, Dh)
+    vb = v.reshape(B, nb, c, Hkv, Dh)
+    kbar = compress_blocks(kb, E).reshape(B, nb * r, Hkv, Dh)
+    vbar = compress_blocks(vb, F).reshape(B, nb * r, Hkv, Dh)
+    qc = q.reshape(B, n_chunks, q_chunk_blocks, c, Hkv, G, Dh)
+    kc = kb.reshape(B, n_chunks, q_chunk_blocks, c, Hkv, Dh)
+    vc = vb.reshape(B, n_chunks, q_chunk_blocks, c, Hkv, Dh)
+
+    causal = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    slot_blk = torch.arange(nb * r, device=q.device) // r   # owning block
+    outs = []
+    for ci in range(n_chunks):
+        qi, ki, vi = qc[:, ci], kc[:, ci], vc[:, ci]     # qi: (B,qcb,c,Hkv,G,Dh)
+        blk_ids = ci * q_chunk_blocks + torch.arange(q_chunk_blocks,
+                                                     device=q.device)
+        s_loc = torch.einsum("bnchgd,bnkhd->bhgnck", qi, ki).float() * scale_
+        s_loc = s_loc.masked_fill(~causal, NEG_INF)
+        s_glob = torch.einsum("bnchgd,bmhd->bhgncm", qi,
+                              kbar).float() * scale_
+        vis = blk_ids[:, None] > slot_blk[None, :]       # (qcb, nb*r)
+        s_glob = s_glob.masked_fill(~vis[:, None, :], NEG_INF)
+        s = torch.cat([s_loc, s_glob], dim=-1)
+        del s_loc, s_glob
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        del s
+        out = torch.einsum("bhgnck,bnkhd->bnchgd", p[..., :c], vi)
+        outs.append(out + torch.einsum("bhgncm,bmhd->bnchgd", p[..., c:],
+                                       vbar))
+    return torch.stack(outs, dim=1).reshape(B, S, H, Dh)

@@ -16,7 +16,9 @@ m < (start_blocks[b] + n)·r; grouped query head h reads kv head h // G.
 Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel
 (``csrc/blockwise_causal_attn.cu``, ``csrc/blockwise_causal_attn_bwd.cu``)
 for a CUDA tensor, counting launches in ``<wrapper>.launches`` (and
-``<wrapper>.residual_launches`` for a residual form).
+``<wrapper>.residual_launches`` for a residual form;
+``blockwise_causal_attn_bwd.offset_launches`` counts the backward's
+launches with start blocks, the offset form, among its ``launches``).
 """
 from __future__ import annotations
 
@@ -427,7 +429,10 @@ def blockwise_causal_attn_bwd(q, k, v, kbar, vbar, m, denom, do, *,
     out = launch_bwd(build.library(), q, k, v, kbar, vbar, m, denom, do,
                      stream=_stream(q), **kw)
     blockwise_causal_attn_bwd.launches += 1
+    if start_blocks is not None:
+        blockwise_causal_attn_bwd.offset_launches += 1
     return out
 
 
 blockwise_causal_attn_bwd.launches = 0
+blockwise_causal_attn_bwd.offset_launches = 0

@@ -160,6 +160,9 @@ MAX_EXACT_K = 512
 MIN_DIVISOR_BLOCK = 8
 DEFAULT_BLOCK_Q = 256        # linformer_attn query tile (JAX default)
 DEFAULT_BLOCK_S = 512        # seq_projection sequence tile (JAX default)
+# query blocks a chunk of the chunked reference causal form (JAX default),
+# the fallback of the tuning table's causal_chunked entries (tune/table.py)
+DEFAULT_Q_CHUNK_BLOCKS = 8
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # storage dtypes of the paged, quantized cache (codes of csrc/common.cuh)

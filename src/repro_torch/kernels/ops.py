@@ -2,12 +2,12 @@
 
 Counterpart of ``repro/kernels/ops.py``: the blockwise-causal attention
 (forward, and trainable through the backward kernel), its prefix form for
-chunked prefill, the single-token decode, the two quantized-cache siblings
-of the serving path (decode and chunk prefill over int8/fp8 codes with fp32
-scales, forward only), and the exact form's two kernels (the attention over
-K compressed slots and the sequence projection, trainable through their
-analytic backwards in plain torch, as the JAX package's custom VJPs).
-Layout moves are views (kernel
+chunked prefill (trainable the same way), the single-token decode, the two
+quantized-cache siblings of the serving path (decode and chunk prefill over
+int8/fp8 codes with fp32 scales, forward only), and the exact form's two
+kernels (the attention over K compressed slots and the sequence
+projection, trainable through their analytic backwards in plain torch, as
+the JAX package's custom VJPs). Layout moves are views (kernel
 layout (B, H, S, Dh) <-> model layout (B, S, H, Dh)); the kernels take
 strided operands, so nothing is transposed in memory. A CPU tensor runs
 each kernel's plain twin, a CUDA tensor the CUDA kernel. The five wrappers
@@ -24,7 +24,13 @@ torch, so autograd chains dk̄/dv̄ into (dk, dE) and (dv, dF) exactly where the
 JAX package chains them through the linear ``compress_blocks`` VJP
 (``ops.py:290-299``). ``backward_impl`` picks the route through
 ``common.BACKWARD_ROUTES``: "fused" is that Function, "reference" is
-autograd through the plain reference form of core/causal.py. The exact
+autograd through the plain reference form of core/causal.py (its chunked
+form from the tuned ``chunked_attention_min_seq`` on, as the JAX package's
+``_bca_bwd_reference``). The prefix form is differentiable the same way
+(the JAX package's ``_chunk_prefill_diff``): :class:`ChunkPrefillAttnFn`
+runs the prefix kernel with residuals forward and the backward kernel with
+per-row start blocks; its plain route is autograd through
+core/causal.blockwise_causal_prefix_attention. The exact
 form's :class:`LinformerAttnFn` and :class:`SeqProjectionFn` run kernels 5
 and 6 forward; their backwards are the JAX package's ``_lin_bwd`` and
 ``_sp_bwd`` in plain torch (neither TPU kernel has a backward kernel).
@@ -34,6 +40,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.causal import (blockwise_causal_attention,
+                                     blockwise_causal_attention_chunked,
+                                     blockwise_causal_prefix_attention,
+                                     chunked_attention_min_seq,
                                      compress_blocks)
 from repro_torch.kernels import blockwise_causal_attn as bca
 from repro_torch.kernels import linformer_attn as la
@@ -42,6 +51,7 @@ from repro_torch.kernels.common import (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_S,
                                         backward_route, check_exact_k,
                                         check_pinned_slots, divisor_block,
                                         from_kernel_layout, to_kernel_layout)
+from repro_torch.tune.table import platform_key
 
 
 def _scales_to_kernel_layout(s: torch.Tensor) -> torch.Tensor:
@@ -60,8 +70,9 @@ def _start_blocks(start_blocks, q: torch.Tensor) -> torch.Tensor:
 def _forward_only(name: str, *xs: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         raise NotImplementedError(
-            f"{name} is forward-only in the port: the prefix form's custom "
-            "VJP (sequence-parallel training) is not ported yet")
+            f"{name} is forward-only: the paged cache is a serving "
+            "structure, never differentiated through (as in the JAX "
+            "package, whose wrapper has no VJP)")
 
 
 def _compress_kv(x, W, block_size, block_slots):
@@ -141,8 +152,10 @@ def fused_blockwise_causal_attention(
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v, E, F))
     if grad and backward_route(backward_impl) == "plain":
-        return blockwise_causal_attention(
-            q, k, v, E, F, block_size=block_size, scale=scale)
+        ref_fn = (blockwise_causal_attention_chunked
+                  if S >= chunked_attention_min_seq(platform_key(q.device))
+                  else blockwise_causal_attention)
+        return ref_fn(q, k, v, E, F, block_size=block_size, scale=scale)
     kbar = _compress_kv(k, E, block_size, block_slots)
     vbar = _compress_kv(v, F, block_size, block_slots)
     if grad:
@@ -153,6 +166,46 @@ def fused_blockwise_causal_attention(
         to_kernel_layout(kbar), to_kernel_layout(vbar),
         block_size=block_size, block_slots=block_slots, scale=scale)
     return from_kernel_layout(out)
+
+
+class ChunkPrefillAttnFn(torch.autograd.Function):
+    """Differentiable prefix-form attention over (q, k, v, comp_k, comp_v)
+    in model layout, the start blocks not differentiable (the JAX package's
+    ``_cp_fwd``/``_cp_bwd``). The forward runs the prefix kernel with
+    residuals and saves (m, denom); the backward runs the backward kernel
+    with the per-row start blocks. comp_k and comp_v are independent
+    inputs: their cotangent is the raw full-buffer dk̄/dv̄, exact zeros on
+    the slots the chunk never sees; chaining it back into k/v (the
+    compression, a gather) is the caller's autograd. Every gradient is
+    cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, comp_k, comp_v, start_blocks, block_size,
+                block_slots, scale):
+        kw = dict(block_size=block_size, block_slots=block_slots,
+                  scale=scale)
+        out, m, denom = bca.blockwise_causal_prefix_attn(
+            to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
+            to_kernel_layout(comp_k), to_kernel_layout(comp_v), start_blocks,
+            return_residuals=True, **kw)
+        ctx.save_for_backward(q, k, v, comp_k, comp_v, start_blocks, m,
+                              denom)
+        ctx.kw = kw
+        return from_kernel_layout(out)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, comp_k, comp_v, start_blocks, m, denom = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        grads = bca.blockwise_causal_attn_bwd(
+            to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
+            to_kernel_layout(comp_k), to_kernel_layout(comp_v), m, denom,
+            to_kernel_layout(do), start_blocks=start_blocks, **ctx.kw)
+        dq, dk, dv, dck, dcv = (from_kernel_layout(g) for g in grads)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                dck.to(comp_k.dtype), dcv.to(comp_v.dtype), None, None, None,
+                None)
 
 
 def fused_chunk_prefill_attention(
@@ -166,13 +219,20 @@ def fused_chunk_prefill_attention(
     block_size: int,
     block_slots: int,
     scale: float,
+    backward_impl: str = "fused",
 ) -> torch.Tensor:
     """Blockwise-causal attention for a query chunk starting at a per-row
     block offset against the slot-resident cache: the chunked-admission
     prefill path. Row b's chunk block j attends [its own block, causally |
     compressed slots of absolute blocks < start_blocks[b] + j]; the offsets
-    are a device tensor, so one kernel build serves every offset. Forward
-    only (serving never differentiates through it)."""
+    are a device tensor, so one kernel build serves every offset.
+
+    Trainable: when grad is enabled and an input requires it, the attention
+    goes through the route ``backward_impl`` maps to: "fused" is
+    :class:`ChunkPrefillAttnFn` (kernels 4r and 2 with start blocks),
+    "reference" autograd through the plain prefix form. Gradients reach
+    q, k, v and comp_k, comp_v (the full-buffer dk̄/dv̄); otherwise it is
+    one launch of the prefix kernel."""
     if q.shape[1] % block_size != 0:
         raise ValueError(
             f"P={q.shape[1]} must be a multiple of block_size={block_size}")
@@ -180,12 +240,19 @@ def fused_chunk_prefill_attention(
     check_pinned_slots(
         "fused_chunk_prefill_attention", M,
         f"the full M = (max_seq/c)·r = {M}-slot compressed cache buffer")
-    _forward_only("fused_chunk_prefill_attention", q, k, v, comp_k, comp_v)
+    kw = dict(block_size=block_size, block_slots=block_slots, scale=scale)
+    if _needs_grad(q, k, v, comp_k, comp_v):
+        if backward_route(backward_impl) == "plain":
+            return blockwise_causal_prefix_attention(
+                q, k, v, comp_k, comp_v, _start_blocks(start_blocks, q),
+                **kw)
+        return ChunkPrefillAttnFn.apply(q, k, v, comp_k, comp_v,
+                                        _start_blocks(start_blocks, q),
+                                        block_size, block_slots, scale)
     out = bca.blockwise_causal_prefix_attn(
         to_kernel_layout(q), to_kernel_layout(k), to_kernel_layout(v),
         to_kernel_layout(comp_k), to_kernel_layout(comp_v),
-        _start_blocks(start_blocks, q), block_size=block_size,
-        block_slots=block_slots, scale=scale)
+        _start_blocks(start_blocks, q), **kw)
     return from_kernel_layout(out)
 
 

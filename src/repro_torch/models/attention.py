@@ -109,12 +109,15 @@ def apply_attention(
     positions: Optional[torch.Tensor] = None,
     cache_entry: Optional[Dict[str, torch.Tensor]] = None,
     plan: Optional[plan_lib.AttentionPlan] = None,
+    chunked: bool = False,
 ) -> torch.Tensor:
     """Full-sequence attention (training / prefill). x: (B, S, D).
 
     With `cache_entry` — this layer's slices of a decode cache — also fills
     the cache from the SAME k/v (single-pass prefill, no second forward);
-    the causal form and the standard baseline."""
+    the causal form and the standard baseline. `chunked` picks the
+    memory-bounded chunked form of the causal attention's plain route
+    (AttentionPlan.causal_attention)."""
     lin_lib.check_kind(cfg)
     if cache_entry is not None and cfg.kind == "linformer":
         raise ValueError(f"no decode cache for attention kind {cfg.kind!r}")
@@ -134,7 +137,8 @@ def apply_attention(
         out = plan.causal_attention(q, k, v, *ef,
                                     block_size=cfg.linformer.block_size,
                                     block_slots=cfg.linformer.block_slots,
-                                    scale=cfg.head_dim ** -0.5)
+                                    scale=cfg.head_dim ** -0.5,
+                                    chunked=chunked)
     out = out.reshape(B, S, -1) @ params["wo"]
     if cache_entry is not None:
         _entry_from_kv(k, v, cfg, ef, cache_entry)

@@ -36,27 +36,37 @@ Rematerialisation (the JAX package's ``remat_wrap``): with ``cfg.remat``
 "full" each block of the scanned layout runs under :class:`_Recompute`,
 which keeps only the block's inputs and recomputes the block inside the
 backward; the block's two outputs, the stream and the aux loss, both carry
-their gradients across it. "dots" maps to "full": PyTorch has no
-counterpart of JAX's dots-saveable policy, so every activation is
-recomputed. The unrolled
+their gradients across it. "dots" is JAX's
+``dots_with_no_batch_dims_saveable``: the block runs under
+``torch.utils.checkpoint`` (non-reentrant) with a selective policy that
+saves the outputs of matmuls without batch dims (``aten.mm``,
+``aten.addmm``: the projections by 2-D weights) and recomputes everything
+else, the attention's batched einsums (``aten.bmm``), every elementwise op
+and the CUDA kernels (ctypes launches the dispatcher never sees, as a
+``pallas_call`` is not a dot in JAX). The unrolled
 layout applies no remat, as the JAX package's unrolled loop calls
 ``apply_block`` directly: its activations stay alive through the backward.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import causal as causal_lib
 from repro_torch.core import linformer as lin_lib
 from repro_torch.core.projections import effective_k
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.parallel import plan as plan_lib
+from repro_torch.tune import table as tuning
 
 # init kinds of param_spec: constants, N(0, 0.02) embeddings, fan-in scaled
 # normal weights, Linformer E/F, and the SSM leaves' other JAX inits:
@@ -294,18 +304,38 @@ class _Recompute(torch.autograd.Function):
         return (None, *(next(grads) if n else None for n in need))
 
 
+# the ops whose outputs the "dots" policy saves: matmuls without batch
+# dims, JAX's dots_with_no_batch_dims_saveable in aten terms
+_DOTS_SAVEABLE = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save a matmul without batch dims; recompute every other op (also
+    ``aten.empty``, so a buffer a kernel fills out of band is refilled on
+    recompute, never taken from the cache)."""
+    if op in _DOTS_SAVEABLE:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def remat_wrap(fn: Callable, policy: str) -> Callable:
-    """`fn(*tensors)` under the remat policy: "none" as is, "full" (and
-    "dots", see the module docstring) through :class:`_Recompute` whenever
-    autograd records."""
+    """`fn(*tensors)` under the remat policy whenever autograd records:
+    "none" as is, "dots" under selective checkpointing (see the module
+    docstring), "full" through :class:`_Recompute`."""
     if policy not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat policy {policy!r}")
     if policy == "none":
         return fn
+    dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy)
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
+        if policy == "dots":
+            return checkpoint(fn, *args, use_reentrant=False,
+                              context_fn=dots_context)
         return _Recompute.apply(fn, *args)
 
     return wrapped
@@ -325,12 +355,16 @@ def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
 def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 shared_lin: Optional[Dict],
                 cache_entry: Optional[Dict] = None,
-                plan: plan_lib.AttentionPlan
+                plan: plan_lib.AttentionPlan,
+                chunked_attn: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (x, the block's MoE aux loss, None without experts)."""
+    """Returns (x, the block's MoE aux loss, None without experts).
+    `chunked_attn` selects the chunked reference form of the causal
+    attention (plain route only)."""
     h = attn_lib.apply_attention(params["attn"], L.rms_norm(params["ln1"], x),
                                  cfg.attention, shared_lin=shared_lin,
-                                 cache_entry=cache_entry, plan=plan)
+                                 cache_entry=cache_entry, plan=plan,
+                                 chunked=chunked_attn)
     x = x + h
     h, aux = _ffn(params, L.rms_norm(params["ln2"], x), cfg)
     return x + h, aux
@@ -411,7 +445,7 @@ def _layer_caches(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
 
 
 def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
-              shared_keys) -> Callable:
+              shared_keys, chunked_attn: bool = False) -> Callable:
     """apply_block as a function of tensors alone, (x, *layer leaves,
     *shared E/F leaves) -> (x, aux or None), so that remat sees every
     tensor it depends on."""
@@ -420,7 +454,8 @@ def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
     def fn(x, *leaves):
         shared = dict(zip(shared_keys, leaves[n:])) or None
         return apply_block(nest(dict(zip(keys, leaves[:n]))), x, cfg,
-                           shared_lin=shared, plan=plan)
+                           shared_lin=shared, plan=plan,
+                           chunked_attn=chunked_attn)
 
     return fn
 
@@ -448,6 +483,8 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         else plan_lib.resolve_attention_plan(cfg.attention)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
+    chunked = S >= causal_lib.chunked_attention_min_seq(
+        tuning.platform_key(x.device))
     shared_lin = params.get("shared", {}).get("lin")
     cache = None
     if return_cache:
@@ -460,14 +497,15 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             x, a = apply_block(layer_params(params, i), x, cfg,
                                shared_lin=shared_lin,
                                cache_entry=None if cache is None
-                               else _layer_caches(cache, i), plan=plan)
+                               else _layer_caches(cache, i), plan=plan,
+                               chunked_attn=chunked)
             aux = aux if a is None else aux + a
     else:
         layers = flatten(params["layers"])
         per_layer = [leaf.unbind(0) for leaf in layers.values()]
         shared = shared_lin or {}
-        block = remat_wrap(_block_fn(cfg, plan, list(layers), list(shared)),
-                           cfg.remat)
+        block = remat_wrap(_block_fn(cfg, plan, list(layers), list(shared),
+                                     chunked), cfg.remat)
         for i in range(cfg.num_layers):
             x, a = block(x, *(views[i] for views in per_layer),
                          *shared.values())

@@ -20,9 +20,9 @@ falls back to the static bucketed path). `forward(return_cache=True)`
 fills the attention entries in the same pass, from the same k/v (the
 port's single-pass `cache_entry`), where JAX runs a second
 ``prefill_cache_entries`` pass: the same entries. Remat wraps the trunk
-blocks only, as in JAX; the shared block has none. JAX's ``chunked = S >=
-8192`` picks only its reference route's memory-bounded form, which the
-port does not have yet.
+blocks only, as in JAX; the shared block has none. As in JAX, a sequence
+of S >= 8192 (JAX's literal, not the tuned threshold) runs the shared
+block's reference route in the memory-bounded chunked form.
 """
 from __future__ import annotations
 
@@ -86,6 +86,9 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         else plan_lib.resolve_attention_plan(cfg.attention)
     x = L.embed_tokens(params["embed"]["tok"], batch["tokens"])
     B, S, _ = x.shape
+    # JAX's literal threshold (not the tuned one) for the shared block's
+    # chunked reference form
+    chunked = S >= 8192
     shared_lin = params.get("shared", {}).get("lin")
     every, n_inv = cfg.hybrid_attn_every, n_attn_invocations(cfg)
     cache = None
@@ -123,7 +126,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             k: v[g] for k, v in cache["attn"].items()}
         x, _ = T.apply_block(params["shared_block"], x, cfg,
                              shared_lin=shared_lin, cache_entry=entry,
-                             plan=plan)
+                             plan=plan, chunked_attn=chunked)
     x = run_trunk(x, n_inv * every, cfg.num_layers)
     logits = T.logits_from_hidden(params, cfg, x)
     if cache is not None:

@@ -11,9 +11,10 @@ knob is the JAX package's ``AttentionConfig.backend``:
 * ``"reference"``: the plain reference forms of core/causal.py and
   core/linformer.py, on any device (the parity oracle).
 
-Every route of the full-sequence form is differentiable; the chunk-prefill
-and quantized-cache forms are forward-only (serving). On the kernel route
-the training backward follows ``AttentionConfig.backward_impl``:
+Every route of the full-sequence and chunk-prefill forms is
+differentiable; the quantized-cache forms are forward-only (serving). On
+the kernel route the training backward follows
+``AttentionConfig.backward_impl``:
 ``"fused"`` (default) runs the backward kernel from the forward's saved
 residuals, ``"reference"`` autograd through the plain reference form
 (kernels/ops.py).
@@ -62,13 +63,18 @@ class AttentionPlan:
         return backend_route(self.backend, x.is_cuda) != "plain"
 
     def causal_attention(self, q, k, v, E, F, *, block_size: int,
-                         block_slots: int, scale: float) -> torch.Tensor:
+                         block_slots: int, scale: float,
+                         chunked: bool = False) -> torch.Tensor:
         """Full-sequence blockwise-causal attention (prefill and training),
         differentiable on both routes.
-        q (B, S, H, Dh); k/v (B, S, Hkv, Dh); E/F (c, r) or (Hkv, c, r)."""
+        q (B, S, H, Dh); k/v (B, S, Hkv, Dh); E/F (c, r) or (Hkv, c, r).
+        `chunked` selects the memory-bounded chunked form on the plain
+        route; the kernel route streams query blocks itself and ignores
+        it, as the JAX package's fused route does."""
         if not self.uses_kernels(q):
-            return causal_lib.blockwise_causal_attention(
-                q, k, v, E, F, block_size=block_size, scale=scale)
+            fn = (causal_lib.blockwise_causal_attention_chunked if chunked
+                  else causal_lib.blockwise_causal_attention)
+            return fn(q, k, v, E, F, block_size=block_size, scale=scale)
         return kernel_ops.fused_blockwise_causal_attention(
             q, k, v, E, F, block_size=block_size, block_slots=block_slots,
             scale=scale, backward_impl=self.backward_impl)
@@ -103,15 +109,18 @@ class AttentionPlan:
                                 *, block_size: int, block_slots: int,
                                 scale: float) -> torch.Tensor:
         """Prefix-form attention for a prefill chunk at per-row offsets
-        against the slot-resident compressed cache. q (B, P, H, Dh); comp_*
-        (B, M, Hkv, Dh) full slot buffers; start_blocks (B,) int."""
+        against the slot-resident compressed cache, differentiable on both
+        routes (the kernel route's backward follows `backward_impl`).
+        q (B, P, H, Dh); comp_* (B, M, Hkv, Dh) full slot buffers;
+        start_blocks (B,) int."""
         if not self.uses_kernels(q):
             return causal_lib.blockwise_causal_prefix_attention(
                 q, k, v, comp_k, comp_v, start_blocks,
                 block_size=block_size, block_slots=block_slots, scale=scale)
         return kernel_ops.fused_chunk_prefill_attention(
             q, k, v, comp_k, comp_v, start_blocks, block_size=block_size,
-            block_slots=block_slots, scale=scale)
+            block_slots=block_slots, scale=scale,
+            backward_impl=self.backward_impl)
 
     def decode_attention(self, q_t, raw_k, raw_v, comp_k, comp_v, loc_ok,
                          glob_ok, *, scale: float) -> torch.Tensor:

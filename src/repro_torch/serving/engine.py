@@ -20,7 +20,9 @@ retires requests between decode chunks:
   remainder length (`pool_prefill_remainder`);
 * decode: the whole pool decodes `decode_chunk` tokens on the device
   (model.decode_scan), idle slots riding along finished-masked, and the
-  host syncs once per chunk; tokens are the argmax at `temperature` 0,
+  host syncs once per chunk (`decode_chunk=None` takes the tuning table's
+  value for the engine's device, else DEFAULT_DECODE_CHUNK; the table's
+  hit/miss counters are drained into the telemetry after each serve); tokens are the argmax at `temperature` 0,
   else Gumbel-max draws from an explicit `torch.Generator` on the engine's
   device (`model.sample`);
 * retirement: EOS or an exhausted token budget frees the slot;
@@ -70,6 +72,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models import transformer
 from repro_torch.parallel.plan import resolve_attention_plan
 from repro_torch.telemetry import as_telemetry, plan_attribution
+from repro_torch.tune import table as tuning
 
 DEFAULT_DECODE_CHUNK = 32
 
@@ -138,7 +141,11 @@ class ServingEngine:
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
         self.temperature = temperature
-        self.decode_chunk = max(1, decode_chunk or DEFAULT_DECODE_CHUNK)
+        if decode_chunk is None:
+            decode_chunk = tuning.scalar(
+                "decode_chunk", DEFAULT_DECODE_CHUNK,
+                platform=tuning.platform_key(self.device))
+        self.decode_chunk = max(1, decode_chunk)
         self.prefill_chunk = int(prefill_chunk)
         if cache_format not in ("dense", "paged"):
             raise ValueError(f"unknown cache_format {cache_format!r} "
@@ -223,6 +230,20 @@ class ServingEngine:
             self.telemetry.metrics.counter(
                 "serving_compile_cache_hit_total" if hit
                 else "serving_compile_cache_miss_total", fn=fn_name).inc()
+
+    def _note_table_stats(self, tel=None) -> None:
+        """Drain the tuning table's lookup counters into the metrics
+        registry: how many lookups hit an entry of the table and how many
+        fell back to the hand-picked defaults since the last drain. The
+        port counts a lookup a call (JAX counts one a trace)."""
+        tel = tel if tel is not None else self.telemetry
+        if not tel.enabled:
+            return
+        stats = tuning.consume_stats()
+        for key, name in (("hits", "tuning_table_hit_total"),
+                          ("misses", "tuning_table_miss_total")):
+            if stats[key]:
+                tel.metrics.counter(name).inc(stats[key])
 
     def resolve_generator(self,
                           generator: Optional[torch.Generator] = None
@@ -837,6 +858,7 @@ class ServingEngine:
         with tel.span("serve", cat="engine", n_requests=n,
                       max_batch=max_batch):
             results = sched.run(on_token=on_token, on_complete=on_complete)
+        self._note_table_stats(tel)
         outputs = [results[i] for i in range(n)]
         if return_scheduler:
             return outputs, sched

@@ -117,13 +117,57 @@ def test_chunk_prefill_routes_match_jax(backend):
     _close(got, want)
 
 
-def test_chunk_prefill_kernel_route_is_forward_only():
-    xs = [torch.from_numpy(x) for x in _prefix_inputs(2 * HKV, seed=21)]
-    xs[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="custom VJP"):
-        tops.fused_chunk_prefill_attention(
-            *xs, torch.tensor(STARTS), block_size=C, block_slots=R,
-            scale=DH ** -0.5)
+@pytest.mark.parametrize("backward_impl", ["fused", "reference"])
+@pytest.mark.parametrize("G", [1, 2])
+def test_chunk_prefill_vjp_matches_jax(G, backward_impl):
+    """The prefix form's VJP through plan.chunk_prefill_attention on the
+    kernel route, both backward routes (the kernel twins of 4r and of 2
+    with start blocks; autograd through the plain prefix form), against
+    jax.vjp of ops.fused_chunk_prefill_attention in interpret mode with the
+    same backward_impl: dq, dk, dv, dcomp_k and dcomp_v within 1e-5 of each
+    tensor's largest entry, exact zeros on the slots no row sees."""
+    xs = _prefix_inputs(G * HKV, seed=21 + G)
+    sb = np.asarray(STARTS, np.int32)
+    do = _np(np.random.default_rng(25 + G), len(STARTS), P, G * HKV, DH)
+    kw = dict(block_size=C, block_slots=R, scale=DH ** -0.5)
+    _, vjp = jax.vjp(lambda *a: jops.fused_chunk_prefill_attention(
+        *a, jnp.asarray(sb), interpret=True, backward_impl=backward_impl,
+        **kw), *map(jnp.asarray, xs))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in xs]
+    out = tplan.AttentionPlan(
+        backend="auto", backward_impl=backward_impl).chunk_prefill_attention(
+            *leaves, torch.from_numpy(sb), **kw)
+    fused = type(out.grad_fn).__name__.startswith("ChunkPrefillAttnFn")
+    assert fused == (backward_impl == "fused")
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    unseen = np.arange(M_SLOTS)[None] // R >= sb[:, None] + P // C - 1
+    for name, g, w in zip(("dq", "dk", "dv", "dcomp_k", "dcomp_v"), got,
+                          want):
+        w = np.asarray(w)
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g.numpy(), w, atol=ATOL * scale, rtol=0,
+                                   err_msg=name)
+        if name.startswith("dcomp"):
+            assert unseen.any() and not g.numpy()[unseen].any()
+            assert not w[unseen].any()
+
+
+def test_quantized_chunk_prefill_is_forward_only():
+    """fused_chunk_prefill_attention_q refuses a gradient (the JAX
+    package's wrapper is a plain jit with no VJP); without one it runs."""
+    q, k, v, _, _ = (torch.from_numpy(x)
+                     for x in _prefix_inputs(2 * HKV, seed=27))
+    B = len(STARTS)
+    codes = torch.ones(B, M_SLOTS, HKV, DH, dtype=torch.int8)
+    scales = torch.full((B, M_SLOTS, HKV), 0.5)
+    args = (k, v, codes, codes, scales, scales, torch.tensor(STARTS))
+    kw = dict(block_size=C, block_slots=R, scale=DH ** -0.5)
+    out = tops.fused_chunk_prefill_attention_q(q, *args, **kw)
+    assert out.shape == q.shape
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tops.fused_chunk_prefill_attention_q(q.requires_grad_(), *args,
+                                             **kw)
 
 
 @pytest.mark.parametrize("per_head", [False, True])

@@ -1343,3 +1343,135 @@ def test_telemetry_changes_no_token_and_no_launch(cuda, mode):
     assert sum(runs[1][2]) > 0
     spans = {e["name"] for e in tel.tracer.chrome_events() if e["ph"] == "X"}
     assert {"serve", "decode_chunk"} <= spans
+
+
+# -- the training leftovers and the tuning table --------------------------------
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_reference_matches_the_forward_kernel(cuda, dtype):
+    """Kernel 1 against the chunked reference form (and the plain one) at a
+    mid shape: fp32 within 1e-4; in bf16 the kernel at most twice as far
+    from the fp32 reference of the same inputs as the bf16 reference (the
+    reference rounds its scores to bf16, the kernel keeps them in fp32)."""
+    from repro_torch.core import causal as tcausal
+    B, H, Hkv, S, c, r, Dh = 1, 8, 2, 4096, 256, 16, 64
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(B, S, H, Dh, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, Hkv, Dh, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    E, F = ((torch.randn(c, r, generator=g, device=cuda) * r ** -0.5).to(
+        dtype) for _ in range(2))
+    with torch.no_grad():
+        out = tops.fused_blockwise_causal_attention(
+            q, k, v, E, F, block_size=c, block_slots=r, scale=Dh ** -0.5)
+        kw = dict(block_size=c, scale=Dh ** -0.5)
+        chunk = tcausal.blockwise_causal_attention_chunked(
+            q, k, v, E, F, q_chunk_blocks=4, **kw)
+        plain = tcausal.blockwise_causal_attention(q, k, v, E, F, **kw)
+        ref32 = tcausal.blockwise_causal_attention_chunked(
+            *(x.float() for x in (q, k, v, E, F)), **kw)
+    if dtype == torch.float32:
+        assert _max_err(out, chunk) <= 1e-4
+        assert _max_err(out, plain) <= 1e-4
+    else:
+        assert _max_err(out, ref32) <= 2 * _max_err(chunk, ref32)
+        assert _max_err(out, ref32) <= 2 * _max_err(plain, ref32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_vjp_runs_4r_and_the_offset_backward(cuda, dtype):
+    """fused_chunk_prefill_attention's gradients on the card: kernel 4r
+    forward and kernel 2 with start blocks backward, each launched once,
+    against the plain twins of both (1e-4 of each tensor's largest entry;
+    a bf16 gradient also 2^-7·|plain|); exact zeros on slots no row
+    sees."""
+    B, H, Hkv, P, c, r, Dh, M = 3, 8, 2, 128, 32, 4, 64, 48
+    starts = [0, 2, 5]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(B, P, H, Dh, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, P, Hkv, Dh, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    ck, cv = (torch.randn(B, M, Hkv, Dh, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    do = torch.randn(B, P, H, Dh, generator=g, device=cuda).to(dtype)
+    sb = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, ck, cv)]
+    n4r = bca.blockwise_causal_prefix_attn.residual_launches
+    n2 = bca.blockwise_causal_attn_bwd.offset_launches
+    got = torch.autograd.grad(tops.fused_chunk_prefill_attention(
+        *leaves, sb, **kw), leaves, do)
+    torch.cuda.synchronize()
+    assert bca.blockwise_causal_prefix_attn.residual_launches == n4r + 1
+    assert bca.blockwise_causal_attn_bwd.offset_launches == n2 + 1
+    tk = [x.movedim(1, 2) for x in (q, k, v, ck, cv)]
+    _, m, d = bca.blockwise_causal_attn_plain(*tk, start_blocks=sb,
+                                              return_residuals=True, **kw)
+    want = bca.blockwise_causal_attn_bwd_plain(
+        *tk, m, d, do.movedim(1, 2), start_blocks=sb, **kw)
+    for got_g, w in zip(got, want):
+        w = w.movedim(1, 2).float()
+        bound = 1e-4 * max(1.0, w.abs().max().item())
+        if got_g.dtype == torch.bfloat16:
+            bound = bound + 2 ** -7 * w.abs()
+        assert got_g.dtype == dtype
+        assert ((got_g.float() - w).abs() <= bound).all()
+    unseen = (torch.arange(M, device=cuda)[None] // r
+              >= sb.long()[:, None] + P // c - 1)
+    assert unseen.any()
+    assert all(bool((x[unseen] == 0).all()) for x in got[3:])
+
+
+def test_dots_remat_matches_none_at_two_layers(cuda):
+    """qwen3-8b SMOKE in fp32 on the card through the kernels: remat
+    "dots" (selective checkpointing; the kernels rerun in the backward) and
+    "none" give the same loss and gradients within 1e-5 relative."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device=cuda)
+    leaves = list(flatten(params).values())
+    for p in leaves:
+        p.requires_grad_(True)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    toks = torch.randint(4, cfg.vocab_size, (2, 65), generator=g,
+                         device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             "loss_mask": torch.ones(2, 64, dtype=torch.int32, device=cuda)}
+    runs = {}
+    for remat in ("none", "dots"):
+        n0 = bca.blockwise_causal_attn_bwd.launches
+        loss, _ = tmodel.loss_fn(params, dataclasses.replace(
+            cfg, remat=remat), batch)
+        runs[remat] = (loss.detach(), torch.autograd.grad(loss, leaves))
+        assert bca.blockwise_causal_attn_bwd.launches == \
+            n0 + cfg.num_layers
+    torch.testing.assert_close(runs["dots"][0], runs["none"][0], rtol=1e-5,
+                               atol=0)
+    for a, b in zip(runs["dots"][1], runs["none"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_tuned_decode_chunk_serves_the_tokens_of_32(cuda):
+    """Under a table with this card's key and decode_chunk 4, an engine
+    built with decode_chunk=None takes 4 and serves the tokens of
+    decode_chunk=32 (qwen3-8b SMOKE, fp32)."""
+    from repro_torch.tune import table as ttuning
+    cfg = dataclasses.replace(get_smoke_config("qwen3-8b"), dtype="float32")
+    params = tmodel.init_params(cfg, seed=0, device=cuda)
+    prompts = [[5 + i] * n for i, n in enumerate([8, 19, 35, 48, 70, 16])]
+    table = ttuning.TuningTable()
+    table.add(platform=ttuning.platform_key(cuda), form="scalars",
+              bucket=None, params={"decode_chunk": 4}, trial_us=1.0,
+              default_us=1.0, trials=1)
+    outs = {}
+    with ttuning.override(table):
+        for dc in (None, 32):
+            eng = ServingEngine(params, cfg, max_seq=96, device=cuda,
+                                cache_dtype=torch.float32, decode_chunk=dc)
+            assert eng.decode_chunk == (4 if dc is None else 32)
+            outs[dc] = eng.serve(prompts, 12, max_batch=3)
+    assert outs[None] == outs[32]

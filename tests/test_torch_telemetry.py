@@ -48,6 +48,7 @@ from repro_torch.serving import ServingEngine, ShedResult
 from repro_torch.serving.scheduler import _STAT_COUNTERS
 from repro_torch.telemetry import trace as ttrace
 from repro_torch.train import Trainer
+from repro_torch.tune import table as ttuning
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = {"jax": jtel, "port": ttel}
@@ -396,13 +397,27 @@ def overload(request):
     want, jsched = jeng.serve(prompts, budgets, return_scheduler=True, **kw)
     teng = ServingEngine(params_t, cfg_t, device="cpu",
                          cache_dtype=torch.float32, telemetry=tel_t, **ekw)
-    got, sched = teng.serve(prompts, budgets, return_scheduler=True, **kw)
+    # the port's tuning-table lookups during its telemetry serve, each
+    # True for a hit (the serve drains them into tel_t)
+    ttuning.consume_stats()
+    lookups = []
+    real_lookup = ttuning.TuningTable.lookup
+
+    def lookup(self, *a, **k):
+        out = real_lookup(self, *a, **k)
+        lookups.append(bool(out))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttuning.TuningTable, "lookup", lookup)
+        got, sched = teng.serve(prompts, budgets, return_scheduler=True,
+                                **kw)
     off, sched_off = ServingEngine(
         params_t, cfg_t, device="cpu", cache_dtype=torch.float32,
         **ekw).serve(prompts, budgets, return_scheduler=True, **kw)
     return dict(pool=request.param, budgets=budgets, want=want,
                 jsched=jsched, tel_j=tel_j, got=got, sched=sched,
-                tel_t=tel_t, off=off, sched_off=sched_off)
+                tel_t=tel_t, off=off, sched_off=sched_off, lookups=lookups)
 
 
 def test_overload_serve_runs_every_leg(overload):
@@ -435,8 +450,11 @@ def test_overload_stamps_equal_jax(overload):
 
 
 def _split_records(records):
-    """(records compared exactly, {ms histogram key: count}). JAX's tuning
-    table counters wait for the port's autotuner."""
+    """(records compared exactly, {ms histogram key: count}). The tuning
+    table counters are left out: JAX counts a lookup a trace against its
+    TUNING.json's cpu entries, the port a lookup a call against a table
+    with card entries only (test_overload_tuning_counters_count_each_lookup
+    holds the port's)."""
     exact, ms = [], {}
     for r in records:
         if r.get("metric", "").startswith("tuning_table_"):
@@ -465,6 +483,23 @@ def test_overload_metrics_equal_jax(overload):
     if overload["pool"].startswith("paged"):
         assert {"serving_pages_in_use", "serving_pages_free",
                 "serving_quant_error_bound_sum"} <= kinds
+
+
+def test_overload_tuning_counters_count_each_lookup(overload):
+    """The port's tuning_table_* records after its serve are its lookups
+    during the serve, one a call: hits and misses as the table answered
+    (all misses on the CPU: the committed table has card entries only);
+    a pool whose prefill runs no full forward looks nothing up."""
+    lookups = overload["lookups"]
+    hits = sum(lookups)
+    recs = {r["metric"]: r["value"]
+            for r in overload["tel_t"].metrics_records()
+            if r.get("metric", "").startswith("tuning_table_")}
+    want = {name: n for name, n in (("tuning_table_hit_total", hits),
+                                    ("tuning_table_miss_total",
+                                     len(lookups) - hits)) if n}
+    assert recs == want and hits == 0
+    assert bool(lookups) == (not overload["pool"].startswith("paged"))
 
 
 def _span_counts(tel):
