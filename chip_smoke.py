@@ -237,8 +237,11 @@ error; none catches its own failure:
    backward) at B=4, P=512, M=288, start blocks 0, 3, 7, 14, fp32 and
    bf16: against autograd through the plain prefix form and against the
    plain twins, exact zeros on the slots no row sees, both kernels
-   launched; the offset backward timed by CUDA-graph replay beside the
-   masked SDPA backward. [train-leftovers] [train]'s shape (8 layers, 2 ×
+   launched (bf16 against the twins: at most one bf16 step of the twin's
+   value apart plus GRAD_TOL·max(1, max|twin|), check_grad_steps;
+   `scripts/prefix_grad_spread.py` measures it over 16 draws); the offset
+   backward timed by CUDA-graph replay beside the masked SDPA backward.
+   [train-leftovers] [train]'s shape (8 layers, 2 ×
    4096, bf16) fed by document packing (FileCorpus over seeded .txt
    files), one warm-up and two timed steps under remat none, dots and
    full: the same first loss (REMAT_LOSS_RTOL) and grad norm
@@ -248,6 +251,39 @@ error; none catches its own failure:
    requests on qwen3-8b at TUNE_SERVE_LAYERS layers, decode_chunk None
    (tuned) and 32: token-identical, and table hits counted in the serve's
    telemetry.
+
+30. (after [table3]) [mesh] and [mesh-moe]: MESH_WORLD = 4 ranks spawned
+   after the build, sharing the card under a gloo group (NCCL refuses two
+   ranks on one device; gloo takes the CUDA tensors), each rank loading
+   the built kernels. Every route of the attention plan on qwen3-8b's
+   attention at full width (H=32, Hkv=8, Dh=128, c=256, r=16), on
+   data2 × tp2, data2 × sp2 and sp2 × tp2 (MESH_LAYOUTS) against the
+   world-size-1 kernel route, each leg in fp32 and in bf16: the causal
+   form at B=2, S=4096, forward alone (kernel 1 a shard under tp, 4
+   under sp) and with its backward (1r and 2 under tp, 4r and 2's offset
+   form under sp); chunk prefill at B=4, P=512, M=288, dense and int8
+   (4, 8); decode, dense and int8 (3, 7); the exact form at the paper's
+   shapes on sp2 × tp2 (kernels 6 and 5 a shard, the k̄/v̄ psum), forward
+   and gradients. fp32: tp legs within MESH_TP_TOL, sp legs and the exact
+   form within GRAD_TOL (both of max(1, max|ref|)). bf16: an output's max
+   abs error and a gradient's relative norm error against world size 1
+   in fp32 on the rounded operands at most BF16_PARITY_FACTOR times world
+   size 1's in bf16, plus BF16_PARITY_ABS, and the tensor-core route
+   probed after each causal and prefix leg; one
+   model-level train step of qwen3-8b at full width and 2 layers (fp32,
+   B=1, S=1024, remat full) on sp2 × tp2: the loss within
+   TRAIN_LOSS_RTOL and every gradient leaf within GRAD_TOL of world size
+   1, each rank's peak GB. [mesh-moe]: qwen3-moe-30b-a3b at full width,
+   1 layer, fp32: the model's forward with the MoE layer expert-parallel
+   on data2 × tp2 (against world size 1 on each data shard's rows) and on
+   tp4, and weight-stationary decode of the layer (8 tokens, fsdp "data")
+   against world size 1 with the flag off. Each rank holds its own
+   results; rank 0 logs the legs, the comm helpers' bytes by op, the
+   per-shard launches summed over the ranks (each kernel of the per-shard
+   table at least once) and each phase's wall (time-sliced: no scaling
+   number). Then a world-size-1 NCCL group resolves a plan (tp = sp = 1,
+   no region) and one train step's loss and gradients under its ctx
+   equal those without a ctx, bit for bit.
 
 [check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
 these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
@@ -1207,6 +1243,38 @@ def telemetry_phase(dev, cfg, params):
         raise AssertionError("[telemetry] the export failed its check")
     del eng, sched, warm, on, off
     log(f"  [telemetry] {time.perf_counter() - t_phase:.1f} s")
+
+
+def bf16_step(x):
+    """The spacing of bf16 at each |x| (one step of its 8-bit mantissa),
+    0 at x = 0: never more than 2^-7·|x|."""
+    import torch
+    x = x.float()
+    step = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    return torch.where(x == 0, torch.zeros_like(x), step)
+
+
+def check_grad_steps(name, out, ref):
+    """A bf16 gradient against its plain twin, both fp32 sums rounded once
+    to bf16: at most one bf16 step of the twin's value apart, plus
+    GRAD_TOL·max(1, max|twin|) for the fp32 sums' order (check_grad's
+    bound with the exact step in place of its 2^-7·|twin| upper bound).
+    Logs the largest distance in steps where a step exceeds that slack.
+    Returns the max absolute error."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    slack = GRAD_TOL * max(1.0, ref.float().abs().max().item())
+    step = bf16_step(ref)
+    worst = (diff / (step + slack)).max().item()
+    big = step > slack
+    steps = int((diff[big] / step[big]).round().max().item()) \
+        if bool(big.any()) else 0
+    log(f"  {name}: max |kernel - plain| = {err:.3e}, {worst:.2f} of its "
+        f"bound, {steps} bf16 step(s) apart at most where a step exceeds "
+        f"{slack:.2e}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: error {err} beyond one bf16 step")
+    return err
 
 
 def card_line():
@@ -4489,7 +4557,9 @@ def prefix_grad_phase(dev):
             qk, kk, vk, ck, cv, m, d, do.movedim(1, 2), start_blocks=sb,
             **kw)]
         tag = f"prefix VJP {str(dtype)[6:]}"
-        errs = [check_grad(f"{tag} {n} vs the plain twins", a, b)
+        check_twin = check_grad if dtype == torch.float32 \
+            else check_grad_steps
+        errs = [check_twin(f"{tag} {n} vs the plain twins", a, b)
                 for n, a, b in zip(names, got, twin)]
         if dtype == torch.float32:
             for n, a, b in zip(names, got, want):
@@ -4763,6 +4833,527 @@ def tune_phase(dev, cfg, prompts):
     return launches
 
 
+# -- multi-GPU: the plan's tp/sp routes and expert parallelism on gloo ranks --
+
+# Ranks of the [mesh] and [mesh-moe] phases. They share the one card
+# (cuda:0) under a gloo process group (NCCL refuses two ranks on one
+# device), so their walls say nothing about scaling.
+MESH_WORLD = 4
+MESH_LAYOUTS = {"data2xtp2": (2, 1), "data2xsp2": (1, 2), "sp2xtp2": (2, 2)}
+# qwen3-8b's attention at full width; the forms at the shapes of [check]:
+# the train step's causal attention, the chunked serve's prefix form and
+# decode; the paper's encoder for the exact form; the model-level legs
+# (2-layer qwen3-8b train step, 1-layer qwen3-moe-30b-a3b forward) in fp32.
+MESH_SHAPES = {
+    "attn": dict(H=32, Hkv=8, Dh=128, c=256, r=16),
+    "causal": dict(B=2, S=4096),
+    "prefix": dict(B=4, P=512, M=288, start=(0, 3, 7, 14)),
+    "decode": dict(B=4, M=288, t=(3, 300, 2000, 4600)),
+    "exact": dict(B=32, S=512, K=128, H=12, Dh=64),
+    "train": dict(layers=2, batch=1, seq=1024),
+    "moe": dict(layers=1, batch=2, seq=1024, decode_batch=8),
+}
+# fp32 tp legs: the per-head math of a shard is the whole tensor's, so
+# fp32 agrees to rounding; fp32 sp legs (another kernel, another summation
+# order) keep the existing gates (GRAD_TOL, scaled as in check_grad). bf16
+# legs keep check_bf16_route's gate (MeshRank.close_bf16).
+MESH_TP_TOL = 1e-5
+MESH_GRADS = ("dq", "dk", "dv", "dE", "dF")
+# the kernels each shard must launch on the [mesh] routes (Part C's table)
+MESH_KERNELS = tuple(name for name, *_ in LAUNCH_COUNTERS)
+
+
+class MeshRank:
+    """One rank's bookkeeping: the launches of the mesh legs (reset before
+    each leg, read after it: the world-size-1 references are not
+    counted); rank 0 logs each leg's error against its bound."""
+
+    def __init__(self, rank, dev):
+        self.rank, self.dev = rank, dev
+        self.launches = collections.Counter()
+
+    def say(self, msg):
+        if self.rank == 0:
+            log(msg)
+
+    def sync(self):
+        import torch
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(self, fn):
+        reset_launches()
+        out = fn()
+        self.sync()
+        self.launches.update(read_launches())
+        return out
+
+    def close(self, name, got, ref, tol):
+        """max |got - ref| within tol · max(1, max |ref|)."""
+        err = (got.float() - ref.float()).abs().max().item()
+        bound = tol * max(1.0, ref.float().abs().max().item())
+        self.say(f"  {name}: max |mesh - one| = {err:.3e}, "
+                 f"{err / bound:.2f} of its bound")
+        if not err <= bound:
+            raise AssertionError(f"rank {self.rank} {name}: {err} > {bound}")
+
+    def close_bf16(self, name, got, ref32, ref16, grad):
+        """A bf16 result of the mesh against world size 1 in fp32 on the
+        same (upcast) operands, by the gate the kernels' bf16 route meets
+        at world size 1: an output's max abs error (check_bf16_route), a
+        gradient's relative norm error (train_parity_bf16_phase: a
+        gradient summed over shards rounds each shard's part to bf16 first)
+        at most BF16_PARITY_FACTOR times world size 1's in bf16, plus
+        BF16_PARITY_ABS."""
+        import torch
+
+        def err(x):
+            d = x.float() - ref32.float()
+            if not grad:
+                return d.abs().max().item()
+            return (torch.linalg.vector_norm(d) / torch.linalg.vector_norm(
+                ref32.float()).clamp_min(1e-30)).item()
+
+        e_m, e_o = err(got), err(ref16)
+        what = "rel norm" if grad else "max abs"
+        self.say(f"  {name} bf16: {what} err against fp32 {e_m:.3e}, world "
+                 f"size 1's {e_o:.3e} ({e_m / max(e_o, 1e-30):.2f}x)")
+        if not e_m <= BF16_PARITY_FACTOR * e_o + BF16_PARITY_ABS:
+            raise AssertionError(f"rank {self.rank} {name} bf16: {e_m} "
+                                 f"beyond {BF16_PARITY_FACTOR} x {e_o}")
+
+    def hold(self, leg, fn, plans, tol, probe=None):
+        """`fn(plan, prep)` -> {name: tensor}, its float operands passed
+        through `prep`. Each mesh plan's fp32 results against world size 1
+        within tol[mesh]; its bf16 results by close_bf16, against world
+        size 1 in bf16 and in fp32 on the bf16-rounded operands. `probe`
+        names the tensor-core routes each bf16 run of a shard must take
+        (kernels/blockwise_causal_attn's last_*_route probes)."""
+        import torch
+        from repro_torch.kernels import blockwise_causal_attn as bca
+        from repro_torch.parallel.plan import AttentionPlan
+        one = AttentionPlan()
+
+        def b16(x):
+            return x.to(torch.bfloat16)
+
+        def r16(x):
+            return x.to(torch.bfloat16).float()
+
+        ref = fn(one, lambda x: x)
+        ref16, ref32 = fn(one, b16), fn(one, r16)
+        for n, plan in plans.items():
+            got = self.counted(lambda: fn(plan, lambda x: x))
+            for name, x in got.items():
+                self.close(f"{leg} {name} {n}", x, ref[name], tol[n])
+            got = self.counted(lambda: fn(plan, b16))
+            for name, x in got.items():
+                self.close_bf16(f"{leg} {name} {n}", x, ref32[name],
+                                ref16[name], grad=name in MESH_GRADS)
+            routes = {"forward": bca.last_forward_route,
+                      "backward": bca.last_backward_route}
+            ran = {k: routes[k]() for k in probe or ()}
+            if ran:
+                self.say(f"  {leg} {n} bf16 routes: {ran}")
+            if any(r != "tensor cores" for r in ran.values()):
+                raise AssertionError(f"{leg} {n} bf16 ran the routes {ran}")
+
+
+def mesh_attention_legs(rk, meshes):
+    """Each route of the plan on each mesh against world size 1 on the
+    kernels, in fp32 (the SIMT kernel bodies) and bf16 (the tensor-core
+    bodies), MeshRank.hold: the causal form's forward alone and with its
+    backward, chunk prefill (dense, int8) and decode (dense, int8)."""
+    import torch
+    from repro_torch.configs.base import AttentionConfig, LinformerConfig
+    from repro_torch.core.cache import quantize_blockwise, resolve_page_dtype
+    from repro_torch.parallel.plan import resolve_attention_plan
+    from repro_torch.parallel.sharding import ParallelCtx
+    dev = rk.dev
+    a = MESH_SHAPES["attn"]
+    H, Hkv, Dh, c, r = a["H"], a["Hkv"], a["Dh"], a["c"], a["r"]
+    acfg = AttentionConfig(num_heads=H, num_kv_heads=Hkv, head_dim=Dh,
+                           linformer=LinformerConfig(block_size=c,
+                                                     block_slots=r))
+    kw = dict(block_size=c, block_slots=r, scale=Dh ** -0.5)
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=dev) * scale
+
+    plans = {n: resolve_attention_plan(acfg, ParallelCtx(mesh=m))
+             for n, m in meshes.items() if n in MESH_LAYOUTS}
+    tol = {n: MESH_TP_TOL if p.sp == 1 else GRAD_TOL
+           for n, p in plans.items()}
+
+    B, S = MESH_SHAPES["causal"]["B"], MESH_SHAPES["causal"]["S"]
+    qkv = (rnd(B, S, H, Dh), rnd(B, S, Hkv, Dh), rnd(B, S, Hkv, Dh),
+           rnd(c, r, scale=r ** -0.5), rnd(c, r, scale=r ** -0.5))
+    cot = rnd(B, S, H, Dh)
+
+    def forward(plan, prep):
+        with torch.no_grad():
+            return {"forward": plan.causal_attention(
+                *(prep(x) for x in qkv), **kw)}
+
+    def grads(plan, prep):
+        leaves = [prep(x).detach().requires_grad_(True) for x in qkv]
+        out = plan.causal_attention(*leaves, **kw)
+        got = torch.autograd.grad((out * prep(cot)).sum(), leaves)
+        return dict(zip(MESH_GRADS, got))
+
+    rk.hold("causal", forward, plans, tol, probe=("forward",))
+    rk.hold("causal", grads, plans, tol, probe=("forward", "backward"))
+    del qkv, cot
+
+    p = MESH_SHAPES["prefix"]
+    B, P, M = p["B"], p["P"], p["M"]
+    pdt, qmax = resolve_page_dtype("int8")
+    ops = (rnd(B, P, H, Dh), rnd(B, P, Hkv, Dh), rnd(B, P, Hkv, Dh),
+           rnd(B, M, Hkv, Dh, scale=2.0), rnd(B, M, Hkv, Dh, scale=2.0))
+    start = torch.tensor(p["start"], dtype=torch.int32, device=dev)
+    (ckq, cks), (cvq, cvs) = (quantize_blockwise(x, (3,), dtype=pdt,
+                                                 qmax=qmax) for x in ops[3:])
+
+    B, M = MESH_SHAPES["decode"]["B"], MESH_SHAPES["decode"]["M"]
+    t = torch.tensor(MESH_SHAPES["decode"]["t"], device=dev)
+    dops = (rnd(B, 1, H, Dh), rnd(B, c, Hkv, Dh), rnd(B, c, Hkv, Dh),
+            rnd(B, M, Hkv, Dh), rnd(B, M, Hkv, Dh))
+    loc_ok = torch.arange(c, device=dev)[None] <= (t % c)[:, None]
+    glob_ok = torch.arange(M, device=dev)[None] < (t // c * r)[:, None]
+    dq = [quantize_blockwise(x, (3,), dtype=pdt, qmax=qmax)
+          for x in dops[1:]]
+    legs = {
+        "chunk prefill": (lambda pl, prep: pl.chunk_prefill_attention(
+            *(prep(x) for x in ops), start, **kw), ("forward",)),
+        "chunk prefill int8": (lambda pl, prep: pl.chunk_prefill_attention_q(
+            *(prep(x) for x in ops[:3]), ckq, cvq, cks, cvs, start, **kw),
+            ("forward",)),
+        "decode": (lambda pl, prep: pl.decode_attention(
+            *(prep(x) for x in dops), loc_ok, glob_ok, scale=kw["scale"]),
+            ()),
+        "decode int8": (lambda pl, prep: pl.decode_attention_q(
+            prep(dops[0]), dq[0][0], dq[1][0], dq[0][1], dq[1][1], dq[2][0],
+            dq[3][0], dq[2][1], dq[3][1], loc_ok, glob_ok,
+            scale=kw["scale"]), ())}
+    with torch.no_grad():
+        for leg, (fn, probe) in legs.items():
+            rk.hold(leg, lambda pl, prep: {"out": fn(pl, prep)}, plans, tol,
+                    probe=probe)
+
+
+def mesh_exact_leg(rk, meshes):
+    """The exact form at the paper's shapes on sp2 × tp2, forward and
+    gradients, against world size 1 (kernels 6 and 5 a shard), in fp32
+    within GRAD_TOL and in bf16 (MeshRank.hold)."""
+    import torch
+    from repro_torch.configs.base import AttentionConfig, LinformerConfig
+    from repro_torch.parallel.plan import resolve_attention_plan
+    from repro_torch.parallel.sharding import ParallelCtx
+    e = MESH_SHAPES["exact"]
+    B, S, K, H, Dh = e["B"], e["S"], e["K"], e["H"], e["Dh"]
+    acfg = AttentionConfig(kind="linformer", num_heads=H, num_kv_heads=H,
+                           head_dim=Dh, causal=False, use_rope=False,
+                           linformer=LinformerConfig(k=K,
+                                                     sharing="layerwise"))
+    plan = resolve_attention_plan(acfg, ParallelCtx(mesh=meshes["sp2xtp2"]))
+    if not plan.manual or plan.sp != 2 or plan.tp != 2:
+        raise AssertionError(f"exact form plan: {plan}")
+    g = torch.Generator(device=rk.dev).manual_seed(32)
+    ops = [torch.randn(B, S, H, Dh, generator=g, device=rk.dev)
+           for _ in range(3)]
+    ops += [torch.randn(S, K, generator=g, device=rk.dev) * S ** -0.5
+            for _ in range(2)]
+    cot = torch.randn(B, S, H, Dh, generator=g, device=rk.dev)
+    kw = dict(projection="linear", scale=Dh ** -0.5)
+
+    def run(pl, prep):
+        leaves = [prep(x).detach().requires_grad_(True) for x in ops]
+        out = pl.exact_attention(*leaves, **kw)
+        got = torch.autograd.grad((out * prep(cot)).sum(), leaves)
+        return dict(zip(("out",) + MESH_GRADS, (out.detach(), *got)))
+
+    rk.hold("exact", run, {"sp2xtp2": plan}, {"sp2xtp2": GRAD_TOL})
+
+
+def mesh_train_leg(rk, meshes):
+    """One model-level train step's loss and every gradient leaf of
+    qwen3-8b at full width and 2 layers (fp32, remat full) on sp2 × tp2
+    against world size 1; rank 0 computes the reference first and keeps
+    its gradients on the host."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch)
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.parallel.sharding import ParallelCtx
+    tr = MESH_SHAPES["train"]
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=tr["layers"],
+                              dtype="float32")
+    batch = make_causal_batch(SyntheticCorpus(cfg.vocab_size, seed=0),
+                              DataState(0, 0), batch=tr["batch"],
+                              seq=tr["seq"])
+    batch = {k: torch.from_numpy(v).to(rk.dev) for k, v in batch.items()}
+    params = tmodel.init_params(cfg, seed=1, device=rk.dev)
+    leaves = flatten(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+
+    def step(ctx):
+        loss, _ = tmodel.loss_fn(params, cfg, batch, ctx=ctx)
+        return loss.detach(), torch.autograd.grad(loss, list(leaves.values()))
+
+    ref = None
+    if rk.rank == 0:
+        loss, gr = step(None)
+        ref = (loss.item(), [x.cpu() for x in gr])
+        del loss, gr
+        gc.collect()
+        if rk.dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    if rk.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ctx = ParallelCtx(mesh=meshes["sp2xtp2"], fsdp="data")
+    t0 = time.perf_counter()
+    loss, gr = rk.counted(lambda: step(ctx))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if rk.dev.type == "cuda" else 0.0
+    losses = [None] * dist.get_world_size()
+    dist.all_gather_object(losses, loss.item())
+    if max(abs(x - losses[0]) for x in losses) > 1e-6 * abs(losses[0]):
+        raise AssertionError(f"ranks' losses differ: {losses}")
+    if ref is not None:
+        err = abs(loss.item() - ref[0]) / abs(ref[0])
+        rk.say(f"  train step sp2xtp2 ({cfg.num_layers} layers, fp32, "
+               f"B={tr['batch']}, S={tr['seq']}): loss {loss.item():.6f}, "
+               f"rel err {err:.2e} (tol {TRAIN_LOSS_RTOL:g}), {wall:.1f} s")
+        if not err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"mesh loss {loss.item()} vs {ref[0]}")
+        worst = (0.0, "")
+        for (name, _), x, y in zip(leaves.items(), gr, ref[1]):
+            y = y.to(rk.dev)
+            bound = GRAD_TOL * max(1.0, y.abs().max().item())
+            ratio = (x - y).abs().max().item() / bound
+            worst = max(worst, (ratio, name))
+        rk.say(f"  train step gradients: worst leaf {worst[1]} at "
+               f"{worst[0]:.2f} of GRAD_TOL·max(1, max|g|)")
+        if not worst[0] <= 1.0:
+            raise AssertionError(f"mesh gradient {worst[1]}: {worst[0]}")
+    return peak
+
+
+def mesh_moe_legs(rk, meshes):
+    """qwen3-moe-30b-a3b at full width, 1 layer, fp32: the model's forward
+    with the MoE layer expert-parallel on data2 × tp2 (against world size
+    1 on each data shard's rows: capacity follows the shard's tokens) and
+    on tp4 (against the whole batch); weight-stationary decode of the
+    layer on data2 × tp2 with fsdp "data" against world size 1 with the
+    flag off."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch)
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.parallel.sharding import ParallelCtx
+    m = MESH_SHAPES["moe"]
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              num_layers=m["layers"], dtype="float32")
+    toks = make_causal_batch(SyntheticCorpus(cfg.vocab_size, seed=0),
+                             DataState(0, 0), batch=m["batch"],
+                             seq=m["seq"])["tokens"]
+    toks = torch.from_numpy(toks).to(rk.dev)
+    params = tmodel.init_params(cfg, seed=2, device=rk.dev)
+    with torch.no_grad():
+        for n, shards in (("data2xtp2", 2), ("tp4", 1)):
+            ctx = ParallelCtx(mesh=meshes[n])
+            logits, aux, _ = rk.counted(lambda: tmodel.forward(
+                params, cfg, {"tokens": toks}, ctx=ctx))
+            rows = toks.shape[0] // shards
+            refs = [tmodel.forward(params, cfg,
+                                   {"tokens": toks[i * rows:(i + 1) * rows]})
+                    for i in range(shards)]
+            rk.close(f"moe forward logits {n}", logits,
+                     torch.cat([x[0] for x in refs]), GRAD_TOL)
+            ref_aux = sum(x[1] for x in refs) / shards
+            err = abs(aux.item() - ref_aux.item()) / abs(ref_aux.item())
+            rk.say(f"  moe forward aux {n}: {aux.item():.6f}, rel err "
+                   f"{err:.2e} (tol {TRAIN_LOSS_RTOL:g})")
+            if not err <= TRAIN_LOSS_RTOL:
+                raise AssertionError(f"moe aux {n}: {aux} vs {ref_aux}")
+            del logits, refs
+        lp = layer_params(params, 0)["moe"]
+        g = torch.Generator(device=rk.dev).manual_seed(33)
+        x = torch.randn(m["decode_batch"], 1, cfg.d_model, generator=g,
+                        device=rk.dev)
+        ws = dataclasses.replace(cfg.moe, weight_stationary_decode=True)
+        out, aux = rk.counted(lambda: tmoe.apply_moe(
+            lp, x, ws, cfg.mlp, ParallelCtx(mesh=meshes["data2xtp2"],
+                                            fsdp="data")))
+        ref, ref_aux = tmoe.apply_moe(
+            lp, x, dataclasses.replace(ws, weight_stationary_decode=False),
+            cfg.mlp)
+        rk.close("moe weight-stationary decode data2xtp2", out, ref,
+                 GRAD_TOL)
+        rk.close("moe weight-stationary aux", aux, ref_aux, GRAD_TOL)
+
+
+def mesh_rank(rank, world, tmp, dev_type):
+    """One rank of the [mesh] and [mesh-moe] phases (torch.multiprocessing
+    spawns it: the kernels are built already, and the rank loads them).
+    Rank 0 logs; every rank holds its own results to its own world-size-1
+    references, and any failure fails the spawn."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_local_mesh
+    from repro_torch.parallel import comm
+    torch.set_num_threads(2)
+    dev = torch.device(dev_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    init_ranks("gloo", "file://" + os.path.join(tmp, "rendezvous"), rank,
+               world)
+    try:
+        rk = MeshRank(rank, dev)
+        t0 = time.perf_counter()
+        meshes = {n: make_local_mesh(ms, ss, device_type=dev.type)
+                  for n, (ms, ss) in MESH_LAYOUTS.items()}
+        meshes["tp4"] = make_local_mesh(4, device_type=dev.type)
+        rk.say(f"[mesh] {world} gloo ranks on {dev}: meshes "
+               f"{ {n: tuple(m.mesh.shape) for n, m in meshes.items()} } "
+               f"after {time.perf_counter() - t0:.1f} s; the comm helpers "
+               f"hand {dev.type} tensors to gloo directly")
+        walls = {}
+        comm.reset_counters()
+        mesh_attention_legs(rk, meshes)
+        mesh_exact_leg(rk, meshes)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        peak = mesh_train_leg(rk, meshes)
+        walls["mesh"] = time.perf_counter() - t0
+        mesh_bytes = dict(comm.BYTES)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        comm.reset_counters()
+        mesh_moe_legs(rk, meshes)
+        walls["mesh-moe"] = time.perf_counter() - t1
+        mine = {"launches": dict(rk.launches), "peak_gb": peak,
+                "bytes": {"mesh": mesh_bytes, "mesh-moe": dict(comm.BYTES)}}
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            with open(os.path.join(tmp, "result.json"), "w") as fh:
+                json.dump({"ranks": every, "walls": walls}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phases(dev):
+    """[mesh] and [mesh-moe]: MESH_WORLD gloo ranks sharing the card run
+    every route of the plan on its shards against world size 1. Returns
+    the launches of the mesh legs summed over the ranks."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(mesh_rank, args=(MESH_WORLD, tmp, dev.type),
+                 nprocs=MESH_WORLD, join=True)
+        with open(os.path.join(tmp, "result.json")) as fh:
+            res = json.load(fh)
+    ranks = res["ranks"]
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    for phase in ("mesh", "mesh-moe"):
+        total = collections.Counter()
+        for r in ranks:
+            total.update(r["bytes"][phase])
+        log(f"[{phase}] comm bytes a rank, summed over the {len(ranks)} "
+            f"ranks, by op: {dict(total)}; rank 0: "
+            f"{ranks[0]['bytes'][phase]}")
+    log(f"[mesh] peak GB of each rank in the train step (rank 0 holds "
+        f"the world-size-1 reference's gradients on the host): "
+        f"{[round(r['peak_gb'], 2) for r in ranks]}")
+    log(f"[mesh] per-shard launches summed over the ranks: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for phase, wall in res["walls"].items():
+        log(f"[wall] {phase} (rank 0; the ranks time-slice one card: this "
+            f"measures nothing about scaling): {wall:.1f} s")
+    log(f"[mesh] spawn to join: {time.perf_counter() - t0:.1f} s")
+    if dev.type == "cuda":
+        require_launches(launches, MESH_KERNELS, "mesh")
+    return dict(launches)
+
+
+def mesh_nccl_phase(dev):
+    """A world-size-1 NCCL group: the plan resolves with tp = sp = 1 (no
+    region) and one train step's loss and gradients of the 2-layer fp32
+    qwen3-8b under that ctx equal those without a ctx, bit for bit: the
+    NCCL path starts."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch)
+    from repro_torch.launch.mesh import init_ranks, make_local_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.parallel.plan import resolve_attention_plan
+    from repro_torch.parallel.sharding import ParallelCtx
+    tr = MESH_SHAPES["train"]
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=tr["layers"],
+                              dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_ranks("nccl", "file://" + os.path.join(tmp, "rendezvous"), 0, 1)
+        try:
+            ctx = ParallelCtx(mesh=make_local_mesh(device_type="cuda"),
+                              fsdp="data")
+            plan = resolve_attention_plan(cfg.attention, ctx)
+            if (plan.tp, plan.sp, plan.manual) != (1, 1, False):
+                raise AssertionError(f"world size 1 plan: {plan}")
+            batch = make_causal_batch(
+                SyntheticCorpus(cfg.vocab_size, seed=0), DataState(0, 0),
+                batch=tr["batch"], seq=tr["seq"])
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            params = tmodel.init_params(cfg, seed=1, device=dev)
+            leaves = flatten(params)
+            for p in leaves.values():
+                p.requires_grad_(True)
+            res = []
+            for c in (ctx, None):
+                loss, _ = tmodel.loss_fn(params, cfg, batch, ctx=c)
+                res.append((loss.item(), torch.autograd.grad(
+                    loss, list(leaves.values()))))
+            same = res[0][0] == res[1][0] and all(
+                torch.equal(a, b) for a, b in zip(res[0][1], res[1][1]))
+            log(f"[mesh] NCCL world size 1 ({dist.get_backend()}): plan tp "
+                f"{plan.tp}, sp {plan.sp}, manual {plan.manual}; one train "
+                f"step of {cfg.num_layers}-layer fp32 qwen3-8b, loss "
+                f"{res[0][0]:.6f}, loss and gradients equal to no ctx: "
+                f"{same}")
+            if not same:
+                raise AssertionError("NCCL world size 1 step differs")
+        finally:
+            dist.destroy_process_group()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4958,6 +5549,10 @@ def main():
     lap("train-mlm-nonuniform")
     table3_phase(dev)
     lap("table3")
+    mesh_launches = mesh_phases(dev)
+    lap("mesh, mesh-moe (spawn to join)")
+    mesh_nccl_phase(dev)
+    lap("mesh NCCL world size 1")
 
     # launches: each kernel's count on its own main path, every path beside;
     # the prefix form's residual variant and the backward's offset form run
@@ -4970,7 +5565,7 @@ def main():
              "train-mlm-nonuniform": nonuni["launches"],
              "prefix-grad": prefix_launches,
              "train-leftovers": leftover_launches, "tune": tune_launches,
-             **new_paths}
+             "mesh": mesh_launches, **new_paths}
     main_path = {"blockwise_causal_attn": "serve",
                  "decode_attn": "serve",
                  "blockwise_causal_attn(return_residuals)": "train",

@@ -20,9 +20,15 @@ from repro_torch.parallel import plan as plan_lib
 TRANSFORMER_FAMILIES = transformer.TRANSFORMER_FAMILIES
 
 
-def _impl(cfg: ModelConfig):
+def _impl(cfg: ModelConfig, ctx=None):
+    """The family's module; `ctx` with a mesh is refused for ssm/hybrid."""
     if cfg.family in TRANSFORMER_FAMILIES:
         return transformer
+    if ctx is not None and ctx.mesh is not None:
+        raise ValueError(
+            f"family {cfg.family!r} takes no mesh ctx yet: its activations "
+            "are laid out on a mesh with the sharded-training slice of the "
+            "port (ROADMAP Queue 1, item 1.3)")
     if cfg.family == "hybrid":
         return zamba
     if cfg.family == "ssm":
@@ -45,8 +51,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return _impl(cfg).init_params(cfg, generator=gen, device=dev)
 
 
-def forward(params, cfg: ModelConfig, batch: Dict, **kw):
-    return _impl(cfg).forward(params, cfg, batch, **kw)
+def forward(params, cfg: ModelConfig, batch: Dict, *, ctx=None, **kw):
+    """Full-sequence forward; see transformer.forward. `ctx`
+    (parallel/sharding.ParallelCtx) puts the attention and MoE layers of
+    the transformer families on its mesh."""
+    impl = _impl(cfg, ctx)
+    if impl is transformer:
+        kw["ctx"] = ctx
+    return impl.forward(params, cfg, batch, **kw)
 
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
@@ -58,27 +70,29 @@ def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
 
 def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                 cache: Dict, *, embeds: Optional[torch.Tensor] = None,
-                plan: Optional[plan_lib.AttentionPlan] = None):
+                plan: Optional[plan_lib.AttentionPlan] = None, ctx=None):
     """One decode step on tokens (B, 1), or on ``embeds`` (B, 1, D) for a
     config with ``embedding_inputs``; see transformer.decode_step (and the
     ssm and hybrid modules' own, whose rows share one scalar length)."""
-    return _impl(cfg).decode_step(params, cfg, tokens, cache, embeds=embeds,
-                                  plan=plan)
+    impl = _impl(cfg, ctx)
+    kw = {"ctx": ctx} if impl is transformer else {}
+    return impl.decode_step(params, cfg, tokens, cache, embeds=embeds,
+                            plan=plan, **kw)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: Dict, n_valid, *,
-                  plan: Optional[plan_lib.AttentionPlan] = None):
+                  plan: Optional[plan_lib.AttentionPlan] = None, ctx=None):
     """Prefill-at-offset forward of one fixed-size chunk per row (serving's
     chunked-admission path); see transformer.prefill_chunk. Transformer
     families only: ssm/hybrid caches have no per-row positions to chunk
     against."""
-    impl = _impl(cfg)
+    impl = _impl(cfg, ctx)
     if not hasattr(impl, "prefill_chunk"):
         raise ValueError(
             f"family {cfg.family!r} has no chunked-prefill path")
     return impl.prefill_chunk(params, cfg, tokens, cache, n_valid,
-                              plan=plan)
+                              plan=plan, ctx=ctx)
 
 
 def sample(logits: torch.Tensor, temperature: float = 0.0,
@@ -112,6 +126,7 @@ def decode_scan(
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
     plan: Optional[plan_lib.AttentionPlan] = None,
+    ctx=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, Dict]:
     """Device-resident multi-token decode: `n_steps` decode steps with
     on-device sampling (`sample`: argmax at temperature 0, Gumbel-max from
@@ -126,7 +141,7 @@ def decode_scan(
     when a still-live row's logits go non-finite.
     Returns (tokens (B, n_steps), next cur, finished, bad, cache)."""
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention)
+        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
     bad = torch.zeros_like(finished)
     toks = []
     for _ in range(n_steps):
@@ -134,7 +149,7 @@ def decode_scan(
         finished = finished | (tok == eos_id)
         prev_lengths = cache.get("lengths")
         logits, cache = decode_step(params, cfg, tok[:, None], cache,
-                                    plan=plan)
+                                    plan=plan, ctx=ctx)
         if prev_lengths is not None:    # ssm/hybrid caches keep a scalar
             cache["lengths"] = torch.where(finished, prev_lengths,
                                            cache["lengths"])
@@ -190,7 +205,7 @@ def chunked_head_ce(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
-            plan: Optional[plan_lib.AttentionPlan] = None
+            plan: Optional[plan_lib.AttentionPlan] = None, ctx=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B, S) or, with ``embedding_inputs``, embeds
     (B, S, D); with ``frontend_embed_len`` P also frontend_embeds (B, P, D);
@@ -207,11 +222,11 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
     P = cfg.frontend_embed_len
     if cfg.chunked_ce > 0 and cfg.family in TRANSFORMER_FAMILIES:
         hidden, aux, _ = forward(params, cfg, batch, return_hidden=True,
-                                 plan=plan)
+                                 plan=plan, ctx=ctx)
         nll_sum, denom = chunked_head_ce(params, cfg, hidden[:, P:], labels,
                                          mask, chunk=cfg.chunked_ce)
     else:
-        logits, aux, _ = forward(params, cfg, batch, plan=plan)
+        logits, aux, _ = forward(params, cfg, batch, plan=plan, ctx=ctx)
         nll_sum, denom = cross_entropy(logits[:, P:], labels, mask)
     loss = nll_sum / torch.clamp(denom, min=1.0)
     total = loss

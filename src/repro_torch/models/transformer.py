@@ -341,14 +341,14 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
     return wrapped
 
 
-def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig
+def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, ctx=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's feed-forward on the normed stream: the MoE layer where
-    the config has experts (its B·S tokens routed together), else the MLP.
-    Returns (out, aux): the MoE load-balance loss (fp32), or None without
-    experts."""
+    the config has experts (its B·S tokens routed together, expert-parallel
+    under a ctx with a model dim), else the MLP. Returns (out, aux): the
+    MoE load-balance loss (fp32), or None without experts."""
     if cfg.moe.num_experts > 0:
-        return moe_lib.apply_moe(params["moe"], x, cfg.moe, cfg.mlp)
+        return moe_lib.apply_moe(params["moe"], x, cfg.moe, cfg.mlp, ctx)
     return L.apply_mlp(params["mlp"], x, cfg.mlp), None
 
 
@@ -356,7 +356,7 @@ def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 shared_lin: Optional[Dict],
                 cache_entry: Optional[Dict] = None,
                 plan: plan_lib.AttentionPlan,
-                chunked_attn: bool = False
+                chunked_attn: bool = False, ctx=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, the block's MoE aux loss, None without experts).
     `chunked_attn` selects the chunked reference form of the causal
@@ -366,33 +366,35 @@ def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                                  cache_entry=cache_entry, plan=plan,
                                  chunked=chunked_attn)
     x = x + h
-    h, aux = _ffn(params, L.rms_norm(params["ln2"], x), cfg)
+    h, aux = _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx)
     return x + h, aux
 
 
 def apply_block_decode(params: Dict, x_t: torch.Tensor, layer_cache: Dict,
                        t: torch.Tensor, cfg: ModelConfig, *,
                        shared_lin: Optional[Dict],
-                       plan: plan_lib.AttentionPlan) -> torch.Tensor:
+                       plan: plan_lib.AttentionPlan, ctx=None
+                       ) -> torch.Tensor:
     h, _ = attn_lib.apply_attention_decode(
         params["attn"], L.rms_norm(params["ln1"], x_t), layer_cache, t,
         cfg.attention, shared_lin=shared_lin, plan=plan)
     x_t = x_t + h
-    return x_t + _ffn(params, L.rms_norm(params["ln2"], x_t), cfg)[0]
+    return x_t + _ffn(params, L.rms_norm(params["ln2"], x_t), cfg, ctx)[0]
 
 
 def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
                               layer_cache: Dict, t0: torch.Tensor,
                               cfg: ModelConfig, *, positions: torch.Tensor,
                               shared_lin: Optional[Dict],
-                              plan: plan_lib.AttentionPlan) -> torch.Tensor:
+                              plan: plan_lib.AttentionPlan, ctx=None
+                              ) -> torch.Tensor:
     """One transformer block over a prefill chunk at a per-row offset:
     cache-writing like `apply_block_decode`, P tokens at once."""
     h, _ = attn_lib.apply_attention_prefill_chunk(
         params["attn"], L.rms_norm(params["ln1"], x), layer_cache, t0,
         cfg.attention, shared_lin=shared_lin, positions=positions, plan=plan)
     x = x + h
-    return x + _ffn(params, L.rms_norm(params["ln2"], x), cfg)[0]
+    return x + _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx)[0]
 
 
 def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
@@ -445,7 +447,8 @@ def _layer_caches(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
 
 
 def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
-              shared_keys, chunked_attn: bool = False) -> Callable:
+              shared_keys, chunked_attn: bool = False, ctx=None
+              ) -> Callable:
     """apply_block as a function of tensors alone, (x, *layer leaves,
     *shared E/F leaves) -> (x, aux or None), so that remat sees every
     tensor it depends on."""
@@ -455,7 +458,7 @@ def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
         shared = dict(zip(shared_keys, leaves[n:])) or None
         return apply_block(nest(dict(zip(keys, leaves[:n]))), x, cfg,
                            shared_lin=shared, plan=plan,
-                           chunked_attn=chunked_attn)
+                           chunked_attn=chunked_attn, ctx=ctx)
 
     return fn
 
@@ -463,7 +466,7 @@ def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             return_cache: bool = False, cache_max_seq: Optional[int] = None,
             cache_dtype=torch.bfloat16, return_hidden: bool = False,
-            plan: Optional[plan_lib.AttentionPlan] = None
+            plan: Optional[plan_lib.AttentionPlan] = None, ctx=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward. Returns (logits (B, S, V), aux, cache|None);
     with return_hidden, the final hidden states (B, S, D) before the final
@@ -476,11 +479,13 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     the scanned layout runs under the config's remat policy; the unrolled
     layout runs its blocks as they are (no remat, as in JAX). `aux` is the
     fp32 sum over layers of the blocks' MoE load-balance losses (zero
-    without experts)."""
+    without experts). `ctx` (parallel/sharding.ParallelCtx): without a
+    `plan`, the attention plan is resolved on it; the MoE layers run
+    expert-parallel on its model dim."""
     if return_cache and not cfg.single_pass_cache:
         raise ValueError("only the single-pass prefill cache is ported")
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention)
+        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     chunked = S >= causal_lib.chunked_attention_min_seq(
@@ -498,14 +503,14 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
                                shared_lin=shared_lin,
                                cache_entry=None if cache is None
                                else _layer_caches(cache, i), plan=plan,
-                               chunked_attn=chunked)
+                               chunked_attn=chunked, ctx=ctx)
             aux = aux if a is None else aux + a
     else:
         layers = flatten(params["layers"])
         per_layer = [leaf.unbind(0) for leaf in layers.values()]
         shared = shared_lin or {}
         block = remat_wrap(_block_fn(cfg, plan, list(layers), list(shared),
-                                     chunked), cfg.remat)
+                                     chunked, ctx), cfg.remat)
         for i in range(cfg.num_layers):
             x, a = block(x, *(views[i] for views in per_layer),
                          *shared.values())
@@ -519,7 +524,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 def decode_step(params: Dict, cfg: ModelConfig,
                 tokens: Optional[torch.Tensor], cache: Dict, *,
                 embeds: Optional[torch.Tensor] = None,
-                plan: Optional[plan_lib.AttentionPlan] = None
+                plan: Optional[plan_lib.AttentionPlan] = None, ctx=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens: (B, 1); with ``embedding_inputs`` the step
     takes ``embeds`` (B, 1, D) instead (tokens may be None). Row b decodes
@@ -527,7 +532,7 @@ def decode_step(params: Dict, cfg: ModelConfig,
     leaves are updated in place; the returned dict carries a new
     ``lengths`` = old + 1."""
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention)
+        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
     t = cache["lengths"]
     if cfg.embedding_inputs:
         if embeds is None:
@@ -542,14 +547,14 @@ def decode_step(params: Dict, cfg: ModelConfig,
     for i in range(cfg.num_layers):
         x = apply_block_decode(layer_params(params, i), x,
                                _layer_caches(cache, i), t, cfg,
-                               shared_lin=shared_lin, plan=plan)
+                               shared_lin=shared_lin, plan=plan, ctx=ctx)
     logits = logits_from_hidden(params, cfg, x)
     return logits, {**cache, "lengths": t + 1}
 
 
 def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: Dict, n_valid: torch.Tensor, *,
-                  plan: Optional[plan_lib.AttentionPlan] = None
+                  plan: Optional[plan_lib.AttentionPlan] = None, ctx=None
                   ) -> Tuple[torch.Tensor, Dict]:
     """Prefill-at-offset forward of one fixed-size chunk of every row.
 
@@ -563,7 +568,7 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.embedding_inputs or cfg.frontend_embed_len > 0:
         raise ValueError("chunked prefill supports token inputs only")
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention)
+        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
     t0 = cache["lengths"]
     B, P = tokens.shape
     n_valid = torch.as_tensor(n_valid, device=tokens.device).to(t0.dtype)
@@ -576,7 +581,8 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         x = apply_block_prefill_chunk(
             layer_params(params, i), x, _layer_caches(cache, i), t0,
-            cfg, positions=positions, shared_lin=shared_lin, plan=plan)
+            cfg, positions=positions, shared_lin=shared_lin, plan=plan,
+            ctx=ctx)
     last = (n_valid - 1).long()[:, None, None].expand(B, 1, x.shape[-1])
     logits = logits_from_hidden(params, cfg, x.gather(1, last))
     return logits[:, 0], {**cache, "lengths": t0 + n_valid}

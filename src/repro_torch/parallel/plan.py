@@ -1,9 +1,9 @@
-"""Attention execution plan, single device.
+"""Mesh-aware attention execution plan.
 
-Counterpart of the single-device half of ``repro/parallel/plan.py``: ONE
-place decides how attention executes, so call sites (models/attention.py,
-core/cache.py, the serving engine) never branch on backend strings. The
-knob is the JAX package's ``AttentionConfig.backend``:
+Counterpart of ``repro/parallel/plan.py``: ONE place decides how attention
+executes, so call sites (models/attention.py, core/cache.py, the serving
+engine) never branch on backend strings or on the mesh. The knob is the
+JAX package's ``AttentionConfig.backend``:
 
 * ``"auto"`` (default): the CUDA kernels for CUDA tensors, their plain twins
   for CPU tensors (through kernels/ops.py);
@@ -19,22 +19,60 @@ the kernel route the training backward follows
 residuals, ``"reference"`` autograd through the plain reference form
 (kernels/ops.py).
 
-The multi-device plans (tensor and sequence parallelism) come with the
-multi-GPU slice.
+Under a mesh (``resolve_attention_plan(acfg, ctx)``, cached per (config,
+ctx)) the plan also picks the dims the kernels shard over:
+
+* head parallelism (tp): ``ctx.model_axis`` when wider than 1; the KV-head
+  axis shards (launch/mesh.validate_attention_mesh warns and drops tp
+  unless tp divides Hkv), per-head E/F shard with their heads, a shared
+  E/F is read whole by every shard;
+* sequence parallelism (sp): ``ctx.seq_axis`` when wider than 1; each
+  shard keeps its causal blocks resident and all-gathers the compressed
+  k̄/v̄ prefix (core/seq_parallel.py holds the shard-local bodies);
+* batch: the data-like dims shard the batch inside the same region when
+  they divide B (otherwise the batch rides replicated).
+
+Per form: the training forms (``causal_attention``, ``exact_attention``
+for a shared linear E) take tp × sp × data; chunk prefill takes tp, plus
+sp when the chunk divides (its start blocks shift by the shard's block
+offset); decode takes tp only.
+
+The plan takes and returns whole tensors. A manual region (``manual``: a
+mesh with tp or sp wider than 1 and a backend other than "reference")
+takes this rank's shard of the head, sequence and batch axes through
+parallel/comm.py's autograd collectives, runs the same kernels/ops.py
+wrappers on it (mesh-blind, at local shapes; the plain twins on the CPU),
+and gathers the output back whole. "reference" under a mesh runs the
+plain forms on the whole tensors with no region: the JAX package's GSPMD
+route computes the same numbers.
+
+The engine's pool layout on a tp mesh (JAX's ``cache_pspecs`` /
+``place_cache``) comes with serving on a mesh, its only caller.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.core import causal as causal_lib
 from repro_torch.core import linformer as lin_lib
+from repro_torch.core import seq_parallel as sp_lib
 from repro_torch.core.cache import dequantize_blockwise
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.common import backend_route, backward_route
+from repro_torch.launch.mesh import (validate_attention_mesh,
+                                     validate_seq_shards)
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import Axis, ParallelCtx
+
+# A region spec: one entry per tensor dim, the mesh dims (Axis records)
+# that split it, over their product with the first major; () keeps the dim
+# whole.
+Spec = Tuple[Tuple[Axis, ...], ...]
 
 
 def decode_biases(loc_ok: torch.Tensor, glob_ok: torch.Tensor):
@@ -48,10 +86,16 @@ def decode_biases(loc_ok: torch.Tensor, glob_ok: torch.Tensor):
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
-    """Execution plan for the attention forms of one config."""
+    """Execution plan for the attention forms of one config on one mesh.
+    Frozen and hashable: resolved once per (config, ctx). The mesh dims
+    are the ctx's Axis records (parallel/sharding.py), process groups
+    included."""
 
     backend: str = "auto"            # AttentionConfig.backend knob
     backward_impl: str = "fused"     # AttentionConfig.backward_impl knob
+    tp_dim: Optional[Axis] = None    # mesh dim sharding the (KV-)head axis
+    sp_dim: Optional[Axis] = None    # mesh dim sharding the sequence axis
+    data_dims: Tuple[Axis, ...] = ()  # batch dims inside the region
 
     def __post_init__(self):
         backend_route(self.backend, True)     # raise on an unknown knob
@@ -62,22 +106,144 @@ class AttentionPlan:
         plain reference forms (False); raises for "fused" on the CPU."""
         return backend_route(self.backend, x.is_cuda) != "plain"
 
+    # -- mesh widths and the region's specs ----------------------------------
+
+    @property
+    def tp_axis(self) -> Optional[str]:
+        return None if self.tp_dim is None else self.tp_dim.name
+
+    @property
+    def sp_axis(self) -> Optional[str]:
+        return None if self.sp_dim is None else self.sp_dim.name
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a.name for a in self.data_dims)
+
+    @property
+    def tp(self) -> int:
+        return comm.flat_width((self.tp_dim,))
+
+    @property
+    def sp(self) -> int:
+        return comm.flat_width((self.sp_dim,))
+
+    @property
+    def manual(self) -> bool:
+        """Whether the kernels run per shard inside a manual region: tp or
+        sp wider than 1, and a backend other than "reference"."""
+        return (self.tp > 1 or self.sp > 1) and \
+            backend_route(self.backend, True) != "plain"
+
+    def _batch_axes(self, B: int) -> Tuple[Axis, ...]:
+        """The data dims shard the batch inside the region only when they
+        divide it; otherwise () and the batch rides replicated (attention
+        is per row, so either is correct)."""
+        size = comm.flat_width(self.data_dims)
+        return self.data_dims if size > 1 and B % size == 0 else ()
+
+    def _sp_for(self, S: int, block_size: int, *, required: bool
+                ) -> Tuple[Axis, ...]:
+        """The sequence dim for an S-token form, or () when sp is off.
+        `required=True` (training) fails fast on indivisible shapes;
+        `required=False` (chunk prefill) falls back to tp only."""
+        if self.sp <= 1:
+            return ()
+        if S % (self.sp * block_size) != 0:
+            if required:
+                validate_seq_shards(S, block_size, self.sp, self.sp_axis)
+            return ()
+        return (self.sp_dim,)
+
+    def _heads(self) -> Tuple[Axis, ...]:
+        return (self.tp_dim,) if self.tp > 1 else ()
+
+    def _ef_spec(self, E: torch.Tensor) -> Spec:
+        """Per-head E/F (Hkv, c, r) shard with their heads; a shared (c, r)
+        projection is read whole by every shard."""
+        if E.ndim == 3:
+            return (self._heads(), (), ())
+        return ((), ())
+
+    def _chunk_specs(self, q, block_size: int):
+        """The chunk-prefill region of both forms: the specs of the chunk
+        (batch, sequence when sp divides it, heads), of the whole slot
+        buffer a shard and of its per-slot scales, and the block offset of
+        this rank's sequence shard."""
+        B, Pq = q.shape[:2]
+        sp = self._sp_for(Pq, block_size, required=False)
+        shift = sp[0].coord * (Pq // self.sp // block_size) if sp else 0
+        b, tp = self._batch_axes(B), self._heads()
+        return (b, sp, tp, ()), (b, (), tp, ()), (b, (), tp), shift
+
+    @staticmethod
+    def _smap(body, in_specs, out_spec):
+        """The manual region: each input is split per its spec (and its
+        gradient summed over the region's other dims, comm.copy), `body`
+        runs on the local shards, and its output is gathered per
+        `out_spec`. The region's dims are those some input splits over."""
+        active = []
+        for spec in in_specs:
+            for axes in spec:
+                active += [a for a in axes if a not in active]
+
+        def run(*args):
+            local = []
+            for x, spec in zip(args, in_specs):
+                for dim, axes in enumerate(spec):
+                    x = comm.split(x, dim, axes)
+                used = [a for axes in spec for a in axes]
+                local.append(comm.copy(x, [a for a in active
+                                           if a not in used]))
+            out = body(*local)
+            for dim, axes in reversed(list(enumerate(out_spec))):
+                out = comm.gather(out, dim, axes)
+            return out
+
+        return run
+
+    # -- train fwd/bwd: blockwise-causal (linformer_causal) -------------------
+
     def causal_attention(self, q, k, v, E, F, *, block_size: int,
                          block_slots: int, scale: float,
                          chunked: bool = False) -> torch.Tensor:
         """Full-sequence blockwise-causal attention (prefill and training),
-        differentiable on both routes.
+        differentiable on both routes and under every sharding.
         q (B, S, H, Dh); k/v (B, S, Hkv, Dh); E/F (c, r) or (Hkv, c, r).
         `chunked` selects the memory-bounded chunked form on the plain
         route; the kernel route streams query blocks itself and ignores
-        it, as the JAX package's fused route does."""
+        it, as the JAX package's fused route does. Under sp each shard runs
+        the prefix form at its block offset (kernels 4r and 2's offset
+        form on the card)."""
         if not self.uses_kernels(q):
             fn = (causal_lib.blockwise_causal_attention_chunked if chunked
                   else causal_lib.blockwise_causal_attention)
             return fn(q, k, v, E, F, block_size=block_size, scale=scale)
-        return kernel_ops.fused_blockwise_causal_attention(
-            q, k, v, E, F, block_size=block_size, block_slots=block_slots,
-            scale=scale, backward_impl=self.backward_impl)
+        if not self.manual:
+            return kernel_ops.fused_blockwise_causal_attention(
+                q, k, v, E, F, block_size=block_size,
+                block_slots=block_slots, scale=scale,
+                backward_impl=self.backward_impl)
+        B, S = q.shape[:2]
+        sp = self._sp_for(S, block_size, required=True)
+        qkv = (self._batch_axes(B), sp, self._heads(), ())
+        espec = self._ef_spec(E)
+        bi = self.backward_impl
+
+        def body(q_l, k_l, v_l, E_l, F_l):
+            if not sp:
+                return kernel_ops.fused_blockwise_causal_attention(
+                    q_l, k_l, v_l, E_l, F_l, block_size=block_size,
+                    block_slots=block_slots, scale=scale, backward_impl=bi)
+            return sp_lib.sp_blockwise_causal_attention(
+                q_l, k_l, v_l, E_l, F_l, seq_axis=sp[0],
+                block_size=block_size, block_slots=block_slots, scale=scale,
+                backward_impl=bi)
+
+        return self._smap(body, (qkv,) * 3 + (espec, espec), qkv)(
+            q, k, v, E, F)
+
+    # -- train fwd/bwd: exact bidirectional (linformer) -----------------------
 
     def exact_attention(self, q, k, v, E, F, *, projection: str,
                         scale: float) -> torch.Tensor:
@@ -89,21 +255,46 @@ class AttentionPlan:
         kernel 6 as E[:S] for k and F[:S] for v, then kernel 5; per-head,
         conv and pool projections run core/linformer.project_kv in plain
         torch, then kernel 5 (the JAX package's rule). A sequence longer
-        than a linear E's rows raises a ValueError on both routes."""
+        than a linear E's rows raises a ValueError on both routes. Under a
+        mesh the region covers the shared linear E only: heads over tp,
+        rows (and E's rows) over sp when sp divides S, then a psum of
+        k̄/v̄ over sp; the other projections run unsharded."""
         if not self.uses_kernels(q):
             return lin_lib.exact_linformer_attention(q, k, v, E, F,
                                                      kind=projection,
                                                      scale=scale)
-        if projection == "linear" and E.ndim == 2:
-            S = q.shape[1]
+        S = q.shape[1]
+        linear_shared = projection == "linear" and E.ndim == 2
+        if linear_shared:
             lin_lib.check_projection_rows(S, E)
             lin_lib.check_projection_rows(S, F)
-            kbar = kernel_ops.fused_seq_projection(k, E[:S])
-            vbar = kernel_ops.fused_seq_projection(v, F[:S])
-        else:
-            kbar, vbar = lin_lib.project_kv(k, v, E, F, kind=projection)
-        return kernel_ops.fused_linformer_attention(q, kbar, vbar,
-                                                    scale=scale)
+            E, F = E[:S], F[:S]
+        if not self.manual or not linear_shared:
+            if linear_shared:
+                kbar = kernel_ops.fused_seq_projection(k, E)
+                vbar = kernel_ops.fused_seq_projection(v, F)
+            else:
+                kbar, vbar = lin_lib.project_kv(k, v, E, F, kind=projection)
+            return kernel_ops.fused_linformer_attention(q, kbar, vbar,
+                                                        scale=scale)
+        sp = (self.sp_dim,) if self.sp > 1 and S % self.sp == 0 else ()
+        qkv = (self._batch_axes(q.shape[0]), sp, self._heads(), ())
+        espec = (sp, ())
+
+        def body(q_l, k_l, v_l, E_l, F_l):
+            if not sp:
+                kbar = kernel_ops.fused_seq_projection(k_l, E_l)
+                vbar = kernel_ops.fused_seq_projection(v_l, F_l)
+                return kernel_ops.fused_linformer_attention(q_l, kbar, vbar,
+                                                            scale=scale)
+            return sp_lib.sp_exact_linformer_attention(
+                q_l, k_l, v_l, E_l, F_l, seq_axis=sp[0], scale=scale,
+                fused=True)
+
+        return self._smap(body, (qkv,) * 3 + (espec, espec), qkv)(
+            q, k, v, E, F)
+
+    # -- chunk prefill ----------------------------------------------------------
 
     def chunk_prefill_attention(self, q, k, v, comp_k, comp_v, start_blocks,
                                 *, block_size: int, block_slots: int,
@@ -112,32 +303,56 @@ class AttentionPlan:
         against the slot-resident compressed cache, differentiable on both
         routes (the kernel route's backward follows `backward_impl`).
         q (B, P, H, Dh); comp_* (B, M, Hkv, Dh) full slot buffers;
-        start_blocks (B,) int."""
+        start_blocks (B,) int. Under sp, shard d of the chunk starts
+        d·(P/sp)/c blocks further in."""
         if not self.uses_kernels(q):
             return causal_lib.blockwise_causal_prefix_attention(
                 q, k, v, comp_k, comp_v, start_blocks,
                 block_size=block_size, block_slots=block_slots, scale=scale)
-        return kernel_ops.fused_chunk_prefill_attention(
-            q, k, v, comp_k, comp_v, start_blocks, block_size=block_size,
-            block_slots=block_slots, scale=scale,
-            backward_impl=self.backward_impl)
+        if not self.manual:
+            return kernel_ops.fused_chunk_prefill_attention(
+                q, k, v, comp_k, comp_v, start_blocks, block_size=block_size,
+                block_slots=block_slots, scale=scale,
+                backward_impl=self.backward_impl)
+        qkv, comp, _, shift = self._chunk_specs(q, block_size)
+        start_blocks = kernel_ops._start_blocks(start_blocks, q)
+
+        def body(q_l, k_l, v_l, ck_l, cv_l, sb_l):
+            return kernel_ops.fused_chunk_prefill_attention(
+                q_l, k_l, v_l, ck_l, cv_l, sb_l + shift,
+                block_size=block_size, block_slots=block_slots, scale=scale,
+                backward_impl=self.backward_impl)
+
+        return self._smap(body, (qkv,) * 3 + (comp, comp, qkv[:1]), qkv)(
+            q, k, v, comp_k, comp_v, start_blocks)
+
+    # -- decode -------------------------------------------------------------------
 
     def decode_attention(self, q_t, raw_k, raw_v, comp_k, comp_v, loc_ok,
                          glob_ok, *, scale: float) -> torch.Tensor:
         """Single-token decode attention over [raw ring | compressed slots]
         with per-row validity masks. q_t (B, 1, H, Dh); raw_* (B, c, Hkv,
-        Dh); comp_* (B, M, Hkv, Dh); loc_ok (B, c) / glob_ok (B, M) bool."""
+        Dh); comp_* (B, M, Hkv, Dh); loc_ok (B, c) / glob_ok (B, M) bool.
+        Under a mesh only tp shards it (a single token has no sequence)."""
         if not self.uses_kernels(q_t):
             return causal_lib.masked_decode_attention(
                 q_t, raw_k, raw_v, comp_k, comp_v, loc_ok, glob_ok,
                 scale=scale)
         bias_loc, bias_glob = decode_biases(loc_ok, glob_ok)
-        return kernel_ops.fused_decode_attention(
-            q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
-            scale=scale)
+        if not self.manual or self.tp <= 1:
+            return kernel_ops.fused_decode_attention(
+                q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
+                scale=scale)
+        b = self._batch_axes(q_t.shape[0])
+        kv = (b, (), self._heads(), ())
 
+        def body(*xs):
+            return kernel_ops.fused_decode_attention(*xs, scale=scale)
 
-    # -- the paged, quantized cache -----------------------------------------
+        return self._smap(body, (kv,) * 5 + ((b, ()),) * 2, kv)(
+            q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob)
+
+    # -- the paged, quantized cache -------------------------------------------
 
     def decode_attention_q(self, q_t, raw_k, raw_v, raw_k_s, raw_v_s,
                            comp_k, comp_v, comp_k_s, comp_v_s, loc_ok,
@@ -146,16 +361,28 @@ class AttentionPlan:
         arrive as int8/fp8 codes with fp32 scales, raw_*_s (B, c, Hkv) per
         token and comp_*_s (B, M, Hkv) per slot. The kernel route
         dequantises inside the kernel; the reference route dequantises in
-        plain torch and runs the dense reference."""
+        plain torch and runs the dense reference. Sharded as the dense
+        decode, the scales with their heads."""
         if not self.uses_kernels(q_t):
             return causal_lib.masked_decode_attention(
-                q_t, dequantize_blockwise(raw_k, raw_k_s), dequantize_blockwise(raw_v, raw_v_s),
-                dequantize_blockwise(comp_k, comp_k_s), dequantize_blockwise(comp_v, comp_v_s), loc_ok,
-                glob_ok, scale=scale)
+                q_t, dequantize_blockwise(raw_k, raw_k_s),
+                dequantize_blockwise(raw_v, raw_v_s),
+                dequantize_blockwise(comp_k, comp_k_s),
+                dequantize_blockwise(comp_v, comp_v_s), loc_ok, glob_ok,
+                scale=scale)
         bias_loc, bias_glob = decode_biases(loc_ok, glob_ok)
-        return kernel_ops.fused_decode_attention_q(
-            q_t, raw_k, raw_v, raw_k_s, raw_v_s, comp_k, comp_v, comp_k_s,
-            comp_v_s, bias_loc, bias_glob, scale=scale)
+        args = (q_t, raw_k, raw_v, raw_k_s, raw_v_s, comp_k, comp_v,
+                comp_k_s, comp_v_s, bias_loc, bias_glob)
+        if not self.manual or self.tp <= 1:
+            return kernel_ops.fused_decode_attention_q(*args, scale=scale)
+        b, tp = self._batch_axes(q_t.shape[0]), self._heads()
+        kv, sc = (b, (), tp, ()), (b, (), tp)
+
+        def body(*xs):
+            return kernel_ops.fused_decode_attention_q(*xs, scale=scale)
+
+        return self._smap(body, (kv,) * 3 + (sc, sc, kv, kv, sc, sc)
+                          + ((b, ()),) * 2, kv)(*args)
 
     def chunk_prefill_attention_q(self, q, k, v, comp_k, comp_v, comp_k_s,
                                   comp_v_s, start_blocks, *,
@@ -163,21 +390,64 @@ class AttentionPlan:
                                   scale: float) -> torch.Tensor:
         """Quantized-cache chunk prefill: the page-gathered slot buffer as
         int8/fp8 codes with per-slot scales comp_*_s (B, M, Hkv); the
-        chunk's own k/v are full-precision activations."""
+        chunk's own k/v are full-precision activations. Sharded as the
+        dense chunk prefill."""
         if not self.uses_kernels(q):
             return causal_lib.blockwise_causal_prefix_attention(
-                q, k, v, dequantize_blockwise(comp_k, comp_k_s), dequantize_blockwise(comp_v, comp_v_s),
-                start_blocks, block_size=block_size,
-                block_slots=block_slots, scale=scale)
-        return kernel_ops.fused_chunk_prefill_attention_q(
-            q, k, v, comp_k, comp_v, comp_k_s, comp_v_s, start_blocks,
-            block_size=block_size, block_slots=block_slots, scale=scale)
+                q, k, v, dequantize_blockwise(comp_k, comp_k_s),
+                dequantize_blockwise(comp_v, comp_v_s), start_blocks,
+                block_size=block_size, block_slots=block_slots, scale=scale)
+        kw = dict(block_size=block_size, block_slots=block_slots,
+                  scale=scale)
+        if not self.manual:
+            return kernel_ops.fused_chunk_prefill_attention_q(
+                q, k, v, comp_k, comp_v, comp_k_s, comp_v_s, start_blocks,
+                **kw)
+        qkv, comp, sc, shift = self._chunk_specs(q, block_size)
+        start_blocks = kernel_ops._start_blocks(start_blocks, q)
+
+        def body(q_l, k_l, v_l, ck_l, cv_l, cks_l, cvs_l, sb_l):
+            return kernel_ops.fused_chunk_prefill_attention_q(
+                q_l, k_l, v_l, ck_l, cv_l, cks_l, cvs_l, sb_l + shift, **kw)
+
+        return self._smap(body, (qkv,) * 3 + (comp, comp, sc, sc, qkv[:1]),
+                          qkv)(q, k, v, comp_k, comp_v, comp_k_s, comp_v_s,
+                               start_blocks)
 
 
-def resolve_attention_plan(acfg: AttentionConfig) -> AttentionPlan:
-    """The plan of one attention config."""
-    return AttentionPlan(backend=acfg.backend,
-                         backward_impl=acfg.backward_impl)
+# ---------------------------------------------------------------------------
+# Resolution
+# ---------------------------------------------------------------------------
+
+
+# Bounded: a ctx holds its mesh's process groups (and compares by them, so
+# a mesh rebuilt on new groups resolves anew); the plans of meshes no
+# longer in use fall out instead of keeping their groups alive.
+@functools.lru_cache(maxsize=64)
+def _resolve_cached(acfg: AttentionConfig,
+                    ctx: Optional[ParallelCtx]) -> AttentionPlan:
+    knobs = dict(backend=acfg.backend, backward_impl=acfg.backward_impl)
+    if ctx is None or ctx.mesh is None:
+        return AttentionPlan(**knobs)
+    tp, sp = (ctx.axis(ctx.model_axis) if ctx.model_shards > 1 else None,
+              ctx.axis(ctx.seq_axis) if ctx.seq_shards > 1 else None)
+    if tp is not None and backend_route(acfg.backend, True) != "plain":
+        # the model dim is shared (tensor and expert parallelism): a width
+        # that cannot shard Hkv warns and drops the head sharding
+        if not validate_attention_mesh(
+                ctx.mesh, num_heads=acfg.num_heads,
+                num_kv_heads=acfg.num_kv_heads, model_axis=ctx.model_axis):
+            tp = None
+    return AttentionPlan(**knobs, tp_dim=tp, sp_dim=sp,
+                         data_dims=tuple(ctx.axis(a) for a in ctx.data_axes))
+
+
+def resolve_attention_plan(acfg: AttentionConfig,
+                           ctx: Optional[ParallelCtx] = None
+                           ) -> AttentionPlan:
+    """The plan of one attention config on one parallel context, cached
+    per (config, ctx): equal ctxs share their mesh's process groups."""
+    return _resolve_cached(acfg, ctx)
 
 
 def as_plan(plan: Union[AttentionPlan, str, None]) -> AttentionPlan:
@@ -186,5 +456,3 @@ def as_plan(plan: Union[AttentionPlan, str, None]) -> AttentionPlan:
     if isinstance(plan, AttentionPlan):
         return plan
     return AttentionPlan(backend=plan or "reference")
-
-
