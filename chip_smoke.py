@@ -44,7 +44,7 @@ error; none catches its own failure:
    prompt-remainder step (logged); the tensor-core forward's and
    backward's registers and spills from -Xptxas -v beside their times;
 5. [serve] serve 8 requests through full-width qwen3-8b cut to
-   SERVE_LAYERS = 12 of its 36 layers (random
+   SERVE_LAYERS = 4 of its 36 layers (random
    bf16 weights from a seeded generator, bf16 cache, max_seq 4096,
    max_batch 4, decode_chunk 16), prompts of k·256+j tokens, with the
    kernels' launch counters reset just before and read just after; then a
@@ -61,7 +61,9 @@ error; none catches its own failure:
    stated tolerance and the first 16 greedy tokens of 2 requests
    identical; chunked admission through the kernels token-identical to
    monolithic; paged int8 and fp8 pools (chunked admission) with identical
-   tokens and chunk-forward logits within the tolerance;
+   tokens, and their chunk forward a layer at a time on shared inputs and
+   codes (paged_layer_parity): the same codes written, each block's output
+   and the logits within the tolerance;
 9. [train] 4 steps of the Trainer on full-width qwen3-8b cut to 8 layers
    (bf16, remat "full", seq 4096, global batch 2, synthetic corpus seed
    0), launch counters reset just before and read just after: each step's
@@ -75,7 +77,8 @@ error; none catches its own failure:
    gradient leaf through the kernels in bf16 (kernels 1r and 2 on the
    tensor cores), through the plain reference in bf16 and in fp32: the
    kernel route no further from fp32 than BF16_PARITY_FACTOR times the
-   plain bf16 route, plus BF16_PARITY_ABS;
+   plain bf16 route, plus BF16_PARITY_ABS (the loss over BF16_LOSS_DRAWS
+   draws of parameters and batch);
 11. [train-mlm] 8 Trainer steps of the paper's encoder, linformer-paper
    CONFIG at full width and full depth (12 layers, d=768, H=12, K=128,
    ~162 M parameters, bf16, remat "full", seq 512, global batch 32,
@@ -156,8 +159,8 @@ error; none catches its own failure:
    against the per-token loop (one host round trip a token), each after a
    warm-up, launch counters reset around each: equal tokens; prefill and
    decode walls, tok/s, the per-token ÷ scan decode wall;
-22. [serve-dense] (after [serve-standard-parity]) qwen3-14b and
-   nemotron-4-15b whole, qwen1.5-110b at full width cut to
+22. [serve-dense] (after [serve-standard-parity]) qwen3-14b,
+   nemotron-4-15b and qwen1.5-110b at full width cut to
    SERVE_DENSE_LAYERS (bf16, random weights, seed 0; max_seq 4096,
    max_batch 4, decode_chunk 16): 8 requests of 256·{1,2,3,4,1,2,3,4}
    prompt tokens (whole blocks: no remainder step may run) and 16 new,
@@ -190,13 +193,13 @@ error; none catches its own failure:
 26. [serve-hybrid], [serve-ssm] (after [train-moe-parity]) zamba2-1.2b
    (38 layers: a Mamba2 trunk and one shared attention + MLP block,
    blockwise-causal Linformer, after every 6 trunk layers) and rwkv6-1.6b
-   (24 attention-free RWKV6 layers) whole in bf16 (random weights, seed
-   0; max_seq 4096, max_batch 4, decode_chunk 16): 8 requests of
+   (24 attention-free RWKV6 layers) at full width cut to SERVE_SSM_LAYERS
+   in bf16 (random weights, seed 0; max_seq 4096, max_batch 4, decode_chunk 16): 8 requests of
    SERVE_SSM_LENS prompt tokens and 128 new through serve(), which takes
    the static bucketed path (the caches keep one scalar position); the
    counters reset around the serve must read kernel 1 once per shared
    block invocation of each forward and kernel 3 once per invocation of
-   each decode step for zamba2 (6 each), no kernel for rwkv6; tok/s, peak
+   each decode step for zamba2 (2 each at 13 layers), no kernel for rwkv6; tok/s, peak
    memory, cache bytes a request, a profiled 4-step decode chunk of a
    4-row batch; [serve-hybrid-parity] zamba2 cut to 7 layers in fp32, the
    kernels against the plain reference: forward logits within LOGITS_TOL,
@@ -281,9 +284,30 @@ error; none catches its own failure:
    results; rank 0 logs the legs, the comm helpers' bytes by op, the
    per-shard launches summed over the ranks (each kernel of the per-shard
    table at least once) and each phase's wall (time-sliced: no scaling
-   number). Then a world-size-1 NCCL group resolves a plan (tp = sp = 1,
-   no region) and one train step's loss and gradients under its ctx
-   equal those without a ctx, bit for bit.
+   number). In the same spawn, the training layout (each rank its rows of
+   the batch and its shard of every parameter and moment) and serving on
+   a tp mesh, qwen3-8b at full width: [mesh-train] 2 layers on data2 ×
+   tp2, fsdp "data", 2 AdamW steps (eps 1e-3, TRAIN_OPT) in fp32 (losses
+   within TRAIN_LOSS_RTOL, every parameter gathered within GRAD_TOL of
+   max(1, max|p|) of world size 1) and in bf16 (close_bf16's rules), each
+   rank's GB at rest against world size 1's, its peak and comm bytes;
+   [mesh-train-compressed] pod2 × data2, bf16 at 1 layer (2 did not fit),
+   3 steps of the int8 cross-pod step against the same rule at world size
+   1 (COMPRESSED_LOSS_TOL), the exact step's gap logged; [mesh-elastic] a
+   world-size-1 Trainer checkpoint at 1 layer, fp32, resumed on data2 ×
+   tp2 and continued, against the world-size-1 continuation;
+   [mesh-serve] 4 layers on data 1 × tp 2, ranks 0 and 1 (Hkv over tp,
+   rows whole), 8 requests in an 8-row pool through the dense pool with
+   P=512 chunked admission and the paged int8 pool, fp32 token for token
+   against world size 1 (served meanwhile on ranks 2 and 3) and across the
+   two ranks, the dense pool's bf16 agreement logged.
+   Then a world-size-1 NCCL group resolves a plan (tp = sp = 1, no region)
+   and one train step's loss and gradients under its ctx equal those
+   without a ctx, bit for bit; and
+   [launch], started beside the spawn, runs `torchrun --standalone
+   --nproc-per-node 2 -m repro_torch.launch.train --smoke --mesh local
+   --dist-backend gloo` (2 ranks on the card, a free port of their own),
+   exit code 0.
 
 [check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
 these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
@@ -314,6 +338,7 @@ import gc
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -2337,7 +2362,11 @@ def require_launches(launches, names, path):
 # phase on its weights ([serve*], [sample], [per-token]): those phases are
 # host-bound (a decode step's launches grow with the layers) and took 644 s
 # of a slow host's run at 36 layers, so the script's run is cut by depth
-SERVE_LAYERS = 12
+# [serve] and the phases on its weights: 4 of qwen3-8b's 36 layers. The
+# port launches ~4100 kernels a layer in an admission prefill, so these
+# phases' wall is the host's and scales with the depth; at 12 layers the
+# whole run took 792-1032 s on the card and passed the 1200 s limit once
+SERVE_LAYERS = 4
 SERVE_LENS = (3, 256 + 17, 230, 512 + 5, 768 + 30, 1, 256 + 9, 512 + 32)
 SERVE_BUDGETS = [32, 40, 40, 36, 48, 44, 32, 48]
 
@@ -2623,11 +2652,14 @@ def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
     admission through the kernels (tokens; with experts, chunked admission
     through both routes instead), and the paged int8 and fp8
     pools under chunked admission (chunk-forward logits, tokens) at
-    `paged_layers` layers. Past the first layer the two routes' paged
-    legs are chaotic: a layer's K/V differ by the routes' rounding, a few
+    `paged_layers` layers, held a layer at a time on shared inputs and
+    codes (`paged_layer_parity`): two independent forwards past the first
+    layer are chaotic, a layer's K/V differ by the routes' rounding, a few
     values cross a quantization boundary and take another int8/fp8 code,
     and the logits move by up to ~6e-3 (`scripts/paged_parity_spread.py`);
-    in one layer both routes write the same codes."""
+    on shared inputs both routes write the same codes and the gate reads
+    the attention routes alone. The paged serves' greedy tokens are held
+    equal as before."""
     import numpy as np
     import torch
     from repro_torch.models import model as tmodel
@@ -2692,23 +2724,85 @@ def serve_parity_phase(dev, cfg, tag="parity", paged_layers=2):
         cfg2 = dataclasses.replace(cfg2, num_layers=paged_layers)
         params2 = tmodel.init_params(cfg2, seed=1, device=dev)
     for pd in ("int8", "fp8"):
-        logits, outs = {}, {}
-        for backend in ("auto", "reference"):
-            eng = engine(backend, prefill_chunk=SERVE_PREFILL_CHUNK,
-                         cache_format="paged", page_dtype=pd)
-            pool = eng.init_pool_cache(2)
-            maxp = eng.max_pages_per_row()
-            for row in range(2):
-                eng.write_table_row(pool, row,
-                                    range(row * maxp, (row + 1) * maxp))
-            _, lg = eng.pool_prefill_chunk(pool, [0, 1], toks, n_valid,
-                                           pad_to=2)
-            logits[backend], outs[backend] = lg.float(), eng.serve(
-                prompts2, 16, max_batch=2)
-        assert_parity(f"paged {pd} pool, chunk forward", logits, outs,
-                      paged_layers)
+        engines = {b: engine(b, prefill_chunk=SERVE_PREFILL_CHUNK,
+                             cache_format="paged", page_dtype=pd)
+                   for b in ("auto", "reference")}
+        rep = paged_layer_parity(engines, params2, cfg2, toks, n_valid)
+        log(f"[{tag}] {paged_layers}-layer fp32, paged {pd} pool, chunk "
+            f"forward a layer at a time on shared inputs and codes: codes "
+            f"the routes write differently by layer {rep['flips']}; block "
+            f"output max |auto - reference| by layer "
+            f"{[f'{e:.3e}' for e in rep['errs']]}; logits {rep['logits']:.3e}"
+            f" (tol {LOGITS_TOL:g})")
+        if any(rep["flips"]):
+            raise AssertionError(f"paged {pd}: codes differ {rep['flips']}")
+        if not (rep["logits"] <= LOGITS_TOL and all(
+                e <= LOGITS_TOL for e in rep["errs"])):
+            raise AssertionError(f"paged {pd}: {rep}")
+        outs = {b: eng.serve(prompts2, 16, max_batch=2)
+                for b, eng in engines.items()}
+        log(f"[{tag}] {paged_layers}-layer fp32, paged {pd} pool: first 16 "
+            f"greedy tokens identical: {outs['auto'] == outs['reference']}")
+        if outs["auto"] != outs["reference"]:
+            raise AssertionError(f"paged {pd}: greedy tokens differ: {outs}")
     log(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         " GB")
+
+
+# the int8/fp8 codes a paged pool's chunk forward writes
+PAGED_CODES = ("page_k", "page_v", "raw_k_q", "raw_v_q")
+
+
+def paged_layer_parity(engines, params, cfg, toks, n_valid):
+    """A chunk forward of rows 0 and 1 into a fresh paged pool of
+    engines["auto"], a layer at a time: each layer's block runs through
+    both routes' plans on the same input stream and on the same pool
+    state (the reference route on a copy of the layer's leaves as they
+    stood before the block), so both quantize the same k and v. Returns
+    the codes the two routes wrote differently, by layer, each layer's
+    block output max |auto - reference| (relative to max(1, max|ref|)),
+    and the logits at each row's last valid token from the last layer's
+    two outputs. The stream goes on with the kernel route's output: past
+    the first layer, two independent forwards would quantize K/V that
+    differ by the routes' rounding, and a value on a rounding boundary
+    takes another code (scripts/paged_parity_spread.py)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    eng = engines["auto"]
+    pool = eng.init_pool_cache(2)
+    maxp = eng.max_pages_per_row()
+    for row in range(2):
+        eng.write_table_row(pool, row, range(row * maxp, (row + 1) * maxp))
+    dev = pool["lengths"].device
+    sub = eng._gather_rows(pool, torch.as_tensor([0, 1], device=dev))
+    tokens = torch.as_tensor(toks, dtype=torch.long, device=dev)
+    t0 = sub["lengths"]
+    positions = t0[:, None] + torch.arange(tokens.shape[1], device=dev)
+    shared_lin = params.get("shared", {}).get("lin")
+    last = torch.as_tensor(n_valid, device=dev).long() - 1
+    flips, errs = [], []
+    with torch.no_grad():
+        x = L.embed_tokens(params["embed"]["tok"], tokens)
+        for i in range(cfg.num_layers):
+            lc = T._layer_caches(sub, i)
+            pre = {k: v.clone() for k, v in lc.items()}
+            y = {b: T.apply_block_prefill_chunk(
+                     T.layer_params(params, i), x, cache, t0, cfg,
+                     positions=positions, shared_lin=shared_lin,
+                     plan=engines[b].plan)
+                 for b, cache in (("auto", lc), ("reference", pre))}
+            flips.append(sum(int((lc[k] != pre[k]).sum())
+                             for k in PAGED_CODES if k in lc))
+            ref = y["reference"].float()
+            errs.append((y["auto"].float() - ref).abs().max().item()
+                        / max(1.0, ref.abs().max().item()))
+            x = y["auto"]
+        rows = torch.arange(2, device=dev)
+        lg = {b: T.logits_from_hidden(params, cfg, v[rows, last][:, None])
+              for b, v in y.items()}
+    return {"flips": flips, "errs": errs,
+            "logits": (lg["auto"] - lg["reference"]).abs().max().item()}
 
 
 def counted_train(path, dev, cfg, tcfg, telemetry=None):
@@ -2870,27 +2964,76 @@ def train_parity_phase(dev, cfg2, batch, tag):
         raise AssertionError("parameters after AdamW differ")
 
 
+# the loss term of the bf16 gates is taken over this many draws, draw k
+# the parameters of seed 1 + k on batch k (the gradients' draw first): one
+# draw's ratio swings (scripts/bf16_loss_spread.py: 0.08-15.6 around a
+# median of ~1), and over batches alone one parameter draw still read 2.10
+# (measured on the card, scripts/bf16_loss_spread.py): the draws vary both
+BF16_LOSS_DRAWS = 8
+BF16_ROUTES = (("kernels bf16", "auto", "bfloat16"),
+               ("plain bf16", "reference", "bfloat16"),
+               ("plain fp32", "reference", "float32"))
+
+
+def loss_draws(cfg, batch, n=BF16_LOSS_DRAWS):
+    """`batch` (numpy) and n - 1 more batches of its shape and objective,
+    from corpus seeds 1 .. n - 1."""
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch, make_mlm_batch)
+    B, S = batch["tokens"].shape
+    make = make_mlm_batch if cfg.objective == "mlm" else make_causal_batch
+    return [batch] + [make(SyntheticCorpus(cfg.vocab_size, seed=s),
+                           DataState(s, 0), batch=B, seq=S)
+                      for s in range(1, n)]
+
+
+def route_losses(cfg32, base, batch):
+    """{route: loss} of the flat fp32 parameters `base` (cast per route) on
+    `batch` (tensors), each BF16_ROUTES route, no gradients."""
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import nest
+    out = {}
+    for route, backend, dtype in BF16_ROUTES:
+        c = dataclasses.replace(cfg32, dtype=dtype).with_attention_backend(
+            backend)
+        with torch.no_grad():
+            leaves = nest({k: v.to(getattr(torch, dtype))
+                           for k, v in base.items()})
+            out[route] = tmodel.loss_fn(leaves, c, batch)[0].float().item()
+    return out
+
+
+def bf16_loss_errors(losses):
+    """{route: [loss of each draw]} -> the kernel and the plain bf16
+    routes' summed |loss - fp32 loss| over the draws."""
+    ref = losses["plain fp32"]
+    return {r: sum(abs(a - b) for a, b in zip(losses[r], ref))
+            for r in ("kernels bf16", "plain bf16")}
+
+
 def train_parity_bf16_phase(dev, cfg32, batch, tag):
     """The loss and every gradient leaf of the fp32 config `cfg32` on
     `batch` (numpy) through three routes from the same parameters (drawn in
     fp32, cast to bf16 for the bf16 routes): the kernels in bf16 (backend
     "auto": kernels 5 and 6 of the encoder, or kernels 1r and 2 of
     qwen3-8b, on the tensor cores), the plain reference in bf16 and the
-    plain reference in fp32. The kernel route's error against fp32 may be
-    at most BF16_PARITY_FACTOR times the plain bf16 route's, plus
-    BF16_PARITY_ABS."""
+    plain reference in fp32. Each gradient leaf's error against fp32, and
+    the loss error summed over BF16_LOSS_DRAWS draws (the gradients' first,
+    then the parameters of seed 1 + k on batch k of `loss_draws`), of the
+    kernel route may be at most BF16_PARITY_FACTOR times the plain bf16
+    route's, plus BF16_PARITY_ABS."""
     import numpy as np
     import torch
     from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import flatten, nest
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    draws = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+             for b in loss_draws(cfg32, batch)]
+    batch = draws[0]
     B, S = batch["tokens"].shape
     base = flatten(tmodel.init_params(cfg32, seed=1, device=dev))
-    routes = (("kernels bf16", "auto", "bfloat16"),
-              ("plain bf16", "reference", "bfloat16"),
-              ("plain fp32", "reference", "float32"))
-    res = {}
-    for route, backend, dtype in routes:
+    res, losses = {}, {}
+    for route, backend, dtype in BF16_ROUTES:
         c = dataclasses.replace(cfg32, dtype=dtype).with_attention_backend(
             backend)
         leaves = {k: v.detach().to(getattr(torch, dtype)).requires_grad_(True)
@@ -2902,16 +3045,23 @@ def train_parity_bf16_phase(dev, cfg32, batch, tag):
         used = {k: v for k, v in launches.items() if v}
         if bool(used) != (backend == "auto"):
             raise AssertionError(f"[{tag}] {route}: launches {used}")
-        res[route] = (loss.float().item(),
-                      {k: g.float() for k, g in zip(leaves, grads)})
+        res[route] = {k: g.float() for k, g in zip(leaves, grads)}
+        losses[route] = [loss.float().item()]
         log(f"  [{tag}] {route}: loss {loss.float().item():.6f}, launches "
             f"{used}")
         del leaves, grads, loss
-    loss32, g32 = res["plain fp32"]
+    del base
+    for k, b in enumerate(draws[1:], start=1):
+        draw = route_losses(cfg32, flatten(tmodel.init_params(
+            cfg32, seed=1 + k, device=dev)), b)
+        for route, loss in draw.items():
+            losses[route].append(loss)
+    g32 = res["plain fp32"]
+    lerr = bf16_loss_errors(losses)
     errs = {}
     for route in ("kernels bf16", "plain bf16"):
-        loss, g = res[route]
-        errs[route] = {"loss": abs(loss - loss32)}
+        g = res[route]
+        errs[route] = {"loss": lerr[route]}
         errs[route].update({k: ((g[k] - g32[k]).norm()
                                 / g32[k].norm().clamp_min(1e-30)).item()
                             for k in g32})
@@ -2919,11 +3069,16 @@ def train_parity_bf16_phase(dev, cfg32, batch, tag):
     ratio = {k: ek[k] / (BF16_PARITY_FACTOR * ep[k] + BF16_PARITY_ABS)
              for k in ek}
     worst = max((k for k in ratio if k != "loss"), key=ratio.get)
+    one = [abs(a - b) for a, b in zip(
+        (losses[r][0] for r in ("kernels bf16", "plain bf16")),
+        (losses["plain fp32"][0],) * 2)]
     log(f"[{tag}] {cfg32.num_layers}-layer, B={B}, S={S}, against fp32: "
-        f"loss err kernels bf16 {ek['loss']:.3e}, plain bf16 "
-        f"{ep['loss']:.3e}; worst gradient leaf {worst}: rel norm err "
-        f"kernels bf16 {ek[worst]:.3e}, plain bf16 {ep[worst]:.3e}; "
-        f"median leaf ratio kernels / plain "
+        f"loss err summed over {len(draws)} draws kernels bf16 "
+        f"{ek['loss']:.3e}, plain bf16 {ep['loss']:.3e} (ratio "
+        f"{ek['loss'] / max(ep['loss'], 1e-30):.3f}; the gradients' draw "
+        f"alone {one[0]:.3e} / {one[1]:.3e}); worst gradient leaf {worst}: "
+        f"rel norm err kernels bf16 {ek[worst]:.3e}, plain bf16 "
+        f"{ep[worst]:.3e}; median leaf ratio kernels / plain "
         f"{np.median([ek[k] / max(ep[k], 1e-30) for k in ek if k != 'loss']):.3f} "
         f"(tol {BF16_PARITY_FACTOR:g}x + {BF16_PARITY_ABS:g})")
     bad = [k for k, r in ratio.items() if not r <= 1.0]
@@ -3440,12 +3595,11 @@ def table3_phase(dev):
 
 DENSE_ARCHS = ("qwen3-14b", "nemotron-4-15b", "qwen1.5-110b")
 FRONTEND_ARCHS = ("internvl2-2b", "musicgen-large")
-# [serve-dense]: the depth each config is served at (None: whole). qwen1.5-
-# 110b takes 2.72 GB a layer in bf16 (80 layers, ~222 GB whole): 22 layers
-# and its 4.98 GB of embedding and LM head leave ~14 GB of the card's 80 GB
-# to the pools, the activations and the allocator
-SERVE_DENSE_LAYERS = {"qwen3-14b": None, "nemotron-4-15b": None,
-                      "qwen1.5-110b": 22}
+# [serve-dense]: the depth each config is served at, cut for the run's time
+# limit (qwen3-14b has 40 layers, nemotron-4-15b 32, qwen1.5-110b 80 at
+# 2.72 GB a layer in bf16, of which 22 fit the card beside the pools)
+SERVE_DENSE_LAYERS = {"qwen3-14b": 8, "nemotron-4-15b": 8,
+                      "qwen1.5-110b": 8}
 SERVE_DENSE_BLOCKS = (1, 2, 3, 4, 1, 2, 3, 4)   # prompt lengths, in blocks
 SERVE_DENSE_NEW = 16
 # [train-dense]: the depth at which bf16 params and gradients, fp32 AdamW
@@ -3868,10 +4022,11 @@ def serve_ckpt_phase(dev):
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
 # [serve-moe]: the depth each config is served at. qwen3-moe-30b-a3b takes
 # 1.246 GB a layer in bf16 (61.1 GB whole with its 1.24 GB of embedding and
-# LM head): all 48 layers fit beside the pools. kimi-k2-1t-a32b takes 33.9 GB
-# a layer (384 experts of d 7168 × 2048) and 4.7 GB of embedding and LM
-# head: one layer fits, two do not
-SERVE_MOE_LAYERS = {"qwen3-moe-30b-a3b": 48, "kimi-k2-1t-a32b": 1}
+# LM head): all 48 layers fit beside the pools, and 12 are served, for the
+# run's time limit. kimi-k2-1t-a32b takes 33.9 GB a layer (384 experts of
+# d 7168 × 2048) and 4.7 GB of embedding and LM head: one layer fits, two
+# do not
+SERVE_MOE_LAYERS = {"qwen3-moe-30b-a3b": 12, "kimi-k2-1t-a32b": 1}
 # [serve-moe]'s two serves of qwen3-moe (kimi-k2 serves the dense pool only)
 SERVE_MOE_MODES = {"qwen3-moe-30b-a3b": ("dense", "paged"),
                    "kimi-k2-1t-a32b": ("dense",)}
@@ -4064,6 +4219,10 @@ SERVE_SSM_LENS = {HYBRID_ARCH: (512, 768, 600), SSM_ARCH: (512, 600)}
 SERVE_SSM_NEW = 128
 SERVE_SSM_REQUESTS = 8
 SERVE_SSM_PROFILE_STEPS = 4
+# [serve-hybrid] and [serve-ssm]: the depth at full width, cut for the
+# run's time limit: zamba2 to two shared-block invocations and a trailing
+# trunk layer (of 38 layers), rwkv6 to 8 of 24
+SERVE_SSM_LAYERS = {HYBRID_ARCH: 13, SSM_ARCH: 8}
 # [serve-hybrid-parity] and [train-hybrid]'s parity leg: zamba2 at full
 # width cut to 7 layers (one attention invocation and a trailing trunk
 # layer); rwkv6's legs at 2 layers
@@ -4122,8 +4281,8 @@ def require_ssm_launches(tag, cfg, launches, forwards, steps):
 
 
 def serve_ssm_phase(dev, arch, tag):
-    """[serve-hybrid] / [serve-ssm]: the config whole (bf16, random weights
-    from seed 0), SERVE_SSM_REQUESTS requests through serve(), which must
+    """[serve-hybrid] / [serve-ssm]: the config at full width cut to
+    SERVE_SSM_LAYERS (bf16, random weights from seed 0), SERVE_SSM_REQUESTS requests through serve(), which must
     take the static bucketed path (no scheduler), counters reset just
     before and read just after and held to the per-forward and per-step
     counts; tok/s, peak memory, cache bytes a request; then a 4-row pool's
@@ -4136,8 +4295,10 @@ def serve_ssm_phase(dev, arch, tag):
     from repro_torch.data.pipeline import EOS
     from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import param_bytes
-    cfg = get_config(arch)
-    log(f"[{tag}] {arch}: {cfg.num_layers} layers (family {cfg.family}), "
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SERVE_SSM_LAYERS[arch])
+    log(f"[{tag}] {arch}: {cfg.num_layers} of {full.num_layers} layers "
+        f"(family {cfg.family}), "
         f"d={cfg.d_model}, vocab {cfg.padded_vocab_size}, {cfg.dtype}"
         + (f", shared block every {cfg.hybrid_attn_every} layers, "
            f"H={cfg.attention.num_heads}, Dh={cfg.attention.head_dim}, "
@@ -4871,6 +5032,7 @@ class MeshRank:
     def __init__(self, rank, dev):
         self.rank, self.dev = rank, dev
         self.launches = collections.Counter()
+        self.by_leg = collections.defaultdict(collections.Counter)
 
     def say(self, msg):
         if self.rank == 0:
@@ -4881,11 +5043,14 @@ class MeshRank:
         if self.dev.type == "cuda":
             torch.cuda.synchronize()
 
-    def counted(self, fn):
+    def counted(self, fn, leg=None):
         reset_launches()
         out = fn()
         self.sync()
-        self.launches.update(read_launches())
+        launches = read_launches()
+        self.launches.update(launches)
+        if leg is not None:
+            self.by_leg[leg].update(launches)
         return out
 
     def close(self, name, got, ref, tol):
@@ -4905,6 +5070,18 @@ class MeshRank:
         gradient summed over shards rounds each shard's part to bf16 first)
         at most BF16_PARITY_FACTOR times world size 1's in bf16, plus
         BF16_PARITY_ABS."""
+        e_m, e_o = self.bf16_errs(got, ref32, ref16, grad)
+        what = "rel norm" if grad else "max abs"
+        self.say(f"  {name} bf16: {what} err against fp32 {e_m:.3e}, world "
+                 f"size 1's {e_o:.3e} ({e_m / max(e_o, 1e-30):.2f}x)")
+        if not e_m <= BF16_PARITY_FACTOR * e_o + BF16_PARITY_ABS:
+            raise AssertionError(f"rank {self.rank} {name} bf16: {e_m} "
+                                 f"beyond {BF16_PARITY_FACTOR} x {e_o}")
+
+    @staticmethod
+    def bf16_errs(got, ref32, ref16, grad):
+        """(mesh error, world size 1 bf16 error) against `ref32`: max abs,
+        or for a gradient the relative norm."""
         import torch
 
         def err(x):
@@ -4914,13 +5091,7 @@ class MeshRank:
             return (torch.linalg.vector_norm(d) / torch.linalg.vector_norm(
                 ref32.float()).clamp_min(1e-30)).item()
 
-        e_m, e_o = err(got), err(ref16)
-        what = "rel norm" if grad else "max abs"
-        self.say(f"  {name} bf16: {what} err against fp32 {e_m:.3e}, world "
-                 f"size 1's {e_o:.3e} ({e_m / max(e_o, 1e-30):.2f}x)")
-        if not e_m <= BF16_PARITY_FACTOR * e_o + BF16_PARITY_ABS:
-            raise AssertionError(f"rank {self.rank} {name} bf16: {e_m} "
-                                 f"beyond {BF16_PARITY_FACTOR} x {e_o}")
+        return err(got), err(ref16)
 
     def hold(self, leg, fn, plans, tol, probe=None):
         """`fn(plan, prep)` -> {name: tensor}, its float operands passed
@@ -5023,19 +5194,29 @@ def mesh_attention_legs(rk, meshes):
     glob_ok = torch.arange(M, device=dev)[None] < (t // c * r)[:, None]
     dq = [quantize_blockwise(x, (3,), dtype=pdt, qmax=qmax)
           for x in dops[1:]]
+
+    def pool(pl, x):
+        # a cache operand as a pool laid out per the plan's cache_pspecs
+        # holds it (place_cache): this rank's KV heads under tp
+        return pl.head_shard(x, 2).contiguous()
+
     legs = {
         "chunk prefill": (lambda pl, prep: pl.chunk_prefill_attention(
-            *(prep(x) for x in ops), start, **kw), ("forward",)),
+            prep(ops[0]), *(pl.head_shard(prep(x), 2) for x in ops[1:3]),
+            *(pool(pl, prep(x)) for x in ops[3:]), start, **kw),
+            ("forward",)),
         "chunk prefill int8": (lambda pl, prep: pl.chunk_prefill_attention_q(
-            *(prep(x) for x in ops[:3]), ckq, cvq, cks, cvs, start, **kw),
+            prep(ops[0]), *(pl.head_shard(prep(x), 2) for x in ops[1:3]),
+            *(pool(pl, x) for x in (ckq, cvq, cks, cvs)), start, **kw),
             ("forward",)),
         "decode": (lambda pl, prep: pl.decode_attention(
-            *(prep(x) for x in dops), loc_ok, glob_ok, scale=kw["scale"]),
-            ()),
+            prep(dops[0]), *(pool(pl, prep(x)) for x in dops[1:]),
+            loc_ok, glob_ok, scale=kw["scale"]), ()),
         "decode int8": (lambda pl, prep: pl.decode_attention_q(
-            prep(dops[0]), dq[0][0], dq[1][0], dq[0][1], dq[1][1], dq[2][0],
-            dq[3][0], dq[2][1], dq[3][1], loc_ok, glob_ok,
-            scale=kw["scale"]), ())}
+            prep(dops[0]), *(pool(pl, x) for x in (
+                dq[0][0], dq[1][0], dq[0][1], dq[1][1], dq[2][0], dq[3][0],
+                dq[2][1], dq[3][1])), loc_ok, glob_ok, scale=kw["scale"]),
+            ())}
     with torch.no_grad():
         for leg, (fn, probe) in legs.items():
             rk.hold(leg, lambda pl, prep: {"out": fn(pl, prep)}, plans, tol,
@@ -5203,6 +5384,563 @@ def mesh_moe_legs(rk, meshes):
         rk.close("moe weight-stationary aux", aux, ref_aux, GRAD_TOL)
 
 
+# Sharded training and tp serving ([mesh-train], [mesh-train-compressed],
+# [mesh-elastic], [mesh-serve]): qwen3-8b at full width in the same spawn.
+MESH_ARCH = "qwen3-8b"
+# the first AdamW step runs at lr 0 (the schedule's warmup factor is 0 at
+# step 0, as in JAX), so 2 steps make one update
+MESH_TRAIN = dict(layers=2, batch=2, seq=1024, steps=2)
+# bf16 with bf16 moments: four ranks' fp32 state of the full-width vocab
+# (2 x 622M parameters) would not fit the card's 80 GB beside the
+# transients of a step; 2 layers ran out of memory on the card (four ranks
+# at ~19 GB each), so 1, the largest depth that fits
+MESH_COMPRESSED = dict(layers=1, batch=4, seq=512, steps=3)
+COMPRESSED_LOSS_TOL = 5e-3      # JAX's rule
+# The gate holds the mesh's compressed step to the same algorithm at world
+# size 1 (compressed_pod_reduce over each pod's gradient of the whole
+# model: the port's copy of JAX's stacked rule), each loss within JAX's
+# 5e-3, and logs both against the exact step. JAX's own rule (within 5e-3
+# of the exact step) is a SMOKE-size one: at full width one scale a leaf
+# (max over 311M embedding entries / 127) quantizes most entries to 0, and
+# the exact step's AdamW moves every element by ~lr while the compressed
+# one leaves those still, so the two loss curves part by ~0.1 after one
+# update (measured on the card: 14.75 against 14.86 at lr 1e-4; 14.57
+# against 14.61 at lr 1e-3, eps 1e-3), the world-size-1 algorithm's too.
+COMPRESSED_OPT = dict(lr=1e-4, warmup_steps=0)
+MESH_ELASTIC = dict(layers=1, batch=2, seq=512, steps=(2, 3))
+# one pool row a request: the 8 requests decode in one wave
+MESH_SERVE = dict(layers=4, lens=(3, 256 + 17, 230, 512 + 5, 768 + 30, 1,
+                                  256 + 9, 512 + 32), new=8, pool=8)
+# [mesh-serve]'s legs (dtype, pool), served on the tp pair of ranks 0 and 1,
+# and the rank that serves each at world size 1 meanwhile; bf16 agreement
+# is logged on the dense pool (fp32 holds both pools)
+MESH_SERVE_LEGS = (("float32", "dense chunked"), ("float32", "paged int8"),
+                   ("bfloat16", "dense chunked"))
+MESH_SERVE_REFS = {MESH_SERVE_LEGS[0]: 2, MESH_SERVE_LEGS[1]: 3,
+                   MESH_SERVE_LEGS[2]: 2}
+# eps 1e-3 keeps every element's AdamW update in the linear regime
+# (lr·g/eps for the clipped gradients here, all below 1e-3), so the
+# parameters after the steps compare to rounding and the sharded global
+# norm, the clip and the moments all show in them; at the default 1e-8 an
+# element whose clipped gradient is near eps moves by up to lr on a 1e-7
+# difference of the gradient (measured on the card: embed/tok 2.6e-4
+# apart after 2 steps from gradients within 1.6e-6 of world size 1's)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=0, eps=1e-3)
+
+
+def mesh_cfg(layers, dtype):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MESH_ARCH), num_layers=layers,
+                               dtype=dtype)
+
+
+def mesh_batch(cfg, B, S, seed):
+    import torch
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch)
+    b = make_causal_batch(SyntheticCorpus(cfg.vocab_size, seed=seed),
+                          DataState(seed, 0), batch=B, seq=S)
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def free(dev):
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_steps(cfg, ocfg, batches, dev, ctx=None, params=None, step=None):
+    """make_train_step over `batches` from the seeded weights (this rank's
+    shards under a mesh ctx): (losses, params, opt_state)."""
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.trainer import make_train_step, training_ctx
+    tctx = training_ctx(ctx)
+    if params is None:
+        params = tmodel.init_params(cfg, seed=1, device=dev)
+        if tctx is not None:
+            params = shd.shard_tree(params, tctx)
+            free(dev)
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    opt = adamw_init(params, ocfg)
+    step = step or make_train_step(cfg, ocfg, ctx=ctx)
+    losses = []
+    for b in batches:
+        params, opt, m = step(params, opt, {k: v.to(dev)
+                                            for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return losses, params, opt
+
+
+def gathered(tree, ctx):
+    """Each leaf of a tree of shards, whole, one at a time (a generator;
+    every rank runs it)."""
+    import torch
+    from repro_torch.models.transformer import flatten
+    from repro_torch.parallel import sharding as shd
+    with torch.no_grad():
+        for k, v in flatten(tree).items():
+            yield k, shd.unshard_leaf(v, shd.leaf_spec(k, v.ndim, ctx), ctx)
+
+
+def ws1_rest(fp32_bytes, dtype):
+    """GB of parameters in `dtype` plus both fp32 moments, at world size 1,
+    of a model whose fp32 parameters take `fp32_bytes`."""
+    return fp32_bytes * ((1.0 if dtype == "float32" else 0.5) + 2.0) / 1e9
+
+
+def tree_bytes(tree):
+    from repro_torch.models.transformer import flatten
+    return sum(v.numel() * v.element_size() for v in flatten(tree).values())
+
+
+def mesh_train_legs(rk, meshes):
+    """[mesh-train]: qwen3-8b at full width and MESH_TRAIN layers on
+    data2 × tp2 with fsdp "data", the training layout (each rank its rows
+    and its shard of every parameter and moment), MESH_TRAIN steps of
+    AdamW; in fp32 the losses and every parameter leaf afterwards, gathered,
+    against world size 1 (TRAIN_LOSS_RTOL, GRAD_TOL of max(1, max|p|)); in
+    bf16 by close_bf16's rules against world size 1 in bf16 and in fp32
+    from the bf16-rounded weights. Rank 0 runs the references first and
+    keeps their parameters on the host. Returns the bytes and peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten, nest
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import ParallelCtx
+    from repro_torch.train.trainer import training_ctx
+    tr = MESH_TRAIN
+    ocfg = OptimizerConfig(**TRAIN_OPT)
+    batches = [mesh_batch(mesh_cfg(1, "float32"), tr["batch"], tr["seq"], s)
+               for s in range(tr["steps"])]
+    steps = {"float32": batches, "bfloat16": batches}
+    ctx = ParallelCtx(mesh=meshes["data2xtp2"], fsdp="data")
+    tctx = training_ctx(ctx)
+    refs = {}
+    t0 = time.perf_counter()
+    if rk.rank == 0:
+        for name, dtype, rounded in (("fp32", "float32", False),
+                                     ("bf16", "bfloat16", False),
+                                     ("fp32 from bf16", "float32", True)):
+            cfg = mesh_cfg(tr["layers"], dtype)
+            params = None
+            if rounded:
+                params = nest({k: v.float() for k, v in flatten(
+                    tmodel.init_params(mesh_cfg(tr["layers"], "bfloat16"),
+                                       seed=1, device=rk.dev)).items()})
+            losses, p, _ = train_steps(cfg, ocfg, steps[dtype], rk.dev,
+                                       params=params)
+            refs[name] = (losses, {k: v.detach().cpu()
+                                   for k, v in flatten(p).items()})
+            if name == "fp32":
+                whole_bytes = tree_bytes(p)
+            del p
+            free(rk.dev)
+        rk.say(f"  [mesh-train] world size 1 references "
+               f"({time.perf_counter() - t0:.1f} s): losses "
+               f"{ {k: v[0] for k, v in refs.items()} }")
+    dist.barrier()
+    out = {}
+    for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        cfg = mesh_cfg(tr["layers"], dtype)
+        if rk.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        comm.reset_counters()
+        t0 = time.perf_counter()
+        losses, params, opt = rk.counted(
+            lambda: train_steps(cfg, ocfg, steps[dtype], rk.dev, ctx=ctx),
+            leg="mesh-train")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if rk.dev.type == "cuda" else 0.0
+        rest = tree_bytes(params) + tree_bytes(opt["mu"]) + \
+            tree_bytes(opt["nu"])
+        out[name] = {"bytes": dict(comm.BYTES), "peak_gb": peak,
+                     "rest_gb": rest / 1e9, "wall": wall}
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, losses)
+        if any(x != every[0] for x in every):
+            raise AssertionError(f"[mesh-train] ranks' losses differ: {every}")
+        if rk.rank == 0:
+            rk.say(f"  [mesh-train] {name} data2xtp2 fsdp data "
+                   f"({tr['layers']} layers, B={tr['batch']}, "
+                   f"S={tr['seq']}, {len(steps[dtype])} AdamW steps): losses "
+                   f"{losses}, {wall:.1f} s; rank 0 holds "
+                   f"{rest / 1e9:.3f} GB of parameters and moments at rest "
+                   f"(world size 1: {ws1_rest(whole_bytes, dtype):.3f} GB), "
+                   f"peak {peak:.2f} GB")
+        worst = (0.0, "")
+        for k, x in gathered(params, tctx):
+            if rk.rank != 0:
+                continue
+            if name == "fp32":
+                y = refs["fp32"][1][k].to(rk.dev)
+                bound = GRAD_TOL * max(1.0, y.abs().max().item())
+                worst = max(worst, ((x - y).abs().max().item() / bound, k))
+            else:
+                e_m, e_o = rk.bf16_errs(
+                    x, refs["fp32 from bf16"][1][k].to(rk.dev),
+                    refs["bf16"][1][k].to(rk.dev), grad=True)
+                ratio = e_m / (BF16_PARITY_FACTOR * e_o + BF16_PARITY_ABS)
+                worst = max(worst, (ratio, k))
+        if rk.rank == 0:
+            if name == "fp32":
+                errs = [abs(a - b) / abs(b)
+                        for a, b in zip(losses, refs["fp32"][0])]
+                rk.say(f"  [mesh-train] fp32 against world size 1: loss rel "
+                       f"err {max(errs):.2e} (tol {TRAIN_LOSS_RTOL:g}); "
+                       f"worst parameter {worst[1]} at {worst[0]:.2f} of "
+                       f"GRAD_TOL·max(1, max|p|)")
+                if not (max(errs) <= TRAIN_LOSS_RTOL and worst[0] <= 1.0):
+                    raise AssertionError(f"[mesh-train] fp32: {errs} {worst}")
+            else:
+                rk.close_bf16("mesh-train losses",
+                              torch.tensor(losses),
+                              torch.tensor(refs["fp32 from bf16"][0]),
+                              torch.tensor(refs["bf16"][0]), grad=False)
+                rk.say(f"  [mesh-train] bf16 parameters: worst leaf "
+                       f"{worst[1]} at {worst[0]:.2f} of close_bf16's bound "
+                       f"(rel norm err against fp32 from the bf16 weights, "
+                       f"{BF16_PARITY_FACTOR:g}x world size 1's in bf16 + "
+                       f"{BF16_PARITY_ABS:g})")
+                if not worst[0] <= 1.0:
+                    raise AssertionError(f"[mesh-train] bf16: {worst}")
+        del params, opt
+        free(rk.dev)
+    return out
+
+
+def stacked_compressed_steps(cfg, ocfg, batches, dev, n_pods=2):
+    """The compressed cross-pod step at world size 1: each pod's gradient of
+    the whole model on its rows, compressed_pod_reduce on the stacked
+    gradients, clip, AdamW. Returns the losses (the pods' mean)."""
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten, nest
+    from repro_torch.optim import (adamw_init, adamw_update,
+                                   clip_by_global_norm, make_schedule)
+    from repro_torch.train import compressed_dp as cdp
+    params = tmodel.init_params(cfg, seed=1, device=dev)
+    leaves = flatten(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    opt = adamw_init(params, ocfg)
+    sched = make_schedule(ocfg)
+    res = cdp.init_residual(params, n_pods)
+    losses = []
+    for b in batches:
+        rows = b["tokens"].shape[0] // n_pods
+        per, pod_loss = [], []
+        for i in range(n_pods):
+            hb = {k: v[i * rows:(i + 1) * rows].to(dev) for k, v in b.items()}
+            loss, met = tmodel.loss_fn(params, cfg, hb)
+            per.append(torch.autograd.grad(loss, list(leaves.values())))
+            pod_loss.append(met["loss"].detach().item())
+        gp = nest({k: torch.stack([g[j] for g in per])
+                   for j, k in enumerate(leaves)})
+        del per
+        red, res = cdp.compressed_pod_reduce(gp, res, n_pods)
+        del gp
+        red, _ = clip_by_global_norm(red, ocfg.grad_clip)
+        params, opt = adamw_update(red, opt, params, ocfg, sched(opt["step"]))
+        losses.append(sum(pod_loss) / n_pods)
+    return losses
+
+
+def mesh_compressed_leg(rk):
+    """[mesh-train-compressed]: pod2 × data2 (fsdp "data", the parameters
+    replicated over the pods), MESH_COMPRESSED, bf16 with bf16 moments:
+    MESH_COMPRESSED steps of the int8 cross-pod step against the same
+    algorithm at world size 1, each loss within COMPRESSED_LOSS_TOL; the
+    gap of both to the exact step is logged (see COMPRESSED_LOSS_TOL)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.sharding import ParallelCtx
+    from repro_torch.train import compressed_dp as cdp
+    m = MESH_COMPRESSED
+    cfg = mesh_cfg(m["layers"], "bfloat16")
+    ocfg = OptimizerConfig(**COMPRESSED_OPT, moment_dtype="bfloat16")
+    batches = [mesh_batch(cfg, m["batch"], m["seq"], 10 + s)
+               for s in range(m["steps"])]
+    exact = stacked = None
+    if rk.rank == 0:
+        exact, p, o = train_steps(cfg, ocfg, batches, rk.dev)
+        del p, o
+        free(rk.dev)
+        stacked = stacked_compressed_steps(cfg, ocfg, batches, rk.dev)
+        free(rk.dev)
+    dist.barrier()
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"),
+                     device_type=rk.dev.type)
+    ctx = ParallelCtx(mesh=mesh, fsdp="data")
+    if rk.dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    comm.reset_counters()
+    t0 = time.perf_counter()
+    inner = cdp.inner_ctx(ctx)
+    params = shd.shard_tree(tmodel.init_params(cfg, seed=1, device=rk.dev),
+                            inner)
+    free(rk.dev)
+    step = cdp.make_compressed_train_step(cfg, ocfg, ctx)
+    res = [cdp.init_local_residual(params)]
+
+    def compressed(params_, opt, b):
+        params_, opt, res[0], met = step(params_, opt, res[0], b)
+        return params_, opt, met
+
+    losses, params, opt = rk.counted(lambda: train_steps(
+        cfg, ocfg, batches, rk.dev, params=params, step=compressed),
+        leg="mesh-train-compressed")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if rk.dev.type == "cuda" else 0.0
+    rest = sum(tree_bytes(t) for t in (params, opt["mu"], opt["nu"], res[0]))
+    out = {"bytes": dict(comm.BYTES), "peak_gb": peak, "rest_gb": rest / 1e9,
+           "wall": wall}
+    if rk.rank == 0:
+        errs = [abs(a - b) for a, b in zip(losses, stacked)]
+        gap = [abs(a - b) for a, b in zip(losses, exact)]
+        gap1 = [abs(a - b) for a, b in zip(stacked, exact)]
+        rk.say(f"  [mesh-train-compressed] pod2xdata2 fsdp data, bf16, "
+               f"{m['layers']} layer(s), B={m['batch']}, S={m['seq']}: losses "
+               f"{losses}; world size 1, the same algorithm {stacked}: "
+               f"|diff| max {max(errs):.2e} (tol {COMPRESSED_LOSS_TOL:g}); "
+               f"against the exact step {exact}: mesh {max(gap):.2e}, world "
+               f"size 1 {max(gap1):.2e}; bytes by op {dict(comm.BYTES)} "
+               f"(the int8 codes cross the pods as 'stack'); rank 0 holds "
+               f"{rest / 1e9:.3f} GB at rest (parameters, moments, residual), "
+               f"peak {peak:.2f} GB, {wall:.1f} s")
+        if not max(errs) < COMPRESSED_LOSS_TOL:
+            raise AssertionError(f"[mesh-train-compressed] {losses} vs "
+                                 f"{stacked}")
+    del params, opt, res
+    free(rk.dev)
+    return out
+
+
+def mesh_elastic_leg(rk, meshes, tmp):
+    """[mesh-elastic]: a world-size-1 Trainer checkpoint (MESH_ELASTIC, fp32,
+    full width at reduced depth) resumed on data2 × tp2 (fsdp "data"), each
+    rank reading the whole leaves and keeping its shards, then continued;
+    the parameters, gathered, equal the world-size-1 continuation within
+    GRAD_TOL of max(1, max|p|)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import batches
+    from repro_torch.models.transformer import flatten
+    from repro_torch.parallel.sharding import ParallelCtx
+    from repro_torch.train import Trainer
+    e = MESH_ELASTIC
+    cfg = mesh_cfg(e["layers"], "float32")
+    d = os.path.join(tmp, "elastic")
+    tcfg = TrainConfig(seq_len=e["seq"], global_batch=e["batch"],
+                       steps=e["steps"][0], log_every=99,
+                       checkpoint_every=e["steps"][0], checkpoint_dir=d,
+                       optimizer=OptimizerConfig(**{**TRAIN_OPT,
+                                                    "warmup_steps": 1}))
+    later = dataclasses.replace(tcfg, steps=e["steps"][1])
+
+    def resume(ctx):
+        """Restore the latest checkpoint and run to later.steps, saving
+        nothing; returns (start, params, the Trainer's ctx)."""
+        tr = Trainer(cfg, later, device=rk.dev, ctx=ctx,
+                     log_fn=lambda s: None)
+        params, opt, dstate, start = tr.restore_or_init()
+        stream = batches(tr.corpus, dstate, batch=later.global_batch,
+                         seq=later.seq_len, objective=cfg.objective)
+        for _ in range(start, later.steps):
+            b, dstate = next(stream)
+            params, opt, _ = tr.train_step(
+                params, opt, {k: torch.from_numpy(v).to(rk.dev)
+                              for k, v in b.items()})
+        return start, params, tr.ctx
+
+    ref = None
+    t0 = time.perf_counter()
+    if rk.rank == 0:
+        # world size 1: the steps up to the checkpoint, the checkpoint, and
+        # the continuation from the same state in memory (a restore of it
+        # gives back the same tensors)
+        tr = Trainer(cfg, later, device=rk.dev, log_fn=lambda s: None)
+        p, opt, dstate, _ = tr.restore_or_init()
+        stream = batches(tr.corpus, dstate, batch=later.global_batch,
+                         seq=later.seq_len, objective=cfg.objective)
+        for s in range(later.steps):
+            b, dstate = next(stream)
+            p, opt, _ = tr.train_step(p, opt, {
+                k: torch.from_numpy(v).to(rk.dev) for k, v in b.items()})
+            if s + 1 == tcfg.steps:
+                tr.save(s + 1, p, opt, dstate)
+                t_save = time.perf_counter() - t0
+        gb = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                 os.walk(d) for f in fs) / 1e9
+        ref = {k: v.detach().cpu() for k, v in flatten(p).items()}
+        del p, opt, tr
+        free(rk.dev)
+        rk.say(f"  [mesh-elastic] world size 1: {e['steps'][0]} steps and "
+               f"a {gb:.2f} GB checkpoint ({t_save:.1f} s), continued to "
+               f"{e['steps'][1]}")
+    dist.barrier()
+    t1 = time.perf_counter()
+    start, params, tctx = rk.counted(lambda: resume(ParallelCtx(
+        mesh=meshes["data2xtp2"], fsdp="data")), leg="mesh-elastic")
+    wall = time.perf_counter() - t1
+    if start != e["steps"][0]:
+        raise AssertionError(f"[mesh-elastic] resumed at {start}")
+    worst = (0.0, "")
+    for k, x in gathered(params, tctx):
+        if rk.rank == 0:
+            y = ref[k].to(rk.dev)
+            bound = GRAD_TOL * max(1.0, y.abs().max().item())
+            worst = max(worst, ((x - y).abs().max().item() / bound, k))
+    rk.say(f"  [mesh-elastic] 1 rank -> {dist.get_world_size()} ranks: "
+           f"resumed at step {start}, continued to {e['steps'][1]} in "
+           f"{wall:.1f} s; worst parameter {worst[1]} at {worst[0]:.2f} of "
+           f"GRAD_TOL·max(1, max|p|)")
+    if not worst[0] <= 1.0:
+        raise AssertionError(f"[mesh-elastic] {worst}")
+    del params
+    free(rk.dev)
+    return time.perf_counter() - t0
+
+
+def mesh_serve_leg(rk, meshes):
+    """[mesh-serve]: qwen3-8b at full width and MESH_SERVE layers on data 1
+    × tp 2: ranks 0 and 1 serve on their row of data2xtp2 (its "model"
+    sub-mesh; the pools' KV heads over tp, rows whole on both) while ranks
+    2 and 3 serve the same requests at world size 1 for the references
+    (MESH_SERVE_REFS). MESH_SERVE's 8 requests go through the dense pool
+    with chunked admission (P = SERVE_PREFILL_CHUNK) and through the paged
+    int8 pool; in fp32 both tp ranks' tokens equal world size 1's token for
+    token (and each other's); in bf16 the dense pool's agreement is
+    logged. Returns each leg's wall."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import ParallelCtx
+    from repro_torch.serving import ServingEngine
+    s = MESH_SERVE
+    ctx = ParallelCtx(mesh=meshes["data2xtp2"]["model"])
+    rng = np.random.default_rng(5)
+    cfg0 = mesh_cfg(s["layers"], "float32")
+    prompts = [list(map(int, rng.integers(4, cfg0.vocab_size, n)))
+               for n in s["lens"]]
+    P = SERVE_PREFILL_CHUNK
+    pools = {"dense chunked": dict(prefill_chunk=P),
+             "paged int8": dict(prefill_chunk=P, cache_format="paged")}
+    mine = {}
+    for leg in MESH_SERVE_LEGS:
+        dtype, name = leg
+        if rk.rank >= 2 and MESH_SERVE_REFS[leg] != rk.rank:
+            continue
+        cfg = mesh_cfg(s["layers"], dtype)
+        if mine.get("dtype") != dtype:
+            mine.pop("params", None)
+            free(rk.dev)
+            mine["params"] = tmodel.init_params(cfg, seed=1, device=rk.dev)
+            mine["dtype"] = dtype
+        eng = ServingEngine(mine["params"], cfg, max_seq=2048, device=rk.dev,
+                            cache_dtype=getattr(torch, dtype),
+                            decode_chunk=16, ctx=ctx if rk.rank < 2 else None,
+                            **pools[name])
+        if rk.rank >= 2:
+            mine[leg] = eng.serve(prompts, s["new"], max_batch=s["pool"])
+            continue
+        comm.reset_counters()
+        t0 = time.perf_counter()
+        got = rk.counted(lambda: eng.serve(prompts, s["new"],
+                                           max_batch=s["pool"]),
+                         leg="mesh-serve")
+        mine[leg] = (got, time.perf_counter() - t0, dict(comm.BYTES))
+    mine.pop("params", None)
+    free(rk.dev)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out = {}
+    for leg in MESH_SERVE_LEGS:
+        dtype, name = leg
+        (got, wall, nbytes), (got1, _, _) = every[0][leg], every[1][leg]
+        one = every[MESH_SERVE_REFS[leg]][leg]
+        if got != got1:
+            raise AssertionError(f"[mesh-serve] {dtype} {name}: the tp "
+                                 "ranks' tokens differ")
+        same = sum(a == b for a, b in zip(got, one))
+        rk.say(f"  [mesh-serve] {dtype} {name} data1xtp2 (ranks 0, 1): "
+               f"{same}/{len(one)} requests token-identical to world size 1 "
+               f"(rank {MESH_SERVE_REFS[leg]}), both tp ranks' tokens equal; "
+               f"comm bytes by op {nbytes}, {wall:.1f} s")
+        if dtype == "float32" and same != len(one):
+            raise AssertionError(f"[mesh-serve] {name}: {got} vs {one}")
+        out[f"{dtype} {name}"] = wall
+    return out
+
+
+def launcher_start(dev):
+    """The launcher under torchrun: 2 ranks sharing the card over gloo,
+    --mesh local, the SMOKE config, started without waiting (it runs
+    beside the [mesh] spawn, whose walls measure nothing). Returns the
+    state launcher_finish reads."""
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"),
+        OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--standalone", "--nproc-per-node", "2",
+           "-m", "repro_torch.launch.train",
+           "--arch", "qwen3-8b", "--smoke", "--steps", "4", "--mesh",
+           "local", "--dist-backend", "gloo", "--device", dev.type,
+           "--ckpt-dir", tmp.name]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    return proc, tmp, time.perf_counter()
+
+
+def launcher_stop(state):
+    """Kill the launcher's process group (a phase beside it failed)."""
+    proc, tmp, _ = state
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    tmp.cleanup()
+
+
+def launcher_finish(state, timeout=600):
+    """Wait for the launcher; exit code 0 required."""
+    proc, tmp, t0 = state
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        launcher_stop(state)
+        raise AssertionError(f"torchrun launch still running after "
+                             f"{timeout} s")
+    tmp.cleanup()
+    tail = out.strip().splitlines()[-3:]
+    log(f"[launch] torchrun --standalone --nproc-per-node 2 -m "
+        f"repro_torch.launch.train --smoke --mesh local --dist-backend "
+        f"gloo (beside the [mesh] spawn): exit {proc.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s from its start to the end of "
+        f"the wait; last lines {tail}")
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun launch failed:\n{out}")
+
+
 def mesh_rank(rank, world, tmp, dev_type):
     """One rank of the [mesh] and [mesh-moe] phases (torch.multiprocessing
     spawns it: the kernels are built already, and the rank loads them).
@@ -5249,8 +5987,23 @@ def mesh_rank(rank, world, tmp, dev_type):
         comm.reset_counters()
         mesh_moe_legs(rk, meshes)
         walls["mesh-moe"] = time.perf_counter() - t1
+        moe_bytes = dict(comm.BYTES)
+        free(dev)
+        new = {}
+        for leg, fn in (("mesh-train", lambda: mesh_train_legs(rk, meshes)),
+                        ("mesh-train-compressed",
+                         lambda: mesh_compressed_leg(rk)),
+                        ("mesh-elastic",
+                         lambda: mesh_elastic_leg(rk, meshes, tmp)),
+                        ("mesh-serve", lambda: mesh_serve_leg(rk, meshes))):
+            t1 = time.perf_counter()
+            new[leg] = fn()
+            walls[leg] = time.perf_counter() - t1
+            free(dev)
         mine = {"launches": dict(rk.launches), "peak_gb": peak,
-                "bytes": {"mesh": mesh_bytes, "mesh-moe": dict(comm.BYTES)}}
+                "bytes": {"mesh": mesh_bytes, "mesh-moe": moe_bytes},
+                "new": new, "by_leg": {k: dict(v)
+                                       for k, v in rk.by_leg.items()}}
         every = [None] * world
         dist.all_gather_object(every, mine)
         if rank == 0:
@@ -5290,6 +6043,28 @@ def mesh_phases(dev):
     log(f"[mesh] peak GB of each rank in the train step (rank 0 holds "
         f"the world-size-1 reference's gradients on the host): "
         f"{[round(r['peak_gb'], 2) for r in ranks]}")
+    for leg in ("mesh-train", "mesh-train-compressed"):
+        runs = ranks[0]["new"][leg]
+        runs = runs if leg == "mesh-train" else {"bf16": runs}
+        for name in runs:
+            got = [r["new"][leg] if leg != "mesh-train" else
+                   r["new"][leg][name] for r in ranks]
+            total = collections.Counter()
+            for g in got:
+                total.update(g["bytes"])
+            log(f"[{leg}] {name}: GB at rest per rank (parameters and "
+                f"moments{', residual' if leg != 'mesh-train' else ''}) "
+                f"{[round(g['rest_gb'], 3) for g in got]}, peak GB "
+                f"{[round(g['peak_gb'], 2) for g in got]}; comm bytes by op "
+                f"summed over the ranks {dict(total)}, rank 0 "
+                f"{got[0]['bytes']}")
+    for leg in ("mesh-train", "mesh-train-compressed", "mesh-elastic",
+                "mesh-serve"):
+        total = collections.Counter()
+        for r in ranks:
+            total.update(r["by_leg"].get(leg, {}))
+        log(f"[{leg}] per-shard launches summed over the ranks: "
+            f"{ {k: v for k, v in total.items() if v} }")
     log(f"[mesh] per-shard launches summed over the ranks: "
         f"{ {k: v for k, v in launches.items() if v} }")
     for phase, wall in res["walls"].items():
@@ -5299,6 +6074,24 @@ def mesh_phases(dev):
     if dev.type == "cuda":
         require_launches(launches, MESH_KERNELS, "mesh")
     return dict(launches)
+
+
+def mesh_and_launch_phases(dev, lap):
+    """[launch] started, the [mesh] spawn and the world-size-1 NCCL leg
+    beside it, then [launch] waited for; `lap(name)` logs each wall.
+    Returns mesh_phases' launches."""
+    launch = launcher_start(dev)
+    try:
+        launches = mesh_phases(dev)
+        lap("mesh, mesh-moe (spawn to join; [launch] beside it)")
+        mesh_nccl_phase(dev)
+        lap("mesh NCCL world size 1")
+    except BaseException:
+        launcher_stop(launch)
+        raise
+    launcher_finish(launch)
+    lap("launch (torchrun, 2 gloo ranks), after the spawn")
+    return launches
 
 
 def mesh_nccl_phase(dev):
@@ -5549,10 +6342,7 @@ def main():
     lap("train-mlm-nonuniform")
     table3_phase(dev)
     lap("table3")
-    mesh_launches = mesh_phases(dev)
-    lap("mesh, mesh-moe (spawn to join)")
-    mesh_nccl_phase(dev)
-    lap("mesh NCCL world size 1")
+    mesh_launches = mesh_and_launch_phases(dev, lap)
 
     # launches: each kernel's count on its own main path, every path beside;
     # the prefix form's residual variant and the backward's offset form run

@@ -36,7 +36,7 @@ def main(argv=None):
     from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
                                            make_causal_batch, make_mlm_batch)
     from repro_torch.models import model as tmodel
-    from repro_torch.models.transformer import flatten, nest
+    from repro_torch.models.transformer import flatten
     if not torch.cuda.is_available():
         print("bf16_loss_spread: needs a CUDA card", file=sys.stderr)
         return 1
@@ -53,33 +53,47 @@ def main(argv=None):
              ("linformer-paper", enc, make_mlm_batch(
                  SyntheticCorpus(enc.vocab_size, seed=0), DataState(0, 0),
                  batch=cs.MLM_PARITY["batch"], seq=cs.MLM_PARITY["seq"])))
-    routes = (("kernels", "auto", torch.bfloat16),
-              ("plain", "reference", torch.bfloat16),
-              ("fp32", "reference", torch.float32))
+    names = {"kernels bf16": "kernels", "plain bf16": "plain",
+             "plain fp32": "fp32"}
     for name, cfg32, batch in cases:
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        ratios = []
+        draws = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                 for b in cs.loss_draws(cfg32, batch)]
+        grid = []                  # grid[seed][batch] = {route: loss}
         for seed in range(args.seeds):
             base = flatten(tmodel.init_params(cfg32, seed=seed, device=dev))
-            loss = {}
-            for route, backend, dtype in routes:
-                c = dataclasses.replace(
-                    cfg32, dtype=str(dtype)[6:]).with_attention_backend(
-                        backend)
-                with torch.no_grad():
-                    leaves = nest({k: v.to(dtype) for k, v in base.items()})
-                    loss[route] = tmodel.loss_fn(leaves, c, batch)[0].item()
-            ek = abs(loss["kernels"] - loss["fp32"])
-            ep = abs(loss["plain"] - loss["fp32"])
-            ratios.append(ek / ep)
+            grid.append([{names[r]: v for r, v in
+                          cs.route_losses(cfg32, base, b).items()}
+                         for b in draws])
+            del base
+
+        def ratio(cells):
+            err = cs.bf16_loss_errors({
+                r: [c[names[r]] for c in cells] for r in names})
+            return err["kernels bf16"] / err["plain bf16"], err
+
+        ratios, batched, gate = [], [], []
+        for seed in range(args.seeds):
+            one, err = ratio(grid[seed][:1])
+            ratios.append(one)
+            batched.append(ratio(grid[seed])[0])
+            cells = [grid[(seed + k) % args.seeds][k]
+                     for k in range(len(draws))]
+            gate.append(ratio(cells)[0])
             cs.log(f"[bf16-loss-spread] {name} seed {seed}: loss fp32 "
-                   f"{loss['fp32']:.6f}, error kernels bf16 {ek:.3e}, plain "
-                   f"bf16 {ep:.3e}, ratio {ek / ep:.3f}")
-        r = np.asarray(ratios)
-        cs.log(f"[bf16-loss-spread] {name}: ratio median "
-               f"{np.median(r):.3f}, min {r.min():.3f}, max {r.max():.3f}, "
-               f"above {cs.BF16_PARITY_FACTOR:g}: "
-               f"{int((r > cs.BF16_PARITY_FACTOR).sum())} of {len(r)}")
+                   f"{grid[seed][0]['fp32']:.6f}, error kernels bf16 "
+                   f"{err['kernels bf16']:.3e}, plain bf16 "
+                   f"{err['plain bf16']:.3e}, ratio {one:.3f}; over "
+                   f"{len(draws)} batches {batched[-1]:.3f}; gate instance "
+                   f"{seed} (seeds {seed}..{seed + len(draws) - 1}) "
+                   f"{gate[-1]:.3f}")
+        for what, r in (("one draw", ratios),
+                        (f"{len(draws)} batches, one seed", batched),
+                        (f"the gate, {len(draws)} draws", gate)):
+            r = np.asarray(r)
+            cs.log(f"[bf16-loss-spread] {name}, {what}: ratio median "
+                   f"{np.median(r):.3f}, min {r.min():.3f}, max "
+                   f"{r.max():.3f}, above {cs.BF16_PARITY_FACTOR:g}: "
+                   f"{int((r > cs.BF16_PARITY_FACTOR).sum())} of {len(r)}")
     return 0
 
 

@@ -15,7 +15,11 @@ chip_smoke's LOGITS_TOL and, per layer, the codes of the written pages
 (`page_k`, `page_v`) and rings (`raw_k_q`, `raw_v_q`) that differ between
 the two pools. Layer 0 sees the same inputs in both routes; a later
 layer's inputs differ by the routes' rounding, and a value that falls on
-the other side of a rounding boundary takes another code. chip_smoke
+the other side of a rounding boundary takes another code. Beside it, the
+comparison chip_smoke's gate makes (`chip_smoke.paged_layer_parity`):
+the same chunk forward a layer at a time, both routes on shared inputs
+and codes, its codes written differently, block errors and logits
+difference, and the count of seeds where that gate fails. chip_smoke
 draws with seed 1.
 """
 import argparse
@@ -58,9 +62,27 @@ def main(argv=None):
                    for n in (c + 5, 2 * c + 9)]
         toks, n_valid = cs.chunk_rows(prompts, P, c)
         over = {"int8": 0, "fp8": 0}
+        gate = {"int8": 0, "fp8": 0}
         for seed in range(args.seeds):
             params = tmodel.init_params(cfg2, seed=seed, device=dev)
             for pd in ("int8", "fp8"):
+                engines = {b: ServingEngine(
+                    params, cfg2, max_seq=4096, device=dev,
+                    cache_dtype=torch.float32, decode_chunk=16,
+                    attention_backend=b, prefill_chunk=P,
+                    cache_format="paged", page_dtype=pd)
+                    for b in ("auto", "reference")}
+                rep = cs.paged_layer_parity(engines, params, cfg2, toks,
+                                            n_valid)
+                del engines
+                fails = bool(any(rep["flips"]) or rep["logits"] > cs.LOGITS_TOL
+                             or any(e > cs.LOGITS_TOL for e in rep["errs"]))
+                gate[pd] += fails
+                cs.log(f"[paged-parity-spread] {arch} seed {seed} {pd}, a "
+                       f"layer at a time on shared inputs and codes: codes "
+                       f"differing by layer {rep['flips']}, block errors "
+                       f"{[f'{e:.2e}' for e in rep['errs']]}, logits "
+                       f"{rep['logits']:.3e}; gate fails: {fails}")
                 out = {}
                 for backend in ("auto", "reference"):
                     eng = ServingEngine(
@@ -91,8 +113,11 @@ def main(argv=None):
                 del out
             del params
             torch.cuda.empty_cache()
-        cs.log(f"[paged-parity-spread] {arch}: seeds over LOGITS_TOL: int8 "
-               f"{over['int8']}, fp8 {over['fp8']} of {args.seeds}")
+        cs.log(f"[paged-parity-spread] {arch}: seeds over LOGITS_TOL, two "
+               f"independent forwards: int8 {over['int8']}, fp8 "
+               f"{over['fp8']} of {args.seeds}; the layer-at-a-time gate "
+               f"fails: int8 {gate['int8']}, fp8 {gate['fp8']} of "
+               f"{args.seeds}")
     return 0
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
+import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -48,6 +50,37 @@ def _from_numpy(template: Dict, flat: Dict[str, np.ndarray]) -> Dict:
         out[key] = torch.from_numpy(np.array(arr)).to(dtype=t.dtype,
                                                       device=t.device)
     return nest(out)
+
+
+# members below this many bytes are read whole; larger stored (uncompressed)
+# members are memory-mapped, so a restore that keeps a shard of a leaf
+# reads the shard's pages, not the leaf
+_MMAP_MIN_BYTES = 1 << 20
+
+
+def _npz_arrays(path: str) -> Dict[str, np.ndarray]:
+    """{key: array} of an npz (np.savez's layout): a large member stored
+    uncompressed as a read-only memory map of its data, the rest read."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as fh:
+        for info in zf.infolist():
+            key = info.filename[:-len(".npy")]
+            if (info.compress_type != zipfile.ZIP_STORED
+                    or info.file_size < _MMAP_MIN_BYTES):
+                with zf.open(info) as f:
+                    out[key] = np.lib.format.read_array(f)
+                continue
+            fh.seek(info.header_offset + 26)     # the local header's lengths
+            name_len, extra_len = struct.unpack("<HH", fh.read(4))
+            fh.seek(info.header_offset + 30 + name_len + extra_len)
+            major, _ = np.lib.format.read_magic(fh)
+            read = (np.lib.format.read_array_header_1_0 if major == 1
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(fh)
+            out[key] = np.memmap(path, dtype=dtype, mode="r", shape=shape,
+                                 offset=fh.tell(),
+                                 order="F" if fortran else "C")
+    return out
 
 
 class Checkpointer:
@@ -98,15 +131,19 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, templates: Dict[str, Any]
-                ) -> Tuple[Dict[str, Any], Dict]:
+    def restore(self, step: int, templates: Dict[str, Any],
+                transform=None) -> Tuple[Dict[str, Any], Dict]:
         """Restore named trees; `templates` gives structure, shape, dtype
-        and device."""
+        and device. `transform(name, key, array)`, applied to each leaf as
+        it is read (one whole leaf in memory at a time), may cut it to the
+        template's shape (a rank's shard of a mesh)."""
         d = self._path(step)
         out = {}
         for name, template in templates.items():
-            with np.load(os.path.join(d, f"{name}.npz")) as z:
-                flat = {k: z[k] for k in z.files}
+            arrays = _npz_arrays(os.path.join(d, f"{name}.npz"))
+            flat = {k: (transform(name, k, a) if transform else a)
+                    for k, a in arrays.items()}
+            del arrays
             out[name] = _from_numpy(template, flat)
         with open(os.path.join(d, "metadata.json")) as f:
             meta = json.load(f)

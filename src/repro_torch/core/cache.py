@@ -86,6 +86,20 @@ def init_compressed_cache(*, device: torch.device, **kw
             for k, (shape, dt) in compressed_cache_spec(**kw).items()}
 
 
+def local_kv(plan, cache_heads: int, k, v, E, F):
+    """k, v (..., Hkv, Dh) and per-head E/F (Hkv, c, r) cut to this rank's
+    heads when the plan lays its pool out over tp (plan.shards_cache; the
+    pool then holds `cache_heads` of them, per the plan's cache_pspecs)."""
+    k, v = plan.head_shard(k, 2), plan.head_shard(v, 2)
+    if E.ndim == 3:
+        E, F = plan.head_shard(E, 0), plan.head_shard(F, 0)
+    if k.shape[2] != cache_heads:
+        raise ValueError(f"the cache holds {cache_heads} KV heads where "
+                         f"the plan's layout gives {k.shape[2]}: lay the "
+                         f"pool out with plan.place_cache")
+    return k, v, E, F
+
+
 def compressed_decode_attention(
     q_t: torch.Tensor,           # (B, 1, H, Dh) — rope already applied
     k_t: torch.Tensor,           # (B, 1, Hkv, Dh)
@@ -110,6 +124,7 @@ def compressed_decode_attention(
     raw_k, raw_v = layer_cache["raw_k"], layer_cache["raw_v"]
     comp_k, comp_v = layer_cache["comp_k"], layer_cache["comp_v"]
     B, c, Hkv, Dh = raw_k.shape
+    k_t, v_t, E, F = local_kv(plan, Hkv, k_t, v_t, E, F)
     M = comp_k.shape[1]
     r = E.shape[-1]
     scale_ = scale if scale is not None else Dh ** -0.5
@@ -170,6 +185,7 @@ def compressed_prefill_chunk(
     from repro_torch.parallel.plan import as_plan
     plan = as_plan(plan)
     comp_k, comp_v = layer_cache["comp_k"], layer_cache["comp_v"]
+    k, v, E, F = local_kv(plan, comp_k.shape[2], k, v, E, F)
     B, P, Hkv, Dh = k.shape
     c = layer_cache["raw_k"].shape[1]
     r = E.shape[-1]
@@ -359,6 +375,7 @@ def paged_decode_attention(
     rk_q, rv_q, rk_s, rv_s, pk, pv, pk_s, pv_s, pt = \
         _paged_leaves(layer_cache)
     B, c, Hkv, Dh = rk_q.shape
+    k_t, v_t, E, F = local_kv(plan, Hkv, k_t, v_t, E, F)
     Np, r = pk.shape[0], pk.shape[1]
     maxp = pt.shape[1]
     M = maxp * r
@@ -423,6 +440,7 @@ def paged_prefill_chunk(
     from repro_torch.parallel.plan import as_plan
     plan = as_plan(plan)
     _, _, _, _, pk, pv, pk_s, pv_s, pt = _paged_leaves(layer_cache)
+    k, v, E, F = local_kv(plan, pk.shape[2], k, v, E, F)
     B, P, Hkv, Dh = k.shape
     c = layer_cache["raw_k_q"].shape[1]
     r = E.shape[-1]

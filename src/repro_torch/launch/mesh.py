@@ -1,6 +1,8 @@
 """Meshes over torch.distributed ranks, and their fail-fast checks.
 
-Counterpart of ``repro/launch/mesh.py``: ``make_local_mesh``, the
+Counterpart of ``repro/launch/mesh.py``: ``make_local_mesh``,
+``make_mesh`` (``jax.make_mesh``: any shape and dim names, e.g.
+("pod", "data", "model") for the compressed cross-pod step), the
 attention-mesh checks ``validate_attention_mesh`` and
 ``validate_seq_shards`` with the JAX package's messages, and the per-arch
 FSDP policy ``ARCH_FSDP`` / ``fsdp_for``, copied. A mesh here is torch's
@@ -62,6 +64,26 @@ def make_local_mesh(model_shards: int = 1, seq_shards: int = 1, *,
     else:
         shape = (n // (model_shards * seq_shards), seq_shards, model_shards)
         names = ("data", "seq", "model")
+    backend = dist.get_backend()
+    opts = _group_options(backend, timeout)
+    return init_device_mesh(device_type, shape, mesh_dim_names=names,
+                            backend_override={a: (backend, opts)
+                                              for a in names})
+
+
+def make_mesh(shape, names, *, device_type: str,
+              timeout: datetime.timedelta = GROUP_TIMEOUT):
+    """A DeviceMesh of `shape` with dim `names` over every rank of the
+    default group (the counterpart of ``jax.make_mesh``); the product of
+    `shape` must be the world size. Collective over the world."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, names = tuple(shape), tuple(names)
+    n = 1
+    for w in shape:
+        n *= w
+    if n != dist.get_world_size() or len(shape) != len(names):
+        raise ValueError(f"mesh {dict(zip(names, shape))} does not cover "
+                         f"the {dist.get_world_size()} ranks")
     backend = dist.get_backend()
     opts = _group_options(backend, timeout)
     return init_device_mesh(device_type, shape, mesh_dim_names=names,

@@ -28,6 +28,22 @@ Trainer's corpus yields tokens only and refuses them.
     python -m repro_torch.launch.train --arch zamba2-1.2b --steps 4 \
         --ckpt-every 0
 
+On a mesh, under torchrun (the ranks come from its environment):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-8b \
+        --smoke --mesh local --dist-backend gloo [--model-shards 2]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-8b \
+        --layers 2 --steps 4 --mesh local --dist-backend nccl
+
+--mesh local puts every rank of the group on one mesh: --model-shards of
+tensor parallelism, the rest data parallelism, with the arch's FSDP policy
+(launch/mesh.fsdp_for), the Trainer's training layout. --dist-backend is
+required with a mesh and has no fallback: nccl for one card a rank, gloo
+for ranks that share a card (NCCL refuses two ranks on one device). A
+group that fails to form raises. Rank 0 logs and writes the checkpoints.
+The production meshes of the JAX launcher (TPU pod shapes) are not
+ported.
+
 --attention overrides the config's attention kind (standard | linformer |
 linformer_causal), as the JAX launcher's flag does: "standard" trains the
 paper's softmax baseline. The attention-free rwkv6-1.6b ignores it, as in
@@ -83,8 +99,20 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="steps between checkpoints (default a quarter of "
                          "--steps; 0 = none)")
+    ap.add_argument("--mesh", default="none", choices=["none", "local"],
+                    help="local: every torchrun rank on one mesh")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="tensor-parallel width of --mesh local")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="process-group backend of --mesh local")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    if args.mesh != "none" and args.dist_backend is None:
+        ap.error("--mesh local needs --dist-backend nccl or gloo")
+    ctx = _mesh_ctx(args) if args.mesh != "none" else None
+    logging.basicConfig(
+        level=logging.INFO if ctx is None or _rank() == 0
+        else logging.WARNING, format="%(message)s")
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
@@ -109,10 +137,41 @@ def main(argv=None):
                                   warmup_steps=max(args.steps // 10, 1),
                                   total_steps=args.steps))
     trainer = Trainer(cfg, tcfg, device=args.device,
-                      attention_backend=args.backend)
-    metrics = trainer.run()
-    log.info("[train] final: %s", metrics)
+                      attention_backend=args.backend, ctx=ctx)
+    try:
+        metrics = trainer.run()
+        log.info("[train] final: %s", metrics)
+    finally:
+        if ctx is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return metrics
+
+
+def _rank() -> int:
+    return int(os.environ.get("RANK", "0"))
+
+
+def _mesh_ctx(args):
+    """The ParallelCtx of --mesh local: the default group from torchrun's
+    environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), then one
+    mesh over all its ranks."""
+    import torch
+    from repro_torch.launch.mesh import fsdp_for, init_ranks, make_local_mesh
+    from repro_torch.parallel.sharding import ParallelCtx
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        if var not in os.environ:
+            raise RuntimeError(f"--mesh local runs under torchrun: {var} is "
+                               "not set")
+    if args.device.startswith("cuda"):
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              if args.dist_backend == "nccl" else 0)
+    init_ranks(args.dist_backend, "env://", _rank(),
+               int(os.environ["WORLD_SIZE"]))
+    mesh = make_local_mesh(args.model_shards,
+                           device_type="cuda" if args.device.startswith(
+                               "cuda") else "cpu")
+    return ParallelCtx(mesh=mesh, fsdp=fsdp_for(args.arch, False))
 
 
 if __name__ == "__main__":

@@ -141,17 +141,22 @@ def apply_attention(
                                     chunked=chunked)
     out = out.reshape(B, S, -1) @ params["wo"]
     if cache_entry is not None:
-        _entry_from_kv(k, v, cfg, ef, cache_entry)
+        _entry_from_kv(k, v, cfg, ef, cache_entry, plan)
     return out
 
 
 def _entry_from_kv(k, v, cfg: AttentionConfig, ef,
-                   entry: Dict[str, torch.Tensor]) -> None:
+                   entry: Dict[str, torch.Tensor], plan=None) -> None:
     """Fill one layer's zero-initialized decode-cache slices from prefilled
     k/v (rope applied). Compressed cache (comp_k (B, M, Hkv, Dh), ...): the
     first nb·r slots take the compressed blocks; the ring stays empty at
     t = S. Full cache (k (B, max_seq, Hkv, Dh), ...): the first S positions
-    take k/v, the rest stays zero (JAX's padded entry)."""
+    take k/v, the rest stays zero (JAX's padded entry). The compressed
+    cache of a plan that lays its pool out over tp (cache_pspecs) takes
+    this rank's heads."""
+    if cfg.kind != "standard" and plan is not None:
+        k, v, *ef = cache_lib.local_kv(plan, entry["comp_k"].shape[2], k, v,
+                                       *ef)
     B, S, Hkv, Dh = k.shape
     if cfg.kind == "standard":
         cap = entry["k"].shape[1]

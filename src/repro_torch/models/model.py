@@ -15,20 +15,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import rwkv_model, transformer, zamba
+from repro_torch.parallel import comm
 from repro_torch.parallel import plan as plan_lib
+from repro_torch.parallel import sharding as shd
 
 TRANSFORMER_FAMILIES = transformer.TRANSFORMER_FAMILIES
 
 
-def _impl(cfg: ModelConfig, ctx=None):
-    """The family's module; `ctx` with a mesh is refused for ssm/hybrid."""
+def _impl(cfg: ModelConfig):
+    """The family's module."""
     if cfg.family in TRANSFORMER_FAMILIES:
         return transformer
-    if ctx is not None and ctx.mesh is not None:
-        raise ValueError(
-            f"family {cfg.family!r} takes no mesh ctx yet: its activations "
-            "are laid out on a mesh with the sharded-training slice of the "
-            "port (ROADMAP Queue 1, item 1.3)")
     if cfg.family == "hybrid":
         return zamba
     if cfg.family == "ssm":
@@ -53,19 +50,23 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 def forward(params, cfg: ModelConfig, batch: Dict, *, ctx=None, **kw):
     """Full-sequence forward; see transformer.forward. `ctx`
-    (parallel/sharding.ParallelCtx) puts the attention and MoE layers of
-    the transformer families on its mesh."""
-    impl = _impl(cfg, ctx)
-    if impl is transformer:
-        kw["ctx"] = ctx
-    return impl.forward(params, cfg, batch, **kw)
+    (parallel/sharding.ParallelCtx) puts the attention and MoE layers on
+    its mesh; with ``ctx.sharded`` the batch is this rank's rows and the
+    parameters its shards (the training layout)."""
+    return _impl(cfg).forward(params, cfg, batch, ctx=ctx, **kw)
 
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
                dtype=torch.bfloat16,
-               device: Union[str, torch.device] = "cuda") -> Dict:
-    return _impl(cfg).init_cache(cfg, batch=batch, max_seq=max_seq,
-                                 dtype=dtype, device=resolve_device(device))
+               device: Union[str, torch.device] = "cuda",
+               plan: Optional[plan_lib.AttentionPlan] = None) -> Dict:
+    """A zero decode cache; a compressed attention cache (transformer and
+    hybrid families) is laid out per `plan`'s cache_pspecs (this rank's
+    heads on a tp mesh)."""
+    impl = _impl(cfg)
+    kw = {"plan": plan} if impl is not rwkv_model else {}
+    return impl.init_cache(cfg, batch=batch, max_seq=max_seq, dtype=dtype,
+                           device=resolve_device(device), **kw)
 
 
 def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
@@ -74,7 +75,7 @@ def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     """One decode step on tokens (B, 1), or on ``embeds`` (B, 1, D) for a
     config with ``embedding_inputs``; see transformer.decode_step (and the
     ssm and hybrid modules' own, whose rows share one scalar length)."""
-    impl = _impl(cfg, ctx)
+    impl = _impl(cfg)
     kw = {"ctx": ctx} if impl is transformer else {}
     return impl.decode_step(params, cfg, tokens, cache, embeds=embeds,
                             plan=plan, **kw)
@@ -87,7 +88,7 @@ def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,
     chunked-admission path); see transformer.prefill_chunk. Transformer
     families only: ssm/hybrid caches have no per-row positions to chunk
     against."""
-    impl = _impl(cfg, ctx)
+    impl = _impl(cfg)
     if not hasattr(impl, "prefill_chunk"):
         raise ValueError(
             f"family {cfg.family!r} has no chunked-prefill path")
@@ -178,17 +179,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def chunked_head_ce(params, cfg: ModelConfig, hidden: torch.Tensor,
                     labels: torch.Tensor, mask: torch.Tensor, *,
-                    chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    chunk: int, ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """LM-head matmul + CE over sequence chunks: the (B, S, V) logits tensor
     is never materialised; the backward recomputes each chunk's logits
     (transformer.remat_wrap, "full")."""
     B, S, D = hidden.shape
     if S % chunk != 0:
         chunk = S
-    norm = params["final_norm"]["scale"]
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"]["tok"].T
+    norm, head = transformer.head_weights(params, ctx)
 
     def body(h_c, y_c, m_c, norm_, head_):
         logits = transformer.logits_from_hidden(
@@ -216,7 +214,13 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
     ``moe.aux_loss_weight`` times the MoE load-balance loss summed over
     the layers where the config has experts; metrics are the CE alone
     (loss), that raw sum (aux_loss), tokens and perplexity, as JAX reports
-    them."""
+    them.
+
+    Under the training layout (``ctx.sharded``) the batch is this rank's
+    rows: the CE's numerator and denominator are summed over the data dims
+    (``comm.reduce``: an all-reduce whose gradient passes through), so the
+    loss is the masked mean over the global batch, and the aux loss is
+    averaged over them."""
     labels = batch["labels"]
     mask = batch["loss_mask"].to(torch.float32)
     P = cfg.frontend_embed_len
@@ -224,10 +228,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
         hidden, aux, _ = forward(params, cfg, batch, return_hidden=True,
                                  plan=plan, ctx=ctx)
         nll_sum, denom = chunked_head_ce(params, cfg, hidden[:, P:], labels,
-                                         mask, chunk=cfg.chunked_ce)
+                                         mask, chunk=cfg.chunked_ce, ctx=ctx)
     else:
         logits, aux, _ = forward(params, cfg, batch, plan=plan, ctx=ctx)
         nll_sum, denom = cross_entropy(logits[:, P:], labels, mask)
+    if shd.is_sharded(ctx):
+        daxes = [ctx.axis(a) for a in ctx.data_axes]
+        nll_sum, denom, aux = (comm.reduce(t.reshape(1), daxes)[0]
+                               for t in (nll_sum, denom, aux))
+        aux = aux / comm.flat_width(daxes)
     loss = nll_sum / torch.clamp(denom, min=1.0)
     total = loss
     if cfg.moe.num_experts > 0:

@@ -18,7 +18,10 @@ is averaged over the region's dims. At decode (S == 1, the config's
 expert weights split over model × fsdp instead and moves the (tiny)
 tokens: two fsdp psums of h and g, one model sum, one fsdp all-gather.
 The collectives are parallel/comm.py's autograd Functions, so both paths
-are differentiable; each rank holds the whole params and input.
+are differentiable. Each rank holds the whole input (its own rows under
+the training layout, whose data dims the caller's ctx excludes) and the
+whole params, but for the expert stacks of the training layout, which
+arrive as this rank's model shard and are used as they are.
 
 The routing is JAX's to the bit where fp32 allows: the router runs in fp32
 whatever the model dtype, ties between equal probabilities go to the lower
@@ -215,11 +218,14 @@ def _moe_weight_stationary(params: Dict, xt: torch.Tensor, cfg: MoEConfig,
 
 
 def apply_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig,
-              mlp: MLPConfig, ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              mlp: MLPConfig, ctx=None, held_experts: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over x (B, S, D). Returns (out (B, S, D), aux scalar fp32).
     Without a ctx, or with a model dim of width 1, the B·S tokens are
     routed together over every expert; else the expert-parallel paths of
-    the module docstring."""
+    the module docstring. `held_experts`: the expert stacks arrive as
+    this rank's model shard (the training layout) and are used as they
+    are; else they arrive whole and are split."""
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     act = mlp.activation
@@ -243,7 +249,9 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig,
     E_loc = cfg.num_experts // maxis.width
 
     def experts(w):
-        return comm.copy(comm.split(w, 0, (maxis,)), daxes)
+        if not held_experts:
+            w = comm.split(w, 0, (maxis,))
+        return comm.copy(w, daxes)
 
     x_l = comm.copy(comm.split(xt, 0, daxes), (maxis,))
     out, aux = moe_local(

@@ -14,6 +14,10 @@ per-row positions: serving falls back to the static bucketed path). The
 shifts take the dtype JAX gives them: the cache dtype from `init_cache`,
 the model dtype from `forward` and after a decode step (the last input of
 each mix); `decode_step` writes its states into the cache's leaves in place.
+
+Under the training layout (``forward(..., ctx=)`` with ``ctx.sharded``)
+the batch is this rank's rows and the parameters its shards, gathered a
+layer at a time inside the remat'd body (transformer.whole_layer).
 """
 from __future__ import annotations
 
@@ -57,16 +61,17 @@ def _heads(cfg: ModelConfig) -> Tuple[int, int]:
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             return_cache: bool = False, cache_max_seq: Optional[int] = None,
-            cache_dtype=torch.bfloat16,
-            plan=None) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+            cache_dtype=torch.bfloat16, plan=None, ctx=None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward from zero state. Returns (logits (B, S, V), a
     zero aux loss, cache|None). Each block runs under the config's
     remat policy when autograd records. With return_cache the cache holds
     the states after the last token (JAX's leaves and dtypes) at
     length = S. `cache_max_seq`, `cache_dtype` and `plan` are taken for the
     common model API: the state has no sequence axis and no attention
-    runs."""
-    x = L.embed_tokens(params["embed"]["tok"], batch["tokens"])
+    runs. `ctx`: see the module docstring (no region opens: no attention
+    runs)."""
+    x = T.embed_lookup(params, batch["tokens"], ctx)
     B, S, D = x.shape
     H, P_ = _heads(cfg)
     zero_shift = x.new_zeros((B, D))
@@ -75,7 +80,8 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     keys = list(layers)
 
     def body(h, *leaves):
-        lp = T.nest(dict(zip(keys, leaves)))
+        lp = T.nest(T.whole_layer(dict(zip(keys, leaves)), ctx, "layers/",
+                                  1))
         tm, tms, wkv = r6.time_mix(lp["rwkv"], L.rms_norm(lp["ln1"], h),
                                    cfg.rwkv, zero_shift, zero_wkv)
         h = h + tm
@@ -95,7 +101,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             states.append(st)
         else:
             x = out
-    logits = T.logits_from_hidden(params, cfg, x)
+    logits = T.logits_from_hidden(params, cfg, x, ctx)
     cache = None
     if return_cache:
         tms, cms, wkv = (torch.stack(s) for s in zip(*states))

@@ -46,6 +46,20 @@ and the CUDA kernels (ctypes launches the dispatcher never sees, as a
 ``pallas_call`` is not a dot in JAX). The unrolled
 layout applies no remat, as the JAX package's unrolled loop calls
 ``apply_block`` directly: its activations stay alive through the backward.
+
+Under the training layout (a ctx with ``sharded=True``, see
+parallel/sharding.py) the batch holds this rank's rows over the data dims
+and every parameter is this rank's shard: a layer's leaves are made whole
+inside the block function (so the remat'd backward gathers them again and
+a rank holds one layer's whole weights at a time), the final norm and head
+where they are used; the token embedding looks its rows up from the
+shards (`sharding.sharded_lookup`); MoE expert stacks stay on their model
+shard under expert parallelism. The plan's regions and the MoE layer run
+on ``region_ctx(ctx)``, whose data dims are excluded. With
+``cfg.seq_shard_activations`` (JAX's ``_act_spec``) the stream between
+blocks is this rank's sequence slice over the model dim, gathered at a
+block's entry and split at its exit, so the block's compute stays the same
+on every model rank.
 """
 from __future__ import annotations
 
@@ -65,7 +79,9 @@ from repro_torch.core.projections import effective_k
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.parallel import comm
 from repro_torch.parallel import plan as plan_lib
+from repro_torch.parallel import sharding as shd
 from repro_torch.tune import table as tuning
 
 # init kinds of param_spec: constants, N(0, 0.02) embeddings, fan-in scaled
@@ -341,14 +357,18 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
     return wrapped
 
 
-def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, ctx=None
+def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, ctx=None,
+         held_experts: bool = False
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's feed-forward on the normed stream: the MoE layer where
     the config has experts (its B·S tokens routed together, expert-parallel
-    under a ctx with a model dim), else the MLP. Returns (out, aux): the
-    MoE load-balance loss (fp32), or None without experts."""
+    under a ctx with a model dim; `held_experts`: the expert stacks are
+    this rank's model shard, see held_experts), else the MLP. Returns
+    (out, aux): the MoE load-balance loss (fp32), or None without
+    experts."""
     if cfg.moe.num_experts > 0:
-        return moe_lib.apply_moe(params["moe"], x, cfg.moe, cfg.mlp, ctx)
+        return moe_lib.apply_moe(params["moe"], x, cfg.moe, cfg.mlp, ctx,
+                                 held_experts=held_experts)
     return L.apply_mlp(params["mlp"], x, cfg.mlp), None
 
 
@@ -356,17 +376,19 @@ def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 shared_lin: Optional[Dict],
                 cache_entry: Optional[Dict] = None,
                 plan: plan_lib.AttentionPlan,
-                chunked_attn: bool = False, ctx=None
+                chunked_attn: bool = False, ctx=None,
+                held_experts: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, the block's MoE aux loss, None without experts).
     `chunked_attn` selects the chunked reference form of the causal
-    attention (plain route only)."""
+    attention (plain route only); `held_experts` as in _ffn."""
     h = attn_lib.apply_attention(params["attn"], L.rms_norm(params["ln1"], x),
                                  cfg.attention, shared_lin=shared_lin,
                                  cache_entry=cache_entry, plan=plan,
                                  chunked=chunked_attn)
     x = x + h
-    h, aux = _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx)
+    h, aux = _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx,
+                  held_experts)
     return x + h, aux
 
 
@@ -397,7 +419,27 @@ def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
     return x + _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx)[0]
 
 
-def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
+def whole(params: Dict, path: str, ctx=None) -> torch.Tensor:
+    """The leaf at `path` of `params`, made whole under the training
+    layout (as is otherwise)."""
+    node = params
+    for key in path.split("/"):
+        node = node[key]
+    if not shd.is_sharded(ctx):
+        return node
+    return shd.unshard_leaf(node, shd.leaf_spec(path, node.ndim, ctx), ctx)
+
+
+def embed_lookup(params: Dict, tokens: torch.Tensor, ctx=None
+                 ) -> torch.Tensor:
+    """The token embeddings of `tokens`; under the training layout looked
+    up from the table's shards (sharding.sharded_lookup)."""
+    if shd.is_sharded(ctx):
+        return shd.sharded_lookup(params["embed"]["tok"], tokens, ctx)
+    return L.embed_tokens(params["embed"]["tok"], tokens)
+
+
+def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict, ctx=None
                  ) -> torch.Tensor:
     """(B, S, D) input stream from tokens and/or stub-frontend embeddings:
     with ``embedding_inputs`` the batch's ``embeds`` (B, S, D) replace the
@@ -408,12 +450,13 @@ def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
     if cfg.embedding_inputs:
         x = batch["embeds"].to(torch_dtype(cfg.dtype))
     else:
-        x = L.embed_tokens(params["embed"]["tok"], batch["tokens"])
+        x = embed_lookup(params, batch["tokens"], ctx)
         if cfg.frontend_embed_len > 0:
             fe = batch["frontend_embeds"].to(x.dtype)
             x = torch.cat([fe, x], dim=1)
     pos = params.get("embed", {}).get("pos")
     if pos is not None:
+        pos = whole(params, "embed/pos", ctx)
         S = x.shape[1]
         if S > pos.shape[0]:
             raise ValueError(f"sequence length {S} exceeds the "
@@ -423,42 +466,91 @@ def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
     return x
 
 
-def logits_from_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor
-                       ) -> torch.Tensor:
-    x = L.rms_norm(params["final_norm"], x)
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"]["tok"].T
-    return x @ head
+def head_weights(params: Dict, ctx=None):
+    """(final norm scale, LM head (D, V)), whole; a tied head is the
+    embedding's transpose."""
+    head = whole(params, "lm_head", ctx) if "lm_head" in params else \
+        whole(params, "embed/tok", ctx).T
+    return whole(params, "final_norm/scale", ctx), head
+
+
+def logits_from_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                       ctx=None) -> torch.Tensor:
+    norm, head = head_weights(params, ctx)
+    return L.rms_norm({"scale": norm}, x) @ head
 
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device: torch.device) -> Dict:
+               dtype=torch.bfloat16, device: torch.device,
+               plan: Optional[plan_lib.AttentionPlan] = None) -> Dict:
+    """A zero decode cache; a compressed one is laid out per `plan`'s
+    cache_pspecs (this rank's heads on a tp mesh; the standard baseline's
+    full cache stays whole, its decode runs outside the plan)."""
     spec = attn_lib.decode_cache_spec(cfg.attention,
                                       num_layers=cfg.num_layers,
                                       batch=batch, max_seq=max_seq,
                                       dtype=dtype)
-    return {k: torch.zeros(shape, dtype=dt, device=device)
-            for k, (shape, dt) in spec.items()}
+    cache = {k: torch.zeros(shape, dtype=dt, device=device)
+             for k, (shape, dt) in spec.items()}
+    if plan is None or cfg.attention.kind != "linformer_causal":
+        return cache
+    return plan.place_cache(cache)
 
 
 def _layer_caches(cache: Dict, i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in cache.items() if k != "lengths"}
 
 
+def seq_dims(cfg: ModelConfig, ctx) -> Tuple:
+    """The dims the stream between blocks splits its sequence over: the
+    model dim under the training layout with seq_shard_activations."""
+    if not (cfg.seq_shard_activations and shd.is_sharded(ctx)):
+        return ()
+    return (ctx.axis(ctx.model_axis),)
+
+
+def held_experts(ctx) -> bool:
+    """Whether a layer's MoE expert stacks stay on their model shard when
+    the layer is made whole: under the training layout with expert
+    parallelism (moe.apply_moe's e_offset consumes them as they are)."""
+    return shd.is_sharded(ctx) and ctx.model_shards > 1
+
+
+def whole_layer(lp: Dict, ctx, prefix: str, drop: int = 0) -> Dict:
+    """A layer's leaves (flat or nested, keyed below `prefix` in the
+    parameter tree; `drop` = 1 for views of layer-stacked leaves) made
+    whole under the training layout, but for the expert stacks that
+    held_experts keeps on their model shard."""
+    if not shd.is_sharded(ctx):
+        return lp
+    held = held_experts(ctx)
+
+    def keep(key):
+        return (ctx.model_axis,) if held and "moe/w_" in key else ()
+
+    return shd.unshard_tree(lp, ctx, prefix, drop, keep)
+
+
 def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
-              shared_keys, chunked_attn: bool = False, ctx=None
-              ) -> Callable:
+              shared_keys, chunked_attn: bool = False, ctx=None,
+              prefix: str = "layers/", drop: int = 1,
+              cache_entry: Optional[Dict] = None) -> Callable:
     """apply_block as a function of tensors alone, (x, *layer leaves,
     *shared E/F leaves) -> (x, aux or None), so that remat sees every
-    tensor it depends on."""
+    tensor it depends on. Under the training layout the leaves arrive as
+    shards and are made whole here (see the module docstring)."""
     n = len(keys)
+    seq = seq_dims(cfg, ctx)
+    rctx, held = shd.region_ctx(ctx), held_experts(ctx)
 
     def fn(x, *leaves):
         shared = dict(zip(shared_keys, leaves[n:])) or None
-        return apply_block(nest(dict(zip(keys, leaves[:n]))), x, cfg,
-                           shared_lin=shared, plan=plan,
-                           chunked_attn=chunked_attn, ctx=ctx)
+        lp = whole_layer(dict(zip(keys, leaves[:n])), ctx, prefix, drop)
+        x, aux = apply_block(nest(lp), comm.gather(x, 1, seq), cfg,
+                             shared_lin=shared, cache_entry=cache_entry,
+                             plan=plan, chunked_attn=chunked_attn, ctx=rctx,
+                             held_experts=held)
+        return comm.split(x, 1, seq), aux
 
     return fn
 
@@ -484,38 +576,45 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     expert-parallel on its model dim."""
     if return_cache and not cfg.single_pass_cache:
         raise ValueError("only the single-pass prefill cache is ported")
-    plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
-    x = embed_inputs(params, cfg, batch)
+    plan = plan if plan is not None else plan_lib.resolve_attention_plan(
+        cfg.attention, shd.region_ctx(ctx))
+    x = embed_inputs(params, cfg, batch, ctx)
     B, S, _ = x.shape
     chunked = S >= causal_lib.chunked_attention_min_seq(
         tuning.platform_key(x.device))
     shared_lin = params.get("shared", {}).get("lin")
+    if shared_lin is not None and shd.is_sharded(ctx):
+        shared_lin = shd.unshard_tree(shared_lin, ctx, "shared/lin/")
     cache = None
     if return_cache:
         cache = init_cache(cfg, batch=B,
                            max_seq=cache_max_seq or cfg.max_seq_len,
-                           dtype=cache_dtype, device=x.device)
+                           dtype=cache_dtype, device=x.device, plan=plan)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    seq = seq_dims(cfg, ctx)
+    x = comm.split(x, 1, seq)
+    shared = shared_lin or {}
     if cache is not None or not cfg.scan_layers:
         for i in range(cfg.num_layers):
-            x, a = apply_block(layer_params(params, i), x, cfg,
-                               shared_lin=shared_lin,
-                               cache_entry=None if cache is None
-                               else _layer_caches(cache, i), plan=plan,
-                               chunked_attn=chunked, ctx=ctx)
+            lp = flatten(layer_params(params, i))
+            prefix, drop = ((f"layers_list/{i}/", 0) if "layers_list"
+                            in params else ("layers/", 1))
+            fn = _block_fn(cfg, plan, list(lp), list(shared), chunked, ctx,
+                           prefix, drop, None if cache is None
+                           else _layer_caches(cache, i))
+            x, a = fn(x, *lp.values(), *shared.values())
             aux = aux if a is None else aux + a
     else:
         layers = flatten(params["layers"])
         per_layer = [leaf.unbind(0) for leaf in layers.values()]
-        shared = shared_lin or {}
         block = remat_wrap(_block_fn(cfg, plan, list(layers), list(shared),
                                      chunked, ctx), cfg.remat)
         for i in range(cfg.num_layers):
             x, a = block(x, *(views[i] for views in per_layer),
                          *shared.values())
             aux = aux if a is None else aux + a
-    logits = x if return_hidden else logits_from_hidden(params, cfg, x)
+    x = comm.gather(x, 1, seq)
+    logits = x if return_hidden else logits_from_hidden(params, cfg, x, ctx)
     if cache is not None:
         cache["lengths"].fill_(S)
     return logits, aux, cache

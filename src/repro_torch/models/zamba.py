@@ -37,6 +37,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as T
 from repro_torch.parallel import plan as plan_lib
+from repro_torch.parallel import sharding as shd
 
 
 def n_attn_invocations(cfg: ModelConfig) -> int:
@@ -76,31 +77,35 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             return_cache: bool = False, cache_max_seq: Optional[int] = None,
             cache_dtype=torch.bfloat16,
-            plan: Optional[plan_lib.AttentionPlan] = None
+            plan: Optional[plan_lib.AttentionPlan] = None, ctx=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward. Returns (logits (B, S, V), a zero aux loss,
     cache|None). With return_cache (S a multiple of the Linformer
     block) the cache holds each trunk layer's state after the last token
     and each invocation's compressed entry, at length = S."""
+    rctx = shd.region_ctx(ctx)
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention)
-    x = L.embed_tokens(params["embed"]["tok"], batch["tokens"])
+        else plan_lib.resolve_attention_plan(cfg.attention, rctx)
+    x = T.embed_lookup(params, batch["tokens"], ctx)
     B, S, _ = x.shape
     # JAX's literal threshold (not the tuned one) for the shared block's
     # chunked reference form
     chunked = S >= 8192
     shared_lin = params.get("shared", {}).get("lin")
+    if shared_lin is not None and shd.is_sharded(ctx):
+        shared_lin = shd.unshard_tree(shared_lin, ctx, "shared/lin/")
     every, n_inv = cfg.hybrid_attn_every, n_attn_invocations(cfg)
     cache = None
     if return_cache:
         cache = init_cache(cfg, batch=B,
                            max_seq=cache_max_seq or cfg.max_seq_len,
-                           dtype=cache_dtype, device=x.device)
+                           dtype=cache_dtype, device=x.device, plan=plan)
     trunk = T.flatten(params["trunk"])
     keys = list(trunk)
 
     def mamba_body(h, *leaves):
-        lp = T.nest(dict(zip(keys, leaves)))
+        lp = T.nest(T.whole_layer(dict(zip(keys, leaves)), ctx, "trunk/",
+                                  1))
         y = m2.apply_mamba2(lp["ssm"], L.rms_norm(lp["ln"], h), cfg.ssm,
                             return_state=return_cache)
         if return_cache:
@@ -124,11 +129,12 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         x = run_trunk(x, g * every, (g + 1) * every)
         entry = None if cache is None else {
             k: v[g] for k, v in cache["attn"].items()}
-        x, _ = T.apply_block(params["shared_block"], x, cfg,
-                             shared_lin=shared_lin, cache_entry=entry,
-                             plan=plan, chunked_attn=chunked)
+        x, _ = T.apply_block(
+            T.whole_layer(params["shared_block"], ctx, "shared_block/"), x,
+            cfg, shared_lin=shared_lin, cache_entry=entry, plan=plan,
+            chunked_attn=chunked, ctx=rctx)
     x = run_trunk(x, n_inv * every, cfg.num_layers)
-    logits = T.logits_from_hidden(params, cfg, x)
+    logits = T.logits_from_hidden(params, cfg, x, ctx)
     if cache is not None:
         cache["length"].fill_(S)
     return logits, torch.zeros((), dtype=torch.float32,
@@ -136,21 +142,28 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device: torch.device) -> Dict:
+               dtype=torch.bfloat16, device: torch.device,
+               plan: Optional[plan_lib.AttentionPlan] = None) -> Dict:
+    """A zero decode cache: each trunk layer's Mamba2 state, and each
+    invocation's attention entry, laid out per `plan`'s cache_pspecs (this
+    rank's heads on a tp mesh) when it is a compressed one."""
     d_inner, H, P_ = m2.dims(cfg.d_model, cfg.ssm)
     N = cfg.ssm.state_dim
     nl = cfg.num_layers
     spec = attn_lib.decode_cache_spec(
         cfg.attention, num_layers=n_attn_invocations(cfg), batch=batch,
         max_seq=max_seq, dtype=dtype)
+    attn = {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in spec.items() if k != "lengths"}
+    if plan is not None and cfg.attention.kind == "linformer_causal":
+        attn = plan.place_cache(attn)
     return {
         "mamba_ssm": torch.zeros((nl, batch, H, N, P_),
                                  dtype=torch.float32, device=device),
         "mamba_conv": torch.zeros((nl, batch, cfg.ssm.conv_width - 1,
                                    d_inner + 2 * N), dtype=dtype,
                                   device=device),
-        "attn": {k: torch.zeros(shape, dtype=dt, device=device)
-                 for k, (shape, dt) in spec.items() if k != "lengths"},
+        "attn": attn,
         "length": torch.zeros((), dtype=torch.int32, device=device),
     }
 

@@ -1,10 +1,13 @@
 """Collectives of the plan's manual regions, as autograd Functions.
 
 The port's counterpart of what ``shard_map`` does for the JAX package at a
-region's edge, and of the ``psum``/``all_gather`` inside it. Every rank
-computes the model outside a region on whole (replicated) tensors; a region
-takes this rank's shard of some axes, runs the kernels on it, and hands
-back whole tensors. Each op takes the mesh dims it acts over as
+region's edge, and of the ``psum``/``all_gather`` inside it, and of the
+layout GSPMD keeps for sharded parameters (parallel/sharding.py). Outside
+a region the ranks of the tp and sp dims compute the same thing on whole
+tensors; over the data dims each rank holds its own rows under the
+training layout (whole, replicated rows otherwise). A region takes this
+rank's shard of some axes, runs the kernels on it, and hands back whole
+tensors. Each op takes the mesh dims it acts over as
 :class:`~repro_torch.parallel.sharding.Axis` records (explicit process
 groups, from the DeviceMesh); a dim of width 1 is skipped. Forward and
 backward, under replicated compute outside the region:
@@ -80,6 +83,9 @@ def _all_reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
 
 def _all_gather(x: torch.Tensor, dim: int, axis, op: str) -> torch.Tensor:
     y = x.detach().contiguous()
+    if y.is_floating_point() and y.element_size() == 1:
+        # fp8 codes travel as their bytes (gloo has no fp8 type)
+        return _all_gather(y.view(torch.uint8), dim, axis, op).view(y.dtype)
     parts = [torch.empty_like(y) for _ in range(axis.width)]
     dist.all_gather(parts, y, group=axis.group)
     out = torch.cat(parts, dim=dim)
@@ -200,6 +206,23 @@ def all_gather_tiled(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
     if axis is None or axis.width == 1:
         return x
     return _AllGatherTiled.apply(x, dim, axis)
+
+
+def amax(x: torch.Tensor, axes: Sequence) -> torch.Tensor:
+    """The max of a 0-d tensor over `axes` (no gradient): each rank's value
+    all-gathered, then the max."""
+    y = x.detach().reshape(1)
+    for a in _live(axes):
+        y = _all_gather(y, 0, a, "amax").max().reshape(1)
+    return y[0]
+
+
+def all_gather_stack(x: torch.Tensor, axis) -> torch.Tensor:
+    """Every rank's `x` along `axis`, stacked on a new leading dim in axis
+    order (no gradient); `x` alone when the dim is absent or 1 wide."""
+    if axis is None or axis.width == 1:
+        return x.detach()[None]
+    return _all_gather(x[None], 0, axis, "stack")
 
 
 def psum(x: torch.Tensor, axes: Sequence) -> torch.Tensor:

@@ -46,14 +46,29 @@ and gathers the output back whole. "reference" under a mesh runs the
 plain forms on the whole tensors with no region: the JAX package's GSPMD
 route computes the same numbers.
 
-The engine's pool layout on a tp mesh (JAX's ``cache_pspecs`` /
-``place_cache``) comes with serving on a mesh, its only caller.
+The engine's pool on a tp mesh is laid out per ``cache_pspecs`` (JAX's
+rule: the KV-head axis over tp, scale leaves on their last axis, the rest
+whole): ``place_cache`` keeps this rank's heads of each leaf, and the
+cache writers (core/cache.py, models/attention.py) write this rank's
+heads of k and v into such a pool (``head_shard``). That is the only
+layout the decode and chunk-prefill regions take under tp: their k, v and
+pool operands arrive as this rank's heads (``Held`` in their specs), and
+the region neither splits nor copies them again. Rows stay whole on every
+rank, as ``cache_pspecs`` replicates them. A "reference" plan opens no
+region, so it keeps its pool whole.
+
+The batch layout of the training step is here too (``data_batch_pspec``,
+``local_batch``: a rank's rows, through parallel/sharding.shard_activation).
+On a ("pod", "data", "model") mesh the rows of the data dims are pod-major,
+so a rank's rows are its pod's slice of the global batch, then its own:
+JAX's reshape to (n_pods, per-pod batch) and its pod specs, as one
+selection.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -67,12 +82,26 @@ from repro_torch.kernels.common import backend_route, backward_route
 from repro_torch.launch.mesh import (validate_attention_mesh,
                                      validate_seq_shards)
 from repro_torch.parallel import comm
-from repro_torch.parallel.sharding import Axis, ParallelCtx
+from repro_torch.parallel.sharding import (Axis, ParallelCtx,
+                                          shard_activation)
+
+
+@dataclasses.dataclass(frozen=True)
+class Held:
+    """A region spec entry for a dim that arrives already split over
+    `axes` (a pool laid out per cache_pspecs): neither split nor copied
+    over them again."""
+    axes: Tuple[Axis, ...]
+
 
 # A region spec: one entry per tensor dim, the mesh dims (Axis records)
-# that split it, over their product with the first major; () keeps the dim
-# whole.
-Spec = Tuple[Tuple[Axis, ...], ...]
+# that split it, over their product with the first major, or Held; ()
+# keeps the dim whole.
+Spec = Tuple[Union[Tuple[Axis, ...], Held], ...]
+
+
+def _spec_axes(entry) -> Tuple[Axis, ...]:
+    return entry.axes if isinstance(entry, Held) else entry
 
 
 def decode_biases(loc_ok: torch.Tensor, glob_ok: torch.Tensor):
@@ -158,6 +187,32 @@ class AttentionPlan:
     def _heads(self) -> Tuple[Axis, ...]:
         return (self.tp_dim,) if self.tp > 1 else ()
 
+    def _pool_heads(self) -> Held:
+        """The head dim of a cache operand of the decode and chunk-prefill
+        regions: this rank's heads already (see shards_cache)."""
+        return Held(self._heads())
+
+    @property
+    def shards_cache(self) -> bool:
+        """Whether place_cache lays a pool out over tp: a manual plan with
+        tp wider than 1."""
+        return self.manual and self.tp > 1
+
+    def head_shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's heads of `x` along `dim` over tp (a view): what a
+        cache writer stores into a pool laid out per cache_pspecs."""
+        if not self.shards_cache:
+            return x
+        n = x.shape[dim] // self.tp
+        return x.narrow(dim, self.tp_dim.coord * n, n)
+
+    def head_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole head axis of a leaf laid out per cache_pspecs (no
+        gradient): the inverse of head_shard."""
+        if not self.shards_cache:
+            return x
+        return comm.gather(x.contiguous(), dim, self._heads())
+
     def _ef_spec(self, E: torch.Tensor) -> Spec:
         """Per-head E/F (Hkv, c, r) shard with their heads; a shared (c, r)
         projection is read whole by every shard."""
@@ -166,33 +221,36 @@ class AttentionPlan:
         return ((), ())
 
     def _chunk_specs(self, q, block_size: int):
-        """The chunk-prefill region of both forms: the specs of the chunk
-        (batch, sequence when sp divides it, heads), of the whole slot
-        buffer a shard and of its per-slot scales, and the block offset of
-        this rank's sequence shard."""
+        """The chunk-prefill region of both forms: the specs of the query
+        chunk (batch, sequence when sp divides it, heads), of its k/v (this
+        rank's heads), of the whole slot buffer a shard and of its per-slot
+        scales, and the block offset of this rank's sequence shard."""
         B, Pq = q.shape[:2]
         sp = self._sp_for(Pq, block_size, required=False)
         shift = sp[0].coord * (Pq // self.sp // block_size) if sp else 0
-        b, tp = self._batch_axes(B), self._heads()
-        return (b, sp, tp, ()), (b, (), tp, ()), (b, (), tp), shift
+        b, kvh = self._batch_axes(B), self._pool_heads()
+        return ((b, sp, self._heads(), ()), (b, sp, kvh, ()),
+                (b, (), kvh, ()), (b, (), kvh), shift)
 
     @staticmethod
     def _smap(body, in_specs, out_spec):
         """The manual region: each input is split per its spec (and its
         gradient summed over the region's other dims, comm.copy), `body`
         runs on the local shards, and its output is gathered per
-        `out_spec`. The region's dims are those some input splits over."""
+        `out_spec`. The region's dims are those some input splits over (or
+        holds split: a Held entry)."""
         active = []
         for spec in in_specs:
-            for axes in spec:
-                active += [a for a in axes if a not in active]
+            for entry in spec:
+                active += [a for a in _spec_axes(entry) if a not in active]
 
         def run(*args):
             local = []
             for x, spec in zip(args, in_specs):
-                for dim, axes in enumerate(spec):
-                    x = comm.split(x, dim, axes)
-                used = [a for axes in spec for a in axes]
+                for dim, entry in enumerate(spec):
+                    if not isinstance(entry, Held):
+                        x = comm.split(x, dim, entry)
+                used = [a for entry in spec for a in _spec_axes(entry)]
                 local.append(comm.copy(x, [a for a in active
                                            if a not in used]))
             out = body(*local)
@@ -304,7 +362,8 @@ class AttentionPlan:
         routes (the kernel route's backward follows `backward_impl`).
         q (B, P, H, Dh); comp_* (B, M, Hkv, Dh) full slot buffers;
         start_blocks (B,) int. Under sp, shard d of the chunk starts
-        d·(P/sp)/c blocks further in."""
+        d·(P/sp)/c blocks further in. Under tp, k, v and the slots are this
+        rank's heads (see the module docstring)."""
         if not self.uses_kernels(q):
             return causal_lib.blockwise_causal_prefix_attention(
                 q, k, v, comp_k, comp_v, start_blocks,
@@ -314,7 +373,7 @@ class AttentionPlan:
                 q, k, v, comp_k, comp_v, start_blocks, block_size=block_size,
                 block_slots=block_slots, scale=scale,
                 backward_impl=self.backward_impl)
-        qkv, comp, _, shift = self._chunk_specs(q, block_size)
+        qs, kvs, comp, _, shift = self._chunk_specs(q, block_size)
         start_blocks = kernel_ops._start_blocks(start_blocks, q)
 
         def body(q_l, k_l, v_l, ck_l, cv_l, sb_l):
@@ -323,7 +382,7 @@ class AttentionPlan:
                 block_size=block_size, block_slots=block_slots, scale=scale,
                 backward_impl=self.backward_impl)
 
-        return self._smap(body, (qkv,) * 3 + (comp, comp, qkv[:1]), qkv)(
+        return self._smap(body, (qs, kvs, kvs, comp, comp, qs[:1]), qs)(
             q, k, v, comp_k, comp_v, start_blocks)
 
     # -- decode -------------------------------------------------------------------
@@ -333,7 +392,8 @@ class AttentionPlan:
         """Single-token decode attention over [raw ring | compressed slots]
         with per-row validity masks. q_t (B, 1, H, Dh); raw_* (B, c, Hkv,
         Dh); comp_* (B, M, Hkv, Dh); loc_ok (B, c) / glob_ok (B, M) bool.
-        Under a mesh only tp shards it (a single token has no sequence)."""
+        Under a mesh only tp shards it (a single token has no sequence),
+        and the ring and slots are this rank's heads."""
         if not self.uses_kernels(q_t):
             return causal_lib.masked_decode_attention(
                 q_t, raw_k, raw_v, comp_k, comp_v, loc_ok, glob_ok,
@@ -344,12 +404,13 @@ class AttentionPlan:
                 q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
                 scale=scale)
         b = self._batch_axes(q_t.shape[0])
-        kv = (b, (), self._heads(), ())
+        qs = (b, (), self._heads(), ())
+        kv = (b, (), self._pool_heads(), ())
 
         def body(*xs):
             return kernel_ops.fused_decode_attention(*xs, scale=scale)
 
-        return self._smap(body, (kv,) * 5 + ((b, ()),) * 2, kv)(
+        return self._smap(body, (qs,) + (kv,) * 4 + ((b, ()),) * 2, qs)(
             q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob)
 
     # -- the paged, quantized cache -------------------------------------------
@@ -375,14 +436,15 @@ class AttentionPlan:
                 comp_k_s, comp_v_s, bias_loc, bias_glob)
         if not self.manual or self.tp <= 1:
             return kernel_ops.fused_decode_attention_q(*args, scale=scale)
-        b, tp = self._batch_axes(q_t.shape[0]), self._heads()
-        kv, sc = (b, (), tp, ()), (b, (), tp)
+        b, kvh = self._batch_axes(q_t.shape[0]), self._pool_heads()
+        qs = (b, (), self._heads(), ())
+        kv, sc = (b, (), kvh, ()), (b, (), kvh)
 
         def body(*xs):
             return kernel_ops.fused_decode_attention_q(*xs, scale=scale)
 
-        return self._smap(body, (kv,) * 3 + (sc, sc, kv, kv, sc, sc)
-                          + ((b, ()),) * 2, kv)(*args)
+        return self._smap(body, (qs, kv, kv, sc, sc, kv, kv, sc, sc)
+                          + ((b, ()),) * 2, qs)(*args)
 
     def chunk_prefill_attention_q(self, q, k, v, comp_k, comp_v, comp_k_s,
                                   comp_v_s, start_blocks, *,
@@ -403,16 +465,62 @@ class AttentionPlan:
             return kernel_ops.fused_chunk_prefill_attention_q(
                 q, k, v, comp_k, comp_v, comp_k_s, comp_v_s, start_blocks,
                 **kw)
-        qkv, comp, sc, shift = self._chunk_specs(q, block_size)
+        qs, kvs, comp, sc, shift = self._chunk_specs(q, block_size)
         start_blocks = kernel_ops._start_blocks(start_blocks, q)
 
         def body(q_l, k_l, v_l, ck_l, cv_l, cks_l, cvs_l, sb_l):
             return kernel_ops.fused_chunk_prefill_attention_q(
                 q_l, k_l, v_l, ck_l, cv_l, cks_l, cvs_l, sb_l + shift, **kw)
 
-        return self._smap(body, (qkv,) * 3 + (comp, comp, sc, sc, qkv[:1]),
-                          qkv)(q, k, v, comp_k, comp_v, comp_k_s, comp_v_s,
-                               start_blocks)
+        return self._smap(body, (qs, kvs, kvs, comp, comp, sc, sc, qs[:1]),
+                          qs)(q, k, v, comp_k, comp_v, comp_k_s, comp_v_s,
+                              start_blocks)
+
+    # -- cache placement ------------------------------------------------------
+
+    def cache_pspecs(self, cache: Dict) -> Dict[str, tuple]:
+        """The spec of each decode-cache leaf (JAX's rule): the KV-head
+        axis over tp at nd-2, scale leaves (``*_s``, head axis last) on
+        their last axis, ``lengths``, ``page_table`` and leaves of rank < 2
+        whole. Names stand for the mesh dims; a plan that does not shard
+        its pool (see shards_cache) gives every leaf whole."""
+        tp = self.tp_axis if self.shards_cache else None
+        specs = {}
+        for name, leaf in cache.items():
+            nd = len(leaf.shape)
+            parts = [None] * nd
+            if name in ("lengths", "page_table") or nd < 2:
+                pass
+            elif name.endswith("_s"):
+                parts[nd - 1] = tp
+            else:
+                parts[nd - 2] = tp
+            specs[name] = tuple(parts)
+        return specs
+
+    def place_cache(self, cache: Dict) -> Dict:
+        """A cache laid out per cache_pspecs: each leaf's local heads, as
+        tensors of their own (no-op when the plan does not shard its
+        pool)."""
+        if not self.shards_cache:
+            return cache
+        out = {}
+        for name, spec in self.cache_pspecs(cache).items():
+            x = cache[name]
+            if self.tp_axis in spec:
+                x = self.head_shard(x, spec.index(self.tp_axis)).clone()
+            out[name] = x
+        return out
+
+    def gather_cache(self, cache: Dict) -> Dict:
+        """The whole leaves of a cache laid out per cache_pspecs (the
+        inverse of place_cache; every rank calls it)."""
+        if not self.shards_cache:
+            return cache
+        return {name: (self.head_gather(cache[name],
+                                        spec.index(self.tp_axis))
+                       if self.tp_axis in spec else cache[name])
+                for name, spec in self.cache_pspecs(cache).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -456,3 +564,22 @@ def as_plan(plan: Union[AttentionPlan, str, None]) -> AttentionPlan:
     if isinstance(plan, AttentionPlan):
         return plan
     return AttentionPlan(backend=plan or "reference")
+
+
+# ---------------------------------------------------------------------------
+# Batch layout: specs for parallel/sharding.shard_activation
+# ---------------------------------------------------------------------------
+
+
+def data_batch_pspec(ctx: ParallelCtx, ndim: int) -> tuple:
+    """Batch tensors shard their leading dim over the data-like dims."""
+    return (ctx.data_axes if ctx.data_axes else None,) + (None,) * (ndim - 1)
+
+
+def local_batch(batch: Dict, ctx: Optional[ParallelCtx]) -> Dict:
+    """This rank's rows of every leaf of a global batch, per
+    data_batch_pspec (the whole batch without a mesh)."""
+    if ctx is None or ctx.mesh is None:
+        return batch
+    return {k: shard_activation(v, ctx, data_batch_pspec(ctx, v.ndim))
+            for k, v in batch.items()}

@@ -12,14 +12,40 @@ the mesh: torch compares meshes by their layout, so a mesh rebuilt after
 the process groups were destroyed and opened again equals the old one,
 while its ctx, and every plan cached on it, is a new one.
 
-The sharding rules of the JAX module (``shard_activation``, ``_rules``,
-``spec_for_path``, ``param_shardings``) come with sharded training, their
-first caller.
+The sharding rules are the JAX module's (``_rules``, ``spec_for_path``,
+``param_shardings``): a spec is a tuple with one entry per dim, None, a
+mesh dim's name or a tuple of names (the first major), JAX's
+``PartitionSpec`` as a plain tuple. The port lays a tensor out per its
+spec as a LOCAL view: each rank stores only its slice (:func:`shard_leaf`,
+:func:`shard_tree`) and makes a leaf whole where it is used
+(:func:`unshard_leaf`), through parallel/comm.py's autograd collectives:
+
+* over a dim the batch splits on (``ctx.data_axes``), all-gather; the
+  gradient is summed over those ranks, then sliced (FSDP's
+  reduce-scatter, as an all-reduce and a slice);
+* over another dim (the model dim), all-gather; the gradient is sliced
+  with no sum, since every such rank computes the same thing outside the
+  plan's regions;
+* over a data dim the leaf is not sharded on, ``comm.copy``: its gradient
+  sums over the ranks that hold other rows.
+
+A ctx with ``sharded=True`` is the training layout: every rank holds its
+rows of the batch over ``data_axes`` (:func:`shard_activation`, JAX's
+default activation spec) and its shard of each parameter and moment; the
+model entry points then gather a layer's weights inside the layer loop
+and run the plan's regions and the MoE layer on :func:`region_ctx`, whose
+data dims are excluded (JAX's ``exclude_data_axes`` mechanism), so a
+region splits over tp and sp only.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional, Tuple
+import re
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.parallel import comm
 
 DATA_AXES = ("pod", "data")
 
@@ -56,6 +82,9 @@ class ParallelCtx:
     fsdp: str = "none"
     # data-like axes left out of `data_axes`
     exclude_data_axes: Tuple[str, ...] = ()
+    # the training layout: local rows over data_axes and parameter shards
+    # per param_shardings (see the module docstring)
+    sharded: bool = False
     # the mesh's dims (mesh_axes), read once; compared in place of the mesh
     axes: Tuple[Axis, ...] = dataclasses.field(init=False, default=())
 
@@ -104,3 +133,248 @@ class ParallelCtx:
     @property
     def seq_shards(self) -> int:
         return self.width(self.seq_axis)
+
+
+def is_sharded(ctx: Optional[ParallelCtx]) -> bool:
+    """Whether `ctx` asks for the training layout on a mesh."""
+    return ctx is not None and ctx.mesh is not None and ctx.sharded
+
+
+def region_ctx(ctx: Optional[ParallelCtx]) -> Optional[ParallelCtx]:
+    """The ctx the plan's regions and the MoE layer run on: under the
+    training layout the batch is local already, so the data dims are
+    excluded; any other ctx is returned as is."""
+    if not is_sharded(ctx):
+        return ctx
+    return dataclasses.replace(ctx, exclude_data_axes=DATA_AXES,
+                               sharded=False)
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (copied from the JAX module)
+# ---------------------------------------------------------------------------
+
+Spec = Tuple[Any, ...]
+
+
+def _rules(fsdp):
+    F = fsdp if fsdp else None      # tuple of axes or None
+    return [
+        # embeddings / lm head: vocab over model, d_model over fsdp
+        (r"(^|/)embed/tok$", ("model", F)),
+        (r"(^|/)embed/pos$", (None, F)),
+        (r"(^|/)lm_head$", (F, "model")),
+        # attention projections (leading L when stacked)
+        (r"attn/wq$", (None, F, "model")),
+        (r"attn/wk$", (None, F, "model")),
+        (r"attn/wv$", (None, F, "model")),
+        (r"attn/wo$", (None, "model", F)),
+        (r"attn/b[qkv]$", (None, "model")),
+        # dense MLP
+        (r"mlp/w_in$", (None, F, "model")),
+        (r"mlp/w_gate$", (None, F, "model")),
+        (r"mlp/w_out$", (None, "model", F)),
+        # MoE: experts over model (EP), hidden over fsdp
+        (r"moe/router$", (None, F, None)),
+        (r"moe/w_in$", (None, "model", F, None)),
+        (r"moe/w_gate$", (None, "model", F, None)),
+        (r"moe/w_out$", (None, "model", None, F)),
+        # mamba2 / rwkv6 big projections
+        (r"ssm/w_in$", (None, F, "model")),
+        (r"ssm/w_out$", (None, "model", F)),
+        (r"rwkv/w_(r|k|v|g)$", (None, F, "model")),
+        (r"rwkv/w_o$", (None, "model", F)),
+        (r"rwkv/cm_w_k$", (None, F, "model")),
+        (r"rwkv/cm_w_v$", (None, "model", F)),
+        (r"rwkv/cm_w_r$", (None, F, "model")),
+        # shared (unstacked) attention/mlp block (zamba2): no L axis
+        (r"shared_block/attn/w[qkv]$", (F, "model")),
+        (r"shared_block/attn/wo$", ("model", F)),
+        (r"shared_block/mlp/w_(in|gate)$", (F, "model")),
+        (r"shared_block/mlp/w_out$", ("model", F)),
+        # linformer E/F and everything small: replicated
+    ]
+
+
+def spec_for_path(path: str, fsdp_axes: Sequence[str], ndim: int,
+                  fsdp_scope: str = "all") -> Spec:
+    """The spec of the leaf at `path` (its "/"-joined key) of rank `ndim`:
+    the first rule that matches, trimmed from the front or padded with
+    None to the rank, 1-tuples as bare names; replicated by default."""
+    fsdp = tuple(fsdp_axes) if fsdp_axes else None
+    if fsdp_scope == "moe" and not re.search(r"(^|/)(moe|embed|lm_head)",
+                                             path):
+        fsdp = None
+    for pat, spec in _rules(fsdp):
+        if re.search(pat, path):
+            parts = list(spec)
+            if len(parts) > ndim:
+                parts = parts[len(parts) - ndim:]
+            while len(parts) < ndim:
+                parts.append(None)
+            return tuple(p[0] if isinstance(p, tuple) and len(p) == 1
+                         else p for p in parts)
+    return (None,) * ndim
+
+
+def _flatten(tree: Dict, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flatten(val, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
+def _nest(flat: Dict[str, Any]) -> Dict:
+    out: Dict = {}
+    for key, val in flat.items():
+        node = out
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return out
+
+
+def leaf_spec(path: str, ndim: int, ctx: ParallelCtx) -> Spec:
+    return spec_for_path(path, ctx.fsdp_axes, ndim, ctx.fsdp_scope)
+
+
+def param_shardings(params: Dict, ctx: ParallelCtx) -> Dict:
+    """The spec of every leaf of `params` (a nested dict of tensors, or of
+    anything with ``ndim`` or ``shape``), as a nested dict of the same
+    structure."""
+    return _nest({k: leaf_spec(k, len(v.shape), ctx)
+                  for k, v in _flatten(params).items()})
+
+
+def _names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _live(ctx: ParallelCtx, names) -> Tuple[Axis, ...]:
+    return tuple(a for a in (ctx.axis(n) for n in names)
+                 if a is not None and a.width > 1)
+
+
+def sharded_axes(spec: Spec, ctx: ParallelCtx) -> Tuple[Axis, ...]:
+    """The mesh dims wider than 1 that `spec` splits a tensor over."""
+    return tuple(a for entry in spec for a in _live(ctx, _names(entry)))
+
+
+def shard_slices(shape, spec: Spec, ctx: ParallelCtx) -> Tuple[slice, ...]:
+    """The index of this rank's slice of a `shape` tensor laid out per
+    `spec`; raises when a dim does not split evenly."""
+    out = []
+    for dim, (n, entry) in enumerate(zip(shape, spec)):
+        axes = _live(ctx, _names(entry))
+        w = comm.flat_width(axes)
+        if n % w != 0:
+            raise ValueError(f"dim {dim} of size {n} does not split over "
+                             f"{w} shards")
+        m = n // w
+        out.append(slice(comm.flat_coord(axes) * m,
+                         (comm.flat_coord(axes) + 1) * m))
+    return tuple(out)
+
+
+def shard_leaf(x: torch.Tensor, spec: Spec, ctx: ParallelCtx
+               ) -> torch.Tensor:
+    """This rank's slice of the whole tensor `x` per `spec`, as a tensor
+    of its own (the whole one can be freed)."""
+    y = x.detach()[shard_slices(x.shape, spec, ctx)]
+    return y.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree: Dict, ctx: ParallelCtx) -> Dict:
+    """Every leaf of `tree` (parameters, or moments keyed like them)
+    replaced by this rank's shard per `param_shardings`."""
+    return _nest({k: shard_leaf(v, leaf_spec(k, v.ndim, ctx), ctx)
+                  for k, v in _flatten(tree).items()})
+
+
+def unshard_leaf(x: torch.Tensor, spec: Spec, ctx: ParallelCtx,
+                 keep: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The whole tensor from this rank's shard `x` (laid out per `spec`),
+    differentiable with the gradient rules of the module docstring. The
+    mesh dims named in `keep` stay sharded (MoE expert stacks under
+    expert parallelism stay on their model shard)."""
+    summed = ctx.data_axes
+    used = set()
+    for dim, entry in enumerate(spec):
+        for name in reversed(_names(entry)):
+            used.add(name)
+            a = ctx.axis(name)
+            if a is None or a.width == 1 or name in keep:
+                continue
+            if name in summed:
+                x = comm.all_gather_tiled(x, dim, a)
+            else:
+                x = comm.gather(x, dim, (a,))
+    return comm.copy(x, [ctx.axis(n) for n in summed if n not in used])
+
+
+def unshard_tree(tree: Dict, ctx: ParallelCtx, prefix: str = "",
+                 drop: int = 0, keep_for=None) -> Dict:
+    """`unshard_leaf` of every leaf of `tree`, whose keys sit under
+    `prefix` in the parameter tree; `drop` leading spec entries are
+    left out (a layer's views of layer-stacked leaves drop the layer
+    axis). `keep_for(key)` names the dims a leaf keeps sharded."""
+    out = {}
+    for k, v in _flatten(tree).items():
+        spec = leaf_spec(prefix + k, v.ndim + drop, ctx)[drop:]
+        out[k] = unshard_leaf(v, spec, ctx,
+                              keep_for(k) if keep_for else ())
+    return _nest(out)
+
+
+def sharded_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                   ctx: ParallelCtx, path: str = "embed/tok"
+                   ) -> torch.Tensor:
+    """Rows `tokens` (this rank's, over the data dims) of an embedding
+    table stored as this rank's shard per its spec (vocab over the model
+    dim, d_model over the fsdp dims), without making the table whole: the
+    data ranks' tokens are all-gathered, each rank looks up the ones in its
+    vocab slice for its d_model slice, the parts are summed over the model
+    dim (``comm.reduce``: every model rank then computes alike) and
+    gathered over the fsdp dims (``comm.all_gather_tiled``: the gradient
+    of a rank's slice sums every data rank's tokens), and this rank keeps
+    its own rows. The value and gradient are those of a lookup in the
+    whole table; the bytes moved are the looked-up rows, not the table."""
+    spec = leaf_spec(path, table.ndim, ctx)
+    vocab, cols = _live(ctx, _names(spec[0])), _live(ctx, _names(spec[1]))
+    data = [ctx.axis(n) for n in ctx.data_axes]
+    # a data dim the table is not split on sums its gradient (as in
+    # unshard_leaf): its ranks look up other rows
+    table = comm.copy(table, [a for a in data if a not in cols])
+    shape = tokens.shape
+    toks = tokens.reshape(-1).long()
+    for a in reversed(_live(ctx, ctx.data_axes)):     # the first major
+        toks = comm.all_gather_stack(toks, a).reshape(-1)
+    rows = table.shape[0]
+    local = toks - comm.flat_coord(vocab) * rows
+    hit = (local >= 0) & (local < rows)
+    part = table[local.clamp(0, rows - 1)] * hit[:, None].to(table.dtype)
+    x = comm.reduce(part, vocab)
+    for a in reversed(cols):
+        x = comm.all_gather_tiled(x, 1, a)
+    n = toks.shape[0] // comm.flat_width(data)
+    x = x.narrow(0, comm.flat_coord(data) * n, n)
+    return x.reshape(*shape, x.shape[-1])
+
+
+def shard_activation(x: torch.Tensor, ctx: Optional[ParallelCtx],
+                     spec: Optional[Spec] = None) -> torch.Tensor:
+    """This rank's view of an input laid out per `spec` (default: the
+    batch over the data dims, the rest whole), a view of `x`; no-op
+    without a mesh. JAX constrains a global array's layout; the port
+    takes the local slice of a tensor every rank holds whole."""
+    if ctx is None or ctx.mesh is None:
+        return x
+    if spec is None:
+        spec = (ctx.data_axes or None,) + (None,) * (x.ndim - 1)
+    return x[shard_slices(x.shape, spec, ctx)]

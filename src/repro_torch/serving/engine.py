@@ -56,6 +56,17 @@ alone: `serve` falls back to the static bucketed path for them
 scheduler offers. Their prompts prefill whole through one forward where
 the admission block is 1 (rwkv6: no attention) and as whole Linformer
 blocks plus decode steps for the rest (zamba2's shared block, c = 256).
+
+On a mesh (`ctx`, a ParallelCtx over torch.distributed ranks) the plan is
+resolved on the ctx and every pool the engine builds or restores is laid
+out per the plan's ``cache_pspecs`` (``place_cache``): on a tp mesh each
+rank holds its KV heads of every leaf, and the cache writers write this
+rank's heads. Rows stay whole on every rank and every rank runs the same
+host scheduler on the same tokens; the parameters are whole on every
+rank. `snapshot_pool_rows` gathers the heads, so a snapshot's bytes and
+CRC32 are the single-device ones, and a restore keeps this rank's heads
+of them. The standard baseline's full cache stays whole (its decode runs
+outside the plan).
 """
 from __future__ import annotations
 
@@ -125,6 +136,7 @@ class ServingEngine:
         arena_pages: Optional[int] = None,
         page_dtype: str = "int8",
         telemetry=None,
+        ctx=None,
     ):
         self.device = resolve_device(device)
         if cfg.embedding_inputs or cfg.frontend_embed_len > 0:
@@ -135,7 +147,8 @@ class ServingEngine:
                 "embeddings instead")
         if attention_backend is not None:
             cfg = cfg.with_attention_backend(attention_backend)
-        self.plan = resolve_attention_plan(cfg.attention)
+        self.plan = resolve_attention_plan(cfg.attention, ctx)
+        self.ctx = ctx
         self.params = params
         self.cfg = cfg
         self.max_seq = max_seq
@@ -283,17 +296,17 @@ class ServingEngine:
             cache = model_lib.init_cache(self.cfg, batch=B,
                                          max_seq=self.max_seq,
                                          dtype=self.cache_dtype,
-                                         device=self.device)
+                                         device=self.device, plan=self.plan)
         else:
             logits_all, _, cache = model_lib.forward(
                 self.params, self.cfg, {"tokens": toks[:, :nfull]},
                 return_cache=True, cache_max_seq=self.max_seq,
-                cache_dtype=self.cache_dtype, plan=self.plan)
+                cache_dtype=self.cache_dtype, plan=self.plan, ctx=self.ctx)
             logits = logits_all[:, -1]
         for t in range(nfull, S):
             logits_t, cache = model_lib.decode_step(
                 self.params, self.cfg, toks[:, t:t + 1], cache,
-                plan=self.plan)
+                plan=self.plan, ctx=self.ctx)
             logits = logits_t[:, 0]
         return cache, logits
 
@@ -316,7 +329,7 @@ class ServingEngine:
         return model_lib.decode_scan(
             self.params, self.cfg, cur, finished, cache, n_steps=n,
             eos_id=EOS, temperature=self.temperature, generator=generator,
-            plan=self.plan)
+            plan=self.plan, ctx=self.ctx)
 
     # -- slot-pool surface (consumed by serving/scheduler.py) -------------
 
@@ -332,18 +345,18 @@ class ServingEngine:
         slack = self.prefill_chunk           # 0 in monolithic mode
         if self.paged:
             a = self.cfg.attention
-            return cache_lib.init_paged_cache(
+            return self.plan.place_cache(cache_lib.init_paged_cache(
                 device=self.device, num_layers=self.cfg.num_layers,
                 batch=max_batch, max_seq=self.max_seq + slack,
                 block_size=a.linformer.block_size,
                 block_slots=a.linformer.block_slots,
                 num_kv_heads=a.num_kv_heads, head_dim=a.head_dim,
                 arena_pages=self.resolved_arena_pages(max_batch),
-                page_dtype=self.page_dtype)
+                page_dtype=self.page_dtype))
         return model_lib.init_cache(self.cfg, batch=max_batch,
                                     max_seq=self.max_seq + slack,
                                     dtype=self.cache_dtype,
-                                    device=self.device)
+                                    device=self.device, plan=self.plan)
 
     @staticmethod
     def write_pool_slot(pool: Dict, slot_cache: Dict, row: int) -> Dict:
@@ -421,7 +434,7 @@ class ServingEngine:
             self.params, self.cfg,
             torch.as_tensor(np.asarray(tokens, np.int64), device=self.device),
             sub, torch.as_tensor(np.asarray(n_valid), device=self.device),
-            plan=self.plan)
+            plan=self.plan, ctx=self.ctx)
         self._scatter_rows(pool, sub, rows)
         return pool, logits[:g]
 
@@ -443,7 +456,7 @@ class ServingEngine:
         for t in range(toks.shape[1]):
             lg, sub = model_lib.decode_step(self.params, self.cfg,
                                             toks[:, t:t + 1], sub,
-                                            plan=self.plan)
+                                            plan=self.plan, ctx=self.ctx)
             logits = lg[:, 0]
         self._scatter_rows(pool, sub, rows)
         return pool, logits[:g]
@@ -542,10 +555,13 @@ class ServingEngine:
         to the host; the pool is not touched. Dense: views of the rows
         (O(c + M) per row). Paged: the ring, counters and the row's
         committed pages (`lengths // c`, gathered through its table), so a
-        snapshot holds no bytes of unallocated table entries."""
+        snapshot holds no bytes of unallocated table entries. On a tp mesh
+        each row's heads are gathered (every rank calls this), so the
+        snapshot is the single-device one."""
         if not self.paged:
-            return [{k: (v[row:row + 1] if k == "lengths"
-                         else v[:, row:row + 1]) for k, v in pool.items()}
+            return [self._whole_heads({k: (v[row:row + 1] if k == "lengths"
+                                           else v[:, row:row + 1])
+                                       for k, v in pool.items()})
                     for row in rows]
         sub = self._gather_rows_paged(
             pool, torch.as_tensor(list(rows), device=self.device))
@@ -553,10 +569,30 @@ class ServingEngine:
         npv = (sub["lengths"] // c).tolist()
         out = []
         for j in range(len(rows)):
-            out.append({k: (v[j:j + 1] if k == "lengths" else
-                            v[:, j, :npv[j]] if k.startswith("pages_") else
-                            v[:, j:j + 1]) for k, v in sub.items()})
+            out.append(self._whole_heads(
+                {k: (v[j:j + 1] if k == "lengths" else
+                     v[:, j, :npv[j]] if k.startswith("pages_") else
+                     v[:, j:j + 1]) for k, v in sub.items()}))
         return out
+
+    def _whole_heads(self, rows: Dict) -> Dict:
+        """Row leaves of a pool laid out per cache_pspecs, whole."""
+        if not self.plan.shards_cache or not self._placed:
+            return rows
+        return self.plan.gather_cache(rows)
+
+    def _local_heads(self, rows: Dict) -> Dict:
+        """Whole row leaves (a snapshot's), cut to this rank's heads."""
+        if not self.plan.shards_cache or not self._placed:
+            return rows
+        return self.plan.place_cache({k: v.to(self.device)
+                                      for k, v in rows.items()})
+
+    @property
+    def _placed(self) -> bool:
+        """Whether the pool is laid out per cache_pspecs: the compressed
+        cache is, the standard baseline's full cache is not."""
+        return self.cfg.attention.kind == "linformer_causal"
 
     @staticmethod
     def _gather_rows_paged(pool: Dict, idx: torch.Tensor) -> Dict:
@@ -577,6 +613,7 @@ class ServingEngine:
     def restore_pool_rows(self, pool: Dict, sub: Dict, row: int) -> Dict:
         """Write a dense snapshot's B=1 sub-cache back into pool row `row`,
         in place: the byte-exact inverse of `snapshot_pool_rows`."""
+        sub = self._local_heads(sub)
         for k, v in pool.items():
             src = sub[k].to(device=v.device, dtype=v.dtype)
             if k == "lengths":
@@ -594,6 +631,7 @@ class ServingEngine:
         pages only through the table, so the resumed math is the same.
         Past the pages, zero pages land in TRASH, as in JAX."""
         npv = len(page_ids)
+        sub = self._local_heads(sub)
         for k, v in sub.items():
             if k.startswith("pages_") and v.shape[1] != npv:
                 raise ValueError(f"snapshot holds {v.shape[1]} pages in {k} "
@@ -737,7 +775,8 @@ class ServingEngine:
                 outs[:, i + 1:] = EOS
                 break
             logits_t, cache = model_lib.decode_step(
-                self.params, self.cfg, cur[:, None], cache, plan=self.plan)
+                self.params, self.cfg, cur[:, None], cache, plan=self.plan,
+                ctx=self.ctx)
             cur = self._sample(logits_t[:, 0], generator)
         return outs
 

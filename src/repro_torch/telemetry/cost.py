@@ -29,12 +29,6 @@ from repro_torch.core.seq_parallel import (blockwise_sp_comm_bytes,
                                            seq_parallel_comm_bytes)
 from repro_torch.kernels.common import RESOLVED_BACKENDS
 
-# The single-device plan's mesh: no tensor or sequence parallelism, no
-# batch axes inside a manual region (the multi-GPU slice fills these in).
-_TP = _SP = 1
-_DATA_AXES = ()
-
-
 def exact_attention_flops(batch: int, seq: int, acfg: AttentionConfig) -> int:
     """Exact Linformer form: project K/V to k slots (2 projections), then
     QK̄^T + P·V̄ over the k compressed slots."""
@@ -87,20 +81,21 @@ def plan_attribution(plan, acfg: AttentionConfig, *, max_seq: int,
     lin = acfg.linformer
     d_total = acfg.num_kv_heads * acfg.head_dim
     backend = RESOLVED_BACKENDS[plan.backend]
-    sp = _SP
+    sp = plan.sp
     lin_bytes, ring_bytes = blockwise_sp_comm_bytes(
         max_seq, lin.block_size, lin.block_slots, d_total, max(sp, 2))
     exact_lin, exact_ring = seq_parallel_comm_bytes(
         max_seq, lin.k, d_total, max(sp, 2))
     chunk = prefill_chunk or lin.block_size
 
-    def form(name: str, *, flops: int, comm_bytes: int) -> Dict:
+    def form(name: str, *, flops: int, comm_bytes: int,
+             sharded_seq: bool = True) -> Dict:
         return {
             "form": name,
             "backend": backend,
-            "manual": False,
-            "tp_axis": None,
-            "sp_axis": None,
+            "manual": bool(plan.manual),
+            "tp_axis": plan.tp_axis if plan.tp > 1 else None,
+            "sp_axis": plan.sp_axis if (sp > 1 and sharded_seq) else None,
             "est_flops": int(flops),
             "comm_bytes_per_device": int(comm_bytes if sp > 1 else 0),
         }
@@ -110,9 +105,9 @@ def plan_attribution(plan, acfg: AttentionConfig, *, max_seq: int,
         "attention_kind": acfg.kind,
         "backend": backend,
         "backward_impl": plan.backward_impl,
-        "tp": _TP,
+        "tp": plan.tp,
         "sp": sp,
-        "data_axes": list(_DATA_AXES),
+        "data_axes": list(plan.data_axes),
         "batch": batch,
         "max_seq": max_seq,
         "block_size": lin.block_size,
@@ -134,7 +129,7 @@ def plan_attribution(plan, acfg: AttentionConfig, *, max_seq: int,
                  flops=chunk_prefill_flops(batch, chunk, max_seq, acfg),
                  comm_bytes=lin_bytes),
             # decode is head-parallel only: no sequence communication
-            form("decode",
+            form("decode", sharded_seq=False,
                  flops=decode_token_flops(batch, max_seq, acfg),
                  comm_bytes=0),
         ],

@@ -2,21 +2,34 @@
 fp32), checkpoint/auto-resume fault tolerance, preemption handling and a
 straggler watchdog.
 
-Counterpart of ``repro/train/trainer.py`` on one device, its telemetry
-included (a `train_step` span and JSONL record per step, the plan's cost
-attribution): no mesh and no compressed cross-pod gradients (those come
-with the multi-GPU slice).
+Counterpart of ``repro/train/trainer.py``, its telemetry included (a
+`train_step` span and JSONL record per step, the plan's cost attribution).
 The step is eager PyTorch: forward, ``torch.autograd.grad``, global-norm
 clip, AdamW in place.
+
+On a mesh (``ctx``, a ParallelCtx over torch.distributed ranks) the step
+runs the training layout of parallel/sharding.py: every rank draws the
+same global batch and keeps its rows over the data dims; the parameters
+and both moments are stored as each rank's shard per ``param_shardings``
+(``Trainer._place``), made whole a layer at a time where the model uses
+them. A checkpoint holds whole leaves in the JAX package's npz layout:
+each leaf is gathered and rank 0 writes it, behind a barrier; a restore
+reads the whole checkpoint leaf by leaf and keeps this mesh's shards, so
+a run resumes on another mesh (elastic restart). With
+``compressed_pod_grads`` on a mesh with a "pod" dim the step is
+train/compressed_dp.py's, and the per-rank error-feedback residual is
+checkpointed in JAX's (n_pods, ...) layout.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, OptimizerConfig, TrainConfig
@@ -26,25 +39,44 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.transformer import flatten, nest
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                make_schedule)
+from repro_torch.parallel import comm
 from repro_torch.parallel import plan as plan_lib
+from repro_torch.parallel import sharding as shd
+from repro_torch.train import compressed_dp
 from repro_torch.telemetry import MS_BUCKETS, as_telemetry, plan_attribution
 
 log = logging.getLogger("repro_torch.train")
 
 
+def training_ctx(ctx):
+    """`ctx` in the training layout (None without a mesh)."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    return dataclasses.replace(ctx, sharded=True)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                     microbatch: int = 0,
-                    plan: Optional[plan_lib.AttentionPlan] = None
-                    ) -> Callable:
+                    plan: Optional[plan_lib.AttentionPlan] = None,
+                    ctx=None) -> Callable:
     """Build the train step: (params, opt_state, batch) -> (params,
     opt_state, metrics). `params` leaves must require grad; they and the
     moments are updated in place. With microbatch > 0 the global batch is
     split and the gradients accumulated in fp32, each micro-gradient
-    divided by the number of microbatches."""
+    divided by the number of microbatches. On a mesh (`ctx`) `params` and
+    the moments are this rank's shards and `batch` is the global batch:
+    microbatch i is global rows [i·mb, (i+1)·mb), of which the step keeps
+    this rank's rows over the data dims."""
     sched = make_schedule(opt_cfg)
+    ctx = training_ctx(ctx)
+    if plan is None:
+        plan = plan_lib.resolve_attention_plan(cfg.attention,
+                                               shd.region_ctx(ctx))
 
     def grads_of(params, batch):
-        loss, metrics = model_lib.loss_fn(params, cfg, batch, plan=plan)
+        loss, metrics = model_lib.loss_fn(
+            params, cfg, plan_lib.local_batch(batch, ctx), plan=plan,
+            ctx=ctx)
         leaves = flatten(params)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
@@ -77,7 +109,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
 
     def train_step(params, opt_state, batch):
         grads, metrics = compute_grads(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip, ctx)
         lr = sched(opt_state["step"])
         params, opt_state = adamw_update(grads, opt_state, params, opt_cfg,
                                          lr)
@@ -99,6 +131,7 @@ class Trainer:
     * straggler watchdog: logs steps slower than 2× the running median.
 
     ``checkpoint_every <= 0`` turns checkpoints off (no resume, no saves).
+    `ctx` puts the run on a mesh (see the module docstring).
     The run's per-step records (loss, the MoE aux loss, grad norm, ms,
     tokens/s) are kept in ``history``. Runs on CUDA unless `device` says otherwise.
     `telemetry` (a `Telemetry`; None is the disabled no-op) gets a
@@ -112,7 +145,7 @@ class Trainer:
                  log_fn: Optional[Callable[[str], None]] = None,
                  attention_backend: Optional[str] = None,
                  backward_impl: Optional[str] = None,
-                 telemetry=None):
+                 telemetry=None, ctx=None):
         # attention_backend / backward_impl override the config's knobs for
         # this run (None keeps them); the plan validates both here, before
         # the first step.
@@ -125,11 +158,12 @@ class Trainer:
                 f"config {cfg.name!r}: the Trainer's synthetic corpus yields "
                 "token batches only; train a frontend config through "
                 "make_train_step with a batch holding its embeddings")
-        if tcfg.compressed_pod_grads:
-            raise ValueError("compressed_pod_grads needs a multi-GPU mesh, "
-                             "which the port does not have yet")
         self.device = resolve_device(device)
-        self.plan = plan_lib.resolve_attention_plan(cfg.attention)
+        self.ctx = training_ctx(ctx)
+        self.plan = plan_lib.resolve_attention_plan(
+            cfg.attention, shd.region_ctx(self.ctx))
+        self.compressed = bool(tcfg.compressed_pod_grads and self.ctx
+                               is not None and self.ctx.has_pod_axis)
         self.cfg = cfg
         self.tcfg = tcfg
         self.preempt_check = preempt_check or (lambda: False)
@@ -144,38 +178,114 @@ class Trainer:
                                    max_seq=tcfg.seq_len,
                                    batch=tcfg.global_batch)
             self.telemetry.record(rec.pop("kind"), **rec)
-        self.train_step = make_train_step(cfg, tcfg.optimizer,
-                                          microbatch=tcfg.microbatch,
-                                          plan=self.plan)
+        if self.compressed:
+            self.train_step = compressed_dp.make_compressed_train_step(
+                cfg, tcfg.optimizer, self.ctx)
+        else:
+            self.train_step = make_train_step(cfg, tcfg.optimizer,
+                                              microbatch=tcfg.microbatch,
+                                              plan=self.plan, ctx=self.ctx)
+        self._residual = None
 
     # -- state --------------------------------------------------------------
 
+    @property
+    def _rank0(self) -> bool:
+        return self.ctx is None or dist.get_rank() == 0
+
+    def _place(self, params):
+        """On a mesh, this rank's shard of each parameter (the moments are
+        then made on the shards; a restore cuts each whole leaf it reads to
+        the current mesh's shards, `_local_array`)."""
+        if self.ctx is None:
+            return params
+        return shd.shard_tree(params, self.ctx)
+
     def init_state(self):
-        params = model_lib.init_params(self.cfg, seed=self.tcfg.seed,
-                                       device=self.device)
+        params = self._place(model_lib.init_params(
+            self.cfg, seed=self.tcfg.seed, device=self.device))
+        opt_state = adamw_init(params, self.tcfg.optimizer)
         for p in flatten(params).values():
             p.requires_grad_(True)
-        opt_state = adamw_init(params, self.tcfg.optimizer)
+        if self.compressed:
+            self._residual = compressed_dp.init_local_residual(params)
         return params, opt_state, DataState(self.tcfg.seed, 0)
+
+    def _local_array(self, name: str, key: str, arr: np.ndarray):
+        """A checkpoint leaf (whole, as saved; a memory map when large) cut
+        to this rank's shard: moments by their parameter's spec, the
+        residual's own pod first. Only the shard is copied."""
+        if self.ctx is None or (name == "opt_state" and key == "step"):
+            return arr
+        path = key.split("/", 1)[1] if name == "opt_state" else key
+        if name == "residual":
+            arr = arr[self.ctx.axis("pod").coord]
+        spec = shd.leaf_spec(path, arr.ndim, self.ctx)
+        return np.ascontiguousarray(
+            arr[shd.shard_slices(arr.shape, spec, self.ctx)])
 
     def restore_or_init(self):
         params, opt_state, dstate = self.init_state()
         latest = self.ckpt.latest_step() if self.ckpt else None
         if latest is None:
             return params, opt_state, dstate, 0
-        restored, meta = self.ckpt.restore(
-            latest, {"params": params, "opt_state": opt_state})
+        tmpl = {"params": params, "opt_state": opt_state}
+        if self.compressed:
+            tmpl["residual"] = self._residual
+        restored, meta = self.ckpt.restore(latest, tmpl,
+                                           transform=self._local_array)
         params, opt_state = restored["params"], restored["opt_state"]
+        if self.compressed:
+            self._residual = restored["residual"]
         for p in flatten(params).values():
             p.requires_grad_(True)
         self.log(f"[trainer] resumed from step {latest}")
         return params, opt_state, DataState.from_dict(meta["data_state"]), \
             latest
 
+    @torch.no_grad()
+    def _whole(self, tree: Dict) -> Dict:
+        """The whole leaves of a tree of shards (parameters, or moments
+        keyed like them), a leaf at a time, on the host of rank 0 (an empty
+        tree elsewhere)."""
+        out = {}
+        for k, v in flatten(tree).items():
+            spec = shd.leaf_spec(k, v.ndim, self.ctx)
+            x = shd.unshard_leaf(v, spec, self.ctx)
+            if self._rank0:
+                out[k] = x.cpu()
+        return nest(out)
+
+    @torch.no_grad()
+    def _whole_residual(self) -> Dict:
+        """The residual in JAX's (n_pods, ...) layout, on rank 0's host."""
+        pod = self.ctx.axis("pod")
+        out = {}
+        for k, v in flatten(self._residual).items():
+            spec = shd.leaf_spec(k, v.ndim, self.ctx)
+            x = comm.all_gather_stack(shd.unshard_leaf(v, spec, self.ctx),
+                                      pod)
+            if self._rank0:
+                out[k] = x.cpu()
+        return nest(out)
+
     def save(self, step, params, opt_state, dstate):
-        if self.ckpt is not None:
-            self.ckpt.save(step, {"params": params, "opt_state": opt_state},
+        if self.ckpt is None:
+            return
+        if self.ctx is None:
+            state = {"params": params, "opt_state": opt_state}
+        else:
+            state = {"params": self._whole(params),
+                     "opt_state": {"mu": self._whole(opt_state["mu"]),
+                                   "nu": self._whole(opt_state["nu"]),
+                                   "step": opt_state["step"]}}
+        if self.compressed:
+            state["residual"] = self._whole_residual()
+        if self._rank0:
+            self.ckpt.save(step, state,
                            metadata={"data_state": dstate.to_dict()})
+        if self.ctx is not None:
+            dist.barrier()
 
     # -- loop ---------------------------------------------------------------
 
@@ -195,8 +305,13 @@ class Trainer:
             sync()
             t0 = time.perf_counter()
             with self.telemetry.span("train_step", cat="trainer", step=step):
-                params, opt_state, metrics = self.train_step(
-                    params, opt_state, batch)
+                if self.compressed:
+                    params, opt_state, self._residual, metrics = \
+                        self.train_step(params, opt_state, self._residual,
+                                        batch)
+                else:
+                    params, opt_state, metrics = self.train_step(
+                        params, opt_state, batch)
                 # float() is the step's host sync: inside the span and the
                 # time, so both cover the device work
                 metrics = {k: float(v) for k, v in metrics.items()}

@@ -43,6 +43,17 @@ STARTS = [0, 2, 5]            # per-row start blocks
 M_SLOTS = 40                  # > (5 + 2)·4 = 28 needed: a slot buffer with slack
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port while this module runs: its
+    SMOKE-sized ops gain nothing from more, and under the test run's
+    parallel workers more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 

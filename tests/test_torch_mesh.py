@@ -255,23 +255,35 @@ def test_reference_plan_opens_no_region():
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
 def test_ssm_and_hybrid_refuse_a_mesh_ctx(arch):
-    """Their activations wait for sharded training: forward, loss and
-    decode refuse a ctx with a mesh before touching the inputs; a ctx
-    without one is accepted as no ctx."""
+    """They refused a mesh ctx until sharded training came; now they take
+    one: forward, loss and decode under a ctx whose mesh dims are all 1
+    wide (no collective runs) equal the single-device ones, and so does
+    forward under a ctx without a mesh. Their multi-rank runs are
+    tests/test_torch_train_mesh.py's."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as tmodel
     cfg = get_smoke_config(arch)
-    ctx = ParallelCtx(mesh=TorchMesh(("data", "model"), (1, 2)))
-    with pytest.raises(ValueError, match="item 1.3"):
-        tmodel.forward({}, cfg, {}, ctx=ctx)
-    with pytest.raises(ValueError, match="item 1.3"):
-        tmodel.loss_fn({}, cfg, {"labels": None, "loss_mask":
-                                 torch.ones(1)}, ctx=ctx)
-    with pytest.raises(ValueError, match="item 1.3"):
-        tmodel.decode_step({}, cfg, None, {}, ctx=ctx)
     params = tmodel.init_params(cfg, seed=0, device="cpu")
     toks = torch.zeros(1, 16, dtype=torch.long)
+    batch = {"tokens": toks, "labels": toks,
+             "loss_mask": torch.ones(1, 16, dtype=torch.int32)}
     want, _, _ = tmodel.forward(params, cfg, {"tokens": toks})
-    got, _, _ = tmodel.forward(params, cfg, {"tokens": toks},
-                               ctx=ParallelCtx())
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    want_loss, _ = tmodel.loss_fn(params, cfg, batch)
+    cache = tmodel.init_cache(cfg, batch=1, max_seq=32, device="cpu")
+
+    def fresh(c):
+        return {k: fresh(v) if isinstance(v, dict) else v.clone()
+                for k, v in c.items()}
+
+    want_step, _ = tmodel.decode_step(params, cfg, toks[:, :1], fresh(cache))
+    for ctx in (ParallelCtx(mesh=TorchMesh(("data", "model"), (1, 1))),
+                ParallelCtx(mesh=TorchMesh(("data", "model"), (1, 1)),
+                            sharded=True),
+                ParallelCtx()):
+        got, _, _ = tmodel.forward(params, cfg, {"tokens": toks}, ctx=ctx)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        loss, _ = tmodel.loss_fn(params, cfg, batch, ctx=ctx)
+        torch.testing.assert_close(loss, want_loss, rtol=0, atol=0)
+        step, _ = tmodel.decode_step(params, cfg, toks[:, :1], fresh(cache),
+                                     ctx=ctx)
+        torch.testing.assert_close(step, want_step, rtol=0, atol=0)

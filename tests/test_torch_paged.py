@@ -45,6 +45,17 @@ M_SLOTS = MAXP * R
 NP = B * MAXP + 1                    # + TRASH
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port while this module runs: its
+    SMOKE-sized ops gain nothing from more, and under the test run's
+    parallel workers more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 

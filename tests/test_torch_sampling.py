@@ -33,6 +33,17 @@ DECODE_CHUNK = 4
 N_DRAWS = 20000
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for the port while this module runs: its
+    SMOKE-sized ops gain nothing from more, and under the test run's
+    parallel workers more threads only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg_j = dataclasses.replace(jax_smoke_config("qwen3-8b"),
@@ -48,6 +59,16 @@ def setup():
     prompts = [list(map(int, rng.integers(4, 512, n)))
                for n in (9, 16, 19, 35, 40)]
     return cfg_j, params_j, cfg_t, params_t, prompts
+
+
+@pytest.fixture(scope="module")
+def jax_logits(setup):
+    """JAX's last-token prefill logits of prompt 3 (the distribution
+    cases' common reference: the temperature enters only their softmax)."""
+    cfg_j, params_j, _, _, prompts = setup
+    jeng = JaxEngine(params_j, cfg_j, max_seq=MAX_SEQ,
+                     cache_dtype=jnp.float32, decode_chunk=DECODE_CHUNK)
+    return jeng.prefill(np.asarray([prompts[3]], np.int32))[1]
 
 
 def _engine(setup, **kw):
@@ -80,15 +101,13 @@ def test_greedy_serve_unchanged_as_in_jax(setup):
 
 
 @pytest.mark.parametrize("temperature", [0.8, 1.5])
-def test_sampler_matches_jax_distribution(setup, temperature):
+def test_sampler_matches_jax_distribution(setup, jax_logits, temperature):
     """20000 Gumbel-max draws from the port's last-token logits of a prompt
     against JAX's softmax(logits / T) of the same bridged model's logits:
     chi-square over bins of expected count >= 5."""
-    cfg_j, params_j, _, _, prompts = setup
+    *_, prompts = setup
     toks = np.asarray([prompts[3]], np.int32)
-    jeng = JaxEngine(params_j, cfg_j, max_seq=MAX_SEQ,
-                     cache_dtype=jnp.float32, decode_chunk=DECODE_CHUNK)
-    _, jlogits = jeng.prefill(toks)
+    jlogits = jax_logits
     probs = np.asarray(jax.nn.softmax(jlogits[0] / temperature),
                        np.float64)
     eng = _engine(setup, temperature=temperature)

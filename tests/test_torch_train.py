@@ -416,9 +416,13 @@ def test_trainer_without_checkpoints_writes_nothing(smoke, tmp_path):
     tr = Trainer(cfg_t, tcfg, device="cpu")
     tr.run()
     assert tr.ckpt is None and not os.path.exists(tcfg.checkpoint_dir)
-    with pytest.raises(ValueError, match="compressed_pod_grads"):
-        Trainer(cfg_t, dataclasses.replace(tcfg, compressed_pod_grads=True),
-                device="cpu")
+    # compressed_pod_grads takes effect on a mesh with a pod dim only (as in
+    # JAX, tests/test_torch_train_mesh.py); without one the step is plain
+    tr = Trainer(cfg_t, dataclasses.replace(tcfg, compressed_pod_grads=True),
+                 device="cpu")
+    assert not tr.compressed
+    assert tr.run()["loss"] == pytest.approx(
+        Trainer(cfg_t, tcfg, device="cpu").run()["loss"], abs=0)
 
 
 def test_launcher_trains_on_the_cpu(tmp_path):
@@ -489,3 +493,28 @@ def test_watchdog_flags_a_straggler(smoke, tmp_path):
     assert logs == []
     tr._watchdog(7, 0.25)
     assert len(logs) == 1 and "straggler" in logs[0]
+
+
+def test_restore_reads_large_leaves_through_memory_maps(tmp_path):
+    """A leaf above the memory-map threshold restores equal to the saved
+    one, whole or through a transform that keeps a slice (a rank's shard,
+    as the Trainer's restore on a mesh): the transform sees an np.memmap
+    and only the slice is copied; small leaves are read whole."""
+    w = torch.arange(300_000, dtype=torch.float32).reshape(600, 500)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(1, {"params": {"w": w, "b": torch.ones(3)}})
+    seen = {}
+
+    def cut(name, key, arr):
+        seen[key] = type(arr)
+        return np.ascontiguousarray(arr[100:200]) if key == "w" else arr
+
+    part, _ = ckpt.restore(1, {"params": {"w": torch.zeros(100, 500),
+                                          "b": torch.zeros(3)}},
+                           transform=cut)
+    assert seen["w"] is np.memmap and seen["b"] is not np.memmap
+    assert torch.equal(part["params"]["w"], w[100:200])
+    whole, _ = ckpt.restore(1, {"params": {"w": torch.zeros(600, 500),
+                                           "b": torch.zeros(3)}})
+    assert torch.equal(whole["params"]["w"], w)
+    assert torch.equal(whole["params"]["b"], torch.ones(3))

@@ -1,0 +1,331 @@
+"""Sharded training on a mesh: gloo CPU ranks against the JAX package's
+jitted single-device step.
+
+One group of 4 gloo ranks (tests/torch_mesh_ranks.py, `train_cases`) runs
+the training layout of parallel/sharding.py: each rank keeps its rows of
+the batch over the data dims and its shard of every parameter and moment
+(per JAX's `param_shardings`), and the model gathers a layer's weights
+where it uses them. The oracle is JAX on one device, in-process (JAX's own
+mesh training legs need 8 host devices in a subprocess and do not pass
+on every installation), at JAX's bounds: the loss within 1e-4 at every
+step, and after the last step every parameter within 1e-4·max(1, max|p|)
+and every first moment within 1e-4 of its leaf's largest (AdamW's update
+and the global-norm clip do not change when one leaf's gradient is
+scaled; the moment does). Cases: qwen3-8b SMOKE on data2×tp2 with fsdp "data"
+(also with microbatches and an uneven MLM-style mask, and with
+seq_shard_activations under remat "full"; and on pod2 × data2 with fsdp
+"pod_data"), qwen3-moe SMOKE with fsdp
+"experts_data" (capacity factor 8: no drops; its oracle averages the
+load-balance loss over the two data shards' rows, each shard routing its
+own tokens, as a data-sharded MoE does), zamba2 and rwkv6 SMOKE, the
+paper's encoder on sp2×tp2. The compressed cross-pod step on pod2×data2
+is held, step by step from the state the port's step starts from (its
+parameters and residual), to JAX's `compressed_pod_reduce` of JAX's
+gradients of each pod's rows: every element of the reduced gradient within
+one code (the mean scale over the number of pods) of JAX's, the pods' mean
+loss within 1e-4, and the loss within JAX's 5e-3 of the exact step over
+three steps. The
+Trainer runs the compressed step end to end with its residual checkpointed
+in JAX's (n_pods, ...) layout and resumed; a JAX single-device checkpoint
+resumes on data2×tp2, and that run's checkpoint resumes on one rank, each
+within 1e-4 of JAX's own checkpoints of the same steps (elastic restart).
+"""
+import dataclasses
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.checkpoint import Checkpointer as JCheckpointer
+from repro.configs import get_smoke_config
+from repro.configs.base import OptimizerConfig, TrainConfig
+from repro.models import model as jmodel
+from repro.optim import adamw_init, adamw_update, clip_by_global_norm, \
+    make_schedule
+from repro.optim.grad_utils import quantize_int8
+from repro.parallel.sharding import spec_for_path
+from repro.train import Trainer as JTrainer
+from repro.train.compressed_dp import compressed_pod_reduce
+from repro.train.trainer import make_train_step
+
+import torch_mesh_ranks
+
+TOL = 1e-4
+COMPRESSED_LOSS_TOL = 5e-3
+# one code of the compressed reduction, plus what the pods' two fp32
+# scales (max |g + residual| / 127 of gradients that agree to ~1e-6, not
+# bit for bit) move a sum of up to 254 codes: 254 x 4e-6 of a code
+CODE_SLACK = 1e-3
+B, S = 8, 32
+OCFG = dict(lr=1e-3, warmup_steps=0)
+WIDTHS = {"data": 2, "model": 2}
+
+
+def _smoke(arch, **kw):
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32", **kw)
+
+
+CASES = {
+    "dense": dict(cfg=_smoke("qwen3-8b"), mesh=(2,), fsdp="data",
+                  batches="causal", params="dense"),
+    "micro_mlm": dict(cfg=_smoke("qwen3-8b"), mesh=(2,), fsdp="data",
+                      batches="uneven", params="dense", microbatch=4),
+    "seq_shard": dict(cfg=_smoke("qwen3-8b", seq_shard_activations=True,
+                                 remat="full"), mesh=(2,), fsdp="data",
+                      batches="causal", params="dense", oracle="dense"),
+    "moe": dict(cfg=_smoke("qwen3-moe-30b-a3b"), mesh=(2,),
+                fsdp="experts_data", batches="causal", params="moe"),
+    "zamba": dict(cfg=_smoke("zamba2-1.2b"), mesh=(2,), fsdp="data",
+                  batches="causal", params="zamba"),
+    "rwkv": dict(cfg=_smoke("rwkv6-1.6b"), mesh=(2,), fsdp="data",
+                 batches="causal", params="rwkv"),
+    "encoder": dict(cfg=_smoke("linformer-paper"), mesh=(2, 2), fsdp="data",
+                    batches="uneven", params="encoder"),
+    "pod_data": dict(cfg=_smoke("qwen3-8b"), mesh=(2, 2, 1),
+                     names=("pod", "data", "model"), fsdp="pod_data",
+                     batches="causal", params="dense", oracle="dense"),
+}
+
+
+def _flat(tree):
+    return {"/".join(str(p.key) if hasattr(p, "key") else str(p.idx)
+                     for p in path): np.array(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _batches(vocab, uneven, n=2, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
+        mask = ((rng.random((B, S)) < 0.3) if uneven
+                else np.ones((B, S))).astype(np.int32)
+        out.append({"tokens": toks, "labels": toks, "loss_mask": mask})
+    return out
+
+
+def _jax_run(step, params, opt, batches):
+    losses, trail = [], []
+    for b in batches:
+        params, opt, m = step(params, opt, jax.tree.map(jnp.asarray, b))
+        losses.append(float(m["loss"]))
+        trail.append(_flat(params))
+    return losses, trail, _flat(opt["mu"])
+
+
+def _jax_steps(cfg, params, batches, microbatch=0):
+    ocfg = OptimizerConfig(**OCFG)
+    step = jax.jit(make_train_step(cfg, ocfg, microbatch=microbatch))
+    return _jax_run(step, params, adamw_init(params, ocfg), batches)
+
+
+def _jax_moe_steps(cfg, params, batches):
+    """JAX's step with the loss of a data2 MoE: the masked CE over the
+    whole batch, the load-balance loss averaged over the two shards'
+    forwards (each routes its own rows)."""
+    ocfg = OptimizerConfig(**OCFG)
+    sched = make_schedule(ocfg)
+
+    def loss(p, b):
+        nll = den = 0.0
+        auxes = []
+        for i in range(2):
+            part = jax.tree.map(lambda x: x[i * B // 2:(i + 1) * B // 2], b)
+            logits, aux, _ = jmodel.forward(p, cfg, part)
+            n, d = jmodel.cross_entropy(
+                logits, part["labels"], part["loss_mask"].astype(jnp.float32))
+            nll, den = nll + n, den + d
+            auxes.append(aux)
+        ce = nll / jnp.maximum(den, 1.0)
+        return ce + cfg.moe.aux_loss_weight * sum(auxes) / 2, ce
+
+    @jax.jit
+    def step(params, opt, b):
+        (_, ce), g = jax.value_and_grad(loss, has_aux=True)(params, b)
+        g, _ = clip_by_global_norm(g, ocfg.grad_clip)
+        params, opt = adamw_update(g, opt, params, ocfg, sched(opt["step"]))
+        return params, opt, {"loss": ce}
+
+    return _jax_run(step, params, adamw_init(params, ocfg), batches)
+
+
+def _unflat(flat, like):
+    """A flat {path: array} as the pytree `like`."""
+    paths = jax.tree_util.tree_flatten_with_path(like)
+    keys = ["/".join(str(p.key) if hasattr(p, "key") else str(p.idx)
+                     for p in path) for path, _ in paths[0]]
+    return jax.tree_util.tree_unflatten(
+        paths[1], [jnp.asarray(flat[k]) for k in keys])
+
+
+def _jax_compressed(cfg, like, states, batches):
+    """JAX's compressed reduction from each state the port's step started
+    from (its whole parameters and its residual in the (n_pods, ...)
+    layout): JAX's gradients of each pod's rows through
+    compressed_pod_reduce. Returns, per step, the pods' mean loss, the
+    reduced gradient and its one-code bound per leaf (the pods' mean scale
+    over the number of pods)."""
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodel.loss_fn(p, cfg, b)[0]))
+    losses, reduced, bounds = [], [], []
+    for (pflat, rflat), b in zip(states, batches):
+        params, res = _unflat(pflat, like), _unflat(rflat, like)
+        b = jax.tree.map(jnp.asarray, b)
+        pods = [grad_fn(params, jax.tree.map(
+            lambda x: x[i * B // 2:(i + 1) * B // 2], b)) for i in range(2)]
+        losses.append(float(sum(lo for lo, _ in pods)) / 2)
+        gp = jax.tree.map(lambda *x: jnp.stack(x), *(g for _, g in pods))
+        tot = jax.tree.map(lambda g, r: g + r, gp, res)
+        bounds.append({k: float(np.mean([quantize_int8(t[i])[1]
+                                         for i in range(2)])) / 2
+                       for k, t in _flat(tot).items()})
+        reduced.append(_flat(compressed_pod_reduce(gp, res, 2)[0]))
+    return losses, reduced, bounds
+
+
+def _jax_trainer_ckpts(cfg, d):
+    """JAX's single-device Trainer: 6 steps, checkpoints at 2, 4, 6."""
+    tcfg = TrainConfig(seq_len=S, global_batch=B, steps=6, log_every=99,
+                       checkpoint_every=2, checkpoint_dir=d,
+                       optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                 total_steps=20))
+    JTrainer(cfg, tcfg, log_fn=lambda s: None).run()
+
+
+def _init(cfg):
+    """Random weights of `cfg` as a JAX pytree: the port's seeded draw
+    (JAX's tree structure from eval_shape, no JAX init compiled)."""
+    from repro_torch.configs import config_from_dict
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    tp = tmodel.init_params(config_from_dict(dataclasses.asdict(cfg)),
+                            seed=0, device="cpu")
+    like = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0),
+                                                     cfg))
+    return _unflat({k: v.numpy() for k, v in flatten(tp).items()}, like)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    base = tmp_path_factory.mktemp("train_mesh")
+    params = {name: _init(c["cfg"])
+              for name, c in CASES.items() if c["params"] == name}
+    batches = {"causal": _batches(512, False, n=3),
+               "uneven": _batches(512, True)}
+    payload = {
+        "ocfg": OCFG, "batches": batches,
+        "params": {k: _flat(v) for k, v in params.items()},
+        "cases": {name: {**{k: v for k, v in c.items() if k != "oracle"},
+                         "cfg": dataclasses.asdict(c["cfg"])}
+                  for name, c in CASES.items()},
+        "trainer_dir": str(base / "trainer"),
+        "elastic_dir": str(base / "elastic")}
+    os.makedirs(payload["elastic_dir"])
+    finish = torch_mesh_ranks.start_ranks(base, "train_cases", payload)
+    jdir = str(base / "jax_elastic")
+    _jax_trainer_ckpts(CASES["dense"]["cfg"], jdir)
+    shutil.copytree(os.path.join(jdir, "step_00000002"),
+                    os.path.join(payload["elastic_dir"], "step_00000002"))
+    open(os.path.join(payload["elastic_dir"], "ready"), "w").close()
+    want = {}
+    for name, c in CASES.items():
+        if "oracle" in c:
+            continue
+        p, bs = params[c["params"]], batches[c["batches"]]
+        want[name] = (_jax_moe_steps(c["cfg"], p, bs) if name == "moe" else
+                      _jax_steps(c["cfg"], p, bs, c.get("microbatch", 0)))
+    ranks = finish()
+    want["compressed"] = _jax_compressed(
+        CASES["dense"]["cfg"], params["dense"],
+        ranks[0]["compressed"]["states"], batches["causal"])
+    return want, ranks, jdir, payload["elastic_dir"]
+
+
+def _close(got, want, what):
+    for k, w in want.items():
+        err = np.abs(got[k] - w).max()
+        assert err <= TOL * max(1.0, np.abs(w).max()), (what, k, err)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_steps_match_jax(runs, case):
+    want, ranks, _, _ = runs
+    losses, trail, mu = want[CASES[case].get("oracle", case)]
+    for got in ranks:
+        res = got[case]
+        assert len(res["losses"]) == len(losses)
+        for s, (a, b) in enumerate(zip(res["losses"], losses)):
+            assert abs(a - b) <= TOL, (case, s, a, b)
+        assert res["losses"] == ranks[0][case]["losses"]
+        _close(res["params"], trail[-1], case)
+        # the first moment is linear in the gradients, so it shows a leaf's
+        # gradient scale, which Adam's update and the clip do not: within
+        # 1e-4 of each leaf's own largest moment
+        for k, w in mu.items():
+            err = np.abs(res["mu"][k] - w).max()
+            assert err <= TOL * np.abs(w).max(), (case, "mu", k, err)
+
+
+def test_sharded_storage_is_jax_shard_shape(runs):
+    """On data2×tp2 with fsdp "data" each rank stores exactly JAX's shard
+    shape of every leaf and of its first moment."""
+    want, ranks, _, _ = runs
+    whole = {k: v.shape for k, v in want["dense"][1][-1].items()}
+    for got in ranks:
+        for key, shape in whole.items():
+            spec = spec_for_path(key, ("data",), len(shape))
+            local = tuple(
+                n // int(np.prod([WIDTHS[a] for a in
+                                  ((e,) if isinstance(e, str) else e or ())]))
+                for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+            assert got["dense"]["local"][key] == local, key
+            assert got["dense"]["mu_local"][key] == local, key
+            assert got["elastic"]["local"][key] == local, key
+
+
+def test_compressed_step_tracks_jax(runs):
+    want, ranks, _, _ = runs
+    exact = want["dense"][0]
+    losses, reduced, bounds = want["compressed"]
+    for got in ranks:
+        res = got["compressed"]
+        assert len(res["losses"]) == 3
+        for s in range(3):
+            assert abs(res["losses"][s] - exact[s]) < COMPRESSED_LOSS_TOL
+            assert abs(res["losses"][s] - losses[s]) <= TOL
+            for k, w in reduced[s].items():
+                err = np.abs(res["reduced"][s][k] - w).max()
+                assert err <= bounds[s][k] * (1 + CODE_SLACK), (s, k, err)
+
+
+def test_trainer_compressed_pod_grads_end_to_end(runs):
+    _, ranks, _, _ = runs
+    for got in ranks:
+        tc = got["trainer_compressed"]
+        assert tc["compressed"] and tc["start"] == 6
+        assert tc["loss2"] < 8.0 and tc["residual_same"]
+        for shape in tc["saved_shapes"].values():
+            assert shape[0] == 2
+
+
+def _ckpt(d, step):
+    out = {}
+    for name in ("params", "opt_state"):
+        with np.load(os.path.join(d, f"step_{step:08d}", f"{name}.npz")) \
+                as z:
+            out.update({f"{name}/{k}": z[k] for k in z.files})
+    return out
+
+
+def test_elastic_restart_one_to_four_and_back(runs):
+    _, ranks, jdir, edir = runs
+    assert all(r["elastic"]["start"] == 2 for r in ranks)
+    assert ranks[0]["elastic"]["back_start"] == 4
+    assert JCheckpointer(edir).latest_step() == 6
+    for step in (4, 6):
+        got, want = _ckpt(edir, step), _ckpt(jdir, step)
+        assert set(got) == set(want)
+        _close(got, want, f"step {step}")

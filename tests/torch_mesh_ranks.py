@@ -138,10 +138,13 @@ def plan_cases(rank, p):
                 (tcache.compressed_prefill_chunk,
                  tcache.compressed_decode_attention) if fmt == "dense" else
                 (tcache.paged_prefill_chunk, tcache.paged_decode_attention))
-            o, lc = prefill(q, k, v, _layer_cache(c[f"lc_{fmt}"]), E, F, t0,
-                            plan=plan)
-            do, dlc = decode(qd, kd, vd, _layer_cache(c[f"lc_{fmt}"]), E, F,
-                             td, plan=plan)
+            # each pool laid out per the plan's cache_pspecs, and gathered
+            # whole again for the comparison
+            o, lc = prefill(q, k, v, plan.place_cache(
+                _layer_cache(c[f"lc_{fmt}"])), E, F, t0, plan=plan)
+            do, dlc = decode(qd, kd, vd, plan.place_cache(
+                _layer_cache(c[f"lc_{fmt}"])), E, F, td, plan=plan)
+            lc, dlc = plan.gather_cache(lc), plan.gather_cache(dlc)
             out[("cache", fmt, name)] = {
                 "prefill": _np(o), "prefill_cache": _leaves_np(lc),
                 "decode": _np(do), "decode_cache": _leaves_np(dlc)}
@@ -232,4 +235,300 @@ def moe_cases(rank, p):
             p["params"], p["x_dec"], p["g_dec"], ws, mlp,
             ParallelCtx(mesh=meshes["data2xtp2"], fsdp="data"),
             p["aux_weight"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_serve_mesh.py
+# ---------------------------------------------------------------------------
+
+
+def _stats(st):
+    from repro_torch.serving.scheduler import _STAT_COUNTERS
+    return {**{k: getattr(st, k) for k in _STAT_COUNTERS}, "ticks": st.ticks}
+
+
+def _rows_np(rows):
+    """A snapshot's leaves as raw bytes (uint8 views) and dtypes."""
+    from repro_torch.serving.snapshot import leaf_bytes
+    return {k: (leaf_bytes(v).numpy().copy(), str(v.dtype), tuple(v.shape))
+            for k, v in rows.items()}
+
+
+def _admit_snapshot(eng, prompt, jax_rows):
+    """Admit `prompt` into row 0 of a 2-row SlotPool and snapshot it; then
+    restore JAX's snapshot of the same admission (`jax_rows`, host arrays)
+    into row 1, a paged one into fresh pages, and snapshot row 1 back."""
+    from repro_torch.serving import Request, SlotPool
+    from repro_torch.serving.snapshot import capture
+    sp = SlotPool(eng, 2)
+    local = {k: tuple(v.shape) for k, v in sp.cache.items()}
+    cache, logits = eng.prefill(np.asarray([prompt], np.int64))
+    req = Request(rid=0, tokens=tuple(prompt), max_new_tokens=4)
+    first = int(torch.argmax(logits[0]))
+    sp.admit(0, req, cache, first)
+    snap = sp.snapshot_rows([0], tick=0)[0]
+    jsnap = capture(rid=0, state=snap.state, filled=snap.filled, cur=first,
+                    finished=False, emitted=[], tick=0,
+                    cache_rows={k: _t(v) for k, v in jax_rows.items()})
+    sp.restore(1, req, jsnap)
+    back = sp.snapshot_rows([1], tick=0)[0]
+    return {"snap": {k: _np(v) for k, v in snap.cache_rows.items()},
+            "verify": snap.verify(), "jax_crc": jsnap.checksum,
+            "back_crc": back.checksum, "back": _rows_np(back.cache_rows),
+            "local": local}
+
+
+def serve_cases(rank, p):
+    from repro_torch.checkpoint import bridge
+    from repro_torch.configs import config_from_dict
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel.sharding import ParallelCtx
+    from repro_torch.serving import Fault, FaultInjector, ServingEngine
+
+    cfg = config_from_dict(p["cfg"])
+    params = bridge.params_from_flat(p["params"], cfg, device="cpu")
+    ctx = ParallelCtx(mesh=make_local_mesh(2, device_type="cpu"))
+    out = {"rank": rank}
+
+    def mk(ctx, **kw):
+        return ServingEngine(params, cfg, max_seq=64, device="cpu",
+                             cache_dtype=torch.float32, decode_chunk=4,
+                             ctx=ctx, **kw)
+
+    # 1. chunked admission
+    eng = mk(ctx, prefill_chunk=16)
+    out["tp"] = eng.plan.tp
+    out["pool"] = {k: tuple(v.shape)
+                   for k, v in eng.init_pool_cache(2).items()}
+    out["chunked"] = eng.serve(p["prompts4"], 6, max_batch=2)
+    # 2. preemption, a faulted row's quarantine and retry
+    o, s = eng.serve(p["prompts6"], p["budgets"], **p["kw"])
+    out["preempt"] = (o, _stats(s.stats))
+    inj = FaultInjector([Fault("slot_step", chunk=1, row=0)])
+    o, s = eng.serve(p["prompts6"], p["budgets"], max_batch=2,
+                     snapshot_chunks=1, fault_injector=inj,
+                     return_scheduler=True)
+    out["fault"] = (o, _stats(s.stats))
+    out["dense_snap"] = _admit_snapshot(mk(ctx), p["prompts6"][0],
+                                        p["jax_rows"]["dense"])
+    # 3. the paged pool: preemption through quantized snapshots, and a
+    # snapshot restored into fresh pages
+    peng = mk(ctx, prefill_chunk=16, cache_format="paged")
+    out["paged_pool"] = {k: tuple(v.shape)
+                         for k, v in peng.init_pool_cache(2).items()}
+    o, s = peng.serve(p["prompts6"], p["budgets"], snapshot_chunks=2,
+                      **p["kw"])
+    out["paged"] = (o, _stats(s.stats))
+    out["paged_snap"] = _admit_snapshot(mk(ctx, cache_format="paged"),
+                                        p["prompts6"][0],
+                                        p["jax_rows"]["paged"])
+    # 4. the hybrid family: its attention entries laid out per
+    # cache_pspecs, served against the same engine with no mesh
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as tmodel
+    hcfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"),
+                               dtype="float32")
+    hparams = tmodel.init_params(hcfg, seed=0, device="cpu")
+
+    def hybrid(c):
+        eng = ServingEngine(hparams, hcfg, max_seq=64, device="cpu",
+                            cache_dtype=torch.float32, decode_chunk=4,
+                            ctx=c)
+        return eng, eng.serve(p["prompts4"], 6, max_batch=2)
+
+    heng, out["hybrid"] = hybrid(ctx)
+    out["hybrid_tp"] = heng.plan.tp
+    out["hybrid_whole_hkv"] = hcfg.attention.num_kv_heads
+    out["hybrid_attn"] = {k: tuple(v.shape) for k, v in tmodel.init_cache(
+        hcfg, batch=2, max_seq=64, device="cpu",
+        plan=heng.plan)["attn"].items()}
+    out["hybrid_one"] = hybrid(None)[1]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_train_mesh.py
+# ---------------------------------------------------------------------------
+
+
+def _whole_np(tree, ctx):
+    """Every leaf of a tree of shards, whole, as numpy (each rank)."""
+    from repro_torch.models.transformer import flatten
+    from repro_torch.parallel import sharding as shd
+    out = {}
+    with torch.no_grad():
+        for k, v in flatten(tree).items():
+            out[k] = _np(shd.unshard_leaf(v, shd.leaf_spec(k, v.ndim, ctx),
+                                          ctx))
+    return out
+
+
+def _mesh_steps(cfg, flat, ctx, batches, ocfg, microbatch=0):
+    """make_train_step(ctx=) over `batches` from JAX's weights `flat`: the
+    losses, every parameter and first moment whole afterwards, and each
+    rank's shapes of its parameter and first-moment shards."""
+    from repro_torch.checkpoint import bridge
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.trainer import make_train_step, training_ctx
+    tctx = training_ctx(ctx)
+    params = shd.shard_tree(bridge.params_from_flat(flat, cfg, device="cpu"),
+                            tctx)
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(cfg, ocfg, microbatch=microbatch, ctx=ctx)
+    losses = []
+    for b in batches:
+        params, opt, m = step(params, opt, {k: _t(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "params": _whole_np(params, tctx),
+            "mu": _whole_np(opt["mu"], tctx),
+            "local": {k: tuple(v.shape) for k, v in flatten(params).items()},
+            "mu_local": {k: tuple(v.shape)
+                         for k, v in flatten(opt["mu"]).items()}}
+
+
+def _compressed_steps(cfg, flat, ctx, batches, ocfg):
+    """The compressed cross-pod step from JAX's weights: its losses, and for
+    each step the whole parameters and the residual in JAX's (n_pods, ...)
+    layout that it starts from, and the reduced gradient it applies."""
+    from repro_torch.checkpoint import bridge
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import compressed_dp as cdp
+    tctx = cdp.inner_ctx(ctx)
+    params = shd.shard_tree(bridge.params_from_flat(flat, cfg, device="cpu"),
+                            tctx)
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    opt = adamw_init(params, ocfg)
+    res = cdp.init_local_residual(params)
+    reduced, reduce = [], cdp.reduce_across_pods
+
+    def recording(g, r, c):
+        red, new = reduce(g, r, c)
+        reduced.append(_whole_np(red, tctx))
+        return red, new
+
+    cdp.reduce_across_pods = recording
+    pod = ctx.axis("pod")
+    try:
+        step = cdp.make_compressed_train_step(cfg, ocfg, ctx)
+        losses, states = [], []
+        for b in batches:
+            states.append((_whole_np(params, tctx), {
+                k: _np(comm.all_gather_stack(_t(v), pod))
+                for k, v in _whole_np(res, tctx).items()}))
+            params, opt, res, m = step(params, opt, res,
+                                       {k: _t(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+    finally:
+        cdp.reduce_across_pods = reduce
+    return {"losses": losses, "reduced": reduced, "states": states}
+
+
+def _trainer_compressed(cfg, ctx, d):
+    """JAX's end-to-end compressed Trainer case: 6 steps with checkpoints
+    every 3 (the residual in JAX's (n_pods, ...) layout), then a resume
+    to step 8."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.train import Trainer
+    tcfg = TrainConfig(seq_len=32, global_batch=8, steps=6, log_every=99,
+                       checkpoint_every=3, checkpoint_dir=d,
+                       compressed_pod_grads=True,
+                       optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                 total_steps=20))
+    tr = Trainer(cfg, tcfg, device="cpu", ctx=ctx, log_fn=lambda s: None)
+    m = tr.run()
+    residual = _whole_np(tr._residual, tr.ctx)
+    tr2 = Trainer(cfg, dataclasses.replace(tcfg, steps=8), device="cpu",
+                  ctx=ctx, log_fn=lambda s: None)
+    _, _, _, start = tr2.restore_or_init()
+    restored = _whole_np(tr2._residual, tr2.ctx)
+    m2 = tr2.run()
+    dist.barrier()
+    with np.load(os.path.join(d, "step_00000006", "residual.npz")) as z:
+        saved = {k: z[k] for k in z.files}
+    pod = tr.ctx.axis("pod").coord
+    same = all(np.array_equal(saved[k][pod], restored[k]) and
+               np.array_equal(restored[k], residual[k]) for k in residual)
+    return {"compressed": tr.compressed, "start": start,
+            "loss": m["loss"], "loss2": m2["loss"], "residual_same": same,
+            "saved_shapes": {k: v.shape for k, v in saved.items()}}
+
+
+def _elastic(cfg, ctx, d):
+    """Resume a single-device checkpoint (JAX's, at step 2) on this mesh,
+    train to step 4 and save; rank 0 alone then resumes that checkpoint
+    with no mesh and trains to step 6 (elastic restart and back)."""
+    import time
+    import torch.distributed as dist
+    from repro_torch.configs.base import OptimizerConfig, TrainConfig
+    from repro_torch.models.transformer import flatten
+    from repro_torch.train import Trainer
+    deadline = time.time() + 300
+    while not os.path.exists(os.path.join(d, "ready")):
+        if time.time() > deadline:
+            raise TimeoutError("no single-device checkpoint")
+        time.sleep(0.2)
+    tcfg = TrainConfig(seq_len=32, global_batch=8, steps=4, log_every=99,
+                       checkpoint_every=2, checkpoint_dir=d,
+                       optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                 total_steps=20))
+    tr = Trainer(cfg, tcfg, device="cpu", ctx=ctx, log_fn=lambda s: None)
+    params, opt, _, start = tr.restore_or_init()
+    out = {"start": start,
+           "local": {k: tuple(v.shape) for k, v in flatten(params).items()},
+           "mu_local": {k: tuple(v.shape)
+                        for k, v in flatten(opt["mu"]).items()}}
+    tr.run()
+    if dist.get_rank() == 0:
+        back = Trainer(cfg, dataclasses.replace(tcfg, steps=6),
+                       device="cpu", log_fn=lambda s: None)
+        out["back_start"] = back.restore_or_init()[3]
+        back.run()
+    dist.barrier()
+    return out
+
+
+def train_cases(rank, p):
+    import time
+    from repro_torch.configs import config_from_dict
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    from repro_torch.parallel.sharding import ParallelCtx
+    ocfg = OptimizerConfig(**p["ocfg"])
+    d2t2 = make_local_mesh(2, device_type="cpu")
+    out = {"rank": rank, "walls": {}}
+    t0 = time.perf_counter()
+    for name, case in p["cases"].items():
+        out["walls"][name] = time.perf_counter() - t0
+        cfg = config_from_dict(case["cfg"])
+        if case.get("names"):
+            mesh = make_mesh(case["mesh"], case["names"], device_type="cpu")
+        elif case["mesh"] != (2,):
+            mesh = make_local_mesh(*case["mesh"], device_type="cpu")
+        else:
+            mesh = d2t2
+        out[name] = _mesh_steps(cfg, p["params"][case["params"]],
+                                ParallelCtx(mesh=mesh, fsdp=case["fsdp"]),
+                                p["batches"][case["batches"]], ocfg,
+                                case.get("microbatch", 0))
+    pod = make_mesh((2, 2, 1), ("pod", "data", "model"), device_type="cpu")
+    dense = config_from_dict(p["cases"]["dense"]["cfg"])
+    out["compressed"] = _compressed_steps(
+        dense, p["params"]["dense"], ParallelCtx(mesh=pod, fsdp="data"),
+        p["batches"]["causal"], ocfg)
+    out["trainer_compressed"] = _trainer_compressed(
+        dense, ParallelCtx(mesh=pod, fsdp="none"), p["trainer_dir"])
+    out["walls"]["compressed"] = time.perf_counter() - t0
+    out["elastic"] = _elastic(dense, ParallelCtx(mesh=d2t2, fsdp="data"),
+                              p["elastic_dir"])
+    out["walls"]["end"] = time.perf_counter() - t0
     return out
