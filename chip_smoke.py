@@ -309,6 +309,22 @@ error; none catches its own failure:
    --dist-backend gloo` (2 ranks on the card, a free port of their own),
    exit code 0.
 
+31. (after [table3]) [audit] the trace audit (analysis/trace_audit.py) on
+   the card: its decode (dense pool, then the paged int8 pool), chunk
+   prefill and train (loss and backward) entries on qwen3-8b at full width
+   cut to AUDIT_LAYERS = 2, bf16, the kernel routes (kernels 3, 7, 4, 1r
+   and 2 must launch), each under torch.cuda.set_sync_debug_mode("error")
+   and the TX rules: any finding fails the run.
+32. [dryrun] the dry run (launch/dryrun.py) of [train]'s step (8 layers,
+   bf16, remat full, 2 x 4096, its optimizer config) at world size 1 on
+   FakeTensors, then the real step: argument bytes (parameters, moments,
+   batch), each kernel's launches (the dry run's cost sink against the
+   real step's counters, which the fake launches must leave at 0) and the
+   aten FLOPs (FlopCounterMode over the real step) must be equal; the
+   predicted peak
+   beside torch.cuda.max_memory_allocated() must lie within the band of
+   DRYRUN_ROUND_BYTES and DRYRUN_BLAS_BYTES.
+
 [check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
 these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
 (the g*_c256 entries of TRAIN_EDGE_SHAPES, PREFIX_EDGE_SHAPES and
@@ -343,8 +359,6 @@ import subprocess
 import sys
 import time
 
-H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 # Kernel vs plain version. fp32: 1e-4 absolute (summation order). bf16:
 # |kernel - plain| <= 2^-8·max|v| + 2^-7·|plain| elementwise: the plain
 # version rounds each probability to bf16 (relative 2^-9) before the value
@@ -699,12 +713,6 @@ def ptxas_registers(fragment):
         spill = int(re.search(r"(\d+) bytes spill stores", tail).group(1))
         out.append((slot, ints, regs, spill))
     return sorted(out)
-
-
-def visible_pairs(S, c, r, start=0):
-    """Visible (row, key) pairs of one (batch, head): each row sees its own
-    block up to itself and the slots of the blocks before its own."""
-    return sum((t % c) + 1 + (t // c + start) * r for t in range(S))
 
 
 # [serve-slo]: one trace that turns every scheduler knob on at full width.
@@ -1836,7 +1844,6 @@ def time_phase(dev, errs):
     ms, eager_ms = time_graph_ms(run, n_sets), time_ms(run, n_sets)
     plain_ms = time_ms(
         lambda i: bca.blockwise_causal_attn_plain(*sets[i], **kw), n_sets)
-    M = (S // c) * r
     mask = joint_mask(S, c, r, dev)
     G = H // Hkv
     lib_sets = [(q, torch.cat([k, kb], 2).repeat_interleave(G, 1),
@@ -1847,9 +1854,8 @@ def time_phase(dev, errs):
     lib_err = (Fn.scaled_dot_product_attention(
         *lib_sets[0], attn_mask=mask, scale=Dh ** -0.5).float()
         - bca.blockwise_causal_attn(*sets[0], **kw).float()).abs().max()
-    nbytes = 2 * (2 * B * H * S * Dh + 2 * B * Hkv * S * Dh
-                  + 2 * B * Hkv * M * Dh)
-    flops = 4 * Dh * visible_pairs(S, c, r) * B * H
+    flops, nbytes = bca.blockwise_causal_attn_cost(
+        B, H, Hkv, S, Dh, block_size=c, block_slots=r)
     records.append(dict(
         name="blockwise_causal_attn", route="cuda",
         source="src/repro_torch/csrc/blockwise_causal_attn.cu",
@@ -1879,14 +1885,23 @@ def time_phase(dev, errs):
     return records
 
 
+def bound_ms(flops, nbytes):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for `flops` bf16 operations moving `nbytes` bytes, at its datasheet
+    rates (launch/mesh.H100_*)."""
+    from repro_torch.launch.mesh import H100_FLOPS_BF16, H100_HBM_BYTES_PER_S
+    t_bytes = nbytes / H100_HBM_BYTES_PER_S
+    t_flops = flops / H100_FLOPS_BF16
+    return (1e3 * max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
 def set_bound(rec):
     """Replace a bf16 record's `bytes` and `flops` by its bound: the larger
     of the bytes over the card's memory rate and the operations over its
     bf16 peak."""
-    t_bytes = rec.pop("bytes") / H100_BYTES_PER_S
-    t_flops = rec.pop("flops") / H100_FLOPS["torch.bfloat16"]
-    rec["bound_ms"] = 1e3 * max(t_bytes, t_flops)
-    rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
+    rec["bound_ms"], rec["bound_by"] = bound_ms(rec.pop("flops"),
+                                                rec.pop("bytes"))
     log(f"  {rec['name']}: bound {rec['bound_ms']:.4f} ms "
         f"({rec['bound_by']}), kernel at "
         f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it")
@@ -1921,12 +1936,9 @@ def time_decode(dev, errs, B, t_rows):
     lib_ms = time_graph_ms(lambda i: Fn.scaled_dot_product_attention(
         *lib_sets[i][:3], attn_mask=lib_sets[i][3], scale=Dh ** -0.5),
         n_sets, iters=100)
-    vis = sum(t % c + 1 + (t // c) * r for t in t_rows)
-    nbytes = 2 * (2 * B * Hkv * G * Dh + 2 * vis * Hkv * Dh) \
-        + 4 * B * (c + M)
-    flops = 4 * Dh * G * Hkv * vis
-    bound = 1e3 * max(nbytes / H100_BYTES_PER_S,
-                      flops / H100_FLOPS[str(bf16)])
+    flops, nbytes = la.decode_attn_cost(B, Hkv, G, Dh, c, M, block_slots=r,
+                                        positions=t_rows)
+    bound = bound_ms(flops, nbytes)[0]
     log(f"  decode_attn B={B} Hkv={Hkv} G={G} c={c} M={M} Dh={Dh} "
         f"t={t_rows}, {common.decode_splits(B * Hkv, G, c + M)[0]} key "
         f"splits: kernel {ms:.4f} ms (eager loop {eager_ms:.4f}), plain "
@@ -1964,17 +1976,6 @@ def prefix_mask(P, c, r, M, start):
     cut = (start.long()[:, None] + rows[None, :] // c) * r        # (B, P)
     glob = torch.arange(M, device=start.device)[None, None] < cut[..., None]
     return torch.cat([loc.expand(len(start), P, P), glob], -1)[:, None]
-
-
-def prefix_visible(P, c, r, M, start):
-    """(visible (row, key) pairs of one head, summed over rows b; slots read,
-    summed over rows b): the work and the slot bytes the prefix form
-    needs."""
-    nb = P // c
-    pairs = sum(t % c + 1 + min((s + t // c) * r, M)
-                for s in start for t in range(P))
-    slots = sum(min((s + nb - 1) * r, M) for s in start)
-    return pairs, slots
 
 
 def time_prefix_kernels(dev, errs):
@@ -2028,11 +2029,13 @@ def time_prefix_kernels(dev, errs):
     t["qlib"] = time_graph_ms(lambda i: sdpa(qlib[i]), n_sets)
     lib_err = (sdpa(lib[0]).float() - bca.blockwise_causal_prefix_attn(
         *sets[0], **kw).float()).abs().max().item()
-    pairs, slots = prefix_visible(P, c, r, M, start)
-    act = 2 * (2 * B * H * P * Dh + 2 * B * Hkv * P * Dh)  # q, k, v, out
-    slot_bytes = 2 * slots * Hkv * Dh * 2                  # k̄, v̄ bf16
-    q_slot_bytes = 2 * slots * Hkv * (Dh * 1 + 4)          # codes + scale
-    flops = 4 * Dh * pairs * H
+    pkw = dict(block_size=c, block_slots=r, start_blocks=start)
+    flops, pre_bytes = bca.blockwise_causal_prefix_attn_cost(
+        B, H, Hkv, P, Dh, M, **pkw)
+    res_bytes = bca.blockwise_causal_prefix_attn_cost(
+        B, H, Hkv, P, Dh, M, return_residuals=True, **pkw)[1]
+    q_bytes = bca.blockwise_causal_prefix_attn_cost(
+        B, H, Hkv, P, Dh, M, slot_bytes=Dh * 1 + 4, **pkw)[1]
     log(f"  blockwise_causal_prefix_attn B={B} H={H} Hkv={Hkv} P={P} M={M} "
         f"start={start}: kernel {t['pre', False]:.4f} ms (eager loop "
         f"{t['pre_eager', False]:.4f}), residual form {t['pre', True]:.4f} "
@@ -2054,22 +2057,20 @@ def time_prefix_kernels(dev, errs):
              replaces="src/repro/kernels/blockwise_causal_attn.py:216",
              ms=t["pre", False], eager_ms=t["pre_eager", False],
              plain_ms=t["pre_plain", False],
-             library_ms=t["lib"], bytes=act + slot_bytes, flops=flops,
+             library_ms=t["lib"], bytes=pre_bytes, flops=flops,
              max_abs_err=errs["pre", "full", bf16]),
         dict(name="blockwise_causal_prefix_attn(return_residuals)",
              route="cuda", source=src,
              replaces="src/repro/kernels/blockwise_causal_attn.py:125",
              ms=t["pre", True], eager_ms=t["pre_eager", True],
              plain_ms=t["pre_plain", True],
-             library_ms=t["lib"],
-             bytes=act + slot_bytes + 2 * 4 * B * H * P, flops=flops,
+             library_ms=t["lib"], bytes=res_bytes, flops=flops,
              max_abs_err=errs["pre_res", "full", bf16]),
         dict(name="blockwise_causal_prefix_attn_q", route="cuda",
              source=src,
              replaces="src/repro/kernels/blockwise_causal_attn.py:157",
              ms=t["q"], eager_ms=t["q_eager"], plain_ms=t["q_plain"],
-             library_ms=t["qlib"],
-             bytes=act + q_slot_bytes, flops=flops,
+             library_ms=t["qlib"], bytes=q_bytes, flops=flops,
              max_abs_err=errs["pre_q", "full", SERVE_PAGE_DTYPE, bf16]),
     ]
 
@@ -2104,9 +2105,9 @@ def time_decode_q(dev, errs):
     lib_ms = time_graph_ms(lambda i: Fn.scaled_dot_product_attention(
         *lib_sets[i][:3], attn_mask=lib_sets[i][3], scale=Dh ** -0.5),
         n_sets, iters=100)
-    vis = sum(t % c + 1 + (t // c) * r for t in t_rows)
-    nbytes = 2 * 2 * B * Hkv * G * Dh + 2 * vis * Hkv * (Dh * 1 + 4) \
-        + 4 * B * (c + M)
+    flops, nbytes = la.decode_attn_cost(B, Hkv, G, Dh, c, M, block_slots=r,
+                                        positions=t_rows,
+                                        cache_row_bytes=Dh * 1 + 4)
     log(f"  decode_attn_q {SERVE_PAGE_DTYPE} B={B} Hkv={Hkv} G={G} c={c} "
         f"M={M} t={t_rows}: kernel {ms:.4f} ms (eager loop "
         f"{eager_ms:.4f}), plain {plain_ms:.4f} ms, sdpa over the "
@@ -2116,8 +2117,7 @@ def time_decode_q(dev, errs):
                  source="src/repro_torch/csrc/decode_attn.cu",
                  replaces="src/repro/kernels/linformer_attn.py:180",
                  ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bytes=nbytes,
-                 flops=4 * Dh * G * Hkv * vis,
+                 library_ms=lib_ms, bytes=nbytes, flops=flops,
                  max_abs_err=errs["dec_q", "full", SERVE_PAGE_DTYPE, bf16])]
 
 
@@ -2181,13 +2181,12 @@ def time_training_kernels(dev, errs):
     lib_bwd_ms = time_graph_ms(lambda i: torch.autograd.grad(
         lib[i][1], lib[i][0], dos_c[i], retain_graph=True),
         n_sets, iters=10, stream=side)
-    vis = visible_pairs(S, c, r) * B * H
-    in_bytes = 2 * (B * H * S * Dh + 2 * B * Hkv * S * Dh
-                    + 2 * B * Hkv * M * Dh)
-    rows = B * H * S
-    fwd_bytes = in_bytes + 2 * B * H * S * Dh
-    fwd_bound = 1e3 * max(fwd_bytes / H100_BYTES_PER_S,
-                          4 * Dh * vis / H100_FLOPS[str(bf16)])
+    tkw = dict(block_size=c, block_slots=r)
+    fwd_cost = bca.blockwise_causal_attn_cost(B, H, Hkv, S, Dh, **tkw)
+    res_cost = bca.blockwise_causal_attn_cost(B, H, Hkv, S, Dh,
+                                              return_residuals=True, **tkw)
+    bwd_cost = bca.blockwise_causal_attn_bwd_cost(B, H, Hkv, S, Dh, M, **tkw)
+    fwd_bound = bound_ms(*fwd_cost)[0]
     log(f"  blockwise_causal_attn B={B} H={H} Hkv={Hkv} S={S}: kernel "
         f"{fwd_ms:.4f} ms (eager loop {fwd_eager_ms:.4f}), plain "
         f"{fwd_plain_ms:.4f} ms, sdpa {lib_fwd_ms:.4f} ms; bound "
@@ -2211,22 +2210,13 @@ def time_training_kernels(dev, errs):
              source="src/repro_torch/csrc/blockwise_causal_attn.cu",
              replaces="src/repro/kernels/blockwise_causal_attn.py:96",
              ms=res_ms, eager_ms=res_eager_ms, plain_ms=res_plain_ms,
-             library_ms=lib_fwd_ms,
-             # reads q, k, v, slots; writes the output and (m, denom)
-             bytes=in_bytes + 2 * B * H * S * Dh + 2 * 4 * rows,
-             flops=4 * Dh * vis,
+             library_ms=lib_fwd_ms, flops=res_cost[0], bytes=res_cost[1],
              max_abs_err=errs["res", "full", bf16]),
         dict(name="blockwise_causal_attn_bwd", route="cuda",
              source="src/repro_torch/csrc/blockwise_causal_attn_bwd.cu",
              replaces="src/repro/kernels/blockwise_causal_attn.py:469",
              ms=bwd_ms, eager_ms=bwd_eager_ms, plain_ms=bwd_plain_ms,
-             library_ms=lib_bwd_ms,
-             # reads q, k, v, slots, dO (bf16) and (m, denom) (fp32);
-             # writes dq (bf16), dk_loc, dv_loc, dk̄, dv̄ (fp32)
-             bytes=(in_bytes + 2 * rows * Dh + 2 * 4 * rows
-                    + 2 * rows * Dh
-                    + 4 * 2 * (B * Hkv * S * Dh + B * Hkv * M * Dh)),
-             flops=10 * Dh * vis,
+             library_ms=lib_bwd_ms, flops=bwd_cost[0], bytes=bwd_cost[1],
              max_abs_err=errs["bwd", "full", bf16]),
     ]
 
@@ -2280,25 +2270,22 @@ def time_exact_kernels(dev, errs):
         f"{t['sp_plain']:.4f} ms, matmul {t['sp_lib']:.4f} ms (matmul vs "
         f"kernel {lib_err.item():.2e})")
     del psets, plib
+    exact_cost = la.linformer_attn_cost(B, H, Hkv, S, K, Dh)
+    sp_cost = sp.seq_projection_cost(Bp, Hp, Sp, Kp, Dp)
     return [
         dict(name="linformer_attn", route="cuda",
              source="src/repro_torch/csrc/linformer_attn.cu",
              replaces="src/repro/kernels/linformer_attn.py:58",
              ms=t["exact"], eager_ms=t["exact_eager"],
              plain_ms=t["exact_plain"],
-             library_ms=t["exact_lib"],
-             # reads q, k̄, v̄; writes the output
-             bytes=2 * (2 * B * H * S * Dh + 2 * B * Hkv * K * Dh),
-             flops=4 * Dh * S * K * B * H,
+             library_ms=t["exact_lib"], flops=exact_cost[0],
+             bytes=exact_cost[1],
              max_abs_err=errs["exact", "full", bf16]),
         dict(name="seq_projection", route="cuda",
              source="src/repro_torch/csrc/seq_projection.cu",
              replaces="src/repro/kernels/seq_projection.py:39",
              ms=t["sp"], eager_ms=t["sp_eager"], plain_ms=t["sp_plain"],
-             library_ms=t["sp_lib"],
-             # reads x and E[:S]; writes K̄
-             bytes=2 * (Bp * Hp * Sp * Dp + Sp * Kp + Bp * Hp * Kp * Dp),
-             flops=2 * Sp * Kp * Dp * Bp * Hp,
+             library_ms=t["sp_lib"], flops=sp_cost[0], bytes=sp_cost[1],
              max_abs_err=errs["sp", "full", bf16]),
     ]
 
@@ -2340,6 +2327,18 @@ def reset_launches():
 
 def read_launches():
     return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+
+
+def sink_launches(kernels):
+    """A dry run's launches by kernel (the cost sink's count of fake
+    launches, `step_cost.measure`'s "kernels") read as the counters read:
+    the backward's `launches` counts its offset form's launches too."""
+    got = {name: 0 for name, _, _, _ in LAUNCH_COUNTERS}
+    for name, k in kernels.items():
+        got[name] += k["launches"]
+    got["blockwise_causal_attn_bwd"] += \
+        got["blockwise_causal_attn_bwd(start_blocks)"]
+    return got
 
 
 def require_routes(path, route):
@@ -4783,13 +4782,9 @@ def prefix_grad_phase(dev):
     lib_ms = time_graph_ms(lambda i: torch.autograd.grad(
         lib[i][1], lib[i][0], dos_c[i], retain_graph=True), n_sets,
         iters=10, stream=side)
-    pairs, slots = prefix_visible(P, c, r, M, start)
-    rows = B * H * P
-    # reads q, k, v, the visible slots and dO (bf16), (m, denom) (fp32);
-    # writes dq (bf16) and dk_loc, dv_loc and the full dk̄, dv̄ (fp32)
-    nbytes = (2 * (2 * rows * Dh + 2 * B * Hkv * P * Dh + 2 * slots * Hkv * Dh)
-              + 2 * 4 * rows + 2 * rows * Dh
-              + 4 * 2 * (B * Hkv * P * Dh + B * Hkv * M * Dh))
+    flops, nbytes = bca.blockwise_causal_attn_bwd_cost(
+        B, H, Hkv, P, Dh, M, block_size=c, block_slots=r, start_blocks=start,
+        offset=True)
     log(f"  blockwise_causal_attn_bwd(start_blocks) B={B} H={H} P={P} M={M}: "
         f"kernel {ms:.4f} ms (eager loop {eager_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, masked sdpa backward {lib_ms:.4f} ms")
@@ -4797,7 +4792,7 @@ def prefix_grad_phase(dev):
                source="src/repro_torch/csrc/blockwise_causal_attn_bwd.cu",
                replaces="src/repro/kernels/blockwise_causal_attn.py:469",
                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-               library_ms=lib_ms, bytes=nbytes, flops=10 * Dh * pairs * H,
+               library_ms=lib_ms, bytes=nbytes, flops=flops,
                max_abs_err=err_bf16)
     set_bound(rec)
     del sets, res, dos, lib, dos_c
@@ -4992,6 +4987,144 @@ def tune_phase(dev, cfg, prompts):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# -- the analysis layer: the trace audit and the dry run on the card -------
+
+# [audit]: qwen3-8b at full width cut to this many layers, bf16
+AUDIT_LAYERS = 2
+# [dryrun]: the dry run's peak (its live storage) against the real step's
+# (max_memory_allocated less what was resident before the step and is not
+# its argument). The caching allocator rounds every block up to
+# DRYRUN_ROUND_BYTES, so each storage live at the peak may differ by that
+# much, either way should the allocator's peak fall an op before or after
+# the tracker's; cuBLAS and cuBLASLt take a workspace each per (handle,
+# stream) through the caching allocator on first use (32 MiB on Hopper by
+# torch's defaults), which the real step may add (DRYRUN_BLAS_BYTES, above
+# only). The kernels' scratch is allocated by their fake path as well.
+# Fixed before the phase's first card run.
+DRYRUN_ROUND_BYTES = 512
+DRYRUN_BLAS_BYTES = 2 * 32 * 2 ** 20
+
+
+def audit_phase(dev):
+    """[audit]: see the module docstring, item 31."""
+    from repro_torch.analysis import trace_audit as ta
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=AUDIT_LAYERS)
+    log(f"[audit] {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"{cfg.dtype}, backend {cfg.attention.backend}, under "
+        "torch.cuda.set_sync_debug_mode('error')")
+    entries = (
+        ("decode_scan (dense)", lambda: ta.audit_decode(cfg=cfg, device=dev)),
+        ("decode_scan (paged int8)", lambda: ta.audit_decode(
+            cfg=cfg, device=dev, page_dtype="int8")),
+        ("prefill_chunk", lambda: ta.audit_prefill(cfg=cfg, device=dev)),
+        ("train_step", lambda: ta.audit_train(cfg=cfg, device=dev)))
+    findings = []
+    reset_launches()
+    for name, fn in entries:
+        t0 = time.perf_counter()
+        found, stats = fn()
+        log(f"  {name}: {stats}, {len(found)} findings "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for f in found:
+            log(f"    {f.rule} {f.path}: {f.msg}")
+        findings += found
+        free(dev)
+    launches = read_launches()
+    log(f"  launches {({k: v for k, v in launches.items() if v})}")
+    require_launches(launches, (
+        "decode_attn", "decode_attn_q", "blockwise_causal_prefix_attn",
+        "blockwise_causal_attn(return_residuals)",
+        "blockwise_causal_attn_bwd"), "audit")
+    if findings:
+        raise AssertionError(f"[audit] {len(findings)} findings")
+
+
+def dryrun_phase(dev):
+    """[dryrun]: see the module docstring, item 32."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, ShapeConfig
+    from repro_torch.data.pipeline import (DataState, SyntheticCorpus,
+                                           make_causal_batch)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.step_cost import storage_bytes
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    cfg = dataclasses.replace(get_config("qwen3-8b"),
+                              num_layers=TRAIN_RUN["layers"])
+    shape = ShapeConfig("train", TRAIN_RUN["seq"], TRAIN_RUN["batch"],
+                        "train")
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=1, total_steps=4)
+    log(f"[dryrun] [train]'s step ({cfg.name}, {cfg.num_layers} layers, "
+        f"{cfg.dtype}, remat {cfg.remat}, {shape.global_batch} x "
+        f"{shape.seq_len}) at world size 1: FakeTensors on the card's "
+        "device type, then the real step")
+    reset_launches()
+    t0 = time.perf_counter()
+    dry = dryrun.dry_run(cfg, shape, None, device=dev.type, ocfg=ocfg)
+    dry_wall = time.perf_counter() - t0
+    if any(read_launches().values()):
+        raise AssertionError("[dryrun] a fake launch moved a kernel counter")
+    dry_launches = sink_launches(dry["kernels"])
+
+    params = tmodel.init_params(cfg, seed=0, device=dev)
+    for p in flatten(params).values():
+        p.requires_grad_(True)
+    opt = adamw_init(params, ocfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_causal_batch(
+        SyntheticCorpus(cfg.vocab_size, seed=0), DataState(0, 0),
+        batch=shape.global_batch, seq=shape.seq_len).items()}
+    parts = {"params": storage_bytes(params, dev.type),
+             "moments": storage_bytes((opt["mu"], opt["nu"]), dev.type),
+             "batch": storage_bytes(batch, dev.type)}
+    step = make_train_step(cfg, ocfg)
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - sum(parts.values())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        _, _, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    real_wall = time.perf_counter() - t0
+    real_launches = read_launches()
+    real_peak = torch.cuda.max_memory_allocated() - other
+    pred = dry["peak_bytes"]
+    slack = DRYRUN_ROUND_BYTES * dry["peak_storages"]
+    lo, hi = pred - slack, pred + slack + DRYRUN_BLAS_BYTES
+    log(f"  dry run {dry_wall:.1f} s, real step {real_wall:.1f} s (loss "
+        f"{float(metrics['loss']):.4f})")
+    log(f"  argument bytes: dry run {dry['argument_bytes_by_part']}, real "
+        f"{parts}")
+    log(f"  launches: dry run "
+        f"{({k: v for k, v in dry_launches.items() if v})}, real "
+        f"{({k: v for k, v in real_launches.items() if v})}")
+    log(f"  aten FLOPs: dry run {dry['aten_flops']}, real "
+        f"{fc.get_total_flops()}; kernel FLOPs (dry run) "
+        f"{dry['kernel_flops']}")
+    log(f"  peak: predicted {pred} B ({pred / 1e9:.3f} GB, "
+        f"{dry['peak_storages']} storages live), real {real_peak} B "
+        f"({real_peak / 1e9:.3f} GB; {other} B resident besides), real / "
+        f"predicted {real_peak / pred:.6f}; band [{lo}, {hi}] B")
+    log(f"  bytes lower / upper bound {dry['bytes_lower']} / "
+        f"{dry['bytes_upper']}")
+    if dry["argument_bytes_by_part"] != parts:
+        raise AssertionError("[dryrun] argument bytes differ")
+    if dry_launches != real_launches:
+        raise AssertionError("[dryrun] kernel launches differ")
+    if dry["aten_flops"] != fc.get_total_flops():
+        raise AssertionError("[dryrun] aten FLOPs differ")
+    if not lo <= real_peak <= hi:
+        raise AssertionError(f"[dryrun] real peak {real_peak} B outside the "
+                             f"band [{lo}, {hi}]")
+    del params, opt, batch, step
+    free(dev)
 
 
 # -- multi-GPU: the plan's tp/sp routes and expert parallelism on gloo ranks --
@@ -6342,6 +6475,10 @@ def main():
     lap("train-mlm-nonuniform")
     table3_phase(dev)
     lap("table3")
+    audit_phase(dev)
+    lap("audit")
+    dryrun_phase(dev)
+    lap("dryrun")
     mesh_launches = mesh_and_launch_phases(dev, lap)
 
     # launches: each kernel's count on its own main path, every path beside;

@@ -19,10 +19,15 @@ for a CUDA tensor, counting launches in ``<wrapper>.launches`` (and
 ``<wrapper>.residual_launches`` for a residual form;
 ``blockwise_causal_attn_bwd.offset_launches`` counts the backward's
 launches with start blocks, the offset form, among its ``launches``).
+FakeTensor operands take the fake path (``common.is_fake``): the launch's
+allocations and checks without the kernel, no counter moved, and the
+kernel's cost (``*_cost``: flops and bytes from the shapes, the visible
+keys only, each byte read or written once; fake start blocks have no
+values, so every slot counts as seen) reported to ``common.add_cost``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -175,8 +180,8 @@ def _slot_scales(kbar_scale, vbar_scale, kbar):
     return kbar_scale, vbar_scale, (kbar_scale, (0, 1, 2))
 
 
-def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
-           block_slots: int, scale: float, stream,
+def launch(kl: Optional[build.KernelLibrary], q, k, v, kbar, vbar, *,
+           block_size: int, block_slots: int, scale: float, stream,
            return_residuals: bool = False,
            start_blocks: Optional[torch.Tensor] = None,
            kbar_scale: Optional[torch.Tensor] = None,
@@ -186,7 +191,9 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
     int32 it is the prefix form (any M); with `kbar_scale`/`vbar_scale`
     (B, Hkv, M) fp32 the slots are int8/fp8 codes. The output lies in model
     layout memory (B, S, H, Dh), returned as its kernel-layout view; with
-    `return_residuals` also m and denom, contiguous (B, H, S) fp32."""
+    `return_residuals` also m and denom, contiguous (B, H, S) fp32.
+    `kl` None (the fake path) allocates and checks, and launches
+    nothing."""
     _check_qkv(q, k, v, kbar, vbar)
     B, H, S, Dh = q.shape
     Hkv, M = k.shape[1], kbar.shape[2]
@@ -217,6 +224,8 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
     if return_residuals:
         m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         denom = torch.empty_like(m)
+    if kl is None:                                # the fake path
+        return (out, m, denom) if return_residuals else out
     dims = (0, 1, 2)
     strides = build.strides_arg((q, dims), (k, dims), (kbar, dims),
                                 (out, dims), scale_strides)
@@ -231,8 +240,73 @@ def launch(kl: build.KernelLibrary, q, k, v, kbar, vbar, *, block_size: int,
     return (out, m, denom) if return_residuals else out
 
 
-def _stream(q):
-    return torch.cuda.current_stream(q.device).cuda_stream
+def blockwise_causal_attn_cost(B: int, H: int, Hkv: int, S: int, Dh: int, *,
+                               block_size: int, block_slots: int,
+                               dtype_bytes: int = 2,
+                               return_residuals: bool = False
+                               ) -> Tuple[int, int]:
+    """(flops, bytes) of kernel 1 (1r with `return_residuals`): reads q,
+    k, v and the M = (S/c)·r slots, writes the output (and m, denom in
+    fp32); 4·Dh flops a visible (row, key) pair."""
+    M = (S // block_size) * block_slots
+    nbytes = dtype_bytes * (2 * B * H * S * Dh + 2 * B * Hkv * S * Dh
+                            + 2 * B * Hkv * M * Dh)
+    if return_residuals:
+        nbytes += 2 * 4 * B * H * S
+    pairs = common.visible_pairs(S, block_size, block_slots) * B * H
+    return 4 * Dh * pairs, nbytes
+
+
+def blockwise_causal_prefix_attn_cost(B: int, H: int, Hkv: int, P: int,
+                                      Dh: int, M: int, *, block_size: int,
+                                      block_slots: int,
+                                      start_blocks: Optional[Sequence[int]],
+                                      dtype_bytes: int = 2,
+                                      slot_bytes: Optional[float] = None,
+                                      return_residuals: bool = False
+                                      ) -> Tuple[int, int]:
+    """(flops, bytes) of kernels 4, 4r and 8: reads q and the chunk's k, v,
+    and of the slot buffer only the slots its rows see
+    (``common.prefix_visible``; every slot when `start_blocks` is None),
+    writes the output (4r: and m, denom). `slot_bytes` is a slot row's
+    bytes a head (kernel 8: Dh codes and a 4-byte scale; default Dh in
+    the model dtype)."""
+    pairs, slots = common.prefix_visible(P, block_size, block_slots, M,
+                                         start_blocks, B)
+    row = dtype_bytes * Dh if slot_bytes is None else slot_bytes
+    nbytes = (dtype_bytes * (2 * B * H * P * Dh + 2 * B * Hkv * P * Dh)
+              + 2 * slots * Hkv * row)
+    if return_residuals:
+        nbytes += 2 * 4 * B * H * P
+    return 4 * Dh * pairs * H, int(nbytes)
+
+
+def blockwise_causal_attn_bwd_cost(B: int, H: int, Hkv: int, S: int,
+                                   Dh: int, M: int, *, block_size: int,
+                                   block_slots: int,
+                                   start_blocks: Optional[Sequence[int]]
+                                   = None, offset: bool = False,
+                                   dtype_bytes: int = 2) -> Tuple[int, int]:
+    """(flops, bytes) of kernel 2: reads q, k, v, the slots and dO (model
+    dtype) and (m, denom) (fp32), writes dq (model dtype) and dk_loc,
+    dv_loc, dk̄, dv̄ (fp32); 10·Dh flops a visible pair. Its offset form
+    (`offset`, per-row `start_blocks`, None when unknown) reads only the
+    slots its rows see."""
+    rows = B * H * S
+    grads = 4 * 2 * (B * Hkv * S * Dh + B * Hkv * M * Dh)
+    if not offset:
+        nbytes = (dtype_bytes * (rows * Dh + 2 * B * Hkv * S * Dh
+                                 + 2 * B * Hkv * M * Dh)
+                  + dtype_bytes * rows * Dh + 2 * 4 * rows
+                  + dtype_bytes * rows * Dh + grads)
+        pairs = common.visible_pairs(S, block_size, block_slots) * B * H
+        return 10 * Dh * pairs, nbytes
+    pairs, slots = common.prefix_visible(S, block_size, block_slots, M,
+                                         start_blocks, B)
+    nbytes = (dtype_bytes * (2 * rows * Dh + 2 * B * Hkv * S * Dh
+                             + 2 * slots * Hkv * Dh)
+              + 2 * 4 * rows + dtype_bytes * rows * Dh + grads)
+    return 10 * Dh * pairs * H, nbytes
 
 
 ROUTES = {0: "simt", 1: "tensor cores"}
@@ -271,14 +345,23 @@ def blockwise_causal_attn(q, k, v, kbar, vbar, *, block_size: int,
     on the current stream (or raises)."""
     kw = dict(block_size=block_size, block_slots=block_slots, scale=scale,
               return_residuals=return_residuals)
-    if not q.is_cuda:
+    if not q.is_cuda and not common.is_fake(q):
         return blockwise_causal_attn_plain(q, k, v, kbar, vbar, **kw)
-    out = launch(build.library(), q, k, v, kbar, vbar, stream=_stream(q),
-                 **kw)
-    if return_residuals:
+    kl, stream = common.kernel_route(q)
+    out = launch(kl, q, k, v, kbar, vbar, stream=stream, **kw)
+    if kl is not None and return_residuals:
         blockwise_causal_attn.residual_launches += 1
-    else:
+    elif kl is not None:
         blockwise_causal_attn.launches += 1
+    else:
+        B, H, S, Dh = q.shape
+        common.add_cost(
+            "blockwise_causal_attn(return_residuals)" if return_residuals
+            else "blockwise_causal_attn",
+            blockwise_causal_attn_cost(
+                B, H, k.shape[1], S, Dh, block_size=block_size,
+                block_slots=block_slots, dtype_bytes=q.element_size(),
+                return_residuals=return_residuals))
     return out
 
 
@@ -299,15 +382,26 @@ def blockwise_causal_prefix_attn(q, k, v, comp_k, comp_v, start_blocks, *,
     the plain twin; a CUDA tensor launches the CUDA kernel (or raises)."""
     kw = dict(block_size=block_size, block_slots=block_slots, scale=scale,
               return_residuals=return_residuals)
-    if not q.is_cuda:
+    if not q.is_cuda and not common.is_fake(q):
         return blockwise_causal_attn_plain(q, k, v, comp_k, comp_v,
                                            start_blocks=start_blocks, **kw)
-    out = launch(build.library(), q, k, v, comp_k, comp_v,
-                 start_blocks=start_blocks, stream=_stream(q), **kw)
-    if return_residuals:
+    kl, stream = common.kernel_route(q)
+    out = launch(kl, q, k, v, comp_k, comp_v, start_blocks=start_blocks,
+                 stream=stream, **kw)
+    if kl is not None and return_residuals:
         blockwise_causal_prefix_attn.residual_launches += 1
-    else:
+    elif kl is not None:
         blockwise_causal_prefix_attn.launches += 1
+    else:
+        B, H, P, Dh = q.shape
+        common.add_cost(
+            "blockwise_causal_prefix_attn(return_residuals)"
+            if return_residuals else "blockwise_causal_prefix_attn",
+            blockwise_causal_prefix_attn_cost(
+                B, H, k.shape[1], P, Dh, comp_k.shape[2],
+                block_size=block_size, block_slots=block_slots,
+                start_blocks=None, dtype_bytes=q.element_size(),
+                return_residuals=return_residuals))
     return out
 
 
@@ -342,27 +436,38 @@ def blockwise_causal_prefix_attn_q(q, k, v, comp_k, comp_v, comp_k_s,
     chunk's own k/v in the model dtype. Forward only. A CPU tensor runs the
     plain twin; a CUDA tensor launches the CUDA kernel (or raises)."""
     kw = dict(block_size=block_size, block_slots=block_slots, scale=scale)
-    if not q.is_cuda:
+    if not q.is_cuda and not common.is_fake(q):
         return blockwise_causal_prefix_attn_q_plain(
             q, k, v, comp_k, comp_v, comp_k_s, comp_v_s, start_blocks, **kw)
-    out = launch(build.library(), q, k, v, comp_k, comp_v,
-                 start_blocks=start_blocks, kbar_scale=comp_k_s,
-                 vbar_scale=comp_v_s, stream=_stream(q), **kw)
-    blockwise_causal_prefix_attn_q.launches += 1
+    kl, stream = common.kernel_route(q)
+    out = launch(kl, q, k, v, comp_k, comp_v, start_blocks=start_blocks,
+                 kbar_scale=comp_k_s, vbar_scale=comp_v_s, stream=stream,
+                 **kw)
+    if kl is not None:
+        blockwise_causal_prefix_attn_q.launches += 1
+    else:
+        B, H, P, Dh = q.shape
+        common.add_cost("blockwise_causal_prefix_attn_q",
+                        blockwise_causal_prefix_attn_cost(
+                            B, H, k.shape[1], P, Dh, comp_k.shape[2],
+                            block_size=block_size, block_slots=block_slots,
+                            start_blocks=None, dtype_bytes=q.element_size(),
+                            slot_bytes=Dh * comp_k.element_size() + 4))
     return out
 
 
 blockwise_causal_prefix_attn_q.launches = 0
 
 
-def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
-               block_size: int, block_slots: int, scale: float, stream,
-               start_blocks: Optional[torch.Tensor] = None):
+def launch_bwd(kl: Optional[build.KernelLibrary], q, k, v, kbar, vbar, m,
+               denom, do, *, block_size: int, block_slots: int, scale: float,
+               stream, start_blocks: Optional[torch.Tensor] = None):
     """Check the operands, allocate the gradients and the scratch (delta;
     in bf16 the slot splits' partials) and launch the backward kernels (dq,
     then dk/dv, then in bf16 the reduction of the partials) on `stream`.
     Gradients lie in model-layout memory, returned as kernel-layout
-    views."""
+    views. `kl` None (the fake path) allocates and checks, and launches
+    nothing."""
     _check_qkv(q, k, v, kbar, vbar)
     B, H, S, Dh = q.shape
     Hkv, M = k.shape[1], kbar.shape[2]
@@ -395,6 +500,8 @@ def launch_bwd(kl: build.KernelLibrary, q, k, v, kbar, vbar, m, denom, do, *,
                            dtype=f32, device=q.device)
     common.check_operands(q, k, v, kbar, vbar, do, m, denom, dq, dk, dv,
                           dkbar, dvbar, delta)
+    if kl is None:                                # the fake path
+        return dq, dk, dv, dkbar, dvbar
     dims = (0, 1, 2)
     strides = build.strides_arg((q, dims), (k, dims), (kbar, dims),
                                 (do, dims), (dq, dims), (dk, dims),
@@ -423,14 +530,26 @@ def blockwise_causal_attn_bwd(q, k, v, kbar, vbar, m, denom, do, *,
     the current stream (or raises)."""
     kw = dict(block_size=block_size, block_slots=block_slots, scale=scale,
               start_blocks=start_blocks)
-    if not q.is_cuda:
+    if not q.is_cuda and not common.is_fake(q):
         return blockwise_causal_attn_bwd_plain(q, k, v, kbar, vbar, m, denom,
                                                do, **kw)
-    out = launch_bwd(build.library(), q, k, v, kbar, vbar, m, denom, do,
-                     stream=_stream(q), **kw)
-    blockwise_causal_attn_bwd.launches += 1
-    if start_blocks is not None:
-        blockwise_causal_attn_bwd.offset_launches += 1
+    kl, stream = common.kernel_route(q)
+    out = launch_bwd(kl, q, k, v, kbar, vbar, m, denom, do, stream=stream,
+                     **kw)
+    if kl is not None:
+        blockwise_causal_attn_bwd.launches += 1
+        if start_blocks is not None:
+            blockwise_causal_attn_bwd.offset_launches += 1
+    else:
+        B, H, S, Dh = q.shape
+        common.add_cost(
+            "blockwise_causal_attn_bwd" if start_blocks is None
+            else "blockwise_causal_attn_bwd(start_blocks)",
+            blockwise_causal_attn_bwd_cost(
+                B, H, k.shape[1], S, Dh, kbar.shape[2],
+                block_size=block_size, block_slots=block_slots,
+                start_blocks=None, offset=start_blocks is not None,
+                dtype_bytes=q.element_size()))
     return out
 
 

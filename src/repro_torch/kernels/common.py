@@ -1,7 +1,12 @@
 """Shared kernel-wrapper plumbing: device resolution, layout moves, the
 backend table, and the fail-fast shape guards of the CUDA kernels.
 
-Counterpart of ``repro/kernels/common.py``. The TPU package bounded its
+Counterpart of ``repro/kernels/common.py``, plus the kernels' fake path:
+a wrapper handed FakeTensors (``is_fake``: the dry run of
+launch/dryrun.py) allocates its outputs as the launch would, calls no
+kernel and reports the launch and the kernel's cost (``add_cost``) to the
+counters of ``cost_sink`` (launch/step_cost.py), from the visible-work
+counts below; its launch counters count only kernels launched. The TPU package bounded its
 kernels by VMEM budgets; here the guards are derived from what the CUDA
 kernels in ``csrc/`` accept: the head dims they are instantiated for, whole
 blocks (``S % c == 0``), ``M == nb·r`` compressed slots (any M for the
@@ -15,9 +20,14 @@ shapes the JAX package refuses.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+import contextlib
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+from repro_torch.kernels import build
 
 # AttentionConfig.backend -> (route for CPU tensors, route for CUDA tensors).
 # "kernel" goes through kernels/ops.py, whose wrappers launch the CUDA kernel
@@ -600,3 +610,78 @@ def check_operands(*xs: torch.Tensor) -> None:
         if x.stride(-1) != 1:
             raise ValueError("kernel operands need a contiguous last dim, "
                              f"got strides {tuple(x.stride())}")
+
+
+# -- the fake path and the kernels' costs ------------------------------------
+
+_COST_SINKS: List[Callable[[str, int, int], None]] = []
+
+
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether a wrapper's operand is a FakeTensor: the wrapper then takes
+    its fake path (allocate, report the cost; no kernel)."""
+    return isinstance(x, FakeTensor)
+
+
+def kernel_route(x: torch.Tensor):
+    """(kernel library, stream) of a wrapper's CUDA operand: the built
+    library and the device's current stream; (None, None) for a
+    FakeTensor, the fake path."""
+    if is_fake(x):
+        return None, None
+    return build.library(), torch.cuda.current_stream(x.device).cuda_stream
+
+
+@contextlib.contextmanager
+def cost_sink(fn: Callable[[str, int, int], None]) -> Iterator[None]:
+    """Call fn(kernel name, flops, bytes) for every fake launch in the
+    block."""
+    _COST_SINKS.append(fn)
+    try:
+        yield
+    finally:
+        _COST_SINKS.remove(fn)
+
+
+def add_cost(name: str, cost: Tuple[int, int]) -> None:
+    """Report one fake launch's (flops, bytes) to the active sinks."""
+    for fn in _COST_SINKS:
+        fn(name, *cost)
+
+
+def visible_pairs(seq: int, block_size: int, block_slots: int,
+                  start: int = 0) -> int:
+    """Visible (row, key) pairs of one (batch, head) of the blockwise form:
+    row t sees its own block up to itself and the r slots of every block
+    before its own (shifted by `start` blocks)."""
+    c, r = block_size, block_slots
+    return sum((t % c) + 1 + (t // c + start) * r for t in range(seq))
+
+
+def prefix_visible(seq: int, block_size: int, block_slots: int,
+                   slots: int, start_blocks: Optional[Sequence[int]],
+                   batch: int) -> Tuple[int, int]:
+    """(visible (row, key) pairs of one head, summed over the batch rows;
+    slots read, summed over the rows) of the prefix form: chunk block n of
+    row b sees the slots of absolute blocks < start_blocks[b] + n, cut at
+    M = `slots`. Without start blocks (a fake launch: the values are
+    unknown) every row sees all M slots, the most the call can need."""
+    c, r, nb = block_size, block_slots, seq // block_size
+    if start_blocks is None:
+        pairs = batch * sum(t % c + 1 + slots for t in range(seq))
+        return pairs, batch * slots
+    pairs = sum(t % c + 1 + min((s + t // c) * r, slots)
+                for s in start_blocks for t in range(seq))
+    read = sum(min((s + nb - 1) * r, slots) for s in start_blocks)
+    return pairs, read
+
+
+def decode_visible(positions: Optional[Sequence[int]], *, batch: int,
+                   block_size: int, block_slots: int, slots: int) -> int:
+    """Keys a decode step reads, summed over the rows: a row at position t
+    sees t % c + 1 ring entries and the r slots of each completed block.
+    Without positions (a fake launch) every row reads all c + M keys."""
+    c, r = block_size, block_slots
+    if positions is None:
+        return batch * (c + slots)
+    return sum(t % c + 1 + (t // c) * r for t in positions)

@@ -21,9 +21,14 @@ Counterpart of ``repro/kernels/linformer_attn.py``:
   fp32 scratch the wrapper allocates.
 
 Each wrapper runs the plain twin for a CPU tensor and the CUDA kernel for a
-CUDA tensor, counting its launches in ``<wrapper>.launches``.
+CUDA tensor, counting its launches in ``<wrapper>.launches``; FakeTensor
+operands take the fake path (``common.is_fake``: the launch's allocations
+and checks, no kernel and no counter moved, the cost of ``*_cost`` to
+``common.add_cost``).
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -50,11 +55,41 @@ def linformer_attn_plain(q, kbar, vbar, *, scale: float) -> torch.Tensor:
     return out.reshape(B, H, S, Dh).to(q.dtype)
 
 
-def launch_exact(kl: build.KernelLibrary, q, kbar, vbar, *, scale: float,
-                 stream) -> torch.Tensor:
+def linformer_attn_cost(B: int, H: int, Hkv: int, S: int, K: int, Dh: int,
+                        *, dtype_bytes: int = 2) -> Tuple[int, int]:
+    """(flops, bytes) of kernel 5: reads q, k̄, v̄, writes the output; 4·Dh
+    flops a (row, slot) pair."""
+    return (4 * Dh * S * K * B * H,
+            dtype_bytes * (2 * B * H * S * Dh + 2 * B * Hkv * K * Dh))
+
+
+def decode_attn_cost(B: int, Hkv: int, G: int, Dh: int, c: int, M: int, *,
+                     positions: Optional[Sequence[int]] = None,
+                     block_slots: int = 0,
+                     dtype_bytes: int = 2,
+                     cache_row_bytes: Optional[float] = None
+                     ) -> Tuple[int, int]:
+    """(flops, bytes) of kernels 3 and 7: reads q and the keys and values
+    each row sees (``common.decode_visible``: every key when `positions`
+    are unknown), the two fp32 biases, writes the output; 4·Dh flops a
+    (query head, key) pair. `block_slots` (r) places the rows' positions
+    among the slots. `cache_row_bytes` is a key's bytes a head
+    (kernel 7: Dh codes and a 4-byte scale; default Dh in the model
+    dtype)."""
+    vis = common.decode_visible(positions, batch=B, block_size=c,
+                                block_slots=block_slots, slots=M)
+    row = dtype_bytes * Dh if cache_row_bytes is None else cache_row_bytes
+    nbytes = (dtype_bytes * 2 * B * Hkv * G * Dh + 2 * vis * Hkv * row
+              + 4 * B * (c + M))
+    return 4 * Dh * G * Hkv * vis, int(nbytes)
+
+
+def launch_exact(kl: Optional[build.KernelLibrary], q, kbar, vbar, *,
+                 scale: float, stream) -> torch.Tensor:
     """Check the operands, allocate the output and launch kernel 5 on
     `stream` (no synchronisation). q, k̄ and v̄ may be strided views (last
-    dim contiguous); k̄ and v̄ share one stride set."""
+    dim contiguous); k̄ and v̄ share one stride set. `kl` None (the fake
+    path) allocates and checks, and launches nothing."""
     B, H, S, Dh = q.shape
     Hkv, K = kbar.shape[1], kbar.shape[2]
     if kbar.shape != (B, Hkv, K, Dh) or vbar.shape != kbar.shape:
@@ -66,6 +101,8 @@ def launch_exact(kl: build.KernelLibrary, q, kbar, vbar, *, scale: float,
     kbar, vbar = common.same_strides(kbar, vbar)
     out = torch.empty((B, H, S, Dh), dtype=q.dtype, device=q.device)
     common.check_operands(q, kbar, vbar, out)
+    if kl is None:
+        return out
     dims = (0, 1, 2)
     strides = build.strides_arg((q, dims), (kbar, dims), (out, dims))
     rc = kl.lib.linformer_attn_forward(
@@ -79,11 +116,17 @@ def linformer_attn(q, kbar, vbar, *, scale: float) -> torch.Tensor:
     """Exact Linformer attention in kernel layout. A CPU tensor runs the
     plain twin; a CUDA tensor launches kernel 5 on the current stream (or
     raises)."""
-    if not q.is_cuda:
+    if not q.is_cuda and not common.is_fake(q):
         return linformer_attn_plain(q, kbar, vbar, scale=scale)
-    out = launch_exact(build.library(), q, kbar, vbar, scale=scale,
-                       stream=torch.cuda.current_stream(q.device).cuda_stream)
-    linformer_attn.launches += 1
+    kl, stream = common.kernel_route(q)
+    out = launch_exact(kl, q, kbar, vbar, scale=scale, stream=stream)
+    if kl is not None:
+        linformer_attn.launches += 1
+    else:
+        B, H, S, Dh = q.shape
+        common.add_cost("linformer_attn", linformer_attn_cost(
+            B, H, kbar.shape[1], S, kbar.shape[2], Dh,
+            dtype_bytes=q.element_size()))
     return out
 
 
@@ -130,13 +173,14 @@ def decode_attn_q_plain(q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s,
     return out.to(q.dtype)
 
 
-def launch(kl: build.KernelLibrary, q, raw_k, raw_v, comp_k, comp_v,
-           bias_loc, bias_glob, *, scale: float, stream,
+def launch(kl: Optional[build.KernelLibrary], q, raw_k, raw_v, comp_k,
+           comp_v, bias_loc, bias_glob, *, scale: float, stream,
            scales=None) -> torch.Tensor:
     """Check the operands, allocate the output and launch the kernel on
     `stream` (no synchronisation). `scales`: None for a dense cache in q's
     dtype, or (raw_k_s, raw_v_s, comp_k_s, comp_v_s) fp32 for int8/fp8
-    codes."""
+    codes. `kl` None (the fake path) allocates and checks, and launches
+    nothing."""
     B, Hkv, G, Dh = q.shape
     c, M = raw_k.shape[2], comp_k.shape[2]
     if raw_k.shape != (B, Hkv, c, Dh) or raw_v.shape != raw_k.shape:
@@ -180,6 +224,8 @@ def launch(kl: build.KernelLibrary, q, raw_k, raw_v, comp_k, comp_v,
     part = None if nsplit == 1 else torch.empty(
         B * Hkv * nsplit * G * (Dh + 2), dtype=torch.float32,
         device=q.device)
+    if kl is None:
+        return out
     dims = (0, 1, 2)
     strides = build.strides_arg((raw_k, dims), (comp_k, dims), (rks, dims),
                                 (cks, dims))
@@ -199,14 +245,27 @@ def decode_attn(q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob, *,
     """Decode attention in kernel layout. A CPU tensor runs the plain twin;
     a CUDA tensor launches the CUDA kernel on the current stream (or
     raises)."""
-    if not q.is_cuda:
+    if not q.is_cuda and not common.is_fake(q):
         return decode_attn_plain(q, raw_k, raw_v, comp_k, comp_v, bias_loc,
                                  bias_glob, scale=scale)
-    out = launch(build.library(), q, raw_k, raw_v, comp_k, comp_v, bias_loc,
-                 bias_glob, scale=scale,
-                 stream=torch.cuda.current_stream(q.device).cuda_stream)
-    decode_attn.launches += 1
+    kl, stream = common.kernel_route(q)
+    out = launch(kl, q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
+                 scale=scale, stream=stream)
+    if kl is not None:
+        decode_attn.launches += 1
+    else:
+        _fake_decode_cost("decode_attn", q, raw_k, comp_k, None)
     return out
+
+
+def _fake_decode_cost(name, q, raw_k, comp_k, scales) -> None:
+    """A fake decode launch's cost: every key seen (the biases' values are
+    unknown)."""
+    B, Hkv, G, Dh = q.shape
+    row = None if scales is None else Dh * raw_k.element_size() + 4
+    common.add_cost(name, decode_attn_cost(
+        B, Hkv, G, Dh, raw_k.shape[2], comp_k.shape[2],
+        dtype_bytes=q.element_size(), cache_row_bytes=row))
 
 
 decode_attn.launches = 0
@@ -221,13 +280,16 @@ def decode_attn_q(q, raw_k, raw_v, comp_k, comp_v, raw_k_s, raw_v_s,
     (B, Hkv, M), dequantised in the kernel. A CPU tensor runs the plain
     twin; a CUDA tensor launches the CUDA kernel (or raises)."""
     scales = (raw_k_s, raw_v_s, comp_k_s, comp_v_s)
-    if not q.is_cuda:
+    if not q.is_cuda and not common.is_fake(q):
         return decode_attn_q_plain(q, raw_k, raw_v, comp_k, comp_v, *scales,
                                    bias_loc, bias_glob, scale=scale)
-    out = launch(build.library(), q, raw_k, raw_v, comp_k, comp_v, bias_loc,
-                 bias_glob, scale=scale, scales=scales,
-                 stream=torch.cuda.current_stream(q.device).cuda_stream)
-    decode_attn_q.launches += 1
+    kl, stream = common.kernel_route(q)
+    out = launch(kl, q, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
+                 scale=scale, scales=scales, stream=stream)
+    if kl is not None:
+        decode_attn_q.launches += 1
+    else:
+        _fake_decode_cost("decode_attn_q", q, raw_k, comp_k, scales)
     return out
 
 

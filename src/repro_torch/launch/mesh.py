@@ -17,17 +17,52 @@ that one rank never joins raises instead of hanging. ``init_ranks`` opens
 the default group with it; ``make_local_mesh`` passes it to each mesh
 dim's group.
 
-``make_production_mesh`` (TPU pod shapes) is not ported.
+``make_production_mesh`` builds JAX's production shapes, (16, 16) named
+("data", "model") or (2, 16, 16) named ("pod", "data", "model"), over a
+fake process group (``fake_world``): one process stands for rank 0 of
+256 or 512, collectives run on FakeTensors and move nothing. The dry run
+(launch/dryrun.py) and the trace audit (analysis/trace_audit.py) use it;
+``H100_*`` are the card's datasheet rates the dry run's roofline divides
+by; ``link_rates`` gives each mesh dim the rate of the link its
+collectives cross (NVLink inside a node of 8 cards, InfiniBand between
+nodes).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import warnings
-from typing import Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch.distributed as dist
 
 GROUP_TIMEOUT = datetime.timedelta(seconds=120)
+
+# NVIDIA's datasheet figures for one H100 80GB HBM3 SXM at its 700 W limit
+# (dense rates, no sparsity), not measurements: the dry run's roofline
+# terms divide by them, and chip_smoke.py's kernel bounds too.
+H100_FLOPS_BF16 = 989e12          # FLOP/s, bf16 on the tensor cores
+H100_HBM_BYTES_PER_S = 3.35e12    # B/s
+H100_NVLINK_BYTES_PER_S = 450e9   # B/s per direction (NVLink 4, 18 links)
+# An HGX/DGX H100 node holds 8 cards on NVLink; between nodes each card has
+# one 400 Gb/s InfiniBand NDR port (ConnectX-7), NVIDIA's DGX H100
+# datasheet: 50 GB/s a card per direction.
+H100_NODE_CARDS = 8
+H100_IB_BYTES_PER_S = 50e9        # B/s per direction a card
+
+
+def link_rates(shape: Sequence[int], names: Sequence[str]
+               ) -> Dict[str, float]:
+    """Each mesh dim's per-card link rate, ranks laid out row-major (as
+    ``init_device_mesh`` lays them) H100_NODE_CARDS to a node: NVLink where
+    the dim's groups lie inside one node (its width times the widths of
+    the dims after it divides the node), InfiniBand where they cross."""
+    rates, span = {}, 1
+    for name, width in reversed(list(zip(names, shape))):
+        span *= width
+        rates[name] = (H100_NVLINK_BYTES_PER_S if H100_NODE_CARDS % span == 0
+                       else H100_IB_BYTES_PER_S)
+    return rates
 
 
 def init_ranks(backend: str, init_method: str, rank: int, world_size: int,
@@ -46,6 +81,20 @@ def _group_options(backend: str, timeout: datetime.timedelta):
     return opts
 
 
+def _init_device_mesh(device_type: str, shape, names,
+                      timeout: datetime.timedelta):
+    """torch's init_device_mesh with each dim's group on the default
+    group's backend and `timeout` (a fake group has neither to set)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    backend = dist.get_backend()
+    if backend == "fake":
+        return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    opts = _group_options(backend, timeout)
+    return init_device_mesh(device_type, shape, mesh_dim_names=names,
+                            backend_override={a: (backend, opts)
+                                              for a in names})
+
+
 def make_local_mesh(model_shards: int = 1, seq_shards: int = 1, *,
                     device_type: str,
                     timeout: datetime.timedelta = GROUP_TIMEOUT):
@@ -53,7 +102,6 @@ def make_local_mesh(model_shards: int = 1, seq_shards: int = 1, *,
     tensor-parallel width, "seq" the sequence-parallel one, the rest goes
     to "data". With seq_shards == 1 the mesh has JAX's 2-axis ("data",
     "model") shape. Collective over the world: every rank calls it."""
-    from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
     if n % (model_shards * seq_shards) != 0:
         raise ValueError(f"{n} ranks do not divide into model_shards="
@@ -64,11 +112,35 @@ def make_local_mesh(model_shards: int = 1, seq_shards: int = 1, *,
     else:
         shape = (n // (model_shards * seq_shards), seq_shards, model_shards)
         names = ("data", "seq", "model")
-    backend = dist.get_backend()
-    opts = _group_options(backend, timeout)
-    return init_device_mesh(device_type, shape, mesh_dim_names=names,
-                            backend_override={a: (backend, opts)
-                                              for a in names})
+    return _init_device_mesh(device_type, shape, names, timeout)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int) -> Iterator[None]:
+    """A fake default process group of `world_size` ranks, this process
+    rank 0, for the block: meshes built inside it cost nothing, and
+    collectives on FakeTensors run without moving a byte. The group is
+    process-global, so it is destroyed on exit, also after an error."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a default "
+                           "process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str):
+    """JAX's production mesh over the default group, which must have 256
+    (or, `multi_pod`, 512) ranks: (16, 16) named ("data", "model"), or
+    (2, 16, 16) named ("pod", "data", "model"). Inside ``fake_world`` no
+    machine needs that many cards."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, names, device_type=device_type)
 
 
 def make_mesh(shape, names, *, device_type: str,
@@ -76,7 +148,6 @@ def make_mesh(shape, names, *, device_type: str,
     """A DeviceMesh of `shape` with dim `names` over every rank of the
     default group (the counterpart of ``jax.make_mesh``); the product of
     `shape` must be the world size. Collective over the world."""
-    from torch.distributed.device_mesh import init_device_mesh
     shape, names = tuple(shape), tuple(names)
     n = 1
     for w in shape:
@@ -84,11 +155,7 @@ def make_mesh(shape, names, *, device_type: str,
     if n != dist.get_world_size() or len(shape) != len(names):
         raise ValueError(f"mesh {dict(zip(names, shape))} does not cover "
                          f"the {dist.get_world_size()} ranks")
-    backend = dist.get_backend()
-    opts = _group_options(backend, timeout)
-    return init_device_mesh(device_type, shape, mesh_dim_names=names,
-                            backend_override={a: (backend, opts)
-                                              for a in names})
+    return _init_device_mesh(device_type, shape, names, timeout)
 
 
 def mesh_width(mesh, axis: Optional[str]) -> int:

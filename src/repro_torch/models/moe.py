@@ -31,9 +31,10 @@ and combine never build an (E, T, D) tensor: each (token, choice) pair
 writes its token to a unique (expert, slot) row, or to one overflow row
 that is thrown away, and the combine gathers each token's ≤ k expert
 outputs, scales them by the renormalised weight (cast to the output dtype,
-as JAX casts it) and sums them in ascending expert order. The forward's
-only atomics count the experts' loads in integers, so it is deterministic
-on the card.
+as JAX casts it) and sums them in ascending expert order. The experts'
+loads are integer column sums of the (T, E) choice mask, with a static
+shape (the dry run's FakeTensors take no data-dependent shape), and the
+forward is deterministic on the card.
 """
 from __future__ import annotations
 
@@ -107,11 +108,13 @@ def route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[:, :K], top_i[:, :K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    counts = torch.bincount(top_i.reshape(-1), minlength=E)
-    aux = E * torch.sum(probs.mean(0) * (counts.to(torch.float32)
-                                         / (T * K)))
     chosen = torch.zeros((T, E), dtype=torch.int32, device=x.device)
     chosen.scatter_(1, top_i, 1)
+    # a token's k choices are distinct experts: each expert's load is its
+    # column's sum (a static shape, where bincount's depends on the data)
+    counts = chosen.sum(0)
+    aux = E * torch.sum(probs.mean(0) * (counts.to(torch.float32)
+                                         / (T * K)))
     slot = (torch.cumsum(chosen, dim=0) - 1).gather(1, top_i)
     return {"top_i": top_i, "top_w": top_w, "slot": slot, "keep": slot < C,
             "aux": aux, "capacity": C}

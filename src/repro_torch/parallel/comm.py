@@ -37,7 +37,9 @@ Only ``all_gather`` (the list form) and ``all_reduce`` are issued: the two
 collectives every backend, gloo included, supports (gloo takes CUDA
 tensors too). ``BYTES`` counts, per op, the bytes of every collective it
 issues, forward and backward: the whole gathered tensor of an all-gather,
-the tensor of an all-reduce, i.e. what one rank receives.
+the tensor of an all-reduce, i.e. what one rank receives; ``CALLS`` counts
+the collectives themselves. ``DIM_BYTES`` and ``DIM_CALLS`` count the same
+by the mesh dim they run over.
 """
 from __future__ import annotations
 
@@ -48,10 +50,22 @@ import torch
 import torch.distributed as dist
 
 BYTES: collections.Counter = collections.Counter()
+CALLS: collections.Counter = collections.Counter()
+DIM_BYTES: collections.Counter = collections.Counter()
+DIM_CALLS: collections.Counter = collections.Counter()
 
 
 def reset_counters() -> None:
-    BYTES.clear()
+    for c in (BYTES, CALLS, DIM_BYTES, DIM_CALLS):
+        c.clear()
+
+
+def _count(op: str, axis, y: torch.Tensor) -> None:
+    n = y.numel() * y.element_size()
+    BYTES[op] += n
+    CALLS[op] += 1
+    DIM_BYTES[axis.name] += n
+    DIM_CALLS[axis.name] += 1
 
 
 def _live(axes) -> tuple:
@@ -77,7 +91,7 @@ def flat_coord(axes) -> int:
 def _all_reduce(x: torch.Tensor, axis, op: str) -> torch.Tensor:
     y = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, group=axis.group)
-    BYTES[op] += y.numel() * y.element_size()
+    _count(op, axis, y)
     return y
 
 
@@ -89,7 +103,7 @@ def _all_gather(x: torch.Tensor, dim: int, axis, op: str) -> torch.Tensor:
     parts = [torch.empty_like(y) for _ in range(axis.width)]
     dist.all_gather(parts, y, group=axis.group)
     out = torch.cat(parts, dim=dim)
-    BYTES[op] += out.numel() * out.element_size()
+    _count(op, axis, out)
     return out
 
 

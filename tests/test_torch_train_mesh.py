@@ -269,6 +269,35 @@ def test_sharded_steps_match_jax(runs, case):
             assert err <= TOL * np.abs(w).max(), (case, "mu", k, err)
 
 
+def _fake_mesh(case):
+    from repro_torch.launch import mesh as mesh_lib
+    if case.get("names"):
+        return mesh_lib.make_mesh(case["mesh"], case["names"],
+                                  device_type="cpu")
+    return mesh_lib.make_local_mesh(*case["mesh"], device_type="cpu")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dry_run_counts_the_ranks_collective_bytes(runs, case):
+    """The dry run of a case's step on a fake 4-rank world of the same mesh
+    counts the bytes rank 0 moved in its first real step, op by op."""
+    from repro_torch.configs import config_from_dict
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel.sharding import ParallelCtx
+    _, ranks, _, _ = runs
+    c = CASES[case]
+    cfg = config_from_dict(dataclasses.asdict(c["cfg"]))
+    with mesh_lib.fake_world(4):
+        ctx = ParallelCtx(mesh=_fake_mesh(c), fsdp=c["fsdp"])
+        rec = dryrun.dry_run(cfg, ShapeConfig("mesh", S, B, "train"), ctx,
+                             device="cpu",
+                             microbatch=c.get("microbatch", 0))
+    got = {op: v["bytes"] for op, v in rec["collectives"].items()}
+    assert got == ranks[0][case]["bytes"]
+
+
 def test_sharded_storage_is_jax_shard_shape(runs):
     """On data2×tp2 with fsdp "data" each rank stores exactly JAX's shard
     shape of every leaf and of its first moment."""

@@ -366,11 +366,13 @@ def _whole_np(tree, ctx):
 
 def _mesh_steps(cfg, flat, ctx, batches, ocfg, microbatch=0):
     """make_train_step(ctx=) over `batches` from JAX's weights `flat`: the
-    losses, every parameter and first moment whole afterwards, and each
-    rank's shapes of its parameter and first-moment shards."""
+    losses, the first step's collective bytes by op (`comm.BYTES`), every
+    parameter and first moment whole afterwards, and each rank's shapes of
+    its parameter and first-moment shards."""
     from repro_torch.checkpoint import bridge
     from repro_torch.models.transformer import flatten
     from repro_torch.optim import adamw_init
+    from repro_torch.parallel import comm
     from repro_torch.parallel import sharding as shd
     from repro_torch.train.trainer import make_train_step, training_ctx
     tctx = training_ctx(ctx)
@@ -380,11 +382,14 @@ def _mesh_steps(cfg, flat, ctx, batches, ocfg, microbatch=0):
         p.requires_grad_(True)
     opt = adamw_init(params, ocfg)
     step = make_train_step(cfg, ocfg, microbatch=microbatch, ctx=ctx)
-    losses = []
+    losses, first = [], None
     for b in batches:
+        comm.reset_counters()
         params, opt, m = step(params, opt, {k: _t(v) for k, v in b.items()})
+        first = dict(comm.BYTES) if first is None else first
         losses.append(float(m["loss"]))
-    return {"losses": losses, "params": _whole_np(params, tctx),
+    return {"losses": losses, "bytes": first,
+            "params": _whole_np(params, tctx),
             "mu": _whole_np(opt["mu"], tctx),
             "local": {k: tuple(v.shape) for k, v in flatten(params).items()},
             "mu_local": {k: tuple(v.shape)
