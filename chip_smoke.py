@@ -274,9 +274,13 @@ error; none catches its own failure:
    size 1's in bf16, plus BF16_PARITY_ABS, and the tensor-core route
    probed after each causal and prefix leg; one
    model-level train step of qwen3-8b at full width and 2 layers (fp32,
-   B=1, S=1024, remat full) on sp2 × tp2: the loss within
-   TRAIN_LOSS_RTOL and every gradient leaf within GRAD_TOL of world size
-   1, each rank's peak GB. [mesh-moe]: qwen3-moe-30b-a3b at full width,
+   B=1, S=1024, remat full) on sp2 × tp2 in the training layout (each
+   rank its shard of every parameter; tensor-parallel: each matmul on its
+   column or row shard, the vocabulary-parallel head and cross-entropy):
+   the loss within TRAIN_LOSS_RTOL and every gradient leaf, gathered,
+   within GRAD_TOL of world size 1, each rank's GB of parameters at
+   rest, its peak GB and the step's comm bytes by op and mesh dim.
+   [mesh-moe]: qwen3-moe-30b-a3b at full width,
    1 layer, fp32: the model's forward with the MoE layer expert-parallel
    on data2 × tp2 (against world size 1 on each data shard's rows) and on
    tp4, and weight-stationary decode of the layer (8 tokens, fsdp "data")
@@ -285,12 +289,15 @@ error; none catches its own failure:
    per-shard launches summed over the ranks (each kernel of the per-shard
    table at least once) and each phase's wall (time-sliced: no scaling
    number). In the same spawn, the training layout (each rank its rows of
-   the batch and its shard of every parameter and moment) and serving on
+   the batch and its shard of every parameter and moment, tensor-parallel
+   over the model dim) and serving on
    a tp mesh, qwen3-8b at full width: [mesh-train] 2 layers on data2 ×
    tp2, fsdp "data", 2 AdamW steps (eps 1e-3, TRAIN_OPT) in fp32 (losses
    within TRAIN_LOSS_RTOL, every parameter gathered within GRAD_TOL of
    max(1, max|p|) of world size 1) and in bf16 (close_bf16's rules), each
-   rank's GB at rest against world size 1's, its peak and comm bytes;
+   rank's GB at rest against world size 1's, its peak, comm bytes by op
+   and by (op, mesh dim), and the head's bytes (its lm_head shard and the
+   logits a step, against the whole vocabulary's);
    [mesh-train-compressed] pod2 × data2, bf16 at 1 layer (2 did not fit),
    3 steps of the int8 cross-pod step against the same rule at world size
    1 (COMPRESSED_LOSS_TOL), the exact step's gap logged; [mesh-elastic] a
@@ -394,6 +401,25 @@ SERVE_PAGE_DTYPE = "int8"
 
 def log(msg):
     print(msg, flush=True)
+
+
+def host_gb():
+    """GB of host memory in use by the machine's processes and files, as
+    its memory limit counts them (the cgroup's, v2 or v1), else the
+    host's (MemTotal - MemAvailable); None when none can be read."""
+    for path in ("/sys/fs/cgroup/memory.current",
+                 "/sys/fs/cgroup/memory/memory.usage_in_bytes"):
+        try:
+            with open(path) as fh:
+                return int(fh.read()) / 1e9
+        except (OSError, ValueError):
+            continue
+    try:
+        with open("/proc/meminfo") as fh:
+            kb = {ln.split(":")[0]: int(ln.split()[1]) for ln in fh}
+        return (kb["MemTotal"] - kb["MemAvailable"]) / 1e6
+    except (OSError, KeyError, ValueError):
+        return None
 
 
 def time_ms(fn, n_sets, iters=30, warmup=3):
@@ -5402,7 +5428,11 @@ def mesh_train_leg(rk, meshes):
                                            make_causal_batch)
     from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import flatten
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.plan import local_batch
     from repro_torch.parallel.sharding import ParallelCtx
+    from repro_torch.train.trainer import training_ctx
     tr = MESH_SHAPES["train"]
     cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=tr["layers"],
                               dtype="float32")
@@ -5415,27 +5445,55 @@ def mesh_train_leg(rk, meshes):
     for p in leaves.values():
         p.requires_grad_(True)
 
-    def step(ctx):
+    def step(params, leaves, batch, ctx):
         loss, _ = tmodel.loss_fn(params, cfg, batch, ctx=ctx)
         return loss.detach(), torch.autograd.grad(loss, list(leaves.values()))
 
     ref = None
     if rk.rank == 0:
-        loss, gr = step(None)
+        loss, gr = step(params, leaves, batch, None)
         ref = (loss.item(), [x.cpu() for x in gr])
         del loss, gr
         gc.collect()
         if rk.dev.type == "cuda":
             torch.cuda.empty_cache()
     dist.barrier()
+    tctx = training_ctx(ParallelCtx(mesh=meshes["sp2xtp2"], fsdp="data"))
+    shards = shd.shard_tree(params, tctx)
+    whole_bytes = sum(v.numel() * v.element_size() for v in leaves.values())
+    del params, leaves
+    free(rk.dev)
+    local = flatten(shards)
+    for p in local.values():
+        p.requires_grad_(True)
+    rest = sum(v.numel() * v.element_size() for v in local.values())
     if rk.dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    ctx = ParallelCtx(mesh=meshes["sp2xtp2"], fsdp="data")
+    before = collections.Counter(comm.OP_DIM_BYTES)
     t0 = time.perf_counter()
-    loss, gr = rk.counted(lambda: step(ctx))
+    loss, gr = rk.counted(lambda: step(shards, local,
+                                       local_batch(batch, tctx), tctx))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9 \
         if rk.dev.type == "cuda" else 0.0
+    op_dim = {f"{op}/{d}": n for (op, d), n in
+              (collections.Counter(comm.OP_DIM_BYTES) - before).items()}
+    rk.say(f"  train step sp2xtp2, tensor-parallel: rank 0 holds "
+           f"{rest / 1e9:.3f} GB of parameters (world size 1: "
+           f"{whole_bytes / 1e9:.3f}), peak {peak:.2f} GB; comm bytes by "
+           f"(op/mesh dim) {op_dim}")
+    # the gradients whole, for the comparison (every rank gathers): not
+    # the step's traffic, so comm's counters are put back after
+    counters = (comm.BYTES, comm.CALLS, comm.DIM_BYTES, comm.DIM_CALLS,
+                comm.OP_DIM_BYTES)
+    saved = [collections.Counter(c) for c in counters]
+    with torch.no_grad():
+        gr = [shd.unshard_leaf(g, shd.leaf_spec(k, g.ndim, tctx), tctx)
+              for k, g in zip(local, gr)]
+    for c, kept in zip(counters, saved):
+        c.clear()
+        c.update(kept)
+    leaves = local
     losses = [None] * dist.get_world_size()
     dist.all_gather_object(losses, loss.item())
     if max(abs(x - losses[0]) for x in losses) > 1e-6 * abs(losses[0]):
@@ -5577,10 +5635,52 @@ def mesh_batch(cfg, B, S, seed):
 
 
 def free(dev):
+    """Release what the process no longer uses: unreferenced objects, the
+    card's cached blocks and the cached pinned host blocks (gloo stages
+    each collective of CUDA tensors through pinned host buffers, which
+    the caching host allocator keeps until asked: under tensor
+    parallelism four ranks' caches, ~8 GB each, ran a one-H100 host with
+    96 GiB out of memory)."""
     import torch
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+        if hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()
+
+
+def pinned_gb():
+    """GB of pinned host memory the caching host allocator holds in this
+    process, by torch's host_memory_stats (None where it reports none)."""
+    import torch
+    try:
+        stats = torch.cuda.host_memory_stats()
+    except (AttributeError, RuntimeError):
+        return None
+    held = [v for k, v in stats.items()
+            if k.startswith("reserved_bytes") and k.endswith("current")]
+    return held[0] / 1e9 if held else None
+
+
+def rss_gb():
+    """GB of this process's resident set (VmRSS), None if unreadable."""
+    try:
+        with open("/proc/self/status") as fh:
+            for ln in fh:
+                if ln.startswith("VmRSS:"):
+                    return int(ln.split()[1]) / 1e6
+    except (OSError, ValueError):
+        pass
+    return None
+
+
+def ranks_memory(rk):
+    """Each rank's (resident GB, cached pinned host GB), gathered to every
+    rank (a collective: all ranks call it)."""
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (rss_gb(), pinned_gb()))
+    return every
 
 
 def train_steps(cfg, ocfg, batches, dev, ctx=None, params=None, step=None):
@@ -5695,8 +5795,22 @@ def mesh_train_legs(rk, meshes):
             if rk.dev.type == "cuda" else 0.0
         rest = tree_bytes(params) + tree_bytes(opt["mu"]) + \
             tree_bytes(opt["nu"])
+        # the head: this rank's lm_head shard at rest, gathered over fsdp
+        # where used (D, V_loc), and the fp32 logits of its rows a step,
+        # beside the whole head's (D, V) and the whole vocabulary's logits
+        head = params["lm_head"]
+        rows = tr["batch"] // 2 * tr["seq"]
+        V, D = cfg.padded_vocab_size, cfg.d_model
         out[name] = {"bytes": dict(comm.BYTES), "peak_gb": peak,
-                     "rest_gb": rest / 1e9, "wall": wall}
+                     "rest_gb": rest / 1e9, "wall": wall,
+                     "op_dim": {f"{op}/{d}": n for (op, d), n in
+                                comm.OP_DIM_BYTES.items()},
+                     "head": {"lm_head": head.numel() * head.element_size(),
+                              "lm_head_used": D * head.shape[1]
+                              * head.element_size(),
+                              "lm_head_whole": D * V * head.element_size(),
+                              "logits": rows * head.shape[1] * 4,
+                              "logits_whole": rows * V * 4}}
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, losses)
         if any(x != every[0] for x in every):
@@ -5925,12 +6039,15 @@ def mesh_elastic_leg(rk, meshes, tmp):
         free(rk.dev)
         rk.say(f"  [mesh-elastic] world size 1: {e['steps'][0]} steps and "
                f"a {gb:.2f} GB checkpoint ({t_save:.1f} s), continued to "
-               f"{e['steps'][1]}")
+               f"{e['steps'][1]}; host memory in use {host_gb()} GB")
     dist.barrier()
     t1 = time.perf_counter()
     start, params, tctx = rk.counted(lambda: resume(ParallelCtx(
         mesh=meshes["data2xtp2"], fsdp="data")), leg="mesh-elastic")
     wall = time.perf_counter() - t1
+    rk.say(f"  [mesh-elastic] resumed on 4 ranks: host memory in use "
+           f"{host_gb()} GB; each rank's (resident GB, cached pinned GB) "
+           f"{ranks_memory(rk)}")
     if start != e["steps"][0]:
         raise AssertionError(f"[mesh-elastic] resumed at {start}")
     worst = (0.0, "")
@@ -6107,15 +6224,15 @@ def mesh_rank(rank, world, tmp, dev_type):
         comm.reset_counters()
         mesh_attention_legs(rk, meshes)
         mesh_exact_leg(rk, meshes)
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        free(dev)
         peak = mesh_train_leg(rk, meshes)
         walls["mesh"] = time.perf_counter() - t0
         mesh_bytes = dict(comm.BYTES)
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        before = ranks_memory(rk)
+        free(dev)
+        rk.say(f"  [mesh] done: host memory in use {host_gb()} GB; each "
+               f"rank's (resident GB, cached pinned GB) before and after "
+               f"freeing {before} {ranks_memory(rk)}")
         t1 = time.perf_counter()
         comm.reset_counters()
         mesh_moe_legs(rk, meshes)
@@ -6132,7 +6249,11 @@ def mesh_rank(rank, world, tmp, dev_type):
             t1 = time.perf_counter()
             new[leg] = fn()
             walls[leg] = time.perf_counter() - t1
+            before = ranks_memory(rk)
             free(dev)
+            rk.say(f"  [{leg}] done: host memory in use {host_gb()} GB; "
+                   f"each rank's (resident GB, cached pinned GB) before "
+                   f"and after freeing {before} {ranks_memory(rk)}")
         mine = {"launches": dict(rk.launches), "peak_gb": peak,
                 "bytes": {"mesh": mesh_bytes, "mesh-moe": moe_bytes},
                 "new": new, "by_leg": {k: dict(v)
@@ -6157,6 +6278,8 @@ def mesh_phases(dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    log(f"[mesh] before the spawn: host memory in use {host_gb()} GB; this "
+        f"process resident {rss_gb()} GB, cached pinned {pinned_gb()} GB")
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(mesh_rank, args=(MESH_WORLD, tmp, dev.type),
                  nprocs=MESH_WORLD, join=True)
@@ -6191,6 +6314,11 @@ def mesh_phases(dev):
                 f"{[round(g['peak_gb'], 2) for g in got]}; comm bytes by op "
                 f"summed over the ranks {dict(total)}, rank 0 "
                 f"{got[0]['bytes']}")
+            if "op_dim" in got[0]:
+                log(f"[{leg}] {name}: rank 0's comm bytes by (op/mesh dim) "
+                    f"over the steps {got[0]['op_dim']}; the head's bytes "
+                    f"(rank 0: lm_head shard and fp32 logits of its rows a "
+                    f"step, beside the whole vocabulary's) {got[0]['head']}")
     for leg in ("mesh-train", "mesh-train-compressed", "mesh-elastic",
                 "mesh-serve"):
         total = collections.Counter()
@@ -6305,7 +6433,7 @@ def main():
         """Log the wall of the phases since the last lap, and the run's."""
         now = time.perf_counter()
         log(f"[wall] {name}: {now - t_lap[0]:.1f} s ({now - t_start:.1f} s "
-            "into the run)")
+            f"into the run; host memory in use {host_gb()} GB)")
         t_lap[0] = now
 
     build_phase()

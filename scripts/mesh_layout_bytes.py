@@ -3,8 +3,9 @@
 two layouts the port has: every rank holding the whole parameters and the
 whole batch (the plan's regions split the batch over data inside
 themselves), and the training layout (each rank its rows of the batch and
-its shard of every parameter, gathered a layer at a time; the embedding
-looked up from the shards).
+its shard of every parameter, gathered over its FSDP dims a layer at a
+time and kept on its model shard: tensor parallelism with the
+vocabulary-parallel head; the embedding looked up from the shards).
 
     python3 scripts/mesh_layout_bytes.py [--smoke] [--layers 2]
 

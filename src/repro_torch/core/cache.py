@@ -89,8 +89,9 @@ def init_compressed_cache(*, device: torch.device, **kw
 def local_kv(plan, cache_heads: int, k, v, E, F):
     """k, v (..., Hkv, Dh) and per-head E/F (Hkv, c, r) cut to this rank's
     heads when the plan lays its pool out over tp (plan.shards_cache; the
-    pool then holds `cache_heads` of them, per the plan's cache_pspecs)."""
-    k, v = plan.head_shard(k, 2), plan.head_shard(v, 2)
+    pool then holds `cache_heads` of them, per the plan's cache_pspecs);
+    a plan held to this rank's heads takes k and v as they are."""
+    k, v = plan.kv_shard(k, 2), plan.kv_shard(v, 2)
     if E.ndim == 3:
         E, F = plan.head_shard(E, 0), plan.head_shard(F, 0)
     if k.shape[2] != cache_heads:

@@ -16,9 +16,12 @@ inputs those of ``launch/specs.py``, and the step the port's own:
   training layout, the global batch given as the Trainer gives it;
 * prefill: ``forward(..., return_cache=True)`` under the training layout
   (sharded parameters, this rank's rows), no grad;
-* decode: ``decode_step`` on this rank's rows and its KV heads of the
-  cache, the parameters whole (the port serves with whole weights; the
-  plan's regions split the attention over tp).
+* decode: ``decode_step`` under the training layout, as JAX's
+  ``build_step`` takes ``param_shardings``: this rank's rows, its shards
+  of the parameters and its KV heads of the cache; the step runs
+  tensor-parallel and gathers the last token's logits whole (the ssm and
+  hybrid families' decode steps take whole parameters: their Mamba2 and
+  RWKV6 projections are still gathered, ROADMAP Queue 1).
 
 ``launch/step_cost.measure`` counts the step. Each cell's record (under
 ``build/dryrun/``) holds the argument bytes (parameters, moments, batch,
@@ -57,6 +60,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs
 from repro_torch.launch.step_cost import measure, storage_bytes
 from repro_torch.models import model as model_lib
+from repro_torch.models import transformer
 from repro_torch.models.transformer import nest
 from repro_torch.optim import adamw_init
 from repro_torch.parallel import plan as plan_lib
@@ -81,9 +85,8 @@ def fake_params(cfg: ModelConfig, ctx: Optional[shd.ParallelCtx], *, mode,
     flat = {}
     for key, (shape, _, dtype) in model_lib.param_spec(cfg).items():
         if ctx is not None and ctx.mesh is not None:
-            spec = shd.leaf_spec(key, len(shape), ctx)
             shape = tuple(s.stop - s.start
-                          for s in shd.shard_slices(shape, spec, ctx))
+                          for s in shd.leaf_slices(key, shape, ctx))
         with mode:
             flat[key] = torch.empty(shape, dtype=dtype, device=device,
                                     requires_grad=requires_grad)
@@ -127,12 +130,20 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
         return prefill_step, (params, batch), {"params": params,
                                                "batch": batch}
 
-    # decode: this rank's rows (data dims excluded from the regions), the
-    # cache's heads over tp, whole parameters
-    sctx = shd.region_ctx(training_ctx(ctx))
-    plan = plan_lib.resolve_attention_plan(cfg.attention, sctx)
-    params = fake_params(cfg, None, mode=mode, device=device,
-                         requires_grad=False)
+    # decode: this rank's rows, its shards of the parameters and the
+    # cache's KV heads of the plan the step holds to them (the training
+    # layout, as JAX's decode cells take param_shardings)
+    tctx = training_ctx(ctx)
+    plan = plan_lib.resolve_attention_plan(cfg.attention,
+                                           shd.region_ctx(tctx))
+    if cfg.family in model_lib.TRANSFORMER_FAMILIES:
+        plan = transformer.tp_plan(cfg, plan, tctx)
+    else:
+        # the ssm and hybrid decode steps take whole parameters (their
+        # projections are gathered whole; ROADMAP Queue 1)
+        tctx = shd.region_ctx(tctx)
+    params = fake_params(cfg, ctx if shd.is_sharded(tctx) else None,
+                         mode=mode, device=device, requires_grad=False)
     inputs = specs.batch_specs(cfg, shape, ctx, mode=mode, device=device,
                                plan=plan)
 
@@ -140,7 +151,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
         with torch.no_grad():
             return model_lib.decode_step(
                 params, cfg, batch_t.get("tokens"), cache,
-                embeds=batch_t.get("embeds"), plan=plan, ctx=sctx)
+                embeds=batch_t.get("embeds"), plan=plan, ctx=tctx)
 
     return serve_step, (params, inputs["batch_t"], inputs["cache"]), {
         "params": params, "batch": inputs["batch_t"],
@@ -270,6 +281,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "bytes_lower_per_device": lo, "bytes_upper_per_device": hi,
         "collectives": counts["collectives"],
         "collectives_by_dim": counts["collectives_by_dim"],
+        "collective_bytes_by_op_dim": counts["collective_bytes_by_op_dim"],
         "collective_bytes_per_device": coll,
         "link_rates": rates,
         "kernels": counts["kernels"],

@@ -24,7 +24,8 @@ runs a step under :class:`StepCounter` and returns:
   the step allocates, and ``peak_storages``, how many storages were live
   then;
 * the kernels' launches, and the collectives of ``parallel/comm.py`` by op
-  and by mesh dim (bytes one rank receives, and calls).
+  and by mesh dim (bytes one rank receives, and calls), and their bytes by
+  (op, mesh dim).
 
 On FakeTensors nothing is computed or allocated: the counts are those of
 the real step on tensors of the same shapes.
@@ -150,4 +151,7 @@ def measure(step: Callable, args: tuple, *, device_type: str) -> Dict:
         "collectives_by_dim": {d: {"bytes": comm.DIM_BYTES[d],
                                    "calls": comm.DIM_CALLS[d]}
                                for d in sorted(comm.DIM_CALLS)},
+        "collective_bytes_by_op_dim": {
+            f"{op}/{d}": n
+            for (op, d), n in sorted(comm.OP_DIM_BYTES.items())},
     }

@@ -14,6 +14,23 @@ but layerwise) live under the layer's ``lin`` leaves, laid out by
 models/transformer.py ``param_spec``; the layerwise E arrives as
 `shared_lin`. The exact form has no decode cache: its decode and
 chunked-prefill entry points raise, as in the JAX package.
+
+Tensor parallelism (the entry points' `tp`, the model dim's Axis under the
+training layout, parallel/sharding.tensor_axis): the projections are this
+rank's shards of JAX's ``P(None, F, "model")`` / ``P(None, "model", F)``
+specs, Megatron-style. ``wq``/``wk``/``wv`` (and qwen1.5's ``b[qkv]``) are
+column-parallel, so q, k and v are this rank's heads, and the plan, held
+to those heads (``AttentionPlan.held``), attends them and returns them;
+``wo`` is row-parallel, its partial products summed over the model dim
+(``comm.reduce``). The rule for a model width that does not divide
+``num_kv_heads`` (SMOKE's Hkv = 2 at tp 4, qwen3-8b's Hkv = 8 on a
+16-wide model dim), where the plan cannot split the KV heads (JAX's
+warning, launch/mesh.validate_attention_mesh): the whole-head route.
+``wk``/``wv``/``bk``/``bv`` are then gathered whole
+(sharding.tp_keep), q's column shard is gathered over the model dim into
+whole heads (``comm.gather``), every model rank attends every head, and
+the attention output is split back to this rank's columns
+(``comm.split``) for the row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -26,6 +43,7 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.core import causal as causal_lib
 from repro_torch.core import linformer as lin_lib
 from repro_torch.models import layers as L
+from repro_torch.parallel import comm
 from repro_torch.parallel import plan as plan_lib
 
 
@@ -40,30 +58,52 @@ def _check_cached(cfg: AttentionConfig, what: str) -> None:
 
 
 def project_qkv(params: Dict, x: torch.Tensor, cfg: AttentionConfig,
-                positions: Optional[torch.Tensor]
+                positions: Optional[torch.Tensor], tp=None,
+                local_heads: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The heads of x (B, S, D) as the attention sees them: q (B, S, H, Dh),
     k and v (B, S, Hkv, Dh), biases, qk-norm and rope (at `positions`, or
-    0..S-1) applied (the JAX package's ``_qkv``)."""
+    0..S-1) applied (the JAX package's ``_qkv``). With `tp` (see the
+    module docstring) the heads are this rank's where `local_heads`, and
+    whole (q gathered, k and v from whole weights) where not."""
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    Dh = cfg.head_dim
+    xp = comm.copy(x, (tp,))
+    q = xp @ params["wq"]
+    kv_in = xp if local_heads else x
+    k = kv_in @ params["wk"]
+    v = kv_in @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, Hkv, Dh)
-    v = v.reshape(B, S, Hkv, Dh)
+    if not local_heads:
+        q = comm.gather(q, 2, (tp,))
+    q = q.reshape(B, S, -1, Dh)
+    k = k.reshape(B, S, -1, Dh)
+    v = v.reshape(B, S, -1, Dh)
     if cfg.qk_norm:
-        q = L.rms_norm(params["q_norm"], q)
-        k = L.rms_norm(params["k_norm"], k)
+        # one scale for every head: on this rank's heads its gradient is
+        # a part, summed over the model dim
+        tp_heads = (tp,) if local_heads else ()
+        q = L.rms_norm({"scale": comm.copy(params["q_norm"]["scale"],
+                                           tp_heads)}, q)
+        k = L.rms_norm({"scale": comm.copy(params["k_norm"]["scale"],
+                                           tp_heads)}, k)
     if cfg.use_rope:
         pos = positions if positions is not None \
             else torch.arange(S, device=x.device)
         q = L.apply_rope(q, pos, cfg.rope_theta)
         k = L.apply_rope(k, pos, cfg.rope_theta)
     return q, k, v
+
+
+def project_out(params: Dict, out: torch.Tensor, tp=None,
+                local_heads: bool = False) -> torch.Tensor:
+    """The output projection of the attention's heads `out` (..., H·Dh):
+    with `tp`, row-parallel over this rank's heads (whole heads are split
+    to this rank's columns first), summed over the model dim."""
+    if not local_heads:
+        out = comm.split(out, out.ndim - 1, (tp,))
+    return comm.reduce(out @ params["wo"], (tp,))
 
 
 def _resolve_ef(params: Dict, shared_lin: Optional[Dict],
@@ -110,6 +150,7 @@ def apply_attention(
     cache_entry: Optional[Dict[str, torch.Tensor]] = None,
     plan: Optional[plan_lib.AttentionPlan] = None,
     chunked: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     """Full-sequence attention (training / prefill). x: (B, S, D).
 
@@ -117,13 +158,16 @@ def apply_attention(
     the cache from the SAME k/v (single-pass prefill, no second forward);
     the causal form and the standard baseline. `chunked` picks the
     memory-bounded chunked form of the causal attention's plain route
-    (AttentionPlan.causal_attention)."""
+    (AttentionPlan.causal_attention). `tp`: tensor parallelism (see the
+    module docstring); the heads are this rank's where `plan` is held to
+    them."""
     lin_lib.check_kind(cfg)
     if cache_entry is not None and cfg.kind == "linformer":
         raise ValueError(f"no decode cache for attention kind {cfg.kind!r}")
     B, S, _ = x.shape
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
-    q, k, v = project_qkv(params, x, cfg, positions)
+    held = plan.heads_held
+    q, k, v = project_qkv(params, x, cfg, positions, tp, held)
     ef = None
     if cfg.kind == "standard":
         out = standard_attention(q, k, v, causal=cfg.causal)
@@ -139,7 +183,7 @@ def apply_attention(
                                     block_slots=cfg.linformer.block_slots,
                                     scale=cfg.head_dim ** -0.5,
                                     chunked=chunked)
-    out = out.reshape(B, S, -1) @ params["wo"]
+    out = project_out(params, out.reshape(B, S, -1), tp, held)
     if cache_entry is not None:
         _entry_from_kv(k, v, cfg, ef, cache_entry, plan)
     return out
@@ -190,19 +234,22 @@ def apply_attention_decode(
     *,
     shared_lin: Optional[Dict] = None,
     plan: Optional[plan_lib.AttentionPlan] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode step against the layer's cache (updated in place).
     Each row decodes at its own position t[b]: rope, cache write and mask
-    are all per row."""
+    are all per row. `tp` as in apply_attention."""
     _check_cached(cfg, "decode")
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
+    held = plan.heads_held
     positions = t[:, None]                                   # (B, 1)
-    q, k, v = project_qkv(params, x_t, cfg, positions=positions)
+    q, k, v = project_qkv(params, x_t, cfg, positions, tp, held)
     B = x_t.shape[0]
     if cfg.kind == "standard":
         out, new_cache = cache_lib.full_decode_attention(q, k, v,
                                                          layer_cache, t)
-        return out.reshape(B, 1, -1) @ params["wo"], new_cache
+        return project_out(params, out.reshape(B, 1, -1), tp,
+                           held), new_cache
     E, F = _resolve_ef(params, shared_lin, cfg)
     # the paged, quantized cache routes on its page_table leaf: the same
     # attention math over another storage
@@ -210,7 +257,7 @@ def apply_attention_decode(
                  if "page_table" in layer_cache
                  else cache_lib.compressed_decode_attention)
     out, new_cache = decode_fn(q, k, v, layer_cache, E, F, t, plan=plan)
-    return out.reshape(B, 1, -1) @ params["wo"], new_cache
+    return project_out(params, out.reshape(B, 1, -1), tp, held), new_cache
 
 
 def apply_attention_prefill_chunk(
@@ -223,28 +270,31 @@ def apply_attention_prefill_chunk(
     shared_lin: Optional[Dict] = None,
     positions: Optional[torch.Tensor] = None,   # (B, P) absolute positions
     plan: Optional[plan_lib.AttentionPlan] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Chunked-prefill attention at a per-row offset against the layer's
     slot-resident cache (updated in place): row b's chunk covers absolute
     positions [t0[b], t0[b] + P); t0 and P are multiples of the block
     size (standard attention takes any offset). Returns (out (B, P, D'),
-    the cache)."""
+    the cache). `tp` as in apply_attention."""
     _check_cached(cfg, "chunked-prefill")
     plan = plan if plan is not None else plan_lib.resolve_attention_plan(cfg)
+    held = plan.heads_held
     if positions is None:
         positions = t0[:, None] + torch.arange(x.shape[1], device=x.device)
-    q, k, v = project_qkv(params, x, cfg, positions=positions)
+    q, k, v = project_qkv(params, x, cfg, positions, tp, held)
     B, P = x.shape[:2]
     if cfg.kind == "standard":
         out, new_cache = cache_lib.full_prefill_chunk(q, k, v, layer_cache,
                                                       t0)
-        return out.reshape(B, P, -1) @ params["wo"], new_cache
+        return project_out(params, out.reshape(B, P, -1), tp,
+                           held), new_cache
     E, F = _resolve_ef(params, shared_lin, cfg)
     prefill_fn = (cache_lib.paged_prefill_chunk
                   if "page_table" in layer_cache
                   else cache_lib.compressed_prefill_chunk)
     out, new_cache = prefill_fn(q, k, v, layer_cache, E, F, t0, plan=plan)
-    return out.reshape(B, P, -1) @ params["wo"], new_cache
+    return project_out(params, out.reshape(B, P, -1), tp, held), new_cache
 
 
 def decode_cache_spec(cfg: AttentionConfig, *, num_layers: int, batch: int,

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import MLPConfig
+from repro_torch.parallel import comm
 
 
 def rms_norm(params: Dict, x: torch.Tensor, eps: float = 1e-6
@@ -48,7 +49,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
-def apply_mlp(params: Dict, x: torch.Tensor, cfg: MLPConfig) -> torch.Tensor:
+def apply_mlp(params: Dict, x: torch.Tensor, cfg: MLPConfig, tp=None
+              ) -> torch.Tensor:
+    """The MLP of the stream x (..., D). With `tp` (the model dim's Axis,
+    parallel/sharding.tensor_axis) the weights are this rank's shards,
+    Megatron-style: ``w_in``/``w_gate`` column-parallel (x enters through
+    ``comm.copy``, whose backward sums the input gradient over the model
+    dim), the activation on the local columns, ``w_out`` row-parallel,
+    the partial outputs summed over the model dim (``comm.reduce``)."""
+    x = comm.copy(x, (tp,))
     h = x @ params["w_in"]
     if cfg.activation == "swiglu":
         h = Fn.silu(x @ params["w_gate"]) * h
@@ -58,7 +67,7 @@ def apply_mlp(params: Dict, x: torch.Tensor, cfg: MLPConfig) -> torch.Tensor:
         h = Fn.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {cfg.activation!r}")
-    return h @ params["w_out"]
+    return comm.reduce(h @ params["w_out"], (tp,))
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

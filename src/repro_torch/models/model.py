@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import rwkv_model, transformer, zamba
 from repro_torch.parallel import comm
 from repro_torch.parallel import plan as plan_lib
@@ -142,7 +143,8 @@ def decode_scan(
     when a still-live row's logits go non-finite.
     Returns (tokens (B, n_steps), next cur, finished, bad, cache)."""
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
+        else plan_lib.resolve_attention_plan(cfg.attention,
+                                             shd.region_ctx(ctx))
     bad = torch.zeros_like(finished)
     toks = []
     for _ in range(n_steps):
@@ -167,13 +169,36 @@ def decode_scan(
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  mask: torch.Tensor, *, vocab_start: int = 0, tp=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable CE in fp32. labels: (B, S) int; mask: (B, S) {0, 1} loss
-    weights. Returns (sum_loss, sum_weight)."""
+    weights. Returns (sum_loss, sum_weight).
+
+    Vocabulary-parallel with `tp` (the model dim's Axis,
+    parallel/sharding.tensor_axis): `logits` are this rank's shard of the
+    vocabulary, from column `vocab_start` (transformer.vocab_range). Each
+    row's max over the shards comes from ``comm.amax``; the sums of exp
+    and the label's logit, taken on the shard that holds it, are summed
+    over the model dim with ``comm.reduce`` (identity backward: each
+    rank's gradient lands on its own columns). The loss and its gradient
+    are the whole head's, and no rank holds (tokens × V) logits."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = (lse - ll) * mask
+    if comm.flat_width((tp,)) == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = (lse - ll) * mask
+        return nll.sum(), mask.sum()
+    n = logits.shape[-1]
+    m = logits.amax(-1) if n else \
+        logits.new_full(logits.shape[:-1], float("-inf"))
+    m = comm.amax(m, (tp,))
+    z = comm.reduce(torch.exp(logits - m[..., None]).sum(-1), (tp,))
+    local = labels.long() - vocab_start
+    hit = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, local.clamp(0, max(n - 1, 0))[..., None]
+                      )[..., 0] if n else torch.zeros_like(m)
+    ll = comm.reduce(torch.where(hit, ll, torch.zeros_like(ll)), (tp,))
+    nll = (torch.log(z) + m - ll) * mask
     return nll.sum(), mask.sum()
 
 
@@ -182,16 +207,18 @@ def chunked_head_ce(params, cfg: ModelConfig, hidden: torch.Tensor,
                     chunk: int, ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """LM-head matmul + CE over sequence chunks: the (B, S, V) logits tensor
     is never materialised; the backward recomputes each chunk's logits
-    (transformer.remat_wrap, "full")."""
+    (transformer.remat_wrap, "full"). Vocabulary-parallel under tensor
+    parallelism (cross_entropy)."""
     B, S, D = hidden.shape
     if S % chunk != 0:
         chunk = S
     norm, head = transformer.head_weights(params, ctx)
+    tp = shd.tensor_axis(ctx)
+    lo = transformer.vocab_range(cfg, ctx)[0]
 
     def body(h_c, y_c, m_c, norm_, head_):
-        logits = transformer.logits_from_hidden(
-            {"final_norm": {"scale": norm_}, "lm_head": head_}, cfg, h_c)
-        return cross_entropy(logits, y_c, m_c)[0]
+        x = comm.copy(L.rms_norm({"scale": norm_}, h_c), (tp,))
+        return cross_entropy(x @ head_, y_c, m_c, vocab_start=lo, tp=tp)[0]
 
     body = transformer.remat_wrap(body, "full")
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -220,7 +247,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
     rows: the CE's numerator and denominator are summed over the data dims
     (``comm.reduce``: an all-reduce whose gradient passes through), so the
     loss is the masked mean over the global batch, and the aux loss is
-    averaged over them."""
+    averaged over them. The logits are this rank's vocabulary shard there
+    (tensor parallelism), and the CE the vocabulary-parallel one."""
     labels = batch["labels"]
     mask = batch["loss_mask"].to(torch.float32)
     P = cfg.frontend_embed_len
@@ -231,7 +259,9 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, *,
                                          mask, chunk=cfg.chunked_ce, ctx=ctx)
     else:
         logits, aux, _ = forward(params, cfg, batch, plan=plan, ctx=ctx)
-        nll_sum, denom = cross_entropy(logits[:, P:], labels, mask)
+        nll_sum, denom = cross_entropy(
+            logits[:, P:], labels, mask, tp=shd.tensor_axis(ctx),
+            vocab_start=transformer.vocab_range(cfg, ctx)[0])
     if shd.is_sharded(ctx):
         daxes = [ctx.axis(a) for a in ctx.data_axes]
         nll_sum, denom, aux = (comm.reduce(t.reshape(1), daxes)[0]

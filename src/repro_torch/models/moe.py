@@ -21,7 +21,11 @@ The collectives are parallel/comm.py's autograd Functions, so both paths
 are differentiable. Each rank holds the whole input (its own rows under
 the training layout, whose data dims the caller's ctx excludes) and the
 whole params, but for the expert stacks of the training layout, which
-arrive as this rank's model shard and are used as they are.
+arrive as this rank's model shard and are used as they are. Under that
+layout the rows differ from one data rank to the next, so a decode step
+there (``decode_step`` of models/transformer.py with a sharded ctx) takes
+the expert-parallel path on each rank's rows, not the weight-stationary
+one, which needs the same tokens on every fsdp rank.
 
 The routing is JAX's to the bit where fp32 allows: the router runs in fp32
 whatever the model dtype, ties between equal probabilities go to the lower
@@ -241,7 +245,7 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig,
         raise ValueError(
             f"num_experts={cfg.num_experts} does not split over mesh axis "
             f"{ctx.model_axis!r} ({ctx.model_shards} shards)")
-    if cfg.weight_stationary_decode and S == 1:
+    if cfg.weight_stationary_decode and S == 1 and not held_experts:
         out, aux = _moe_weight_stationary(params, xt, cfg, act, ctx)
         return out.reshape(B, S, D), aux
     maxis = ctx.axis(ctx.model_axis)

@@ -71,7 +71,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     common model API: the state has no sequence axis and no attention
     runs. `ctx`: see the module docstring (no region opens: no attention
     runs)."""
-    x = T.embed_lookup(params, batch["tokens"], ctx)
+    x = T.embed_lookup(params, batch["tokens"], ctx, cfg.padded_vocab_size)
     B, S, D = x.shape
     H, P_ = _heads(cfg)
     zero_shift = x.new_zeros((B, D))

@@ -49,17 +49,30 @@ layout applies no remat, as the JAX package's unrolled loop calls
 
 Under the training layout (a ctx with ``sharded=True``, see
 parallel/sharding.py) the batch holds this rank's rows over the data dims
-and every parameter is this rank's shard: a layer's leaves are made whole
-inside the block function (so the remat'd backward gathers them again and
-a rank holds one layer's whole weights at a time), the final norm and head
-where they are used; the token embedding looks its rows up from the
-shards (`sharding.sharded_lookup`); MoE expert stacks stay on their model
-shard under expert parallelism. The plan's regions and the MoE layer run
-on ``region_ctx(ctx)``, whose data dims are excluded. With
+and every parameter is this rank's shard. A layer's leaves are gathered
+over their FSDP dims inside the block function (so the remat'd backward
+gathers them again and a rank holds one layer's FSDP-whole shards at a
+time), the final norm and head where they are used; the token embedding
+looks its rows up from the shards (`sharding.sharded_lookup`). The model
+dim stays sharded (`sharding.tp_keep`): tensor parallelism over the
+model dim's ranks, Megatron-style. The stream between blocks is the same
+on every model rank; each block's MLP (models/layers.py) and attention
+(models/attention.py) multiply by their column shards and then their row
+shards, and sum the partial products over the model dim; the attention
+runs on this rank's heads (the plan held to them), or on whole heads
+where the model width does not divide the KV heads (the whole-head route
+of models/attention.py); MoE expert stacks stay on their model shard
+(expert parallelism, the router replicated). The head is vocabulary-
+parallel: :func:`logits_from_hidden` gives this rank's vocabulary shard
+of the logits (a tied head: the embedding shard's transpose), which
+models/model.py's cross-entropy reduces over the model dim; `forward`
+returns that shard, and `decode_step` and `prefill_chunk` gather the
+last token's logits whole. The plan's regions and the MoE layer run on
+``region_ctx(ctx)``, whose data dims are excluded. With
 ``cfg.seq_shard_activations`` (JAX's ``_act_spec``) the stream between
 blocks is this rank's sequence slice over the model dim, gathered at a
-block's entry and split at its exit, so the block's compute stays the same
-on every model rank.
+block's entry and split at its exit; the exit's sum over the model dim
+and the split stand for the reduce-scatter that gloo lacks.
 """
 from __future__ import annotations
 
@@ -358,18 +371,18 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
 
 
 def _ffn(params: Dict, x: torch.Tensor, cfg: ModelConfig, ctx=None,
-         held_experts: bool = False
+         held_experts: bool = False, tp=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's feed-forward on the normed stream: the MoE layer where
     the config has experts (its B·S tokens routed together, expert-parallel
     under a ctx with a model dim; `held_experts`: the expert stacks are
-    this rank's model shard, see held_experts), else the MLP. Returns
-    (out, aux): the MoE load-balance loss (fp32), or None without
-    experts."""
+    this rank's model shard, see held_experts), else the MLP (tensor-
+    parallel with `tp`, layers.apply_mlp). Returns (out, aux): the MoE
+    load-balance loss (fp32), or None without experts."""
     if cfg.moe.num_experts > 0:
         return moe_lib.apply_moe(params["moe"], x, cfg.moe, cfg.mlp, ctx,
                                  held_experts=held_experts)
-    return L.apply_mlp(params["mlp"], x, cfg.mlp), None
+    return L.apply_mlp(params["mlp"], x, cfg.mlp, tp), None
 
 
 def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -377,65 +390,75 @@ def apply_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 cache_entry: Optional[Dict] = None,
                 plan: plan_lib.AttentionPlan,
                 chunked_attn: bool = False, ctx=None,
-                held_experts: bool = False
+                held_experts: bool = False, tp=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, the block's MoE aux loss, None without experts).
     `chunked_attn` selects the chunked reference form of the causal
-    attention (plain route only); `held_experts` as in _ffn."""
+    attention (plain route only); `held_experts` as in _ffn; `tp`: the
+    model dim's Axis of tensor parallelism (see the module docstring)."""
     h = attn_lib.apply_attention(params["attn"], L.rms_norm(params["ln1"], x),
                                  cfg.attention, shared_lin=shared_lin,
                                  cache_entry=cache_entry, plan=plan,
-                                 chunked=chunked_attn)
+                                 chunked=chunked_attn, tp=tp)
     x = x + h
     h, aux = _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx,
-                  held_experts)
+                  held_experts, tp)
     return x + h, aux
 
 
 def apply_block_decode(params: Dict, x_t: torch.Tensor, layer_cache: Dict,
                        t: torch.Tensor, cfg: ModelConfig, *,
                        shared_lin: Optional[Dict],
-                       plan: plan_lib.AttentionPlan, ctx=None
+                       plan: plan_lib.AttentionPlan, ctx=None,
+                       held_experts: bool = False, tp=None
                        ) -> torch.Tensor:
     h, _ = attn_lib.apply_attention_decode(
         params["attn"], L.rms_norm(params["ln1"], x_t), layer_cache, t,
-        cfg.attention, shared_lin=shared_lin, plan=plan)
+        cfg.attention, shared_lin=shared_lin, plan=plan, tp=tp)
     x_t = x_t + h
-    return x_t + _ffn(params, L.rms_norm(params["ln2"], x_t), cfg, ctx)[0]
+    return x_t + _ffn(params, L.rms_norm(params["ln2"], x_t), cfg, ctx,
+                      held_experts, tp)[0]
 
 
 def apply_block_prefill_chunk(params: Dict, x: torch.Tensor,
                               layer_cache: Dict, t0: torch.Tensor,
                               cfg: ModelConfig, *, positions: torch.Tensor,
                               shared_lin: Optional[Dict],
-                              plan: plan_lib.AttentionPlan, ctx=None
+                              plan: plan_lib.AttentionPlan, ctx=None,
+                              held_experts: bool = False, tp=None
                               ) -> torch.Tensor:
     """One transformer block over a prefill chunk at a per-row offset:
     cache-writing like `apply_block_decode`, P tokens at once."""
     h, _ = attn_lib.apply_attention_prefill_chunk(
         params["attn"], L.rms_norm(params["ln1"], x), layer_cache, t0,
-        cfg.attention, shared_lin=shared_lin, positions=positions, plan=plan)
+        cfg.attention, shared_lin=shared_lin, positions=positions, plan=plan,
+        tp=tp)
     x = x + h
-    return x + _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx)[0]
+    return x + _ffn(params, L.rms_norm(params["ln2"], x), cfg, ctx,
+                    held_experts, tp)[0]
 
 
-def whole(params: Dict, path: str, ctx=None) -> torch.Tensor:
+def whole(params: Dict, path: str, ctx=None, keep: Tuple[str, ...] = ()
+          ) -> torch.Tensor:
     """The leaf at `path` of `params`, made whole under the training
-    layout (as is otherwise)."""
+    layout but for the mesh dims in `keep` (as is otherwise)."""
     node = params
     for key in path.split("/"):
         node = node[key]
     if not shd.is_sharded(ctx):
         return node
-    return shd.unshard_leaf(node, shd.leaf_spec(path, node.ndim, ctx), ctx)
+    return shd.unshard_leaf(node, shd.leaf_spec(path, node.ndim, ctx), ctx,
+                            keep)
 
 
-def embed_lookup(params: Dict, tokens: torch.Tensor, ctx=None
-                 ) -> torch.Tensor:
+def embed_lookup(params: Dict, tokens: torch.Tensor, ctx=None,
+                 vocab: Optional[int] = None) -> torch.Tensor:
     """The token embeddings of `tokens`; under the training layout looked
-    up from the table's shards (sharding.sharded_lookup)."""
+    up from the table's shards (sharding.sharded_lookup; `vocab`, the
+    table's whole row count, places an uneven shard)."""
     if shd.is_sharded(ctx):
-        return shd.sharded_lookup(params["embed"]["tok"], tokens, ctx)
+        return shd.sharded_lookup(params["embed"]["tok"], tokens, ctx,
+                                  vocab=vocab)
     return L.embed_tokens(params["embed"]["tok"], tokens)
 
 
@@ -450,7 +473,8 @@ def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict, ctx=None
     if cfg.embedding_inputs:
         x = batch["embeds"].to(torch_dtype(cfg.dtype))
     else:
-        x = embed_lookup(params, batch["tokens"], ctx)
+        x = embed_lookup(params, batch["tokens"], ctx,
+                         cfg.padded_vocab_size)
         if cfg.frontend_embed_len > 0:
             fe = batch["frontend_embeds"].to(x.dtype)
             x = torch.cat([fe, x], dim=1)
@@ -467,17 +491,40 @@ def embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict, ctx=None
 
 
 def head_weights(params: Dict, ctx=None):
-    """(final norm scale, LM head (D, V)), whole; a tied head is the
-    embedding's transpose."""
-    head = whole(params, "lm_head", ctx) if "lm_head" in params else \
-        whole(params, "embed/tok", ctx).T
+    """(final norm scale, LM head (D, V)); a tied head is the embedding's
+    transpose. Under tensor parallelism (sharding.tensor_axis) the head is
+    this rank's vocabulary shard (D, V_loc), its FSDP dims gathered; else
+    whole."""
+    keep = (ctx.model_axis,) if shd.tensor_axis(ctx) is not None else ()
+    head = whole(params, "lm_head", ctx, keep) if "lm_head" in params \
+        else whole(params, "embed/tok", ctx, keep).T
     return whole(params, "final_norm/scale", ctx), head
 
 
 def logits_from_hidden(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                        ctx=None) -> torch.Tensor:
+    """The logits of the stream x (..., D): under tensor parallelism this
+    rank's vocabulary shard (..., V_loc) (`vocab_range`; x enters through
+    ``comm.copy``, so its gradient sums over the shards); else (..., V)."""
     norm, head = head_weights(params, ctx)
-    return L.rms_norm({"scale": norm}, x) @ head
+    tp = shd.tensor_axis(ctx)
+    return comm.copy(L.rms_norm({"scale": norm}, x), (tp,)) @ head
+
+
+def vocab_range(cfg: ModelConfig, ctx=None) -> Tuple[int, int]:
+    """This rank's [start, stop) of the (padded) vocabulary in the logits
+    that logits_from_hidden gives: its shard under tensor parallelism,
+    else the whole vocabulary."""
+    return shd.dim_range(cfg.padded_vocab_size, (shd.tensor_axis(ctx),))
+
+
+def gather_logits(logits: torch.Tensor, cfg: ModelConfig, ctx=None
+                  ) -> torch.Tensor:
+    """Whole logits (..., V) from logits_from_hidden's (every model rank
+    calls it; no-op without tensor parallelism): what decode samples
+    from."""
+    return shd.gather_dim(logits, logits.ndim - 1, shd.tensor_axis(ctx),
+                          cfg.padded_vocab_size)
 
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
@@ -485,14 +532,16 @@ def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
                plan: Optional[plan_lib.AttentionPlan] = None) -> Dict:
     """A zero decode cache; a compressed one is laid out per `plan`'s
     cache_pspecs (this rank's heads on a tp mesh; the standard baseline's
-    full cache stays whole, its decode runs outside the plan)."""
+    full cache stays whole, its decode runs outside the plan, but under a
+    plan held to this rank's heads, whose k and v it stores)."""
     spec = attn_lib.decode_cache_spec(cfg.attention,
                                       num_layers=cfg.num_layers,
                                       batch=batch, max_seq=max_seq,
                                       dtype=dtype)
     cache = {k: torch.zeros(shape, dtype=dt, device=device)
              for k, (shape, dt) in spec.items()}
-    if plan is None or cfg.attention.kind != "linformer_causal":
+    if plan is None or (cfg.attention.kind != "linformer_causal"
+                        and not plan.heads_held):
         return cache
     return plan.place_cache(cache)
 
@@ -516,19 +565,34 @@ def held_experts(ctx) -> bool:
     return shd.is_sharded(ctx) and ctx.model_shards > 1
 
 
-def whole_layer(lp: Dict, ctx, prefix: str, drop: int = 0) -> Dict:
+def whole_kv(cfg: ModelConfig, ctx) -> bool:
+    """Whether the block takes the whole-head route of models/attention.py:
+    tensor parallelism on a model width that does not divide the KV
+    heads."""
+    tp = shd.tensor_axis(ctx)
+    return tp is not None and cfg.attention.num_kv_heads % tp.width != 0
+
+
+def tp_plan(cfg: ModelConfig, plan: plan_lib.AttentionPlan, ctx
+            ) -> plan_lib.AttentionPlan:
+    """The plan a block takes: under tensor parallelism held to this
+    rank's heads, but on the whole-head route (see whole_kv)."""
+    if whole_kv(cfg, ctx):
+        return plan
+    return plan.held(shd.tensor_axis(ctx))
+
+
+def whole_layer(lp: Dict, ctx, prefix: str, drop: int = 0,
+                kv_whole: bool = False) -> Dict:
     """A layer's leaves (flat or nested, keyed below `prefix` in the
-    parameter tree; `drop` = 1 for views of layer-stacked leaves) made
-    whole under the training layout, but for the expert stacks that
-    held_experts keeps on their model shard."""
+    parameter tree; `drop` = 1 for views of layer-stacked leaves) gathered
+    over their FSDP dims under the training layout; the model dim stays
+    on this rank's shard (sharding.tp_keep; `kv_whole`: the whole-head
+    route's KV projections are gathered whole)."""
     if not shd.is_sharded(ctx):
         return lp
-    held = held_experts(ctx)
-
-    def keep(key):
-        return (ctx.model_axis,) if held and "moe/w_" in key else ()
-
-    return shd.unshard_tree(lp, ctx, prefix, drop, keep)
+    return shd.unshard_tree(lp, ctx, prefix, drop,
+                            lambda path: shd.tp_keep(path, ctx, kv_whole))
 
 
 def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
@@ -538,18 +602,21 @@ def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,
     """apply_block as a function of tensors alone, (x, *layer leaves,
     *shared E/F leaves) -> (x, aux or None), so that remat sees every
     tensor it depends on. Under the training layout the leaves arrive as
-    shards and are made whole here (see the module docstring)."""
+    shards and are gathered over their FSDP dims here, and the block runs
+    tensor-parallel (see the module docstring)."""
     n = len(keys)
     seq = seq_dims(cfg, ctx)
     rctx, held = shd.region_ctx(ctx), held_experts(ctx)
+    tp, kv = shd.tensor_axis(ctx), whole_kv(cfg, ctx)
+    plan = tp_plan(cfg, plan, ctx)
 
     def fn(x, *leaves):
         shared = dict(zip(shared_keys, leaves[n:])) or None
-        lp = whole_layer(dict(zip(keys, leaves[:n])), ctx, prefix, drop)
+        lp = whole_layer(dict(zip(keys, leaves[:n])), ctx, prefix, drop, kv)
         x, aux = apply_block(nest(lp), comm.gather(x, 1, seq), cfg,
                              shared_lin=shared, cache_entry=cache_entry,
                              plan=plan, chunked_attn=chunked_attn, ctx=rctx,
-                             held_experts=held)
+                             held_experts=held, tp=tp)
         return comm.split(x, 1, seq), aux
 
     return fn
@@ -562,7 +629,9 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Full-sequence forward. Returns (logits (B, S, V), aux, cache|None);
     with return_hidden, the final hidden states (B, S, D) before the final
-    norm instead of the logits.
+    norm instead of the logits. Under tensor parallelism the logits are
+    this rank's vocabulary shard (B, S, V_loc) (`vocab_range`) and the
+    cache this rank's KV heads.
 
     With return_cache=True the sequence length must be a multiple of the
     Linformer block size (standard attention: any length); the cache is
@@ -582,14 +651,13 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     B, S, _ = x.shape
     chunked = S >= causal_lib.chunked_attention_min_seq(
         tuning.platform_key(x.device))
-    shared_lin = params.get("shared", {}).get("lin")
-    if shared_lin is not None and shd.is_sharded(ctx):
-        shared_lin = shd.unshard_tree(shared_lin, ctx, "shared/lin/")
+    shared_lin = _shared_lin(params, ctx)
     cache = None
     if return_cache:
         cache = init_cache(cfg, batch=B,
                            max_seq=cache_max_seq or cfg.max_seq_len,
-                           dtype=cache_dtype, device=x.device, plan=plan)
+                           dtype=cache_dtype, device=x.device,
+                           plan=tp_plan(cfg, plan, ctx))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     seq = seq_dims(cfg, ctx)
     x = comm.split(x, 1, seq)
@@ -620,6 +688,24 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     return logits, aux, cache
 
 
+def _layer_views(params: Dict, ctx, i: int, kv: bool) -> Dict:
+    """Layer i's parameters as a block takes them: gathered over their
+    FSDP dims under the training layout (whole_layer), as is otherwise."""
+    lp = layer_params(params, i)
+    if not shd.is_sharded(ctx):
+        return lp
+    prefix, drop = ((f"layers_list/{i}/", 0) if "layers_list" in params
+                    else ("layers/", 1))
+    return nest(whole_layer(flatten(lp), ctx, prefix, drop, kv))
+
+
+def _shared_lin(params: Dict, ctx) -> Optional[Dict]:
+    shared_lin = params.get("shared", {}).get("lin")
+    if shared_lin is not None and shd.is_sharded(ctx):
+        shared_lin = shd.unshard_tree(shared_lin, ctx, "shared/lin/")
+    return shared_lin
+
+
 def decode_step(params: Dict, cfg: ModelConfig,
                 tokens: Optional[torch.Tensor], cache: Dict, *,
                 embeds: Optional[torch.Tensor] = None,
@@ -629,9 +715,17 @@ def decode_step(params: Dict, cfg: ModelConfig,
     takes ``embeds`` (B, 1, D) instead (tokens may be None). Row b decodes
     at cache["lengths"][b]. Returns (logits (B, 1, V), cache): the cache
     leaves are updated in place; the returned dict carries a new
-    ``lengths`` = old + 1."""
+    ``lengths`` = old + 1. Under the training layout (`ctx.sharded`) the
+    rows are this rank's, the parameters its shards and the cache its KV
+    heads (init_cache with the plan tp_plan gives); the step runs
+    tensor-parallel and gathers the logits whole, so that sampling is
+    unchanged."""
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
+        else plan_lib.resolve_attention_plan(cfg.attention,
+                                             shd.region_ctx(ctx))
+    plan = tp_plan(cfg, plan, ctx)
+    tp, kv, rctx = shd.tensor_axis(ctx), whole_kv(cfg, ctx), \
+        shd.region_ctx(ctx)
     t = cache["lengths"]
     if cfg.embedding_inputs:
         if embeds is None:
@@ -639,15 +733,17 @@ def decode_step(params: Dict, cfg: ModelConfig,
                              "(B, 1, D), not tokens")
         x = embeds.to(torch_dtype(cfg.dtype))
     else:
-        x = L.embed_tokens(params["embed"]["tok"], tokens)
+        x = embed_lookup(params, tokens, ctx, cfg.padded_vocab_size)
     if "pos" in params.get("embed", {}):
-        x = x + params["embed"]["pos"][t.long()][:, None]     # (B, 1, D)
-    shared_lin = params.get("shared", {}).get("lin")
+        x = x + whole(params, "embed/pos", ctx)[t.long()][:, None]
+    shared_lin = _shared_lin(params, ctx)
     for i in range(cfg.num_layers):
-        x = apply_block_decode(layer_params(params, i), x,
+        x = apply_block_decode(_layer_views(params, ctx, i, kv), x,
                                _layer_caches(cache, i), t, cfg,
-                               shared_lin=shared_lin, plan=plan, ctx=ctx)
-    logits = logits_from_hidden(params, cfg, x)
+                               shared_lin=shared_lin, plan=plan, ctx=rctx,
+                               held_experts=held_experts(ctx), tp=tp)
+    logits = gather_logits(logits_from_hidden(params, cfg, x, ctx), cfg,
+                           ctx)
     return logits, {**cache, "lengths": t + 1}
 
 
@@ -663,27 +759,33 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     chunk starts at its committed length cache["lengths"][b]: rope runs at
     the absolute positions and each layer's K/V state is written at the
     row's offset, in place. Returns (logits at each row's last real token
-    (B, V), cache with ``lengths`` advanced by n_valid)."""
+    (B, V), cache with ``lengths`` advanced by n_valid). Under the
+    training layout as decode_step."""
     if cfg.embedding_inputs or cfg.frontend_embed_len > 0:
         raise ValueError("chunked prefill supports token inputs only")
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention, ctx)
+        else plan_lib.resolve_attention_plan(cfg.attention,
+                                             shd.region_ctx(ctx))
+    plan = tp_plan(cfg, plan, ctx)
+    tp, kv, rctx = shd.tensor_axis(ctx), whole_kv(cfg, ctx), \
+        shd.region_ctx(ctx)
     t0 = cache["lengths"]
     B, P = tokens.shape
     n_valid = torch.as_tensor(n_valid, device=tokens.device).to(t0.dtype)
-    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    x = embed_lookup(params, tokens, ctx, cfg.padded_vocab_size)
     positions = t0[:, None] + torch.arange(P, device=x.device)[None, :]
     if "pos" in params["embed"]:
-        tab = params["embed"]["pos"]
+        tab = whole(params, "embed/pos", ctx)
         x = x + tab[positions.clamp(0, tab.shape[0] - 1).long()]
-    shared_lin = params.get("shared", {}).get("lin")
+    shared_lin = _shared_lin(params, ctx)
     for i in range(cfg.num_layers):
         x = apply_block_prefill_chunk(
-            layer_params(params, i), x, _layer_caches(cache, i), t0,
-            cfg, positions=positions, shared_lin=shared_lin, plan=plan,
-            ctx=ctx)
+            _layer_views(params, ctx, i, kv), x, _layer_caches(cache, i),
+            t0, cfg, positions=positions, shared_lin=shared_lin, plan=plan,
+            ctx=rctx, held_experts=held_experts(ctx), tp=tp)
     last = (n_valid - 1).long()[:, None, None].expand(B, 1, x.shape[-1])
-    logits = logits_from_hidden(params, cfg, x.gather(1, last))
+    logits = gather_logits(
+        logits_from_hidden(params, cfg, x.gather(1, last), ctx), cfg, ctx)
     return logits[:, 0], {**cache, "lengths": t0 + n_valid}
 
 

@@ -86,7 +86,11 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     rctx = shd.region_ctx(ctx)
     plan = plan if plan is not None \
         else plan_lib.resolve_attention_plan(cfg.attention, rctx)
-    x = T.embed_lookup(params, batch["tokens"], ctx)
+    # the shared block runs tensor-parallel under the training layout, as
+    # transformer.py's blocks; the Mamba2 trunk is gathered whole
+    plan = T.tp_plan(cfg, plan, ctx)
+    tp, kv = shd.tensor_axis(ctx), T.whole_kv(cfg, ctx)
+    x = T.embed_lookup(params, batch["tokens"], ctx, cfg.padded_vocab_size)
     B, S, _ = x.shape
     # JAX's literal threshold (not the tuned one) for the shared block's
     # chunked reference form
@@ -130,9 +134,10 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
         entry = None if cache is None else {
             k: v[g] for k, v in cache["attn"].items()}
         x, _ = T.apply_block(
-            T.whole_layer(params["shared_block"], ctx, "shared_block/"), x,
+            T.whole_layer(params["shared_block"], ctx, "shared_block/",
+                          kv_whole=kv), x,
             cfg, shared_lin=shared_lin, cache_entry=entry, plan=plan,
-            chunked_attn=chunked, ctx=rctx)
+            chunked_attn=chunked, ctx=rctx, tp=tp)
     x = run_trunk(x, n_inv * every, cfg.num_layers)
     logits = T.logits_from_hidden(params, cfg, x, ctx)
     if cache is not None:

@@ -39,7 +39,14 @@ tensors too). ``BYTES`` counts, per op, the bytes of every collective it
 issues, forward and backward: the whole gathered tensor of an all-gather,
 the tensor of an all-reduce, i.e. what one rank receives; ``CALLS`` counts
 the collectives themselves. ``DIM_BYTES`` and ``DIM_CALLS`` count the same
-by the mesh dim they run over.
+by the mesh dim they run over, ``OP_DIM_BYTES`` by (op, mesh dim).
+
+Tensor parallelism (models/layers.py, models/attention.py, the head and
+cross-entropy) runs on two of these, Megatron's pair: ``copy`` where the
+stream enters a column-parallel matmul and ``reduce`` after a
+row-parallel one. Its only collectives are then all-reduces of
+activations over the model dim (and the cross-entropy's row maxima):
+no parameter is gathered over it.
 """
 from __future__ import annotations
 
@@ -53,10 +60,11 @@ BYTES: collections.Counter = collections.Counter()
 CALLS: collections.Counter = collections.Counter()
 DIM_BYTES: collections.Counter = collections.Counter()
 DIM_CALLS: collections.Counter = collections.Counter()
+OP_DIM_BYTES: collections.Counter = collections.Counter()
 
 
 def reset_counters() -> None:
-    for c in (BYTES, CALLS, DIM_BYTES, DIM_CALLS):
+    for c in (BYTES, CALLS, DIM_BYTES, DIM_CALLS, OP_DIM_BYTES):
         c.clear()
 
 
@@ -66,6 +74,7 @@ def _count(op: str, axis, y: torch.Tensor) -> None:
     CALLS[op] += 1
     DIM_BYTES[axis.name] += n
     DIM_CALLS[axis.name] += 1
+    OP_DIM_BYTES[(op, axis.name)] += n
 
 
 def _live(axes) -> tuple:
@@ -223,12 +232,14 @@ def all_gather_tiled(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
 
 
 def amax(x: torch.Tensor, axes: Sequence) -> torch.Tensor:
-    """The max of a 0-d tensor over `axes` (no gradient): each rank's value
-    all-gathered, then the max."""
-    y = x.detach().reshape(1)
+    """The elementwise max of `x` over `axes` (no gradient): each rank's
+    tensor all-gathered, then the max (a 0-d tensor: the max of the
+    ranks' values; the vocabulary-parallel cross-entropy: each row's max
+    over the shards)."""
+    y = x.detach()
     for a in _live(axes):
-        y = _all_gather(y, 0, a, "amax").max().reshape(1)
-    return y[0]
+        y = _all_gather(y[None], 0, a, "amax").amax(0)
+    return y
 
 
 def all_gather_stack(x: torch.Tensor, axis) -> torch.Tensor:

@@ -37,7 +37,8 @@ for a shared linear E) take tp × sp × data; chunk prefill takes tp, plus
 sp when the chunk divides (its start blocks shift by the shard's block
 offset); decode takes tp only.
 
-The plan takes and returns whole tensors. A manual region (``manual``: a
+The plan takes and returns whole tensors, but for a plan held to this
+rank's heads (below). A manual region (``manual``: a
 mesh with tp or sp wider than 1 and a backend other than "reference")
 takes this rank's shard of the head, sequence and batch axes through
 parallel/comm.py's autograd collectives, runs the same kernels/ops.py
@@ -45,6 +46,14 @@ wrappers on it (mesh-blind, at local shapes; the plain twins on the CPU),
 and gathers the output back whole. "reference" under a mesh runs the
 plain forms on the whole tensors with no region: the JAX package's GSPMD
 route computes the same numbers.
+
+Tensor parallelism (the training layout, models/attention.py): the
+projections give this rank's heads, and the model entry points hold the
+plan to them (``held(tp)``, ``heads_held``). Every form then takes q, k
+and v as this rank's heads (``Held`` in the region specs: neither split
+nor copied over tp) and returns this rank's heads, with no all-gather of
+the output; the plain route runs its forms on those heads, a per-head
+E/F cut to them, and its pool is laid out over tp too.
 
 The engine's pool on a tp mesh is laid out per ``cache_pspecs`` (JAX's
 rule: the KV-head axis over tp, scale leaves on their last axis, the rest
@@ -125,6 +134,8 @@ class AttentionPlan:
     tp_dim: Optional[Axis] = None    # mesh dim sharding the (KV-)head axis
     sp_dim: Optional[Axis] = None    # mesh dim sharding the sequence axis
     data_dims: Tuple[Axis, ...] = ()  # batch dims inside the region
+    # q, k, v arrive as this rank's heads over tp_dim, and leave so
+    heads_held: bool = False
 
     def __post_init__(self):
         backend_route(self.backend, True)     # raise on an unknown knob
@@ -187,6 +198,28 @@ class AttentionPlan:
     def _heads(self) -> Tuple[Axis, ...]:
         return (self.tp_dim,) if self.tp > 1 else ()
 
+    def held(self, tp: Optional[Axis]) -> "AttentionPlan":
+        """This plan with q, k and v held to this rank's heads over `tp`
+        (tensor parallelism); itself without one."""
+        if tp is None or tp.width == 1:
+            return self
+        return dataclasses.replace(self, tp_dim=tp, heads_held=True)
+
+    def _q_heads(self):
+        """The head dim of a query operand (and of the output): this
+        rank's heads already on a held plan, else split over tp."""
+        return Held(self._heads()) if self.heads_held else self._heads()
+
+    def _plain_ef(self, E: torch.Tensor) -> torch.Tensor:
+        """E/F on a held plan's plain route: a per-head one cut to this
+        rank's heads (its gradient gathered over tp), a shared one read by
+        every rank's heads (its gradient summed over tp); else as is."""
+        if not self.heads_held:
+            return E
+        if E.ndim == 3:
+            return comm.split(E, 0, self._heads())
+        return comm.copy(E, self._heads())
+
     def _pool_heads(self) -> Held:
         """The head dim of a cache operand of the decode and chunk-prefill
         regions: this rank's heads already (see shards_cache)."""
@@ -194,9 +227,14 @@ class AttentionPlan:
 
     @property
     def shards_cache(self) -> bool:
-        """Whether place_cache lays a pool out over tp: a manual plan with
-        tp wider than 1."""
-        return self.manual and self.tp > 1
+        """Whether place_cache lays a pool out over tp: a manual or held
+        plan with tp wider than 1."""
+        return (self.manual or self.heads_held) and self.tp > 1
+
+    def kv_shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's heads of an activation k or v along `dim`: as it is
+        on a held plan, else head_shard."""
+        return x if self.heads_held else self.head_shard(x, dim)
 
     def head_shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's heads of `x` along `dim` over tp (a view): what a
@@ -229,8 +267,13 @@ class AttentionPlan:
         sp = self._sp_for(Pq, block_size, required=False)
         shift = sp[0].coord * (Pq // self.sp // block_size) if sp else 0
         b, kvh = self._batch_axes(B), self._pool_heads()
-        return ((b, sp, self._heads(), ()), (b, sp, kvh, ()),
+        return ((b, sp, self._q_heads(), ()), (b, sp, kvh, ()),
                 (b, (), kvh, ()), (b, (), kvh), shift)
+
+    def _out_spec(self, spec: Spec) -> Spec:
+        """A query spec as the output's: a held head entry is not
+        gathered."""
+        return tuple(() if isinstance(e, Held) else e for e in spec)
 
     @staticmethod
     def _smap(body, in_specs, out_spec):
@@ -276,7 +319,8 @@ class AttentionPlan:
         if not self.uses_kernels(q):
             fn = (causal_lib.blockwise_causal_attention_chunked if chunked
                   else causal_lib.blockwise_causal_attention)
-            return fn(q, k, v, E, F, block_size=block_size, scale=scale)
+            return fn(q, k, v, self._plain_ef(E), self._plain_ef(F),
+                      block_size=block_size, scale=scale)
         if not self.manual:
             return kernel_ops.fused_blockwise_causal_attention(
                 q, k, v, E, F, block_size=block_size,
@@ -284,7 +328,7 @@ class AttentionPlan:
                 backward_impl=self.backward_impl)
         B, S = q.shape[:2]
         sp = self._sp_for(S, block_size, required=True)
-        qkv = (self._batch_axes(B), sp, self._heads(), ())
+        qkv = (self._batch_axes(B), sp, self._q_heads(), ())
         espec = self._ef_spec(E)
         bi = self.backward_impl
 
@@ -298,8 +342,8 @@ class AttentionPlan:
                 block_size=block_size, block_slots=block_slots, scale=scale,
                 backward_impl=bi)
 
-        return self._smap(body, (qkv,) * 3 + (espec, espec), qkv)(
-            q, k, v, E, F)
+        return self._smap(body, (qkv,) * 3 + (espec, espec),
+                          self._out_spec(qkv))(q, k, v, E, F)
 
     # -- train fwd/bwd: exact bidirectional (linformer) -----------------------
 
@@ -318,9 +362,9 @@ class AttentionPlan:
         rows (and E's rows) over sp when sp divides S, then a psum of
         k̄/v̄ over sp; the other projections run unsharded."""
         if not self.uses_kernels(q):
-            return lin_lib.exact_linformer_attention(q, k, v, E, F,
-                                                     kind=projection,
-                                                     scale=scale)
+            return lin_lib.exact_linformer_attention(
+                q, k, v, self._plain_ef(E), self._plain_ef(F),
+                kind=projection, scale=scale)
         S = q.shape[1]
         linear_shared = projection == "linear" and E.ndim == 2
         if linear_shared:
@@ -332,11 +376,13 @@ class AttentionPlan:
                 kbar = kernel_ops.fused_seq_projection(k, E)
                 vbar = kernel_ops.fused_seq_projection(v, F)
             else:
-                kbar, vbar = lin_lib.project_kv(k, v, E, F, kind=projection)
+                kbar, vbar = lin_lib.project_kv(k, v, self._plain_ef(E),
+                                                self._plain_ef(F),
+                                                kind=projection)
             return kernel_ops.fused_linformer_attention(q, kbar, vbar,
                                                         scale=scale)
         sp = (self.sp_dim,) if self.sp > 1 and S % self.sp == 0 else ()
-        qkv = (self._batch_axes(q.shape[0]), sp, self._heads(), ())
+        qkv = (self._batch_axes(q.shape[0]), sp, self._q_heads(), ())
         espec = (sp, ())
 
         def body(q_l, k_l, v_l, E_l, F_l):
@@ -349,8 +395,8 @@ class AttentionPlan:
                 q_l, k_l, v_l, E_l, F_l, seq_axis=sp[0], scale=scale,
                 fused=True)
 
-        return self._smap(body, (qkv,) * 3 + (espec, espec), qkv)(
-            q, k, v, E, F)
+        return self._smap(body, (qkv,) * 3 + (espec, espec),
+                          self._out_spec(qkv))(q, k, v, E, F)
 
     # -- chunk prefill ----------------------------------------------------------
 
@@ -382,7 +428,8 @@ class AttentionPlan:
                 block_size=block_size, block_slots=block_slots, scale=scale,
                 backward_impl=self.backward_impl)
 
-        return self._smap(body, (qs, kvs, kvs, comp, comp, qs[:1]), qs)(
+        return self._smap(body, (qs, kvs, kvs, comp, comp, qs[:1]),
+                          self._out_spec(qs))(
             q, k, v, comp_k, comp_v, start_blocks)
 
     # -- decode -------------------------------------------------------------------
@@ -404,13 +451,14 @@ class AttentionPlan:
                 q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob,
                 scale=scale)
         b = self._batch_axes(q_t.shape[0])
-        qs = (b, (), self._heads(), ())
+        qs = (b, (), self._q_heads(), ())
         kv = (b, (), self._pool_heads(), ())
 
         def body(*xs):
             return kernel_ops.fused_decode_attention(*xs, scale=scale)
 
-        return self._smap(body, (qs,) + (kv,) * 4 + ((b, ()),) * 2, qs)(
+        return self._smap(body, (qs,) + (kv,) * 4 + ((b, ()),) * 2,
+                          self._out_spec(qs))(
             q_t, raw_k, raw_v, comp_k, comp_v, bias_loc, bias_glob)
 
     # -- the paged, quantized cache -------------------------------------------
@@ -437,14 +485,14 @@ class AttentionPlan:
         if not self.manual or self.tp <= 1:
             return kernel_ops.fused_decode_attention_q(*args, scale=scale)
         b, kvh = self._batch_axes(q_t.shape[0]), self._pool_heads()
-        qs = (b, (), self._heads(), ())
+        qs = (b, (), self._q_heads(), ())
         kv, sc = (b, (), kvh, ()), (b, (), kvh)
 
         def body(*xs):
             return kernel_ops.fused_decode_attention_q(*xs, scale=scale)
 
         return self._smap(body, (qs, kv, kv, sc, sc, kv, kv, sc, sc)
-                          + ((b, ()),) * 2, qs)(*args)
+                          + ((b, ()),) * 2, self._out_spec(qs))(*args)
 
     def chunk_prefill_attention_q(self, q, k, v, comp_k, comp_v, comp_k_s,
                                   comp_v_s, start_blocks, *,
@@ -473,8 +521,8 @@ class AttentionPlan:
                 q_l, k_l, v_l, ck_l, cv_l, cks_l, cvs_l, sb_l + shift, **kw)
 
         return self._smap(body, (qs, kvs, kvs, comp, comp, sc, sc, qs[:1]),
-                          qs)(q, k, v, comp_k, comp_v, comp_k_s, comp_v_s,
-                              start_blocks)
+                          self._out_spec(qs))(
+            q, k, v, comp_k, comp_v, comp_k_s, comp_v_s, start_blocks)
 
     # -- cache placement ------------------------------------------------------
 

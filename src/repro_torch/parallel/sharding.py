@@ -24,18 +24,26 @@ spec as a LOCAL view: each rank stores only its slice (:func:`shard_leaf`,
   gradient is summed over those ranks, then sliced (FSDP's
   reduce-scatter, as an all-reduce and a slice);
 * over another dim (the model dim), all-gather; the gradient is sliced
-  with no sum, since every such rank computes the same thing outside the
-  plan's regions;
+  with no sum, since every such rank computes the same thing where the
+  whole leaf is used;
 * over a data dim the leaf is not sharded on, ``comm.copy``: its gradient
   sums over the ranks that hold other rows.
 
 A ctx with ``sharded=True`` is the training layout: every rank holds its
 rows of the batch over ``data_axes`` (:func:`shard_activation`, JAX's
 default activation spec) and its shard of each parameter and moment; the
-model entry points then gather a layer's weights inside the layer loop
+model entry points then gather a layer's FSDP dims inside the layer loop
 and run the plan's regions and the MoE layer on :func:`region_ctx`, whose
 data dims are excluded (JAX's ``exclude_data_axes`` mechanism), so a
-region splits over tp and sp only.
+region splits over tp and sp only. The model dim of a leaf stays on this
+rank's shard there (:func:`tp_keep`): tensor parallelism, Megatron-style,
+as GSPMD partitions JAX's steps by the same specs (models/layers.py,
+models/attention.py, the vocabulary-parallel head of
+models/transformer.py and the cross-entropy of models/model.py).
+
+The vocabulary dim (``embed/tok``'s rows, ``lm_head``'s columns) may split
+unevenly over the model dim (:func:`dim_range`: ceil(V / tp) a rank, the
+last ranks shorter); every other dim must divide.
 """
 from __future__ import annotations
 
@@ -266,43 +274,89 @@ def sharded_axes(spec: Spec, ctx: ParallelCtx) -> Tuple[Axis, ...]:
     return tuple(a for entry in spec for a in _live(ctx, _names(entry)))
 
 
-def shard_slices(shape, spec: Spec, ctx: ParallelCtx) -> Tuple[slice, ...]:
+def dim_range(n: int, axes) -> Tuple[int, int]:
+    """This rank's [start, stop) of a dim of size `n` split over `axes`
+    (Axis records, the first major): ceil(n / w) indices a rank, so the
+    last ranks hold fewer (or none) where the width w does not divide n,
+    as GSPMD lays out an uneven dim (without its padding)."""
+    w = comm.flat_width(axes)
+    m = -(-n // w)
+    i = comm.flat_coord(axes)
+    return min(i * m, n), min((i + 1) * m, n)
+
+
+_VOCAB = r"(^|/)(embed/tok|lm_head)$"
+
+
+def is_vocab_leaf(path: str) -> bool:
+    """Whether `path` is a leaf with a vocabulary dim (``embed/tok``,
+    ``lm_head``), the one dim that may split unevenly."""
+    return re.search(_VOCAB, path) is not None
+
+
+def shard_slices(shape, spec: Spec, ctx: ParallelCtx, uneven: bool = False
+                 ) -> Tuple[slice, ...]:
     """The index of this rank's slice of a `shape` tensor laid out per
-    `spec`; raises when a dim does not split evenly."""
+    `spec`; raises when a dim does not split evenly, but for a dim split
+    over the model dim alone with `uneven` (a vocabulary, see
+    :func:`dim_range`)."""
     out = []
     for dim, (n, entry) in enumerate(zip(shape, spec)):
         axes = _live(ctx, _names(entry))
         w = comm.flat_width(axes)
-        if n % w != 0:
+        if n % w != 0 and not (uneven and _names(entry) == (ctx.model_axis,)):
             raise ValueError(f"dim {dim} of size {n} does not split over "
                              f"{w} shards")
-        m = n // w
-        out.append(slice(comm.flat_coord(axes) * m,
-                         (comm.flat_coord(axes) + 1) * m))
+        out.append(slice(*dim_range(n, axes)))
     return tuple(out)
 
 
-def shard_leaf(x: torch.Tensor, spec: Spec, ctx: ParallelCtx
-               ) -> torch.Tensor:
+def leaf_slices(path: str, shape, ctx: ParallelCtx) -> Tuple[slice, ...]:
+    """`shard_slices` of the leaf at `path` of a `shape` tensor, per its
+    spec; the vocabulary may split unevenly."""
+    return shard_slices(shape, leaf_spec(path, len(shape), ctx), ctx,
+                        uneven=is_vocab_leaf(path))
+
+
+def shard_leaf(x: torch.Tensor, spec: Spec, ctx: ParallelCtx,
+               uneven: bool = False) -> torch.Tensor:
     """This rank's slice of the whole tensor `x` per `spec`, as a tensor
     of its own (the whole one can be freed)."""
-    y = x.detach()[shard_slices(x.shape, spec, ctx)]
+    y = x.detach()[shard_slices(x.shape, spec, ctx, uneven)]
     return y.clone(memory_format=torch.contiguous_format)
 
 
 def shard_tree(tree: Dict, ctx: ParallelCtx) -> Dict:
     """Every leaf of `tree` (parameters, or moments keyed like them)
     replaced by this rank's shard per `param_shardings`."""
-    return _nest({k: shard_leaf(v, leaf_spec(k, v.ndim, ctx), ctx)
+    return _nest({k: shard_leaf(v, leaf_spec(k, v.ndim, ctx), ctx,
+                                is_vocab_leaf(k))
                   for k, v in _flatten(tree).items()})
 
 
+def gather_dim(x: torch.Tensor, dim: int, axis, n: Optional[int] = None
+               ) -> torch.Tensor:
+    """``comm.gather`` of `dim` over `axis` into its whole size `n`
+    (default: the width times this shard's size), where the shards may be
+    uneven (:func:`dim_range`): each is padded to ceil(n / w) first and
+    the padding dropped after. Differentiable as comm.gather."""
+    if axis is None or axis.width == 1:
+        return x
+    if n is None or n % axis.width == 0:
+        return comm.gather(x, dim, (axis,))
+    m = -(-n // axis.width)
+    pad = [0, 0] * (x.ndim - 1 - dim % x.ndim) + [0, m - x.shape[dim]]
+    return comm.gather(torch.nn.functional.pad(x, pad), dim,
+                       (axis,)).narrow(dim, 0, n)
+
+
 def unshard_leaf(x: torch.Tensor, spec: Spec, ctx: ParallelCtx,
-                 keep: Tuple[str, ...] = ()) -> torch.Tensor:
+                 keep: Tuple[str, ...] = (), shape=None) -> torch.Tensor:
     """The whole tensor from this rank's shard `x` (laid out per `spec`),
     differentiable with the gradient rules of the module docstring. The
-    mesh dims named in `keep` stay sharded (MoE expert stacks under
-    expert parallelism stay on their model shard)."""
+    mesh dims named in `keep` stay sharded (:func:`tp_keep`). `shape`,
+    the whole tensor's, is needed where the model dim splits unevenly
+    (a vocabulary)."""
     summed = ctx.data_axes
     used = set()
     for dim, entry in enumerate(spec):
@@ -314,8 +368,31 @@ def unshard_leaf(x: torch.Tensor, spec: Spec, ctx: ParallelCtx,
             if name in summed:
                 x = comm.all_gather_tiled(x, dim, a)
             else:
-                x = comm.gather(x, dim, (a,))
+                x = gather_dim(x, dim, a,
+                               None if shape is None else shape[dim])
     return comm.copy(x, [ctx.axis(n) for n in summed if n not in used])
+
+
+# the leaves whose model dim tensor parallelism keeps on its shard inside
+# the block: every leaf whose rule names "model" but Mamba2's and RWKV6's
+# projections (gathered whole, as before tensor parallelism), and the
+# KV projections on the whole-head route (see tp_keep)
+_GATHERED = r"(^|/)(ssm|rwkv)/"
+_KV = r"attn/(wk|wv|bk|bv)$"
+
+
+def tp_keep(path: str, ctx: ParallelCtx, whole_kv: bool = False
+            ) -> Tuple[str, ...]:
+    """The dims `unshard_leaf` keeps sharded for the block's compute under
+    the training layout: the model dim of a leaf whose rule names it
+    (column- and row-parallel weights, the vocabulary, MoE expert
+    stacks), but for Mamba2's and RWKV6's projections and, with
+    `whole_kv` (the model width does not divide the KV heads: the
+    whole-head route of models/attention.py), ``wk``/``wv``/``bk``/``bv``,
+    which are gathered whole."""
+    if re.search(_GATHERED, path) or (whole_kv and re.search(_KV, path)):
+        return ()
+    return (ctx.model_axis,)
 
 
 def unshard_tree(tree: Dict, ctx: ParallelCtx, prefix: str = "",
@@ -323,18 +400,27 @@ def unshard_tree(tree: Dict, ctx: ParallelCtx, prefix: str = "",
     """`unshard_leaf` of every leaf of `tree`, whose keys sit under
     `prefix` in the parameter tree; `drop` leading spec entries are
     left out (a layer's views of layer-stacked leaves drop the layer
-    axis). `keep_for(key)` names the dims a leaf keeps sharded."""
+    axis). `keep_for(path)` names the dims a leaf keeps sharded (`path`
+    its whole key)."""
     out = {}
     for k, v in _flatten(tree).items():
         spec = leaf_spec(prefix + k, v.ndim + drop, ctx)[drop:]
         out[k] = unshard_leaf(v, spec, ctx,
-                              keep_for(k) if keep_for else ())
+                              keep_for(prefix + k) if keep_for else ())
     return _nest(out)
 
 
+def tensor_axis(ctx: Optional[ParallelCtx]):
+    """The model dim's Axis where tensor parallelism runs: under the
+    training layout with a model dim wider than 1; else None."""
+    if not is_sharded(ctx) or ctx.model_shards == 1:
+        return None
+    return ctx.axis(ctx.model_axis)
+
+
 def sharded_lookup(table: torch.Tensor, tokens: torch.Tensor,
-                   ctx: ParallelCtx, path: str = "embed/tok"
-                   ) -> torch.Tensor:
+                   ctx: ParallelCtx, path: str = "embed/tok",
+                   vocab: Optional[int] = None) -> torch.Tensor:
     """Rows `tokens` (this rank's, over the data dims) of an embedding
     table stored as this rank's shard per its spec (vocab over the model
     dim, d_model over the fsdp dims), without making the table whole: the
@@ -344,9 +430,12 @@ def sharded_lookup(table: torch.Tensor, tokens: torch.Tensor,
     gathered over the fsdp dims (``comm.all_gather_tiled``: the gradient
     of a rank's slice sums every data rank's tokens), and this rank keeps
     its own rows. The value and gradient are those of a lookup in the
-    whole table; the bytes moved are the looked-up rows, not the table."""
+    whole table; the bytes moved are the looked-up rows, not the table.
+    `vocab`, the table's whole row count, places an uneven shard
+    (:func:`dim_range`; default: the shards are even)."""
     spec = leaf_spec(path, table.ndim, ctx)
-    vocab, cols = _live(ctx, _names(spec[0])), _live(ctx, _names(spec[1]))
+    vocab_axes = _live(ctx, _names(spec[0]))
+    cols = _live(ctx, _names(spec[1]))
     data = [ctx.axis(n) for n in ctx.data_axes]
     # a data dim the table is not split on sums its gradient (as in
     # unshard_leaf): its ranks look up other rows
@@ -356,10 +445,12 @@ def sharded_lookup(table: torch.Tensor, tokens: torch.Tensor,
     for a in reversed(_live(ctx, ctx.data_axes)):     # the first major
         toks = comm.all_gather_stack(toks, a).reshape(-1)
     rows = table.shape[0]
-    local = toks - comm.flat_coord(vocab) * rows
+    start = comm.flat_coord(vocab_axes) * rows if vocab is None \
+        else dim_range(vocab, vocab_axes)[0]
+    local = toks - start
     hit = (local >= 0) & (local < rows)
     part = table[local.clamp(0, rows - 1)] * hit[:, None].to(table.dtype)
-    x = comm.reduce(part, vocab)
+    x = comm.reduce(part, vocab_axes)
     for a in reversed(cols):
         x = comm.all_gather_tiled(x, 1, a)
     n = toks.shape[0] // comm.flat_width(data)

@@ -166,6 +166,9 @@ class Trainer:
                                is not None and self.ctx.has_pod_axis)
         self.cfg = cfg
         self.tcfg = tcfg
+        # the whole shape of each leaf: the vocabulary may shard unevenly
+        self._shapes = {k: shape for k, (shape, *_) in
+                        model_lib.param_spec(cfg).items()}
         self.preempt_check = preempt_check or (lambda: False)
         self.log = log_fn or log.info
         self.ckpt = (Checkpointer(tcfg.checkpoint_dir)
@@ -220,9 +223,8 @@ class Trainer:
         path = key.split("/", 1)[1] if name == "opt_state" else key
         if name == "residual":
             arr = arr[self.ctx.axis("pod").coord]
-        spec = shd.leaf_spec(path, arr.ndim, self.ctx)
         return np.ascontiguousarray(
-            arr[shd.shard_slices(arr.shape, spec, self.ctx)])
+            arr[shd.leaf_slices(path, arr.shape, self.ctx)])
 
     def restore_or_init(self):
         params, opt_state, dstate = self.init_state()
@@ -251,7 +253,8 @@ class Trainer:
         out = {}
         for k, v in flatten(tree).items():
             spec = shd.leaf_spec(k, v.ndim, self.ctx)
-            x = shd.unshard_leaf(v, spec, self.ctx)
+            x = shd.unshard_leaf(v, spec, self.ctx,
+                                 shape=self._shapes[k])
             if self._rank0:
                 out[k] = x.cpu()
         return nest(out)
@@ -263,8 +266,8 @@ class Trainer:
         out = {}
         for k, v in flatten(self._residual).items():
             spec = shd.leaf_spec(k, v.ndim, self.ctx)
-            x = comm.all_gather_stack(shd.unshard_leaf(v, spec, self.ctx),
-                                      pod)
+            x = comm.all_gather_stack(shd.unshard_leaf(
+                v, spec, self.ctx, shape=self._shapes[k]), pod)
             if self._rank0:
                 out[k] = x.cpu()
         return nest(out)

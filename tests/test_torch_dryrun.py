@@ -124,6 +124,48 @@ def test_layers_count_linearly(fake_ctx):
     assert recs[4]["kernels"]["blockwise_causal_attn_bwd"]["launches"] == 4
 
 
+def _mlp_and_head_flops(monkeypatch, cfg, ctx):
+    """The forward FLOPs of the MLPs and of the head in a dry-run train
+    step of `cfg` on `ctx` (None: world size 1), each call counted by a
+    FlopCounterMode of its own."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import layers, transformer
+    got = {"mlp": 0, "head": 0}
+
+    def counted(part, fn):
+        def wrapped(*args, **kw):
+            with FlopCounterMode(display=False) as fc:
+                out = fn(*args, **kw)
+            got[part] += fc.get_total_flops()
+            return out
+        return wrapped
+
+    monkeypatch.setattr(layers, "apply_mlp",
+                        counted("mlp", layers.apply_mlp))
+    monkeypatch.setattr(transformer, "logits_from_hidden",
+                        counted("head", transformer.logits_from_hidden))
+    dryrun.dry_run(cfg, TRAIN, ctx, device="cpu")
+    monkeypatch.undo()
+    return got
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tensor_parallel_step_divides_mlp_and_head_flops(monkeypatch, tp):
+    """On a fake model dim of `tp` ranks (no data dim: each rank sees the
+    whole batch) the MLP and head matmuls of a sharded train step take
+    1/tp of world size 1's FLOPs a device (at tp 4 the attention takes
+    the whole-head route, two KV heads; the MLP and head stay split)."""
+    cfg = _smoke()
+    one = _mlp_and_head_flops(monkeypatch, cfg, None)
+    with mesh_lib.fake_world(tp):
+        ctx = ParallelCtx(mesh=mesh_lib.make_mesh((tp,), ("model",),
+                                                  device_type="cpu"),
+                          fsdp="data")
+        got = _mlp_and_head_flops(monkeypatch, cfg, ctx)
+    assert one["mlp"] > 0 and one["head"] > 0
+    assert got == {k: v // tp for k, v in one.items()}, (got, one)
+
+
 # -- the kernels' fake path ---------------------------------------------------
 
 B, H, HKV, S, C, R, DH = 2, 4, 2, 32, 16, 4, 16

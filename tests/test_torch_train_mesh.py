@@ -4,8 +4,10 @@ jitted single-device step.
 One group of 4 gloo ranks (tests/torch_mesh_ranks.py, `train_cases`) runs
 the training layout of parallel/sharding.py: each rank keeps its rows of
 the batch over the data dims and its shard of every parameter and moment
-(per JAX's `param_shardings`), and the model gathers a layer's weights
-where it uses them. The oracle is JAX on one device, in-process (JAX's own
+(per JAX's `param_shardings`), the model gathers a layer's FSDP dims
+where it uses them and runs tensor-parallel over the model dim (each
+matmul on its column or row shard, the vocabulary-parallel head and
+cross-entropy). The oracle is JAX on one device, in-process (JAX's own
 mesh training legs need 8 host devices in a subprocess and do not pass
 on every installation), at JAX's bounds: the loss within 1e-4 at every
 step, and after the last step every parameter within 1e-4·max(1, max|p|)
@@ -14,11 +16,24 @@ and the global-norm clip do not change when one leaf's gradient is
 scaled; the moment does). Cases: qwen3-8b SMOKE on data2×tp2 with fsdp "data"
 (also with microbatches and an uneven MLM-style mask, and with
 seq_shard_activations under remat "full"; and on pod2 × data2 with fsdp
-"pod_data"), qwen3-moe SMOKE with fsdp
+"pod_data"; and on tp4, whose width does not divide its two KV heads:
+the whole-head route), nemotron-4-15b SMOKE (squared ReLU), qwen1.5-110b
+SMOKE (qkv biases, given values), qwen3-moe SMOKE with fsdp
 "experts_data" (capacity factor 8: no drops; its oracle averages the
 load-balance loss over the two data shards' rows, each shard routing its
 own tokens, as a data-sharded MoE does), zamba2 and rwkv6 SMOKE, the
-paper's encoder on sp2×tp2. The compressed cross-pod step on pod2×data2
+paper's encoder on sp2×tp2, and on tp4 with a vocabulary of 509 (no
+padding), which splits unevenly (128, 128, 128, 125), and the internvl2
+and musicgen frontends (patch and frame embeddings). The transformer-
+family cases also run the prefill step, a prefill chunk and three
+decode steps under the same layout against JAX's `forward`,
+`prefill_chunk` and `decode_step` on each data shard's rows (the logits
+gathered whole; the exact form: `forward` alone). No
+op of a tensor-parallel train or prefill step outputs a tensor whose last
+dim is the whole vocabulary over a batch row's tokens or more (no whole
+LM head, no (tokens × V) logits),
+and where the model width divides the KV heads no parameter is gathered
+over the model dim. The compressed cross-pod step on pod2×data2
 is held, step by step from the state the port's step starts from (its
 parameters and residual), to JAX's `compressed_pod_reduce` of JAX's
 gradients of each pod's rows: every element of the reduced gradient within
@@ -61,6 +76,12 @@ COMPRESSED_LOSS_TOL = 5e-3
 CODE_SLACK = 1e-3
 B, S = 8, 32
 OCFG = dict(lr=1e-3, warmup_steps=0)
+# the cases of the configs added with tensor parallelism run AdamW at eps
+# 1e-3, as chip_smoke's parity legs do: at 1e-8 an element whose
+# first-step gradient is ~1e-8 moves by ~lr on its sign alone, and that
+# sign differs between the packages on one device already (nemotron's
+# embed/tok: |g| < 1e-7, the port's gradients otherwise within 5.4e-7)
+NEW_OPT = dict(eps=1e-3)
 WIDTHS = {"data": 2, "model": 2}
 
 
@@ -70,30 +91,122 @@ def _smoke(arch, **kw):
 
 CASES = {
     "dense": dict(cfg=_smoke("qwen3-8b"), mesh=(2,), fsdp="data",
-                  batches="causal", params="dense"),
+                  batches="causal", params="dense", infer=True),
     "micro_mlm": dict(cfg=_smoke("qwen3-8b"), mesh=(2,), fsdp="data",
                       batches="uneven", params="dense", microbatch=4),
     "seq_shard": dict(cfg=_smoke("qwen3-8b", seq_shard_activations=True,
                                  remat="full"), mesh=(2,), fsdp="data",
-                      batches="causal", params="dense", oracle="dense"),
+                      batches="causal", params="dense", oracle="dense",
+                      infer=True),
     "moe": dict(cfg=_smoke("qwen3-moe-30b-a3b"), mesh=(2,),
-                fsdp="experts_data", batches="causal", params="moe"),
+                fsdp="experts_data", batches="causal", params="moe",
+                infer=True),
     "zamba": dict(cfg=_smoke("zamba2-1.2b"), mesh=(2,), fsdp="data",
                   batches="causal", params="zamba"),
     "rwkv": dict(cfg=_smoke("rwkv6-1.6b"), mesh=(2,), fsdp="data",
                  batches="causal", params="rwkv"),
     "encoder": dict(cfg=_smoke("linformer-paper"), mesh=(2, 2), fsdp="data",
-                    batches="uneven", params="encoder"),
+                    batches="uneven", params="encoder", infer=True),
     "pod_data": dict(cfg=_smoke("qwen3-8b"), mesh=(2, 2, 1),
                      names=("pod", "data", "model"), fsdp="pod_data",
                      batches="causal", params="dense", oracle="dense"),
+    "tp4_whole_heads": dict(cfg=_smoke("qwen3-8b"), mesh=(4,), fsdp="data",
+                            batches="causal", params="dense",
+                            oracle="dense", infer=True),
+    "nemotron": dict(cfg=_smoke("nemotron-4-15b"), mesh=(2,), fsdp="data",
+                     batches="causal", params="nemotron", infer=True,
+                     opt=NEW_OPT),
+    "qwen_bias": dict(cfg=_smoke("qwen1.5-110b"), mesh=(2,), fsdp="data",
+                      batches="causal", params="qwen_bias", infer=True,
+                      opt=NEW_OPT),
+    "encoder_vocab": dict(cfg=_smoke("linformer-paper", vocab_size=509,
+                                     vocab_pad_multiple=1),
+                          mesh=(4,), fsdp="data", batches="uneven509",
+                          params="encoder_vocab", infer=True, opt=NEW_OPT),
+    "internvl": dict(cfg=_smoke("internvl2-2b"), mesh=(2,), fsdp="data",
+                     batches="vlm", params="internvl", opt=NEW_OPT),
+    "musicgen": dict(cfg=_smoke("musicgen-large"), mesh=(2,), fsdp="data",
+                     batches="audio", params="musicgen", opt=NEW_OPT),
 }
+# the data shards of each mesh: the inference oracle runs JAX on each
+# shard's rows (an MoE routes a shard's tokens together)
+DATA_SHARDS = {(2,): 2, (4,): 1, (2, 2): 1, (2, 2, 1): 4}
+MAX_SEQ = 64
+CHUNK = 16               # a prefill chunk: one block of the SMOKE configs
+DECODE_STEPS = 3
 
 
 def _flat(tree):
     return {"/".join(str(p.key) if hasattr(p, "key") else str(p.idx)
                      for p in path): np.array(leaf)
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _infer_inputs(vocab, seed=3):
+    """The prefill step's tokens (B, S), a prefill chunk's (B, CHUNK; row
+    1 with CHUNK / 2 valid) and the decode steps' (B, 3)."""
+    rng = np.random.default_rng(seed)
+    valid = np.full((B,), CHUNK, np.int32)
+    valid[1] = CHUNK // 2
+    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+            "chunk": rng.integers(0, vocab, (B, CHUNK)).astype(np.int32),
+            "valid": valid,
+            "feed": rng.integers(0, vocab, (B, DECODE_STEPS)).astype(
+                np.int32)}
+
+
+def _jax_infer(cfg, params, inputs, shards):
+    """JAX's prefill logits (B, S, V), then (causal configs) the logits
+    (B, V) of a prefill chunk and (B, 1, V) of each decode step, on each
+    data shard's rows."""
+    causal = cfg.attention.kind != "linformer"
+    prefill = jax.jit(lambda p, t: jmodel.forward(
+        p, cfg, {"tokens": t}, return_cache=causal, cache_max_seq=MAX_SEQ,
+        cache_dtype=jnp.float32))
+    chunk = jax.jit(lambda p, t, c, n: jmodel.prefill_chunk(
+        p, cfg, {"tokens": t}, c, n))
+    step = jax.jit(lambda p, t, c: jmodel.decode_step(p, cfg, {"tokens": t},
+                                                      c))
+    n = B // shards
+    pre, chunks, dec = [], [], []
+    for i in range(shards):
+        rows = slice(i * n, (i + 1) * n)
+        logits, _, cache = prefill(params, jnp.asarray(
+            inputs["tokens"][rows]))
+        pre.append(np.asarray(logits))
+        steps = []
+        if causal:
+            lc, cache = chunk(params, jnp.asarray(inputs["chunk"][rows]),
+                              cache, jnp.asarray(inputs["valid"][rows]))
+            chunks.append(np.asarray(lc))
+            for j in range(DECODE_STEPS):
+                lt, cache = step(params, jnp.asarray(
+                    inputs["feed"][rows, j:j + 1]), cache)
+                steps.append(np.asarray(lt))
+        dec.append(steps)
+    return (np.concatenate(pre),
+            np.concatenate(chunks) if chunks else None,
+            [np.concatenate([d[j] for d in dec]) for j in range(len(dec[0]))])
+
+
+def _frontend_batches(cfg, n=2, seed=0):
+    """Batches of a frontend config: internvl2's P patch embeddings before
+    S - P text tokens, musicgen's S frame embeddings (labels over its
+    vocabulary)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        P = cfg.frontend_embed_len
+        labels = rng.integers(0, cfg.vocab_size, (B, S - P)).astype(np.int32)
+        b = {"labels": labels, "loss_mask": np.ones_like(labels)}
+        emb = (0.02 * rng.standard_normal((B, P or S, cfg.d_model))
+               ).astype(np.float32)
+        if cfg.embedding_inputs:
+            b["embeds"] = emb
+        else:
+            b["tokens"], b["frontend_embeds"] = labels, emb
+        out.append(b)
+    return out
 
 
 def _batches(vocab, uneven, n=2, seed=0):
@@ -116,8 +229,8 @@ def _jax_run(step, params, opt, batches):
     return losses, trail, _flat(opt["mu"])
 
 
-def _jax_steps(cfg, params, batches, microbatch=0):
-    ocfg = OptimizerConfig(**OCFG)
+def _jax_steps(cfg, params, batches, microbatch=0, opt=None):
+    ocfg = OptimizerConfig(**OCFG, **(opt or {}))
     step = jax.jit(make_train_step(cfg, ocfg, microbatch=microbatch))
     return _jax_run(step, params, adamw_init(params, ocfg), batches)
 
@@ -197,7 +310,8 @@ def _jax_trainer_ckpts(cfg, d):
 
 def _init(cfg):
     """Random weights of `cfg` as a JAX pytree: the port's seeded draw
-    (JAX's tree structure from eval_shape, no JAX init compiled)."""
+    (JAX's tree structure from eval_shape, no JAX init compiled); qkv
+    biases, zero at init, are given values."""
     from repro_torch.configs import config_from_dict
     from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import flatten
@@ -205,7 +319,12 @@ def _init(cfg):
                             seed=0, device="cpu")
     like = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0),
                                                      cfg))
-    return _unflat({k: v.numpy() for k, v in flatten(tp).items()}, like)
+    rng = np.random.default_rng(1)
+    flat = {k: v.numpy() for k, v in flatten(tp).items()}
+    for k, v in flat.items():
+        if k.split("/")[-1] in ("bq", "bk", "bv"):
+            flat[k] = (0.1 * rng.standard_normal(v.shape)).astype(v.dtype)
+    return _unflat(flat, like)
 
 
 @pytest.fixture(scope="module")
@@ -214,9 +333,15 @@ def runs(tmp_path_factory):
     params = {name: _init(c["cfg"])
               for name, c in CASES.items() if c["params"] == name}
     batches = {"causal": _batches(512, False, n=3),
-               "uneven": _batches(512, True)}
+               "uneven": _batches(512, True),
+               "uneven509": _batches(509, True),
+               "vlm": _frontend_batches(CASES["internvl"]["cfg"]),
+               "audio": _frontend_batches(CASES["musicgen"]["cfg"])}
+    infer = {"causal": _infer_inputs(512), "uneven": _infer_inputs(512),
+             "uneven509": _infer_inputs(509)}
     payload = {
-        "ocfg": OCFG, "batches": batches,
+        "ocfg": OCFG, "batches": batches, "infer": infer,
+        "max_seq": MAX_SEQ,
         "params": {k: _flat(v) for k, v in params.items()},
         "cases": {name: {**{k: v for k, v in c.items() if k != "oracle"},
                          "cfg": dataclasses.asdict(c["cfg"])}
@@ -236,7 +361,14 @@ def runs(tmp_path_factory):
             continue
         p, bs = params[c["params"]], batches[c["batches"]]
         want[name] = (_jax_moe_steps(c["cfg"], p, bs) if name == "moe" else
-                      _jax_steps(c["cfg"], p, bs, c.get("microbatch", 0)))
+                      _jax_steps(c["cfg"], p, bs, c.get("microbatch", 0),
+                                 c.get("opt")))
+    for name, c in CASES.items():
+        if c.get("infer"):
+            key = (c.get("oracle", name), DATA_SHARDS[c["mesh"]])
+            if key not in want:
+                want[key] = _jax_infer(c["cfg"], params[c["params"]],
+                                       infer[c["batches"]], key[1])
     ranks = finish()
     want["compressed"] = _jax_compressed(
         CASES["dense"]["cfg"], params["dense"],
@@ -267,6 +399,71 @@ def test_sharded_steps_match_jax(runs, case):
         for k, w in mu.items():
             err = np.abs(res["mu"][k] - w).max()
             assert err <= TOL * np.abs(w).max(), (case, "mu", k, err)
+
+
+INFER = [name for name, c in CASES.items() if c.get("infer")]
+
+
+@pytest.mark.parametrize("case", INFER)
+def test_sharded_prefill_and_decode_match_jax(runs, case):
+    """The prefill step's logits, those of a prefill chunk at an offset
+    (one row half valid) and of three decode steps under the training
+    layout, gathered whole, against JAX's on each data shard's rows; under
+    tensor parallelism the prefill's logits are this rank's vocabulary
+    shard."""
+    want, ranks, _, _ = runs
+    c = CASES[case]
+    pre, chunk, dec = want[(c.get("oracle", case), DATA_SHARDS[c["mesh"]])]
+    V = c["cfg"].padded_vocab_size
+    for got in ranks:
+        res = got[case]["infer"]
+        _close({"prefill": res["prefill"]}, {"prefill": pre}, case)
+        if chunk is not None:
+            _close({"chunk": res["chunk"]}, {"chunk": chunk}, case)
+        assert len(res["decode"]) == len(dec)
+        for s, (a, b) in enumerate(zip(res["decode"], dec)):
+            _close({f"decode {s}": a}, {f"decode {s}": b}, case)
+        tp = 4 if c["mesh"] == (4,) else 2
+        assert res["local_vocab"] in (-(-V // tp), V - (tp - 1) * -(-V // tp))
+
+
+@pytest.mark.parametrize("case", [n for n, c in CASES.items()
+                                  if c["mesh"] != (2, 2, 1)])
+def test_tensor_parallel_steps_hold_no_whole_vocab(runs, case):
+    """No op of a tensor-parallel train step (forward and backward) or
+    prefill step outputs a tensor whose last dim is the whole vocabulary
+    with a batch row's tokens or more before it: no rank holds a whole LM
+    head or (tokens × V) logits."""
+    _, ranks, _, _ = runs
+    for got in ranks:
+        assert got[case]["vocab_outputs"] == [], case
+        if "infer" in got[case]:
+            assert got[case]["infer"]["vocab_outputs"] == [], case
+
+
+@pytest.mark.parametrize("case", [n for n, c in CASES.items()
+                                  if c.get("infer")])
+def test_no_parameter_is_gathered_over_the_model_dim(runs, case):
+    """Where the model width divides the KV heads, a tensor-parallel step
+    gathers no parameter over the model dim (`comm.OP_DIM_BYTES`): its
+    model-dim traffic is all-reduces of activations (copy, reduce) and
+    the cross-entropy's row maxima; with seq_shard_activations the stream
+    is gathered and split over it too. On the whole-head route (tp4, two
+    KV heads) wk/wv and q are gathered."""
+    _, ranks, _, _ = runs
+    c = CASES[case]
+    whole_heads = c["cfg"].attention.num_kv_heads % (
+        4 if c["mesh"] == (4,) else 2) != 0
+    for got in ranks:
+        for key in ("op_dim_bytes",):
+            for rec in (got[case][key], got[case]["infer"][key]):
+                gathered = rec.get(("gather", "model"), 0) + \
+                    rec.get(("all_gather", "model"), 0)
+                if whole_heads or c["cfg"].seq_shard_activations:
+                    assert gathered > 0, case
+                else:
+                    assert gathered == 0, (case, rec)
+                assert rec.get(("reduce", "model"), 0) > 0, case
 
 
 def _fake_mesh(case):

@@ -352,23 +352,48 @@ def serve_cases(rank, p):
 # ---------------------------------------------------------------------------
 
 
-def _whole_np(tree, ctx):
-    """Every leaf of a tree of shards, whole, as numpy (each rank)."""
+def _whole_np(tree, ctx, cfg=None):
+    """Every leaf of a tree of shards, whole, as numpy (each rank); `cfg`
+    gives the whole shapes where the vocabulary splits unevenly."""
+    from repro_torch.models import model as tmodel
     from repro_torch.models.transformer import flatten
     from repro_torch.parallel import sharding as shd
+    shapes = {} if cfg is None else {
+        k: shape for k, (shape, *_) in tmodel.param_spec(cfg).items()}
     out = {}
     with torch.no_grad():
         for k, v in flatten(tree).items():
             out[k] = _np(shd.unshard_leaf(v, shd.leaf_spec(k, v.ndim, ctx),
-                                          ctx))
+                                          ctx, shape=shapes.get(k)))
     return out
+
+
+class _VocabWatch(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the shape of every op output whose last dim is the whole
+    vocabulary `V` with at least `rows` rows before it: a whole LM head
+    (d_model rows), or the logits of `rows` tokens or more (a row of the
+    batch)."""
+
+    def __init__(self, V, rows):
+        super().__init__()
+        self.V, self.rows, self.seen = V, rows, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and t.ndim and \
+                    t.shape[-1] == self.V and t.numel() >= self.rows * self.V:
+                self.seen.append((str(func), tuple(t.shape)))
+        return out
 
 
 def _mesh_steps(cfg, flat, ctx, batches, ocfg, microbatch=0):
     """make_train_step(ctx=) over `batches` from JAX's weights `flat`: the
-    losses, the first step's collective bytes by op (`comm.BYTES`), every
-    parameter and first moment whole afterwards, and each rank's shapes of
-    its parameter and first-moment shards."""
+    losses, the first step's collective bytes by op (`comm.BYTES`) and by
+    (op, mesh dim), the outputs of that step's ops with the whole
+    vocabulary as their last dim, every parameter and first moment whole
+    afterwards, and each rank's shapes of its parameter and first-moment
+    shards."""
     from repro_torch.checkpoint import bridge
     from repro_torch.models.transformer import flatten
     from repro_torch.optim import adamw_init
@@ -382,18 +407,77 @@ def _mesh_steps(cfg, flat, ctx, batches, ocfg, microbatch=0):
         p.requires_grad_(True)
     opt = adamw_init(params, ocfg)
     step = make_train_step(cfg, ocfg, microbatch=microbatch, ctx=ctx)
-    losses, first = [], None
+    losses, first, op_dim, watch = [], None, None, None
     for b in batches:
         comm.reset_counters()
-        params, opt, m = step(params, opt, {k: _t(v) for k, v in b.items()})
+        if watch is None:
+            with _VocabWatch(cfg.padded_vocab_size,
+                             b["labels"].shape[1]) as watch:
+                params, opt, m = step(params, opt,
+                                      {k: _t(v) for k, v in b.items()})
+        else:
+            params, opt, m = step(params, opt,
+                                  {k: _t(v) for k, v in b.items()})
         first = dict(comm.BYTES) if first is None else first
+        op_dim = dict(comm.OP_DIM_BYTES) if op_dim is None else op_dim
         losses.append(float(m["loss"]))
-    return {"losses": losses, "bytes": first,
-            "params": _whole_np(params, tctx),
-            "mu": _whole_np(opt["mu"], tctx),
+    return {"losses": losses, "bytes": first, "op_dim_bytes": op_dim,
+            "vocab_outputs": watch.seen,
+            "params": _whole_np(params, tctx, cfg),
+            "mu": _whole_np(opt["mu"], tctx, cfg),
             "local": {k: tuple(v.shape) for k, v in flatten(params).items()},
             "mu_local": {k: tuple(v.shape)
                          for k, v in flatten(opt["mu"]).items()}}
+
+
+def _mesh_infer(cfg, flat, ctx, inputs, max_seq):
+    """The prefill step (``forward(..., return_cache=True)``; the exact
+    form: ``forward`` alone) and, for a causal config, ``prefill_chunk``
+    of `inputs`' chunk and ``decode_step`` over the columns of its feed,
+    under the training layout from JAX's weights `flat`: each step's
+    logits gathered whole over the model dim and the data dims, the
+    outputs of the prefill's ops with the whole vocabulary as their last
+    dim, and the prefill's collective bytes by (op, mesh dim)."""
+    from repro_torch.checkpoint import bridge
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import transformer as ttransformer
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.plan import local_batch
+    from repro_torch.train.trainer import training_ctx
+    tctx = training_ctx(ctx)
+    params = shd.shard_tree(bridge.params_from_flat(flat, cfg, device="cpu"),
+                            tctx)
+    data = [tctx.axis(a) for a in tctx.data_axes]
+    causal = cfg.attention.kind != "linformer"
+
+    def rows(x):
+        return _np(comm.gather(x, 0, data))
+
+    local = local_batch({k: _t(v) for k, v in inputs.items()}, tctx)
+    out = {"decode": []}
+    with torch.no_grad():
+        comm.reset_counters()
+        with _VocabWatch(cfg.padded_vocab_size,
+                         local["tokens"].shape[1]) as watch:
+            logits, _, cache = tmodel.forward(
+                params, cfg, {"tokens": local["tokens"]}, ctx=tctx,
+                return_cache=causal, cache_max_seq=max_seq,
+                cache_dtype=torch.float32)
+        out["vocab_outputs"] = watch.seen
+        out["op_dim_bytes"] = dict(comm.OP_DIM_BYTES)
+        out["local_vocab"] = logits.shape[-1]
+        out["prefill"] = rows(ttransformer.gather_logits(logits, cfg, tctx))
+        if not causal:
+            return out
+        lc, cache = tmodel.prefill_chunk(params, cfg, local["chunk"], cache,
+                                         local["valid"], ctx=tctx)
+        out["chunk"] = rows(lc)
+        for i in range(local["feed"].shape[1]):
+            lt, cache = tmodel.decode_step(
+                params, cfg, local["feed"][:, i:i + 1], cache, ctx=tctx)
+            out["decode"].append(rows(lt))
+    return out
 
 
 def _compressed_steps(cfg, flat, ctx, batches, ocfg):
@@ -521,10 +605,16 @@ def train_cases(rank, p):
             mesh = make_local_mesh(*case["mesh"], device_type="cpu")
         else:
             mesh = d2t2
-        out[name] = _mesh_steps(cfg, p["params"][case["params"]],
-                                ParallelCtx(mesh=mesh, fsdp=case["fsdp"]),
-                                p["batches"][case["batches"]], ocfg,
+        ctx = ParallelCtx(mesh=mesh, fsdp=case["fsdp"])
+        out[name] = _mesh_steps(cfg, p["params"][case["params"]], ctx,
+                                p["batches"][case["batches"]],
+                                OptimizerConfig(**p["ocfg"],
+                                                **case.get("opt", {})),
                                 case.get("microbatch", 0))
+        if case.get("infer"):
+            out[name]["infer"] = _mesh_infer(
+                cfg, p["params"][case["params"]], ctx,
+                p["infer"][case["batches"]], p["max_seq"])
     pod = make_mesh((2, 2, 1), ("pod", "data", "model"), device_type="cpu")
     dense = config_from_dict(p["cases"]["dense"]["cfg"])
     out["compressed"] = _compressed_steps(
