@@ -297,7 +297,15 @@ error; none catches its own failure:
    max(1, max|p|) of world size 1) and in bf16 (close_bf16's rules), each
    rank's GB at rest against world size 1's, its peak, comm bytes by op
    and by (op, mesh dim), and the head's bytes (its lm_head shard and the
-   logits a step, against the whole vocabulary's);
+   logits a step, against the whole vocabulary's); then zamba2-1.2b at 7
+   layers and rwkv6-1.6b at 2 (MESH_SSM, full width, fp32, every Mamba2
+   and RWKV6 block on this rank's heads), 2 steps against world size 1
+   by the same gates and the logits of 3 decode steps after a prefill
+   within MESH_SSM_LOGITS_TOL, the model-dim gathers of both held to
+   ssm_model_gathers to the byte (the weight route's ssm/w_in and cm_w_r
+   in training, only activations in decode), zamba2's shared block
+   launching kernels 1r and 2 in training and 1 and 3 in the prefill and
+   decode on its head shards;
    [mesh-train-compressed] pod2 × data2, bf16 at 1 layer (2 did not fit),
    3 steps of the int8 cross-pod step against the same rule at world size
    1 (COMPRESSED_LOSS_TOL), the exact step's gap logged; [mesh-elastic] a
@@ -5864,6 +5872,218 @@ def mesh_train_legs(rk, meshes):
     return out
 
 
+# [mesh-train]'s ssm and hybrid legs: zamba2-1.2b and rwkv6-1.6b at full
+# width, cut by depth, on data2 × tp2 (fsdp "data") in fp32: 7 layers of
+# zamba2 are one shared-block invocation (hybrid_attn_every 6) and a
+# trailing trunk layer, 2 of rwkv6 two blocks. Each data rank's rows of a
+# step are 2048 tokens, at least d_model: sharding.column_matmul's weight
+# route (ssm/w_in and rwkv/cm_w_r gathered), which training takes at full
+# size; the decode steps (one row a data rank) take the activation route
+MESH_SSM = dict(layers={HYBRID_ARCH: 7, SSM_ARCH: 2}, batch=2, seq=2048,
+                steps=2, prompt=512, decode=3)
+# fp32 decode logits of the mesh against world size 1: the shards change
+# only the order of the sums (the reduce of the row-parallel outputs)
+MESH_SSM_LOGITS_TOL = 1e-4
+
+
+def ssm_model_gathers(cfg, phase, rows, steps):
+    """The bytes one rank gathers over the model dim (comm's "gather" and
+    "all_gather" ops) in `steps` steps of an ssm or hybrid config on its
+    heads, in the config's dtype: a train step of at least d_model tokens
+    a rank (the weight route) gathers ssm/w_in once a forward (twice
+    under remat: the backward reruns the block) and sums its gradient,
+    and gathers rwkv/cm_w_r once a forward; a decode step of `rows` rows
+    (the activation route) gathers no parameter: each layer's w_in or
+    cm_w_r output, Mamba2's new conv input of x, and the logits."""
+    import torch
+    from repro_torch.models import mamba2
+    from repro_torch.models.transformer import torch_dtype
+    f = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    D, L = cfg.d_model, cfg.num_layers
+    forwards = 1 if cfg.remat == "none" else 2
+    if cfg.family == "hybrid":
+        d_inner, H, _ = mamba2.dims(D, cfg.ssm)
+        W = 2 * d_inner + 2 * cfg.ssm.state_dim + H
+        per = {"train": (forwards + 1) * D * W,
+               "decode": rows * (W + d_inner)}[phase]
+    else:
+        per = {"train": forwards * D * D, "decode": rows * D}[phase]
+    logits = rows * cfg.padded_vocab_size if phase == "decode" else 0
+    return steps * (L * per + logits) * f
+
+
+def model_gathers(op_dim):
+    return op_dim.get(("gather", "model"), 0) + \
+        op_dim.get(("all_gather", "model"), 0)
+
+
+def mesh_ssm_decode(cfg, params, prompt, feed, dev, ctx=None):
+    """The prefill of `prompt` (forward with return_cache) and a decode
+    step a column of `feed`: the decode steps' logits (rows gathered over
+    the data dims under a mesh ctx) and the decode steps' bytes by (op,
+    mesh dim)."""
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.plan import local_batch
+    from repro_torch.train.trainer import training_ctx
+    tctx = training_ctx(ctx)
+    data = [] if tctx is None else [tctx.axis(a) for a in tctx.data_axes]
+    toks = {"tokens": prompt, "feed": feed}
+    if tctx is not None:
+        toks = local_batch(toks, tctx)
+    toks = {k: v.to(dev) for k, v in toks.items()}
+    with torch.no_grad():
+        _, _, cache = tmodel.forward(params, cfg, {"tokens": toks["tokens"]},
+                                     ctx=tctx, return_cache=True,
+                                     cache_max_seq=prompt.shape[1] + 8,
+                                     cache_dtype=torch.float32)
+        comm.reset_counters()
+        out = []
+        for i in range(feed.shape[1]):
+            lt, cache = tmodel.decode_step(params, cfg,
+                                           toks["feed"][:, i:i + 1], cache,
+                                           ctx=tctx)
+            out.append(comm.gather(lt, 0, data))
+    return out, dict(comm.OP_DIM_BYTES)
+
+
+def mesh_ssm_legs(rk, meshes):
+    """[mesh-train]'s zamba2-1.2b and rwkv6-1.6b legs (MESH_SSM) on
+    data2 × tp2, fsdp "data": MESH_SSM steps of AdamW in fp32, every
+    Mamba2 and RWKV6 block on this rank's heads, the losses and every
+    parameter afterwards against world size 1 (TRAIN_LOSS_RTOL, GRAD_TOL
+    of max(1, max|p|)); then the prefill of a prompt and MESH_SSM
+    decode steps from the seeded weights, the logits against world size
+    1's (MESH_SSM_LOGITS_TOL). The model-dim gathers of the train step and
+    of the decode steps must be ssm_model_gathers' exactly; zamba2's
+    shared block launches kernels 1r and 2 in training, 1 in the prefill
+    and 3 in decode on its head shards (counted by leg). Rank 0 runs the
+    references first and keeps their parameters on the host."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.transformer import flatten
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.sharding import ParallelCtx
+    from repro_torch.train.trainer import training_ctx
+    run = MESH_SSM
+    ocfg = OptimizerConfig(**TRAIN_OPT)
+    ctx = ParallelCtx(mesh=meshes["data2xtp2"], fsdp="data")
+    tctx = training_ctx(ctx)
+    out = {}
+    for arch, layers in run["layers"].items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        batches = [mesh_batch(cfg, run["batch"], run["seq"], s)
+                   for s in range(run["steps"])]
+        gen = torch.Generator().manual_seed(7)
+        prompt = torch.randint(0, cfg.vocab_size,
+                               (run["batch"], run["prompt"]), generator=gen)
+        feed = torch.randint(0, cfg.vocab_size, (run["batch"], run["decode"]),
+                             generator=gen)
+        ref = None
+        t0 = time.perf_counter()
+        if rk.rank == 0:
+            losses, p, _ = train_steps(cfg, ocfg, batches, rk.dev)
+            ref = (losses, {k: v.detach().cpu()
+                            for k, v in flatten(p).items()})
+            del p
+            free(rk.dev)
+            whole = tmodel.init_params(cfg, seed=1, device=rk.dev)
+            ref_logits = [x.cpu() for x in mesh_ssm_decode(
+                cfg, whole, prompt, feed, rk.dev)[0]]
+            del whole
+            free(rk.dev)
+            rk.say(f"  [mesh-train] {arch} world size 1 references "
+                   f"({time.perf_counter() - t0:.1f} s): losses {losses}")
+        dist.barrier()
+        if rk.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        comm.reset_counters()
+        t0 = time.perf_counter()
+        losses, params, opt = rk.counted(
+            lambda: train_steps(cfg, ocfg, batches, rk.dev, ctx=ctx),
+            leg=f"mesh-train {arch} train")
+        wall = time.perf_counter() - t0
+        train_op_dim = dict(comm.OP_DIM_BYTES)
+        peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if rk.dev.type == "cuda" else 0.0
+        rest = tree_bytes(params) + tree_bytes(opt["mu"]) + \
+            tree_bytes(opt["nu"])
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, losses)
+        if any(x != every[0] for x in every):
+            raise AssertionError(f"[mesh-train] {arch} ranks' losses "
+                                 f"differ: {every}")
+        worst = (0.0, "")
+        for k, x in gathered(params, tctx):
+            if rk.rank == 0:
+                y = ref[1][k].to(rk.dev)
+                bound = GRAD_TOL * max(1.0, y.abs().max().item())
+                worst = max(worst, ((x - y).abs().max().item() / bound, k))
+        del params, opt
+        free(rk.dev)
+        mem = ranks_memory(rk)
+        params = shd.shard_tree(tmodel.init_params(cfg, seed=1,
+                                                   device=rk.dev), tctx)
+        free(rk.dev)
+        logits, dec_op_dim = rk.counted(
+            lambda: mesh_ssm_decode(cfg, params, prompt, feed, rk.dev, ctx),
+            leg=f"mesh-train {arch} prefill and decode")
+        del params
+        free(rk.dev)
+        want = {"train": ssm_model_gathers(cfg, "train", 0, run["steps"]),
+                "decode": ssm_model_gathers(cfg, "decode", run["batch"] // 2,
+                                            run["decode"])}
+        got = {"train": model_gathers(train_op_dim),
+               "decode": model_gathers(dec_op_dim)}
+        out[arch] = {"bytes": {f"{op}/{d}": n for (op, d), n in
+                               train_op_dim.items()},
+                     "peak_gb": peak, "rest_gb": rest / 1e9, "wall": wall,
+                     "decode_op_dim": {f"{op}/{d}": n for (op, d), n in
+                                       dec_op_dim.items()},
+                     "model_gathers": got}
+        if rk.rank == 0:
+            errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref[0])]
+            rk.say(f"  [mesh-train] {arch} data2xtp2 fsdp data fp32 "
+                   f"({layers} layers, B={run['batch']}, S={run['seq']}, "
+                   f"{run['steps']} AdamW steps, remat {cfg.remat}): losses "
+                   f"{losses}, {wall:.1f} s, loss rel err {max(errs):.2e} "
+                   f"(tol {TRAIN_LOSS_RTOL:g}); worst parameter {worst[1]} "
+                   f"at {worst[0]:.2f} of GRAD_TOL·max(1, max|p|); rank 0 "
+                   f"holds {rest / 1e9:.3f} GB of parameters and moments "
+                   f"at rest, peak {peak:.2f} GB; each rank's (resident "
+                   f"GB, cached pinned GB) {mem}")
+            rk.say(f"  [mesh-train] {arch} model-dim gather bytes (gather "
+                   f"+ all_gather) {got}, expected {want} (the weight "
+                   f"route's ssm/w_in and rwkv/cm_w_r in training, the "
+                   f"activation route's outputs in decode); rank 0's bytes "
+                   f"by (op/mesh dim): train {out[arch]['bytes']}, "
+                   f"{run['decode']} decode steps "
+                   f"{out[arch]['decode_op_dim']}")
+            if not (max(errs) <= TRAIN_LOSS_RTOL and worst[0] <= 1.0):
+                raise AssertionError(f"[mesh-train] {arch}: {errs} {worst}")
+            for i, (a, b) in enumerate(zip(logits, ref_logits)):
+                rk.close(f"[mesh-train] {arch} decode step {i} logits", a,
+                         b.to(rk.dev), MESH_SSM_LOGITS_TOL)
+        if got != want:
+            raise AssertionError(f"[mesh-train] {arch} rank {rk.rank} "
+                                 f"model-dim gathers {got}, expected {want}")
+        if rk.dev.type == "cuda" and cfg.family == "hybrid":
+            by = rk.by_leg
+            require_launches(by[f"mesh-train {arch} train"],
+                             ("blockwise_causal_attn(return_residuals)",
+                              "blockwise_causal_attn_bwd"), f"{arch} train")
+            require_launches(by[f"mesh-train {arch} prefill and decode"],
+                             ("blockwise_causal_attn", "decode_attn"),
+                             f"{arch} prefill and decode")
+    return out
+
+
 def stacked_compressed_steps(cfg, ocfg, batches, dev, n_pods=2):
     """The compressed cross-pod step at world size 1: each pod's gradient of
     the whole model on its rows, compressed_pod_reduce on the stacked
@@ -6240,7 +6460,9 @@ def mesh_rank(rank, world, tmp, dev_type):
         moe_bytes = dict(comm.BYTES)
         free(dev)
         new = {}
-        for leg, fn in (("mesh-train", lambda: mesh_train_legs(rk, meshes)),
+        for leg, fn in (("mesh-train", lambda: {
+                            **mesh_train_legs(rk, meshes),
+                            **mesh_ssm_legs(rk, meshes)}),
                         ("mesh-train-compressed",
                          lambda: mesh_compressed_leg(rk)),
                         ("mesh-elastic",
@@ -6314,13 +6536,17 @@ def mesh_phases(dev):
                 f"{[round(g['peak_gb'], 2) for g in got]}; comm bytes by op "
                 f"summed over the ranks {dict(total)}, rank 0 "
                 f"{got[0]['bytes']}")
-            if "op_dim" in got[0]:
+            if "head" in got[0]:
                 log(f"[{leg}] {name}: rank 0's comm bytes by (op/mesh dim) "
                     f"over the steps {got[0]['op_dim']}; the head's bytes "
                     f"(rank 0: lm_head shard and fp32 logits of its rows a "
                     f"step, beside the whole vocabulary's) {got[0]['head']}")
-    for leg in ("mesh-train", "mesh-train-compressed", "mesh-elastic",
-                "mesh-serve"):
+    legs = ("mesh-train", "mesh-train-compressed", "mesh-elastic",
+            "mesh-serve")
+    # and mesh_ssm_legs' own ("mesh-train <arch> train", ...)
+    legs += tuple(sorted({k for r in ranks for k in r["by_leg"]}
+                         - set(legs)))
+    for leg in legs:
         total = collections.Counter()
         for r in ranks:
             total.update(r["by_leg"].get(leg, {}))
@@ -6638,7 +6864,7 @@ def main():
         path = main_path.get(rec["name"])
         rec["main_path"] = path
         rec["launches"] = paths[path][rec["name"]] if path else 0
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s on {card_line()}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,7 @@ def main():
 
     lap("build")
     cs.mesh_and_launch_phases(dev, lap)
-    cs.log(f"[done] {time.perf_counter() - t0:.1f} s")
+    cs.log(f"[done] {time.perf_counter() - t0:.1f} s on {cs.card_line()}")
     return 0
 
 

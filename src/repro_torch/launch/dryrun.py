@@ -18,10 +18,9 @@ inputs those of ``launch/specs.py``, and the step the port's own:
   (sharded parameters, this rank's rows), no grad;
 * decode: ``decode_step`` under the training layout, as JAX's
   ``build_step`` takes ``param_shardings``: this rank's rows, its shards
-  of the parameters and its KV heads of the cache; the step runs
-  tensor-parallel and gathers the last token's logits whole (the ssm and
-  hybrid families' decode steps take whole parameters: their Mamba2 and
-  RWKV6 projections are still gathered, ROADMAP Queue 1).
+  of the parameters and its heads of the cache (the KV heads, or the
+  Mamba2 and RWKV6 states by JAX's cache specs); the step runs
+  tensor-parallel and gathers the last token's logits whole.
 
 ``launch/step_cost.measure`` counts the step. Each cell's record (under
 ``build/dryrun/``) holds the argument bytes (parameters, moments, batch,
@@ -130,21 +129,16 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig,
         return prefill_step, (params, batch), {"params": params,
                                                "batch": batch}
 
-    # decode: this rank's rows, its shards of the parameters and the
-    # cache's KV heads of the plan the step holds to them (the training
-    # layout, as JAX's decode cells take param_shardings)
+    # decode: this rank's rows, its shards of the parameters and its heads
+    # of the cache: the KV heads of the plan the step holds to them, the
+    # Mamba2 and RWKV6 states by JAX's cache specs (the training layout,
+    # as JAX's decode cells take param_shardings)
     tctx = training_ctx(ctx)
-    plan = plan_lib.resolve_attention_plan(cfg.attention,
-                                           shd.region_ctx(tctx))
-    if cfg.family in model_lib.TRANSFORMER_FAMILIES:
-        plan = transformer.tp_plan(cfg, plan, tctx)
-    else:
-        # the ssm and hybrid decode steps take whole parameters (their
-        # projections are gathered whole; ROADMAP Queue 1)
-        tctx = shd.region_ctx(tctx)
-    params = fake_params(cfg, ctx if shd.is_sharded(tctx) else None,
-                         mode=mode, device=device, requires_grad=False)
-    inputs = specs.batch_specs(cfg, shape, ctx, mode=mode, device=device,
+    plan = transformer.tp_plan(cfg, plan_lib.resolve_attention_plan(
+        cfg.attention, shd.region_ctx(tctx)), tctx)
+    params = fake_params(cfg, ctx, mode=mode, device=device,
+                         requires_grad=False)
+    inputs = specs.batch_specs(cfg, shape, tctx, mode=mode, device=device,
                                plan=plan)
 
     def serve_step(params, batch_t, cache):

@@ -48,11 +48,12 @@ def _fake(mode, shape, dtype, device) -> torch.Tensor:
 
 
 def _decode_inputs(cfg: ModelConfig, rows: int, seq: int, mode, device,
-                   plan: Optional[plan_lib.AttentionPlan]) -> Dict:
+                   plan: Optional[plan_lib.AttentionPlan],
+                   ctx: Optional[shd.ParallelCtx] = None) -> Dict:
     with mode:
         cache = model_lib.init_cache(cfg, batch=rows, max_seq=seq,
                                      dtype=torch.bfloat16, device=device,
-                                     plan=plan)
+                                     plan=plan, ctx=ctx)
     if cfg.embedding_inputs:
         batch_t = {"embeds": _fake(mode, (rows, 1, cfg.d_model),
                                    torch_dtype(cfg.dtype), device)}
@@ -91,11 +92,13 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
     """This rank's share of `input_specs`: the rows of every batch leaf
     over the data dims (``plan.data_batch_pspec``); for a decode cell the
     batch and a cache of those rows, laid out per `plan`'s cache_pspecs
-    (this rank's KV heads over tp)."""
+    (this rank's KV heads over tp) and, under the training layout
+    (``ctx.sharded``), the ssm and hybrid families' recurrent states by
+    heads over the model dim (JAX's cache specs)."""
     rows = local_rows(shape.global_batch, ctx)
     if shape.kind in ("train", "prefill"):
         return {k: _fake(mode, (rows,) + s[1:], dt, device)
                 for k, (s, dt) in batch_shapes(
                     cfg, batch=shape.global_batch,
                     seq=shape.seq_len).items()}
-    return _decode_inputs(cfg, rows, shape.seq_len, mode, device, plan)
+    return _decode_inputs(cfg, rows, shape.seq_len, mode, device, plan, ctx)

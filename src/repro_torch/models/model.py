@@ -60,12 +60,17 @@ def forward(params, cfg: ModelConfig, batch: Dict, *, ctx=None, **kw):
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
                dtype=torch.bfloat16,
                device: Union[str, torch.device] = "cuda",
-               plan: Optional[plan_lib.AttentionPlan] = None) -> Dict:
+               plan: Optional[plan_lib.AttentionPlan] = None,
+               ctx=None) -> Dict:
     """A zero decode cache; a compressed attention cache (transformer and
     hybrid families) is laid out per `plan`'s cache_pspecs (this rank's
-    heads on a tp mesh)."""
+    heads on a tp mesh); the ssm and hybrid families' recurrent states
+    per `ctx` (under the training layout this rank's Mamba2 or RWKV6
+    heads, JAX's cache spec)."""
     impl = _impl(cfg)
     kw = {"plan": plan} if impl is not rwkv_model else {}
+    if impl is not transformer:
+        kw["ctx"] = ctx
     return impl.init_cache(cfg, batch=batch, max_seq=max_seq, dtype=dtype,
                            device=resolve_device(device), **kw)
 
@@ -76,10 +81,8 @@ def decode_step(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     """One decode step on tokens (B, 1), or on ``embeds`` (B, 1, D) for a
     config with ``embedding_inputs``; see transformer.decode_step (and the
     ssm and hybrid modules' own, whose rows share one scalar length)."""
-    impl = _impl(cfg)
-    kw = {"ctx": ctx} if impl is transformer else {}
-    return impl.decode_step(params, cfg, tokens, cache, embeds=embeds,
-                            plan=plan, **kw)
+    return _impl(cfg).decode_step(params, cfg, tokens, cache, embeds=embeds,
+                                  plan=plan, ctx=ctx)
 
 
 def prefill_chunk(params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -30,13 +30,15 @@ JAX's as is.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
 
 from repro_torch.configs.base import RWKVConfig
 from repro_torch.models import transformer as T
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as shd
 
 TM_DIM = 32          # ddlerp low-rank dim
 TD_DIM = 64          # decay low-rank dim
@@ -103,6 +105,49 @@ def _group_norm(p: Dict, y: torch.Tensor, H: int) -> torch.Tensor:
     return yn * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
 
 
+# the time mix's replicated leaves that every rank reads whole under
+# tensor parallelism (see _local)
+_WHOLE = ("maa_x", "maa", "tm_w1", "tm_w2", "td_w1")
+
+
+def heads(d_model: int, cfg: RWKVConfig, tp=None
+          ) -> Tuple[int, Optional[Tuple[int, int]]]:
+    """(the number of heads a block runs, their range): all of them
+    without `tp`, else this rank's (parallel/sharding.head_range), which
+    the model width must divide."""
+    H = d_model // cfg.head_dim
+    if tp is None:
+        return H, None
+    rng = shd.head_range(H, tp)
+    if rng is None:
+        raise ValueError(f"the model width {tp.width} does not divide the "
+                         f"{H} RWKV6 heads (the gathered route runs "
+                         "without tp)")
+    return rng[1] - rng[0], rng
+
+
+def _local(params: Dict, cfg: RWKVConfig, rng, tp) -> Dict:
+    """The time mix's leaves on this rank's heads `rng` under tensor
+    parallelism (as is without): the decay LoRA's output columns, the
+    decay base, the bonus and the group norm's scale and bias narrowed to
+    its channels with no collective, the token-shift LoRA and the decay
+    LoRA's input read whole. Every replicated leaf enters through
+    ``comm.copy``: each rank's use of it reaches the loss through its own
+    heads alone, so its gradient sums over the model dim."""
+    if rng is None:
+        return params
+    c = slice(rng[0] * cfg.head_dim, rng[1] * cfg.head_dim)
+    out = dict(params)
+    for key in _WHOLE:
+        out[key] = comm.copy(params[key], (tp,))
+    out["td_w2"] = comm.copy(params["td_w2"], (tp,))[:, c]
+    for key in ("decay_base", "bonus_u"):
+        out[key] = comm.copy(params[key], (tp,))[c]
+    out["ln_x"] = {k: comm.copy(v, (tp,))[c]
+                   for k, v in params["ln_x"].items()}
+    return out
+
+
 def _wkv_chunks(r, k, v, lw, u, h0, Lc: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked WKV over S = nc·Lc tokens. r, k, v, lw: (B, S, H, P)
@@ -141,15 +186,25 @@ def _wkv_chunks(r, k, v, lw, u, h0, Lc: int
 
 
 def time_mix(params: Dict, x: torch.Tensor, cfg: RWKVConfig,
-             shift_prev: torch.Tensor, wkv_state: torch.Tensor
+             shift_prev: torch.Tensor, wkv_state: torch.Tensor, tp=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chunked parallel WKV. x: (B, S, D); wkv_state (B, H, P, P) the state
     before the first token. Returns (out, new shift x[:, -1], new state
     fp32). Chunks of min(chunk_size, MAX_CHUNK) tokens, the remainder as
-    one tail chunk (see the module docstring)."""
+    one tail chunk (see the module docstring).
+
+    `tp` (the model dim's Axis) runs the mix on this rank's heads, as
+    layers.apply_mlp runs the MLP: x enters through ``comm.copy``, the
+    token-shift mixing is computed whole, ``w_r``/``w_k``/``w_v``/``w_g``
+    are column-parallel on its heads (contiguous, so aligned), the decay,
+    bonus, scan and group norm run on its heads (`_local`), and ``w_o`` is
+    row-parallel, the partial outputs summed (``comm.reduce``). The state
+    in and out is then this rank's heads (B, H/tp, P, P)."""
     B, S, D = x.shape
     P_ = cfg.head_dim
-    H = D // P_
+    H, rng = heads(D, cfg, tp)
+    params = _local(params, cfg, rng, tp)
+    x = comm.copy(x, (tp,))
     f32 = torch.float32
     xw, xk, xv, xr, xg = _ddlerp(params, x, _shift(x, shift_prev))
     r = (xr @ params["w_r"]).reshape(B, S, H, P_).to(f32)
@@ -170,17 +225,25 @@ def time_mix(params: Dict, x: torch.Tensor, cfg: RWKVConfig,
             ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     out = _group_norm(params["ln_x"], y, H).to(x.dtype) * g
-    return out @ params["w_o"], x[:, -1], h
+    return comm.reduce(out @ params["w_o"], (tp,)), x[:, -1], h
 
 
-def channel_mix(params: Dict, x: torch.Tensor, shift_prev: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def channel_mix(params: Dict, x: torch.Tensor, shift_prev: torch.Tensor,
+                tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The channel mix: sigmoid(xr @ cm_w_r) · (relu(xk @ cm_w_k)² @
+    cm_w_v). Under tensor parallelism `tp` ``cm_w_k`` is column-parallel
+    (xk enters through ``comm.copy``) and ``cm_w_v`` row-parallel, the
+    partial outputs summed (``comm.reduce``); the gate multiplies the
+    whole-width output, so every rank computes it whole from its column
+    shard of ``cm_w_r`` (sharding.column_matmul)."""
     xx = _shift(x, shift_prev)
     dx = xx - x
     xk = x + dx * params["cm_maa_k"]
     xr = x + dx * params["cm_maa_r"]
-    kk = torch.square(torch.relu(xk @ params["cm_w_k"]))
-    out = torch.sigmoid(xr @ params["cm_w_r"]) * (kk @ params["cm_w_v"])
+    kk = torch.square(torch.relu(comm.copy(xk, (tp,)) @ params["cm_w_k"]))
+    gate = xr @ params["cm_w_r"] if tp is None else \
+        shd.column_matmul(xr, params["cm_w_r"], tp)
+    out = torch.sigmoid(gate) * comm.reduce(kk @ params["cm_w_v"], (tp,))
     return out, x[:, -1]
 
 
@@ -190,24 +253,28 @@ def channel_mix(params: Dict, x: torch.Tensor, shift_prev: torch.Tensor
 
 
 def init_rwkv6_state(batch: int, d_model: int, cfg: RWKVConfig,
-                     dtype=torch.float32, *,
-                     device: torch.device) -> Dict[str, torch.Tensor]:
+                     dtype=torch.float32, *, device: torch.device,
+                     tp=None) -> Dict[str, torch.Tensor]:
+    """A zero state: the wkv state of the heads `heads` gives under `tp`
+    (this rank's, JAX's cache spec by heads), the shifts whole."""
     P_ = cfg.head_dim
-    H = d_model // P_
     return {
-        "wkv": torch.zeros((batch, H, P_, P_), dtype=torch.float32,
-                           device=device),
+        "wkv": torch.zeros((batch, heads(d_model, cfg, tp)[0], P_, P_),
+                           dtype=torch.float32, device=device),
         "tm_shift": torch.zeros((batch, d_model), dtype=dtype, device=device),
         "cm_shift": torch.zeros((batch, d_model), dtype=dtype, device=device),
     }
 
 
 def step_time_mix(params: Dict, x_t: torch.Tensor, cfg: RWKVConfig,
-                  state: Dict) -> Tuple[torch.Tensor, Dict]:
-    """x_t: (B, 1, D) -> (out (B, 1, D), {wkv fp32, tm_shift x_t[:, 0]})."""
+                  state: Dict, tp=None) -> Tuple[torch.Tensor, Dict]:
+    """x_t: (B, 1, D) -> (out (B, 1, D), {wkv fp32, tm_shift x_t[:, 0]}).
+    `tp` as in time_mix: the wkv state is this rank's heads."""
     B, _, D = x_t.shape
     P_ = cfg.head_dim
-    H = D // P_
+    H, rng = heads(D, cfg, tp)
+    params = _local(params, cfg, rng, tp)
+    x_t = comm.copy(x_t, (tp,))
     f32 = torch.float32
     xx = state["tm_shift"][:, None].to(x_t.dtype)
     xw, xk, xv, xr, xg = _ddlerp(params, x_t, xx)
@@ -224,4 +291,5 @@ def step_time_mix(params: Dict, x_t: torch.Tensor, cfg: RWKVConfig,
     S_new = S * w[..., None] + kv
     out = _group_norm(params["ln_x"], y.reshape(B, 1, H, P_), H)
     out = out.to(x_t.dtype) * g
-    return out @ params["w_o"], {"wkv": S_new, "tm_shift": x_t[:, 0]}
+    return comm.reduce(out @ params["w_o"], (tp,)), \
+        {"wkv": S_new, "tm_shift": x_t[:, 0]}

@@ -15,9 +15,19 @@ shifts take the dtype JAX gives them: the cache dtype from `init_cache`,
 the model dtype from `forward` and after a decode step (the last input of
 each mix); `decode_step` writes its states into the cache's leaves in place.
 
-Under the training layout (``forward(..., ctx=)`` with ``ctx.sharded``)
-the batch is this rank's rows and the parameters its shards, gathered a
-layer at a time inside the remat'd body (transformer.whole_layer).
+Under the training layout (``ctx.sharded``: this rank's rows and its
+shard of every parameter) `forward` and `decode_step` gather a layer's
+FSDP dims inside the (remat'd) body (transformer.whole_layer) and, with a
+model dim, run every block tensor-parallel on this rank's heads, JAX's
+layout of ``rwkv/*``: the time mix's projections column-parallel and
+``w_o`` row-parallel, ``cm_w_k`` column- and ``cm_w_v`` row-parallel,
+the gate through sharding.column_matmul (`rwkv6.time_mix`,
+`step_time_mix` and `channel_mix` with `tp`), the head
+vocabulary-parallel. The decode cache follows JAX's specs: ``wkv`` holds
+this rank's heads, ``tm_shift`` and ``cm_shift`` are whole. Where the
+model width does not divide the heads, the blocks take the gathered
+route (`ssm_axis`): their leaves are gathered whole and every rank runs
+them whole.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as r6
 from repro_torch.models import transformer as T
+from repro_torch.parallel import sharding as shd
 
 
 def param_spec(cfg: ModelConfig) -> T.Spec:
@@ -54,9 +65,9 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                             device=device)
 
 
-def _heads(cfg: ModelConfig) -> Tuple[int, int]:
-    P_ = cfg.rwkv.head_dim
-    return cfg.d_model // P_, P_
+def ssm_axis(cfg: ModelConfig, ctx) -> Tuple[object, bool]:
+    """sharding.heads_axis of the blocks' RWKV6 heads."""
+    return shd.heads_axis(cfg.d_model // cfg.rwkv.head_dim, ctx)
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
@@ -70,23 +81,26 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     length = S. `cache_max_seq`, `cache_dtype` and `plan` are taken for the
     common model API: the state has no sequence axis and no attention
     runs. `ctx`: see the module docstring (no region opens: no attention
-    runs)."""
+    runs); under tensor parallelism the logits are this rank's vocabulary
+    shard (transformer.vocab_range)."""
+    tp, ssm_whole = ssm_axis(cfg, ctx)
     x = T.embed_lookup(params, batch["tokens"], ctx, cfg.padded_vocab_size)
     B, S, D = x.shape
-    H, P_ = _heads(cfg)
     zero_shift = x.new_zeros((B, D))
-    zero_wkv = x.new_zeros((B, H, P_, P_), dtype=torch.float32)
+    H = r6.heads(D, cfg.rwkv, tp)[0]
+    zero_wkv = x.new_zeros((B, H, cfg.rwkv.head_dim, cfg.rwkv.head_dim),
+                           dtype=torch.float32)
     layers = T.flatten(params["layers"])
     keys = list(layers)
 
     def body(h, *leaves):
         lp = T.nest(T.whole_layer(dict(zip(keys, leaves)), ctx, "layers/",
-                                  1))
+                                  1, ssm_whole=ssm_whole))
         tm, tms, wkv = r6.time_mix(lp["rwkv"], L.rms_norm(lp["ln1"], h),
-                                   cfg.rwkv, zero_shift, zero_wkv)
+                                   cfg.rwkv, zero_shift, zero_wkv, tp)
         h = h + tm
         cm, cms = r6.channel_mix(lp["rwkv"], L.rms_norm(lp["ln2"], h),
-                                 zero_shift)
+                                 zero_shift, tp)
         if return_cache:
             return h + cm, tms, cms, wkv
         return h + cm
@@ -113,10 +127,13 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device: torch.device) -> Dict:
+               dtype=torch.bfloat16, device: torch.device, ctx=None
+               ) -> Dict:
     """The zero state at length 0 (`max_seq` is taken for the common model
-    API: the state has no sequence axis)."""
-    H, P_ = _heads(cfg)
+    API: the state has no sequence axis). Under the training layout `ctx`
+    (see the module docstring) ``wkv`` holds this rank's heads."""
+    H = r6.heads(cfg.d_model, cfg.rwkv, ssm_axis(cfg, ctx)[0])[0]
+    P_ = cfg.rwkv.head_dim
     nl, D = cfg.num_layers, cfg.d_model
     return {
         "wkv": torch.zeros((nl, batch, H, P_, P_), dtype=torch.float32,
@@ -129,23 +146,30 @@ def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
 
 def decode_step(params: Dict, cfg: ModelConfig,
                 tokens: Optional[torch.Tensor], cache: Dict, *,
-                embeds: Optional[torch.Tensor] = None, plan=None
+                embeds: Optional[torch.Tensor] = None, plan=None, ctx=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step on tokens (B, 1). The state leaves are updated in
     place; the returned dict carries ``length`` + 1. Returns (logits
-    (B, 1, V), cache)."""
-    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    (B, 1, V), cache). Under the training layout (`ctx.sharded`) the rows
+    are this rank's, the parameters its shards and the cache laid out as
+    init_cache lays it out with `ctx`; the step runs tensor-parallel and
+    gathers the logits whole, as transformer.decode_step."""
+    tp, ssm_whole = ssm_axis(cfg, ctx)
+    x = T.embed_lookup(params, tokens, ctx, cfg.padded_vocab_size)
     for i in range(cfg.num_layers):
-        lp = T.layer_slice(params["layers"], i)
+        lp = T.nest(T.whole_layer(T.flatten(T.layer_slice(params["layers"],
+                                                          i)),
+                                  ctx, "layers/", 1, ssm_whole=ssm_whole))
         tm_out, st = r6.step_time_mix(
             lp["rwkv"], L.rms_norm(lp["ln1"], x), cfg.rwkv,
-            {"wkv": cache["wkv"][i], "tm_shift": cache["tm_shift"][i]})
+            {"wkv": cache["wkv"][i], "tm_shift": cache["tm_shift"][i]}, tp)
         x = x + tm_out
         cm_out, cms = r6.channel_mix(lp["rwkv"], L.rms_norm(lp["ln2"], x),
-                                     cache["cm_shift"][i])
+                                     cache["cm_shift"][i], tp)
         x = x + cm_out
         cache["wkv"][i] = st["wkv"]
         cache["tm_shift"][i] = st["tm_shift"]
         cache["cm_shift"][i] = cms
-    logits = T.logits_from_hidden(params, cfg, x)
+    logits = T.gather_logits(T.logits_from_hidden(params, cfg, x, ctx), cfg,
+                             ctx)
     return logits, {**cache, "length": cache["length"] + 1}

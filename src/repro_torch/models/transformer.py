@@ -583,16 +583,18 @@ def tp_plan(cfg: ModelConfig, plan: plan_lib.AttentionPlan, ctx
 
 
 def whole_layer(lp: Dict, ctx, prefix: str, drop: int = 0,
-                kv_whole: bool = False) -> Dict:
+                kv_whole: bool = False, ssm_whole: bool = False) -> Dict:
     """A layer's leaves (flat or nested, keyed below `prefix` in the
     parameter tree; `drop` = 1 for views of layer-stacked leaves) gathered
     over their FSDP dims under the training layout; the model dim stays
     on this rank's shard (sharding.tp_keep; `kv_whole`: the whole-head
-    route's KV projections are gathered whole)."""
+    route's KV projections are gathered whole, `ssm_whole`: the Mamba2 or
+    RWKV6 leaves of the gathered route)."""
     if not shd.is_sharded(ctx):
         return lp
-    return shd.unshard_tree(lp, ctx, prefix, drop,
-                            lambda path: shd.tp_keep(path, ctx, kv_whole))
+    return shd.unshard_tree(
+        lp, ctx, prefix, drop,
+        lambda path: shd.tp_keep(path, ctx, kv_whole, ssm_whole))
 
 
 def _block_fn(cfg: ModelConfig, plan: plan_lib.AttentionPlan, keys,

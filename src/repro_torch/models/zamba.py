@@ -23,6 +23,16 @@ port's single-pass `cache_entry`), where JAX runs a second
 blocks only, as in JAX; the shared block has none. As in JAX, a sequence
 of S >= 8192 (JAX's literal, not the tuned threshold) runs the shared
 block's reference route in the memory-bounded chunked form.
+
+Under the training layout (``ctx.sharded``: this rank's rows and its
+shard of every parameter) with a model dim, `forward` and `decode_step`
+run tensor-parallel: the shared block as transformer.py's blocks, and
+each trunk layer's Mamba2 on this rank's heads (`mamba2.apply_mamba2`
+and `step_mamba2` with `tp`), JAX's layout of ``ssm/*``. The decode
+cache follows JAX's specs: ``mamba_ssm`` holds this rank's heads,
+``mamba_conv`` every channel. Where the model width does not divide the
+Mamba2 heads, the trunk takes the gathered route (`ssm_axis`): its
+leaves are gathered whole and the block runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -42,6 +52,11 @@ from repro_torch.parallel import sharding as shd
 
 def n_attn_invocations(cfg: ModelConfig) -> int:
     return cfg.num_layers // cfg.hybrid_attn_every
+
+
+def ssm_axis(cfg: ModelConfig, ctx) -> Tuple[object, bool]:
+    """sharding.heads_axis of the trunk's Mamba2 heads."""
+    return shd.heads_axis(m2.dims(cfg.d_model, cfg.ssm)[1], ctx)
 
 
 def param_spec(cfg: ModelConfig) -> T.Spec:
@@ -86,32 +101,32 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     rctx = shd.region_ctx(ctx)
     plan = plan if plan is not None \
         else plan_lib.resolve_attention_plan(cfg.attention, rctx)
-    # the shared block runs tensor-parallel under the training layout, as
-    # transformer.py's blocks; the Mamba2 trunk is gathered whole
+    # under the training layout the shared block runs tensor-parallel as
+    # transformer.py's blocks, and the trunk on this rank's heads
     plan = T.tp_plan(cfg, plan, ctx)
     tp, kv = shd.tensor_axis(ctx), T.whole_kv(cfg, ctx)
+    ssm_tp, ssm_whole = ssm_axis(cfg, ctx)
     x = T.embed_lookup(params, batch["tokens"], ctx, cfg.padded_vocab_size)
     B, S, _ = x.shape
     # JAX's literal threshold (not the tuned one) for the shared block's
     # chunked reference form
     chunked = S >= 8192
-    shared_lin = params.get("shared", {}).get("lin")
-    if shared_lin is not None and shd.is_sharded(ctx):
-        shared_lin = shd.unshard_tree(shared_lin, ctx, "shared/lin/")
+    shared_lin = T._shared_lin(params, ctx)
     every, n_inv = cfg.hybrid_attn_every, n_attn_invocations(cfg)
     cache = None
     if return_cache:
         cache = init_cache(cfg, batch=B,
                            max_seq=cache_max_seq or cfg.max_seq_len,
-                           dtype=cache_dtype, device=x.device, plan=plan)
+                           dtype=cache_dtype, device=x.device, plan=plan,
+                           ctx=ctx)
     trunk = T.flatten(params["trunk"])
     keys = list(trunk)
 
     def mamba_body(h, *leaves):
         lp = T.nest(T.whole_layer(dict(zip(keys, leaves)), ctx, "trunk/",
-                                  1))
+                                  1, ssm_whole=ssm_whole))
         y = m2.apply_mamba2(lp["ssm"], L.rms_norm(lp["ln"], h), cfg.ssm,
-                            return_state=return_cache)
+                            return_state=return_cache, tp=ssm_tp)
         if return_cache:
             y, st = y
             return h + y, st["ssm"], st["conv"]
@@ -148,11 +163,15 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
 def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
                dtype=torch.bfloat16, device: torch.device,
-               plan: Optional[plan_lib.AttentionPlan] = None) -> Dict:
+               plan: Optional[plan_lib.AttentionPlan] = None, ctx=None
+               ) -> Dict:
     """A zero decode cache: each trunk layer's Mamba2 state, and each
     invocation's attention entry, laid out per `plan`'s cache_pspecs (this
-    rank's heads on a tp mesh) when it is a compressed one."""
-    d_inner, H, P_ = m2.dims(cfg.d_model, cfg.ssm)
+    rank's heads on a tp mesh) when it is a compressed one. Under the
+    training layout `ctx` (see the module docstring) ``mamba_ssm`` holds
+    this rank's Mamba2 heads."""
+    d_inner, _, P_ = m2.dims(cfg.d_model, cfg.ssm)
+    H = m2.shard(cfg.d_model, cfg.ssm, ssm_axis(cfg, ctx)[0]).H
     N = cfg.ssm.state_dim
     nl = cfg.num_layers
     spec = attn_lib.decode_cache_spec(
@@ -176,25 +195,37 @@ def init_cache(cfg: ModelConfig, *, batch: int, max_seq: int,
 def decode_step(params: Dict, cfg: ModelConfig,
                 tokens: Optional[torch.Tensor], cache: Dict, *,
                 embeds: Optional[torch.Tensor] = None,
-                plan: Optional[plan_lib.AttentionPlan] = None
+                plan: Optional[plan_lib.AttentionPlan] = None, ctx=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step on tokens (B, 1), every row at the cache's scalar
     length. The cache leaves are updated in place; the returned dict
-    carries ``length`` + 1. Returns (logits (B, 1, V), cache)."""
+    carries ``length`` + 1. Returns (logits (B, 1, V), cache). Under the
+    training layout (`ctx.sharded`) the rows are this rank's, the
+    parameters its shards and the cache laid out as init_cache lays it
+    out with `ctx` and the plan tp_plan gives; the step runs
+    tensor-parallel and gathers the logits whole, as
+    transformer.decode_step."""
     plan = plan if plan is not None \
-        else plan_lib.resolve_attention_plan(cfg.attention)
+        else plan_lib.resolve_attention_plan(cfg.attention,
+                                             shd.region_ctx(ctx))
+    plan = T.tp_plan(cfg, plan, ctx)
+    tp, kv, rctx = shd.tensor_axis(ctx), T.whole_kv(cfg, ctx), \
+        shd.region_ctx(ctx)
+    ssm_tp, ssm_whole = ssm_axis(cfg, ctx)
     t = cache["length"]
-    x = L.embed_tokens(params["embed"]["tok"], tokens)
+    x = T.embed_lookup(params, tokens, ctx, cfg.padded_vocab_size)
     rows_t = t.expand(x.shape[0]).contiguous()       # (B,) for the attention
-    shared_lin = params.get("shared", {}).get("lin")
+    shared_lin = T._shared_lin(params, ctx)
     every, n_inv = cfg.hybrid_attn_every, n_attn_invocations(cfg)
 
     def trunk_step(x, i):
-        lp = T.layer_slice(params["trunk"], i)
+        lp = T.nest(T.whole_layer(T.flatten(T.layer_slice(params["trunk"],
+                                                          i)),
+                                  ctx, "trunk/", 1, ssm_whole=ssm_whole))
         y, st = m2.step_mamba2(
             lp["ssm"], L.rms_norm(lp["ln"], x),
             {"ssm": cache["mamba_ssm"][i], "conv": cache["mamba_conv"][i]},
-            cfg.ssm)
+            cfg.ssm, tp=ssm_tp)
         cache["mamba_ssm"][i] = st["ssm"]
         cache["mamba_conv"][i] = st["conv"]
         return x + y
@@ -203,10 +234,12 @@ def decode_step(params: Dict, cfg: ModelConfig,
         for i in range(g * every, (g + 1) * every):
             x = trunk_step(x, i)
         x = T.apply_block_decode(
-            params["shared_block"], x,
+            T.whole_layer(params["shared_block"], ctx, "shared_block/",
+                          kv_whole=kv), x,
             {k: v[g] for k, v in cache["attn"].items()}, rows_t, cfg,
-            shared_lin=shared_lin, plan=plan)
+            shared_lin=shared_lin, plan=plan, ctx=rctx, tp=tp)
     for i in range(n_inv * every, cfg.num_layers):
         x = trunk_step(x, i)
-    logits = T.logits_from_hidden(params, cfg, x)
+    logits = T.gather_logits(T.logits_from_hidden(params, cfg, x, ctx), cfg,
+                             ctx)
     return logits, {**cache, "length": t + 1}

@@ -42,11 +42,16 @@ the collectives themselves. ``DIM_BYTES`` and ``DIM_CALLS`` count the same
 by the mesh dim they run over, ``OP_DIM_BYTES`` by (op, mesh dim).
 
 Tensor parallelism (models/layers.py, models/attention.py, the head and
-cross-entropy) runs on two of these, Megatron's pair: ``copy`` where the
-stream enters a column-parallel matmul and ``reduce`` after a
-row-parallel one. Its only collectives are then all-reduces of
-activations over the model dim (and the cross-entropy's row maxima):
-no parameter is gathered over it.
+cross-entropy, models/mamba2.py and models/rwkv6.py) runs on two of
+these, Megatron's pair: ``copy`` where the stream enters a
+column-parallel matmul and ``reduce`` after a row-parallel one. Its
+collectives are then all-reduces of activations over the model dim (and
+the cross-entropy's row maxima, Mamba2's gated norm's sums of squares),
+but for the two column-parallel leaves whose shard does not line up with
+a rank's heads, Mamba2's ``ssm/w_in`` and RWKV6's ``cm_w_r``
+(sharding.column_matmul): each gathers either the leaf or its output
+over the model dim, whichever is smaller. No other parameter is gathered
+over it.
 """
 from __future__ import annotations
 

@@ -39,7 +39,9 @@ region splits over tp and sp only. The model dim of a leaf stays on this
 rank's shard there (:func:`tp_keep`): tensor parallelism, Megatron-style,
 as GSPMD partitions JAX's steps by the same specs (models/layers.py,
 models/attention.py, the vocabulary-parallel head of
-models/transformer.py and the cross-entropy of models/model.py).
+models/transformer.py and the cross-entropy of models/model.py, and
+Mamba2's and RWKV6's blocks on this rank's heads, :func:`head_range`,
+models/mamba2.py and models/rwkv6.py).
 
 The vocabulary dim (``embed/tok``'s rows, ``lm_head``'s columns) may split
 unevenly over the model dim (:func:`dim_range`: ceil(V / tp) a rank, the
@@ -374,23 +376,27 @@ def unshard_leaf(x: torch.Tensor, spec: Spec, ctx: ParallelCtx,
 
 
 # the leaves whose model dim tensor parallelism keeps on its shard inside
-# the block: every leaf whose rule names "model" but Mamba2's and RWKV6's
-# projections (gathered whole, as before tensor parallelism), and the
-# KV projections on the whole-head route (see tp_keep)
-_GATHERED = r"(^|/)(ssm|rwkv)/"
+# the block: every leaf whose rule names "model" but, on the gathered
+# routes, Mamba2's and RWKV6's (where the model width does not divide
+# their heads) and the KV projections (where it does not divide the KV
+# heads); see tp_keep
+_SSM = r"(^|/)(ssm|rwkv)/"
 _KV = r"attn/(wk|wv|bk|bv)$"
 
 
-def tp_keep(path: str, ctx: ParallelCtx, whole_kv: bool = False
-            ) -> Tuple[str, ...]:
+def tp_keep(path: str, ctx: ParallelCtx, whole_kv: bool = False,
+            whole_ssm: bool = False) -> Tuple[str, ...]:
     """The dims `unshard_leaf` keeps sharded for the block's compute under
     the training layout: the model dim of a leaf whose rule names it
     (column- and row-parallel weights, the vocabulary, MoE expert
-    stacks), but for Mamba2's and RWKV6's projections and, with
-    `whole_kv` (the model width does not divide the KV heads: the
-    whole-head route of models/attention.py), ``wk``/``wv``/``bk``/``bv``,
-    which are gathered whole."""
-    if re.search(_GATHERED, path) or (whole_kv and re.search(_KV, path)):
+    stacks, Mamba2's and RWKV6's projections), but for the leaves of a
+    gathered route, which are gathered whole: with `whole_ssm` (the model
+    width does not divide the Mamba2 or RWKV6 heads, see
+    :func:`head_range`) every ``ssm/`` and ``rwkv/`` leaf, and with
+    `whole_kv` (it does not divide the KV heads: the whole-head route of
+    models/attention.py) ``wk``/``wv``/``bk``/``bv``."""
+    if (whole_ssm and re.search(_SSM, path)) or \
+            (whole_kv and re.search(_KV, path)):
         return ()
     return (ctx.model_axis,)
 
@@ -416,6 +422,95 @@ def tensor_axis(ctx: Optional[ParallelCtx]):
     if not is_sharded(ctx) or ctx.model_shards == 1:
         return None
     return ctx.axis(ctx.model_axis)
+
+
+def head_range(heads: int, tp) -> Optional[Tuple[int, int]]:
+    """This rank's [lo, hi) of a block's `heads` (Mamba2's or RWKV6's)
+    over the model dim `tp` (its Axis, :func:`tensor_axis`): heads / width
+    contiguous heads a rank, so a column- or row-parallel shard of a
+    head-major dim is exactly this rank's heads. None without tensor
+    parallelism or where the width does not divide the heads: the gathered
+    route, on which the block runs on whole leaves (tp_keep's
+    `whole_ssm`)."""
+    if tp is None or heads % tp.width != 0:
+        return None
+    n = heads // tp.width
+    return tp.coord * n, (tp.coord + 1) * n
+
+
+def heads_axis(heads: int, ctx: Optional[ParallelCtx]
+               ) -> Tuple[Optional[Axis], bool]:
+    """(the model dim's Axis a Mamba2 or RWKV6 block of `heads` heads runs
+    tensor-parallel on, or None; whether it takes the gathered route:
+    tensor parallelism on a model width that does not divide the
+    heads, tp_keep's `whole_ssm`)."""
+    tp = tensor_axis(ctx)
+    if tp is None or head_range(heads, tp) is not None:
+        return tp, False
+    return None, True
+
+
+def mamba_in_columns(d_inner: int, state: int, head_dim: int,
+                     heads: Tuple[int, int]) -> Dict[str, range]:
+    """The columns of Mamba2's whole ``ssm/w_in``, laid out [z (d_inner) |
+    x (d_inner) | B (N) | C (N) | dt (H)], that the heads [lo, hi) read:
+    their z, x and dt columns, and all of B and C (one group, which every
+    head reads), by segment."""
+    lo, hi = heads
+    a, b = lo * head_dim, hi * head_dim
+    bc = 2 * d_inner
+    dt = bc + 2 * state
+    return {"z": range(a, b), "x": range(d_inner + a, d_inner + b),
+            "B": range(bc, bc + state), "C": range(bc + state, dt),
+            "dt": range(dt + lo, dt + hi)}
+
+
+def take_columns(y: torch.Tensor, cols: Sequence[range]) -> torch.Tensor:
+    """The columns `cols` (ranges, in order) of y's last dim, adjacent
+    ranges taken as one slice."""
+    runs = []
+    for r in cols:
+        if runs and runs[-1][1] == r.start:
+            runs[-1][1] = r.stop
+        else:
+            runs.append([r.start, r.stop])
+    parts = [y[..., a:b] for a, b in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def column_matmul(x: torch.Tensor, w: torch.Tensor, tp,
+                  cols: Optional[Sequence[range]] = None) -> torch.Tensor:
+    """``x @ W[:, cols]``, W the whole leaf whose column shard over the
+    model dim `tp` (W/tp contiguous columns) this rank holds as `w`, for
+    the column-parallel leaves whose shard does not line up with the
+    work: Mamba2's ``ssm/w_in`` (`cols`: this rank's z, x and dt and all
+    of B and C, :func:`mamba_in_columns`; the product feeds this rank's
+    heads alone, so x enters through ``comm.copy``) and RWKV6's
+    ``cm_w_r`` (`cols` None: every column, the gate of the whole-width
+    output, which every model rank then uses alike; x as is).
+
+    One of the two moves over the model dim, whichever is smaller (both
+    give the same values): the weight route gathers W (D × W from the
+    ranks, its gradient summed over them where the ranks read different
+    columns) and multiplies by the columns wanted; the activation route
+    multiplies by the shard, as GSPMD does, gathers the output (rows × W)
+    and takes the columns. The rule: the weight route where the whole
+    weight's bytes are at most the whole output's, D·size(w) ≤
+    rows·size(x), i.e. a training or prefill step of at least D tokens a
+    rank; a decode step of a few rows takes the activation route."""
+    rows = x.numel() // x.shape[-1]
+    weight_route = w.shape[0] * w.element_size() <= rows * x.element_size()
+    if cols is None:
+        if weight_route:
+            return x @ comm.gather(w, w.ndim - 1, (tp,))
+        y = comm.copy(x, (tp,)) @ w
+        return comm.gather(y, y.ndim - 1, (tp,))
+    x = comm.copy(x, (tp,))
+    if weight_route:
+        return x @ take_columns(comm.all_gather_tiled(w, w.ndim - 1, tp),
+                                 cols)
+    y = x @ w
+    return take_columns(comm.all_gather_tiled(y, y.ndim - 1, tp), cols)
 
 
 def sharded_lookup(table: torch.Tensor, tokens: torch.Tensor,

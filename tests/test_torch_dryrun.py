@@ -450,3 +450,52 @@ def test_fake_step_counts_the_real_step():
               "bytes_lower"):
         assert fake[k] == real[k], k
     assert fake["kernel_flops"] == 0
+
+
+class _JMesh:
+    """A stand-in for a JAX mesh of data 2 × model 2 (names and widths
+    are all JAX's spec rules read)."""
+    axis_names = ("data", "model")
+    shape = {"data": 2, "model": 2}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b"])
+def test_ssm_decode_cell_takes_shards_and_jax_cache_specs(fake_ctx, arch):
+    """A SMOKE decode cell of the ssm and hybrid families on data 2 ×
+    model 2: every parameter is this rank's shard of JAX's spec (the
+    training layout, as the transformer families' cells), and the
+    recurrent cache leaves are this rank's share of JAX's cache specs
+    (``mamba_ssm`` and ``wkv`` by heads over the model dim, ``mamba_conv``
+    and the shifts whole, every leaf's rows over the data dim); the step
+    counts its collectives."""
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.launch import specs as jspecs
+    from repro.parallel.sharding import ParallelCtx as JCtx
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch)
+    shape = ShapeConfig("decode_smoke", 64, 8, "decode")
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    _, _, parts = dryrun.build_step(cfg, shape, fake_ctx, mode=mode,
+                                    device="cpu")
+    params = flatten(parts["params"])
+    for key, (whole, _, _) in model_lib.param_spec(cfg).items():
+        want = _local(whole, spec_for_path(key, ("data",), len(whole)))
+        assert list(params[key].shape) == want, key
+    jcfg = jax_smoke(arch)
+    wholes = jspecs.input_specs(jcfg, shape)["cache"]
+    cspecs = jspecs.batch_specs(jcfg, shape, JCtx(mesh=_JMesh(),
+                                                  fsdp="data"))["cache"]
+    cache = parts["cache"]
+    recurrent = ("mamba_ssm", "mamba_conv", "wkv", "tm_shift", "cm_shift")
+    held = [k for k in recurrent if k in cache]
+    assert held
+    for key in held:
+        assert list(cache[key].shape) == _local(wholes[key].shape,
+                                                tuple(cspecs[key])), key
+    for key in ("mamba_ssm", "wkv"):
+        if key in cache:                 # SMOKE's heads divide the width
+            assert tuple(cspecs[key])[2] == "model"
+    rec = dryrun.dry_run(cfg, shape, fake_ctx, device="cpu")
+    assert rec["argument_bytes_by_part"]["params"] == sum(
+        v.numel() * v.element_size() for v in params.values())
+    assert rec["collectives_by_dim"]["model"]["bytes"] > 0

@@ -221,3 +221,80 @@ def test_cache_pspecs_as_jax(kind):
     assert tplan.cache_pspecs(cache) == want
     assert AttentionPlan().cache_pspecs(cache) == {
         k: (None,) * len(v.shape) for k, v in cache.items()}
+
+
+def _segments(cfg):
+    """JAX's `_split_proj` segments of Mamba2's w_in, as the whole leaf's
+    column indices: a one-hot input against a w_in whose first row counts
+    the columns."""
+    from repro.models import mamba2 as jm2
+    d_inner, H, _ = jm2.dims(cfg.d_model, cfg.ssm)
+    W = 2 * d_inner + 2 * cfg.ssm.state_dim + H
+    w_in = jnp.zeros((cfg.d_model, W)).at[0].set(jnp.arange(W))
+    x = jnp.zeros((1, cfg.d_model)).at[0, 0].set(1.0)
+    names = ("z", "x", "B", "C", "dt")
+    return dict(zip(names, (np.asarray(s[0]).astype(int).tolist() for s in
+                            jm2._split_proj({"w_in": w_in}, x, cfg.ssm,
+                                            cfg.d_model))))
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_mamba_in_columns_cover_jax_split(smoke, tp):
+    """Each rank's z, x and dt columns of the whole ssm/w_in (its heads,
+    head_range) joined in rank order are JAX's z, x and dt segments
+    exactly, and every rank reads all of B and C."""
+    from repro.configs import get_config
+    from repro_torch.parallel.sharding import head_range, mamba_in_columns
+    cfg = (get_smoke_config if smoke else get_config)("zamba2-1.2b")
+    want = _segments(cfg)
+    d_inner = cfg.ssm.expand * cfg.d_model
+    P_ = cfg.ssm.head_dim
+    H = d_inner // P_
+    got = {k: [] for k in want}
+    for coord in range(tp):
+        heads = head_range(H, Axis("model", tp, coord, None))
+        assert heads == (coord * H // tp, (coord + 1) * H // tp)
+        cols = mamba_in_columns(d_inner, cfg.ssm.state_dim, P_, heads)
+        assert list(cols) == list(want)
+        for k in ("z", "x", "dt"):
+            got[k] += list(cols[k])
+        for k in ("B", "C"):
+            assert list(cols[k]) == want[k]
+    for k in ("z", "x", "dt"):
+        assert got[k] == want[k], k
+
+
+def test_ssm_gathered_route_where_width_does_not_divide_heads():
+    """Where the model width does not divide the Mamba2 or RWKV6 heads the
+    family takes the gathered route: no head range, every ssm/ and rwkv/
+    leaf gathered whole inside the block (tp_keep), and the models run
+    their blocks without tp; where it divides, each leaf whose rule names
+    the model dim keeps it."""
+    from repro_torch.configs import get_smoke_config as tsmoke
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import rwkv_model, zamba
+    from repro_torch.parallel.sharding import head_range, tp_keep
+    assert head_range(2, Axis("model", 4, 1, None)) is None
+    assert head_range(4, Axis("model", 4, 1, None)) == (1, 2)
+    assert head_range(4, None) is None
+    rwkv = tsmoke("rwkv6-1.6b")
+    two_heads = dataclasses.replace(rwkv, rwkv=dataclasses.replace(
+        rwkv.rwkv, head_dim=32))
+    zam = tsmoke("zamba2-1.2b")
+    two_ssm = dataclasses.replace(zam, ssm=dataclasses.replace(
+        zam.ssm, head_dim=64))
+    with mesh_lib.fake_world(4):
+        mesh = mesh_lib.make_mesh((4,), ("model",), device_type="cpu")
+        ctx = ParallelCtx(mesh=mesh, fsdp="data", sharded=True)
+        tp = ctx.axis("model")
+        assert rwkv_model.ssm_axis(rwkv, ctx) == (tp, False)
+        assert rwkv_model.ssm_axis(two_heads, ctx) == (None, True)
+        assert zamba.ssm_axis(zam, ctx) == (tp, False)
+        assert zamba.ssm_axis(two_ssm, ctx) == (None, True)
+        for path in ("layers/rwkv/w_r", "layers/rwkv/cm_w_r",
+                     "trunk/ssm/w_in", "trunk/ssm/w_out"):
+            assert tp_keep(path, ctx) == ("model",)
+            assert tp_keep(path, ctx, whole_ssm=True) == ()
+        assert tp_keep("shared_block/mlp/w_in", ctx,
+                       whole_ssm=True) == ("model",)

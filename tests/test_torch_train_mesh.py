@@ -102,9 +102,20 @@ CASES = {
                 fsdp="experts_data", batches="causal", params="moe",
                 infer=True),
     "zamba": dict(cfg=_smoke("zamba2-1.2b"), mesh=(2,), fsdp="data",
-                  batches="causal", params="zamba"),
+                  batches="causal", params="zamba", infer=True),
     "rwkv": dict(cfg=_smoke("rwkv6-1.6b"), mesh=(2,), fsdp="data",
-                 batches="causal", params="rwkv"),
+                 batches="causal", params="rwkv", infer=True),
+    "zamba_tp4": dict(cfg=_smoke("zamba2-1.2b"), mesh=(4,), fsdp="data",
+                      batches="causal", params="zamba", oracle="zamba",
+                      infer=True),
+    "rwkv_tp4": dict(cfg=_smoke("rwkv6-1.6b"), mesh=(4,), fsdp="data",
+                     batches="causal", params="rwkv", oracle="rwkv",
+                     infer=True),
+    # width 48: three RWKV6 heads of the SMOKE head dim 16, which tp2
+    # does not divide (the gathered route)
+    "rwkv_whole": dict(cfg=_smoke("rwkv6-1.6b", d_model=48), mesh=(2,),
+                       fsdp="data", batches="causal", params="rwkv_whole",
+                       infer=True),
     "encoder": dict(cfg=_smoke("linformer-paper"), mesh=(2, 2), fsdp="data",
                     batches="uneven", params="encoder", infer=True),
     "pod_data": dict(cfg=_smoke("qwen3-8b"), mesh=(2, 2, 1),
@@ -157,9 +168,11 @@ def _infer_inputs(vocab, seed=3):
 
 def _jax_infer(cfg, params, inputs, shards):
     """JAX's prefill logits (B, S, V), then (causal configs) the logits
-    (B, V) of a prefill chunk and (B, 1, V) of each decode step, on each
-    data shard's rows."""
+    (B, V) of a prefill chunk (transformer families) and (B, 1, V) of each
+    decode step, on each data shard's rows; and an ssm or hybrid config's
+    prefill cache, flat, each leaf's rows (dim 1) of the shards joined."""
     causal = cfg.attention.kind != "linformer"
+    recurrent = cfg.family in ("ssm", "hybrid")
     prefill = jax.jit(lambda p, t: jmodel.forward(
         p, cfg, {"tokens": t}, return_cache=causal, cache_max_seq=MAX_SEQ,
         cache_dtype=jnp.float32))
@@ -168,25 +181,33 @@ def _jax_infer(cfg, params, inputs, shards):
     step = jax.jit(lambda p, t, c: jmodel.decode_step(p, cfg, {"tokens": t},
                                                       c))
     n = B // shards
-    pre, chunks, dec = [], [], []
+    pre, chunks, dec, caches = [], [], [], []
     for i in range(shards):
         rows = slice(i * n, (i + 1) * n)
         logits, _, cache = prefill(params, jnp.asarray(
             inputs["tokens"][rows]))
         pre.append(np.asarray(logits))
         steps = []
-        if causal:
+        if recurrent:
+            caches.append(_flat(cache))
+        elif causal:
             lc, cache = chunk(params, jnp.asarray(inputs["chunk"][rows]),
                               cache, jnp.asarray(inputs["valid"][rows]))
             chunks.append(np.asarray(lc))
+        if causal:
             for j in range(DECODE_STEPS):
                 lt, cache = step(params, jnp.asarray(
                     inputs["feed"][rows, j:j + 1]), cache)
                 steps.append(np.asarray(lt))
         dec.append(steps)
+    joined = None if not caches else {
+        k: (caches[0][k] if k == "length" else
+            np.concatenate([c[k] for c in caches], axis=1))
+        for k in caches[0]}
     return (np.concatenate(pre),
             np.concatenate(chunks) if chunks else None,
-            [np.concatenate([d[j] for d in dec]) for j in range(len(dec[0]))])
+            [np.concatenate([d[j] for d in dec]) for j in range(len(dec[0]))],
+            joined)
 
 
 def _frontend_batches(cfg, n=2, seed=0):
@@ -407,23 +428,29 @@ INFER = [name for name, c in CASES.items() if c.get("infer")]
 @pytest.mark.parametrize("case", INFER)
 def test_sharded_prefill_and_decode_match_jax(runs, case):
     """The prefill step's logits, those of a prefill chunk at an offset
-    (one row half valid) and of three decode steps under the training
-    layout, gathered whole, against JAX's on each data shard's rows; under
-    tensor parallelism the prefill's logits are this rank's vocabulary
-    shard."""
+    (one row half valid; transformer families) and of three decode steps
+    under the training layout, gathered whole, against JAX's on each data
+    shard's rows, and an ssm or hybrid config's prefill cache, gathered
+    whole (its Mamba2/RWKV6 states held by heads over the model dim);
+    under tensor parallelism the prefill's logits are this rank's
+    vocabulary shard."""
     want, ranks, _, _ = runs
     c = CASES[case]
-    pre, chunk, dec = want[(c.get("oracle", case), DATA_SHARDS[c["mesh"]])]
+    pre, chunk, dec, cache = want[(c.get("oracle", case),
+                                   DATA_SHARDS[c["mesh"]])]
     V = c["cfg"].padded_vocab_size
     for got in ranks:
         res = got[case]["infer"]
         _close({"prefill": res["prefill"]}, {"prefill": pre}, case)
         if chunk is not None:
             _close({"chunk": res["chunk"]}, {"chunk": chunk}, case)
+        if cache is not None:
+            assert set(res["cache"]) == set(cache), case
+            _close(res["cache"], cache, case)
         assert len(res["decode"]) == len(dec)
         for s, (a, b) in enumerate(zip(res["decode"], dec)):
             _close({f"decode {s}": a}, {f"decode {s}": b}, case)
-        tp = 4 if c["mesh"] == (4,) else 2
+        tp = _tp(c)
         assert res["local_vocab"] in (-(-V // tp), V - (tp - 1) * -(-V // tp))
 
 
@@ -441,6 +468,48 @@ def test_tensor_parallel_steps_hold_no_whole_vocab(runs, case):
             assert got[case]["infer"]["vocab_outputs"] == [], case
 
 
+def _tp(c):
+    return 4 if c["mesh"] == (4,) else 2
+
+
+def _heads_split(c):
+    """Whether an ssm or hybrid case runs its blocks on this rank's heads
+    (the model width divides the Mamba2 / RWKV6 heads)."""
+    cfg = c["cfg"]
+    if cfg.family == "hybrid":
+        heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    else:
+        heads = cfg.d_model // cfg.rwkv.head_dim
+    return heads % _tp(c) == 0
+
+
+def _ssm_model_gathers(c, phase):
+    """The bytes one rank gathers over the model dim (comm's "gather" and
+    "all_gather" ops: a gathered tensor's whole size, and the all-reduce
+    of a gathered leaf's gradient) in a phase of an ssm or hybrid case
+    on its heads. The train step and the prefill (B/shards × S ≥ D
+    tokens a rank: sharding.column_matmul's weight route) gather the
+    parameters ssm/w_in (and sum its gradient) and rwkv/cm_w_r, and the
+    prefill the conv state's last W-1 inputs of x; the decode steps
+    (B/shards rows < D: the activation route) gather no parameter, only
+    each layer's w_in or cm_w_r output and Mamba2's new conv input of x,
+    and the logits."""
+    cfg = c["cfg"]
+    rows = B // DATA_SHARDS[c["mesh"]]
+    D, L, V, f = cfg.d_model, cfg.num_layers, cfg.padded_vocab_size, 4
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm.expand * D
+        W = 2 * d_inner + 2 * cfg.ssm.state_dim + d_inner // cfg.ssm.head_dim
+        per = {"train": 2 * D * W,
+               "prefill": D * W + rows * (cfg.ssm.conv_width - 1) * d_inner,
+               "decode": DECODE_STEPS * rows * (W + d_inner)}[phase]
+    else:
+        per = {"train": D * D, "prefill": D * D,
+               "decode": DECODE_STEPS * rows * D}[phase]
+    logits = DECODE_STEPS * rows * V if phase == "decode" else 0
+    return (L * per + logits) * f
+
+
 @pytest.mark.parametrize("case", [n for n, c in CASES.items()
                                   if c.get("infer")])
 def test_no_parameter_is_gathered_over_the_model_dim(runs, case):
@@ -449,21 +518,34 @@ def test_no_parameter_is_gathered_over_the_model_dim(runs, case):
     model-dim traffic is all-reduces of activations (copy, reduce) and
     the cross-entropy's row maxima; with seq_shard_activations the stream
     is gathered and split over it too. On the whole-head route (tp4, two
-    KV heads) wk/wv and q are gathered."""
+    KV heads) wk/wv and q are gathered. The ssm and hybrid cases on their
+    heads gather exactly `_ssm_model_gathers`: of the parameters only
+    ssm/w_in and rwkv/cm_w_r, and those in the train step and the prefill
+    alone (never ssm/w_out, rwkv/w_(r|k|v|g|o), cm_w_k or cm_w_v); on the
+    gathered route (rwkv_whole: tp2 on three heads) their leaves are
+    gathered whole, in decode too."""
     _, ranks, _, _ = runs
     c = CASES[case]
-    whole_heads = c["cfg"].attention.num_kv_heads % (
-        4 if c["mesh"] == (4,) else 2) != 0
+    cfg = c["cfg"]
+    recurrent = cfg.family in ("ssm", "hybrid")
+    whole_heads = (cfg.attention.num_kv_heads % _tp(c) != 0
+                   and cfg.family != "ssm")
     for got in ranks:
-        for key in ("op_dim_bytes",):
-            for rec in (got[case][key], got[case]["infer"][key]):
-                gathered = rec.get(("gather", "model"), 0) + \
-                    rec.get(("all_gather", "model"), 0)
-                if whole_heads or c["cfg"].seq_shard_activations:
-                    assert gathered > 0, case
-                else:
-                    assert gathered == 0, (case, rec)
-                assert rec.get(("reduce", "model"), 0) > 0, case
+        phases = {"train": got[case]["op_dim_bytes"],
+                  "prefill": got[case]["infer"]["op_dim_bytes"]}
+        if recurrent:
+            phases["decode"] = got[case]["infer"]["decode_op_dim_bytes"]
+        for phase, rec in phases.items():
+            gathered = rec.get(("gather", "model"), 0) + \
+                rec.get(("all_gather", "model"), 0)
+            if recurrent and _heads_split(c):
+                assert gathered == _ssm_model_gathers(c, phase), \
+                    (case, phase, rec)
+            elif whole_heads or cfg.seq_shard_activations or recurrent:
+                assert gathered > 0, case
+            else:
+                assert gathered == 0, (case, rec)
+            assert rec.get(("reduce", "model"), 0) > 0, case
 
 
 def _fake_mesh(case):

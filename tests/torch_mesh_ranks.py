@@ -430,14 +430,43 @@ def _mesh_steps(cfg, flat, ctx, batches, ocfg, microbatch=0):
                          for k, v in flatten(opt["mu"]).items()}}
 
 
+def _whole_cache(cfg, cache, tctx):
+    """An ssm or hybrid cache laid out under the training layout, whole
+    (every rank): the Mamba2/RWKV6 states gathered over the model dim by
+    heads where they are sharded, the attention entries per the plan's
+    cache_pspecs, every leaf's rows (dim 1) over the data dims; as numpy,
+    flat, keyed as JAX's."""
+    from repro_torch.models import rwkv_model, zamba
+    from repro_torch.models import transformer as ttransformer
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import plan as plan_lib
+    from repro_torch.parallel import sharding as shd
+    data = [tctx.axis(a) for a in tctx.data_axes]
+    impl = zamba if cfg.family == "hybrid" else rwkv_model
+    tp = impl.ssm_axis(cfg, tctx)[0]
+    cache = dict(cache)
+    if "attn" in cache:
+        plan = ttransformer.tp_plan(cfg, plan_lib.resolve_attention_plan(
+            cfg.attention, shd.region_ctx(tctx)), tctx)
+        cache["attn"] = plan.gather_cache(cache["attn"])
+    out = {}
+    for k, v in ttransformer.flatten(cache).items():
+        if k in ("mamba_ssm", "wkv"):
+            v = comm.gather(v, 2, (tp,))
+        out[k] = _np(v if k == "length" else comm.gather(v, 1, data))
+    return out
+
+
 def _mesh_infer(cfg, flat, ctx, inputs, max_seq):
     """The prefill step (``forward(..., return_cache=True)``; the exact
-    form: ``forward`` alone) and, for a causal config, ``prefill_chunk``
-    of `inputs`' chunk and ``decode_step`` over the columns of its feed,
-    under the training layout from JAX's weights `flat`: each step's
-    logits gathered whole over the model dim and the data dims, the
-    outputs of the prefill's ops with the whole vocabulary as their last
-    dim, and the prefill's collective bytes by (op, mesh dim)."""
+    form: ``forward`` alone), for a transformer-family causal config
+    ``prefill_chunk`` of `inputs`' chunk, and ``decode_step`` over the
+    columns of its feed, under the training layout from JAX's weights
+    `flat`: each step's logits gathered whole over the model dim and the
+    data dims, an ssm or hybrid config's prefill cache whole, the outputs
+    of the prefill's ops with the whole vocabulary as their last dim, and
+    the collective bytes by (op, mesh dim) of the prefill and of the
+    decode steps."""
     from repro_torch.checkpoint import bridge
     from repro_torch.models import model as tmodel
     from repro_torch.models import transformer as ttransformer
@@ -450,6 +479,7 @@ def _mesh_infer(cfg, flat, ctx, inputs, max_seq):
                             tctx)
     data = [tctx.axis(a) for a in tctx.data_axes]
     causal = cfg.attention.kind != "linformer"
+    chunked = cfg.family in ttransformer.TRANSFORMER_FAMILIES
 
     def rows(x):
         return _np(comm.gather(x, 0, data))
@@ -470,13 +500,19 @@ def _mesh_infer(cfg, flat, ctx, inputs, max_seq):
         out["prefill"] = rows(ttransformer.gather_logits(logits, cfg, tctx))
         if not causal:
             return out
-        lc, cache = tmodel.prefill_chunk(params, cfg, local["chunk"], cache,
-                                         local["valid"], ctx=tctx)
-        out["chunk"] = rows(lc)
+        if chunked:
+            lc, cache = tmodel.prefill_chunk(params, cfg, local["chunk"],
+                                             cache, local["valid"], ctx=tctx)
+            out["chunk"] = rows(lc)
+        else:
+            out["cache"] = _whole_cache(cfg, cache, tctx)
+        comm.reset_counters()
         for i in range(local["feed"].shape[1]):
             lt, cache = tmodel.decode_step(
                 params, cfg, local["feed"][:, i:i + 1], cache, ctx=tctx)
-            out["decode"].append(rows(lt))
+            out["decode"].append(lt)
+        out["decode_op_dim_bytes"] = dict(comm.OP_DIM_BYTES)
+        out["decode"] = [rows(lt) for lt in out["decode"]]
     return out
 
 
