@@ -210,8 +210,14 @@ error; none catches its own failure:
 27. [train-hybrid], [train-ssm] 4 Trainer steps of each config whole
    (bf16, remat full on the trunk, 2 × 4096): step ms, tokens/s, peak
    memory, loss; zamba2 launches kernels 1r and 2 six times a step each
-   (on the tensor cores), rwkv6 none; each with a parity leg as
-   [train-parity] at the cut depth of its serve parity (fp32, 1 × 1024).
+   (on the tensor cores), rwkv6 none; rwkv6's four steps again from the
+   same draw in fp32 ([train-ssm float32]); each with a parity leg at the
+   cut depth of its serve parity (fp32, 1 × 1024): zamba2's as
+   [train-parity], rwkv6's (which has no kernel: its routes run the same
+   code) the fp32 loss and every gradient leaf against the same port code
+   in fp64 (rwkv_model.float64_reference) within SSM_F64_GRAD_TOL of a
+   leaf's largest entry and non-zero, the error of the time mix in fp32
+   (the route before it ran in fp64) logged beside.
 28. [telemetry] (after [per-token]) the port's telemetry on a full-width
    overload serve: qwen3-8b at SERVE_LAYERS in bf16, the paged int8 pool
    with chunked admission (kernels 8 and 7), the JAX package's overload
@@ -339,6 +345,19 @@ error; none catches its own failure:
    predicted peak
    beside torch.cuda.max_memory_allocated() must lie within the band of
    DRYRUN_ROUND_BYTES and DRYRUN_BLAS_BYTES.
+33. (after [serve-ckpt]) [examples] the four examples of examples_torch/
+   through their `main` on the card (their default device): quickstart,
+   serve_batched, long_context_decode at 8192 tokens, and train_mlm at
+   the paper's width (EXAMPLES_MLM: 12 layers, d 768, 12 heads, seq 512,
+   k 128) for 20 steps and then into the same checkpoint directory with
+   --steps 40, resuming at step 20. Each runs under KernelCalls: the
+   launches of the kernels it reaches (quickstart 1r and 2 in training,
+   3 in serving; serve_batched 1, 3, 4; long_context_decode 1, 3;
+   train_mlm 5, 6), summed by wrapper equal to the wrapper's calls and
+   exact where the path fixes them, what each `main` returns (finite
+   losses, the asserts of serve_batched, the cache bytes, the resumed
+   steps), then the first call at every shape held to the wrapper's plain
+   twin on CPU copies of the same inputs (FP32_TOL, GRAD_TOL).
 
 [check] also holds kernels 1, 1r, 2, 3, 4, 7 and 8 at the GQA groups of
 these configs: G = 2, 5 and 8 at c = 256, Dh = 128 and G = 1 at Dh = 64
@@ -4050,6 +4069,225 @@ def serve_ckpt_phase(dev):
         raise AssertionError(f"--ckpt-dir tokens {outs} vs {want}")
 
 
+# -- the examples ---------------------------------------------------------------
+
+# [examples]: examples_torch/ on the card, each on its default device.
+# train_mlm at the paper's width, EXAMPLES_MLM_STEPS[0] steps and then into
+# the same --ckpt-dir with --steps EXAMPLES_MLM_STEPS[1], which resumes at
+# the first run's last step (a rerun at the same --steps has nothing left
+# to train, and the JAX example then fails reading its empty metrics)
+EXAMPLES_MLM = ["--layers", "12", "--d-model", "768", "--heads", "12",
+                "--seq", "512", "--k", "128"]
+EXAMPLES_MLM_STEPS = (20, 40)
+# the cache bytes quickstart and serve_batched print, which depend on their
+# configs alone (tests/test_torch_examples.py holds them to the JAX
+# package's): quickstart's 2-row pool at max_seq 128; serve_batched's
+# compressed and full-KV 4-row pools at max_seq 256
+EXAMPLES_CACHE_BYTES = {"quickstart": 49160,
+                        "serve_batched": (163856, 524304)}
+
+
+def kernel_wrappers():
+    """{(module, wrapper name): counter attributes} of every wrapper in
+    LAUNCH_COUNTERS."""
+    out = collections.defaultdict(list)
+    for _, mod, fn, attr in LAUNCH_COUNTERS:
+        out[mod, fn].append(attr)
+    return dict(out)
+
+
+def _signature(x):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), str(x.dtype))
+    if isinstance(x, dict):
+        return tuple(sorted((k, _signature(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(v) for v in x)
+    return x
+
+
+def _map_tensors(x, fn):
+    import torch
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _map_tensors(v, fn) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map_tensors(v, fn) for v in x)
+    return x
+
+
+class KernelCalls:
+    """Within `with KernelCalls() as calls:` every kernel wrapper is
+    replaced by one that keeps a copy of the inputs of its first call at
+    each signature (shapes, dtypes, the other arguments) in `calls.first`,
+    counts its calls by wrapper in `calls.count`, and calls the wrapper. A
+    wrapper's body counts its launches on its module's name, so the
+    counters read inside (read_launches) are the replacements', from 0."""
+
+    def __init__(self):
+        self.first, self.count, self._saved = {}, collections.Counter(), []
+
+    def __enter__(self):
+        from repro_torch.kernels import blockwise_causal_attn as bca
+        from repro_torch.kernels import linformer_attn as la
+        from repro_torch.kernels import seq_projection as sp
+        mods = {"bca": bca, "la": la, "sp": sp}
+        for (m, fn), attrs in kernel_wrappers().items():
+            mod, orig = mods[m], getattr(mods[m], fn)
+
+            def wrapper(*args, _orig=orig, _fn=fn, **kw):
+                key = (_fn, _signature(args), _signature(kw))
+                if key not in self.first:
+                    self.first[key] = (_orig, *_map_tensors(
+                        (args, kw), lambda t: t.detach().clone()))
+                self.count[_fn] += 1
+                return _orig(*args, **kw)
+
+            for attr in attrs:
+                setattr(wrapper, attr, 0)
+            setattr(mod, fn, wrapper)
+            self._saved.append((mod, fn, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self._saved:
+            setattr(mod, fn, orig)
+        self._saved.clear()
+        return False
+
+    def check(self, tag):
+        """Each kept call again on the card and through the wrapper on CPU
+        copies of its inputs (its plain twin): the forward's output within
+        FP32_TOL (check), the residuals and gradients within GRAD_TOL
+        (check_grad). Returns the number of shapes held."""
+        for (fn, sig, _), (orig, args, kw) in self.first.items():
+            out = orig(*args, **kw)
+            ref = orig(*_map_tensors(args, lambda t: t.cpu()),
+                       **_map_tensors(kw, lambda t: t.cpu()))
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            shape = "x".join(str(d) for d in args[0].shape)
+            for i, (o, r) in enumerate(zip(outs, refs)):
+                if o is None:
+                    continue
+                name = f"[{tag}] {fn} q {shape} output {i}"
+                if i == 0 and not fn.endswith("_bwd"):
+                    check(name, o, r.to(o.device), o.dtype, [])
+                else:
+                    check_grad(name, o, r.to(o.device))
+        return len(self.first)
+
+
+def examples_phase(dev):
+    """[examples]: the four examples of examples_torch/ through their
+    `main`, each on its default device (the card), each under KernelCalls:
+    what each returns (quickstart's 60 finite losses, its checkpoints and
+    cache bytes; serve_batched's own asserts, its chunked completion order
+    and cache bytes; long_context_decode's 32 tokens and compression;
+    train_mlm's finite losses and the second run resuming), the launches
+    of the kernels each reaches (quickstart 1r and 2 in training, 3
+    serving; serve_batched 1, 3, 4; long_context_decode 1, 3; train_mlm 5,
+    6), their sum by wrapper equal to its calls, and exact where the path
+    fixes them; then every kernel shape they launched held
+    against its plain twin on the same inputs."""
+    import tempfile
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from examples_torch import (long_context_decode, quickstart,
+                                serve_batched, train_mlm)
+    from repro_torch.configs import get_smoke_config
+    qcfg = get_smoke_config("qwen3-8b")
+    L = qcfg.num_layers
+    got = {}
+
+    def run(name, fn, argv, want, exact=None):
+        with KernelCalls() as calls:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = fn(argv)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in read_launches().items() if v}
+        log(f"[examples] {name} {' '.join(argv)}: {wall:.1f} s; launches "
+            f"{launches}")
+        require_launches(collections.defaultdict(int, launches), want, name)
+        for k, n in (exact or {}).items():
+            if launches.get(k, 0) != n:
+                raise AssertionError(f"{name}: {k} launched "
+                                     f"{launches.get(k, 0)} times, not {n}")
+        # a wrapper's counters but the offset form's (a subset of the
+        # backward's) sum to its launches: one a call on the card
+        per_wrapper = collections.Counter()
+        for k, _, wrapper, attr in LAUNCH_COUNTERS:
+            if attr != "offset_launches":
+                per_wrapper[wrapper] += launches.get(k, 0)
+        if +per_wrapper != +calls.count:
+            raise AssertionError(f"{name}: launches by wrapper "
+                                 f"{dict(per_wrapper)}, calls "
+                                 f"{dict(calls.count)}")
+        n_shapes = calls.check(f"examples {name}")
+        got[name] = res
+        return res, launches, n_shapes
+
+    # quickstart's 4-token prompts are shorter than one block (c = 16):
+    # the engine feeds them through decode steps, so its serve launches
+    # kernel 3 alone
+    q, _, nq = run("quickstart", quickstart.main, [], (
+        "blockwise_causal_attn(return_residuals)",
+        "blockwise_causal_attn_bwd", "decode_attn"), {"blockwise_causal_attn(return_residuals)": 60 * L,
+                         "blockwise_causal_attn_bwd": 60 * L})
+    if len(q["losses"]) != 60 or not all(map(math.isfinite, q["losses"])) \
+            or q["checkpoints"] != [30, 60] or q["cache_bytes"] != \
+            EXAMPLES_CACHE_BYTES["quickstart"] or \
+            [len(o) for o in q["outputs"]] != [12, 12]:
+        raise AssertionError(f"quickstart returned {q}")
+    s, _, ns = run("serve_batched", serve_batched.main, [], (
+        "blockwise_causal_attn", "decode_attn",
+        "blockwise_causal_prefix_attn"))
+    if s["chunked_order"][-1] != 0 or (s["cache_bytes"],
+                                       s["cache_bytes_standard"]) != \
+            EXAMPLES_CACHE_BYTES["serve_batched"]:
+        raise AssertionError(f"serve_batched returned {s}")
+    new = 32
+    lc, _, nl = run("long_context_decode", long_context_decode.main,
+                    ["--new-tokens", str(new)],
+                    ("blockwise_causal_attn", "decode_attn"),
+                    {"blockwise_causal_attn": L, "decode_attn": new * L})
+    if lc["context"] != 8192 or len(lc["tokens"]) != new or \
+            not lc["ratio"] > 1:
+        raise AssertionError(f"long_context_decode returned {lc}")
+    layers = int(EXAMPLES_MLM[1])
+    mlm = []
+    with tempfile.TemporaryDirectory() as d:
+        done = 0
+        for steps in EXAMPLES_MLM_STEPS:
+            n = (steps - done) * layers
+            res, _, nm = run(
+                f"train_mlm run {len(mlm) + 1}", train_mlm.main,
+                EXAMPLES_MLM + ["--steps", str(steps), "--ckpt-dir", d],
+                ("linformer_attn", "seq_projection"),
+                {"linformer_attn": n, "seq_projection": 2 * n})
+            if res["steps"] != list(range(done + 1, steps + 1)) or not all(
+                    map(math.isfinite, res["losses"])):
+                raise AssertionError(f"train_mlm --steps {steps}: steps "
+                                     f"{res['steps']}, losses "
+                                     f"{res['losses']}")
+            mlm.append(res)
+            done = steps
+    log(f"[examples] quickstart final loss {q['loss']:.3f}, cache "
+        f"{q['cache_bytes']} B; serve_batched compression "
+        f"{s['compression']:.1f}x, chunked order {s['chunked_order']}; "
+        f"long_context_decode prefill {lc['prefill_s']:.2f} s, "
+        f"{1e3 * lc['decode_s'] / new:.2f} ms a token, cache "
+        f"{lc['cache_bytes']} B vs {lc['full_bytes']} B full "
+        f"({lc['ratio']:.1f}x); train_mlm ~{mlm[0]['n_params'] / 1e6:.1f}M "
+        f"params, loss {mlm[0]['loss']:.4f} at step "
+        f"{EXAMPLES_MLM_STEPS[0]}, resumed, {mlm[1]['loss']:.4f} at "
+        f"{EXAMPLES_MLM_STEPS[1]}; kernel shapes held to their plain twins: "
+        f"{nq + ns + nl + nm}")
+    return got
+
+
 # -- the MoE family ------------------------------------------------------------
 
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
@@ -4265,6 +4503,14 @@ SSM_PARITY_LAYERS = {HYBRID_ARCH: 7, SSM_ARCH: 2}
 # over up to 600 steps)
 SSM_STEPWISE_TOL = 2e-3
 TRAIN_SSM_RUN = dict(seq=4096, batch=2, steps=4)
+# [train-ssm-parity]: rwkv6 launches no kernel, so its kernel and reference
+# routes run the same code; its leg holds the fp32 loss gradients to the
+# same port code in fp64 (rwkv_model.float64_reference) at full width cut
+# to SSM_PARITY_LAYERS, B = 1, S = TRAIN_PARITY_SEQ: every leaf's max
+# |fp32 - fp64| at most this share of the fp64 leaf's largest entry (the
+# bound of tests/test_torch_rwkv_precision.py, MAX_ERR, fixed before the
+# first card run), the losses within TRAIN_LOSS_RTOL
+SSM_F64_GRAD_TOL = 5e-5
 
 
 def ssm_prompts(cfg, lens, n, seed=0):
@@ -4488,19 +4734,23 @@ def serve_ssm_parity_phase(dev):
     torch.cuda.empty_cache()
 
 
-def train_ssm_phase(dev, arch, tag):
+def train_ssm_phase(dev, arch, tag, dtype=None):
     """[train-hybrid] / [train-ssm]: TRAIN_SSM_RUN["steps"] Trainer steps
-    (make_train_step) of the config at full width and depth (bf16, remat
-    "full" on the trunk, seq 4096, batch 2), launch counters reset just
-    before and read just after: zamba2 launches kernels 1r and 2 once per
-    shared-block invocation a step (the shared block has no remat, so
-    kernel 1 does not run), rwkv6 no kernel. Returns {path: launches}."""
+    (make_train_step) of the config at full width and depth (bf16, or
+    `dtype`; remat "full" on the trunk, seq 4096, batch 2), launch counters
+    reset just before and read just after: zamba2 launches kernels 1r and
+    2 once per shared-block invocation a step (the shared block has no
+    remat, so kernel 1 does not run), rwkv6 no kernel. Returns {path:
+    launches}."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OptimizerConfig, TrainConfig
     from repro_torch.models import zamba
     from repro_torch.train import Trainer
     cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        tag = f"{tag} {dtype}"
     run = TRAIN_SSM_RUN
     tcfg = TrainConfig(seq_len=run["seq"], global_batch=run["batch"],
                        steps=run["steps"], log_every=1, checkpoint_every=0,
@@ -4544,6 +4794,73 @@ def train_ssm_phase(dev, arch, tag):
     gc.collect()
     torch.cuda.empty_cache()
     return {tag: launches}
+
+
+def ssm_f64_parity_phase(dev, cfg32, batch, tag):
+    """[train-ssm-parity] for rwkv6: the fp32 loss and every gradient leaf
+    of `cfg32` on `batch` (numpy) against the same port code in fp64
+    (rwkv_model.float64_reference, the weights widened) from the same
+    parameters: each leaf's max |fp32 - fp64| within SSM_F64_GRAD_TOL of
+    the fp64 leaf's largest entry, and non-zero (the two runs round
+    differently), the losses within TRAIN_LOSS_RTOL, no kernel launched.
+    The fp32 run with the time mix in fp32 (rwkv6.WKV_DTYPE[float32], the
+    route before it ran in fp64) is logged beside, not gated."""
+    import torch
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import rwkv6
+    from repro_torch.models.rwkv_model import float64_reference
+    from repro_torch.models.transformer import flatten, nest
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    B, S = batch["labels"].shape
+    base = {k: p.detach() for k, p in
+            flatten(tmodel.init_params(cfg32, seed=1, device=dev)).items()}
+
+    def loss_grads(dtype):
+        leaves = {k: p.clone().to(dtype).requires_grad_(True)
+                  for k, p in base.items()}
+        loss, _ = tmodel.loss_fn(nest(leaves), cfg32, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), dict(zip(leaves, (g.detach() for g in grads)))
+
+    def errors(grads, ref):
+        err = {k: ((grads[k].double() - ref[k]).abs().max()
+                   / ref[k].abs().max()).item() for k in ref
+               if ref[k].abs().max() > 0}
+        worst = max(err, key=err.get)
+        return worst, err[worst]
+
+    with float64_reference():
+        loss64, g64 = loss_grads(torch.float64)
+    reset_launches()
+    loss32, g32 = loss_grads(torch.float32)
+    launches = {k: v for k, v in read_launches().items() if v}
+    worst, err = errors(g32, g64)
+    del g32
+    wkv = rwkv6.WKV_DTYPE[torch.float32]
+    rwkv6.WKV_DTYPE[torch.float32] = torch.float32
+    try:
+        loss_old, g_old = loss_grads(torch.float32)
+    finally:
+        rwkv6.WKV_DTYPE[torch.float32] = wkv
+    worst_old, err_old = errors(g_old, g64)
+    del g_old, g64
+    loss_err = abs(loss32 - loss64) / abs(loss64)
+    log(f"[{tag}] {cfg32.num_layers}-layer fp32 at full width (d "
+        f"{cfg32.d_model}, head dim {cfg32.rwkv.head_dim}), B={B}, S={S}, "
+        f"against the same code in fp64: loss {loss32:.6f} vs "
+        f"{loss64:.6f} (rel err {loss_err:.2e}, tol {TRAIN_LOSS_RTOL:g}); "
+        f"worst gradient leaf {worst}: max |fp32 - fp64| {err:.3e} of its "
+        f"largest entry (tol {SSM_F64_GRAD_TOL:g}); with the mix in fp32: "
+        f"loss {loss_old:.6f}, worst leaf {worst_old} {err_old:.3e}; "
+        f"launches {launches}")
+    if launches:
+        raise AssertionError(f"{tag}: launched {launches}")
+    if not math.isfinite(loss32) or not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{tag}: losses {loss32} vs {loss64}")
+    if not 0 < err <= SSM_F64_GRAD_TOL:
+        raise AssertionError(f"{tag}: gradient {worst} error {err}")
+    del base
+    torch.cuda.empty_cache()
 
 
 # -- the training leftovers and the tuning table -------------------------------
@@ -6775,9 +7092,15 @@ def main():
         cut = dataclasses.replace(get_config(arch),
                                   num_layers=SSM_PARITY_LAYERS[arch],
                                   dtype="float32")
-        train_parity_phase(dev, cut, make_causal_batch(
+        cut_batch = make_causal_batch(
             SyntheticCorpus(cut.vocab_size, seed=0), DataState(0, 0),
-            batch=1, seq=TRAIN_PARITY_SEQ), f"{tag}-parity")
+            batch=1, seq=TRAIN_PARITY_SEQ)
+        if arch == SSM_ARCH:
+            # the same four steps from the same draw in fp32
+            train_ssm_phase(dev, arch, tag, dtype="float32")
+            ssm_f64_parity_phase(dev, cut, cut_batch, f"{tag}-parity")
+        else:
+            train_parity_phase(dev, cut, cut_batch, f"{tag}-parity")
         gc.collect()
         torch.cuda.empty_cache()
         lap(f"{tag} and {tag}-parity")
@@ -6785,6 +7108,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lap("serve-ckpt")
+    examples_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("examples")
     mlm = train_mlm_phase(dev)
     mlm_launches = mlm["launches"]
     gc.collect()

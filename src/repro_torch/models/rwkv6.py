@@ -27,6 +27,23 @@ This module caps the chunk at MAX_CHUNK = 32 steps (|cum| ≤ 64, e^64 ≈
 one shorter tail chunk. Chunking is exact algebra, so this changes only
 rounding; at the SMOKE chunk and a length it divides the algorithm is
 JAX's as is.
+
+`time_mix` runs an fp32 model's time mix in fp64 (WKV_DTYPE: its
+input, weights, projections, decay, WKV and group norm, cast back to
+fp32 at its output), where JAX runs fp32. The loss gradient through the
+exp(±cum) factors is ill-conditioned: k·exp(-cum) grows to ~e^32 inside
+a chunk while its products with r·exp(cum_prev) stay bounded, so the
+gradients of `cum` at each position are large, of opposite signs, and
+cancel in the reverse cumsum; a rounding of the factors, or of the r, k,
+v and decay they are made from, is magnified there. In fp32 the port's
+gradients at width 96 (head dim 16) erred by 1.0e-4 of a leaf's largest
+entry against an fp64 run of the same code, JAX's by 1.5e-5; with the
+mix in fp64 the port's err by 7.8e-6 (on the CPU,
+scripts/rwkv_precision.py; tests/test_torch_rwkv_precision.py holds it).
+A bf16 model keeps its WKV in fp32: its inputs are no finer than bf16,
+and an fp64 WKV made its training step 1.45x as long (rwkv6-1.6b, 2 ×
+4096, on an H100 80GB HBM3 at 700 W; scripts/rwkv_step_ab.py). The
+state returned is fp32 either way; the decode step is unchanged.
 """
 from __future__ import annotations
 
@@ -45,6 +62,10 @@ TD_DIM = 64          # decay low-rank dim
 LOG_W_MIN = -2.0
 LOG_W_MAX = -1e-6
 MAX_CHUNK = 32       # steps a chunk spans at most: |cum| ≤ 2·32 = 64
+# the time mix's working dtype by the model's: an fp32 model's whole mix
+# in fp64, a bf16 model's WKV in fp32 (see the module docstring)
+WKV_DTYPE = {torch.bfloat16: torch.float32, torch.float32: torch.float64,
+             torch.float64: torch.float64}
 
 
 def rwkv6_spec(d_model: int, d_ff: int, dtype: torch.dtype) -> T.Spec:
@@ -88,21 +109,25 @@ def _ddlerp(params: Dict, x: torch.Tensor, xx: torch.Tensor):
     return [x + dx * (params["maa"][i] + deltas[i]) for i in range(5)]
 
 
-def _log_decay(params: Dict, xw: torch.Tensor) -> torch.Tensor:
-    """The clamped log decay (B, S, D), fp32."""
-    ww = params["decay_base"] + (torch.tanh(xw @ params["td_w1"])
-                                 @ params["td_w2"]).to(torch.float32)
+def _log_decay(params: Dict, xw: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The clamped log decay (B, S, D) in `dtype` (fp32, or WKV_DTYPE in
+    time_mix), the low-rank map in xw's dtype."""
+    ww = params["decay_base"].to(dtype) + (torch.tanh(xw @ params["td_w1"])
+                                           @ params["td_w2"]).to(dtype)
     return torch.clamp(-torch.exp(ww), LOG_W_MIN, LOG_W_MAX)
 
 
 def _group_norm(p: Dict, y: torch.Tensor, H: int) -> torch.Tensor:
-    """Per-head layer norm in fp32; y: (B, S, H, P) -> (B, S, D) fp32."""
+    """Per-head layer norm in fp32 (fp64 for an fp64 y); y: (B, S, H, P)
+    -> (B, S, D) in that dtype."""
     B, S, _, P_ = y.shape
-    y32 = y.to(torch.float32)
+    dt = torch.promote_types(y.dtype, torch.float32)
+    y32 = y.to(dt)
     mu = y32.mean(-1, keepdim=True)
     var = y32.var(-1, unbiased=False, keepdim=True)
     yn = ((y32 - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, H * P_)
-    return yn * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return yn * p["scale"].to(dt) + p["bias"].to(dt)
 
 
 # the time mix's replicated leaves that every rank reads whole under
@@ -151,8 +176,8 @@ def _local(params: Dict, cfg: RWKVConfig, rng, tp) -> Dict:
 def _wkv_chunks(r, k, v, lw, u, h0, Lc: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked WKV over S = nc·Lc tokens. r, k, v, lw: (B, S, H, P)
-    fp32, lw the log decay; u: (H, P); h0: (B, H, P, P) the state before
-    the first token. Returns (y (B, S, H, P), the state after the last
+    in one float dtype, lw the log decay; u: (H, P); h0: (B, H, P, P) the
+    state before the first token. Returns (y (B, S, H, P), the state after the last
     token). Lc ≤ MAX_CHUNK keeps every exp(±cum) finite."""
     B, S, H, P_ = r.shape
     nc = S // Lc
@@ -185,38 +210,48 @@ def _wkv_chunks(r, k, v, lw, u, h0, Lc: int
     return y.reshape(B, S, H, P_), h
 
 
+def _widen(params: Dict, dtype: torch.dtype) -> Dict:
+    """Every floating leaf of a block's (nested) params in `dtype`."""
+    return {k: _widen(v, dtype) if isinstance(v, dict) else
+            v.to(dtype) if v.is_floating_point() else v
+            for k, v in params.items()}
+
+
 def time_mix(params: Dict, x: torch.Tensor, cfg: RWKVConfig,
              shift_prev: torch.Tensor, wkv_state: torch.Tensor, tp=None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Chunked parallel WKV. x: (B, S, D); wkv_state (B, H, P, P) the state
-    before the first token. Returns (out, new shift x[:, -1], new state
-    fp32). Chunks of min(chunk_size, MAX_CHUNK) tokens, the remainder as
-    one tail chunk (see the module docstring).
+    before the first token. Returns (out in x's dtype, new shift x[:, -1],
+    new state fp32). Chunks of min(chunk_size, MAX_CHUNK) tokens, the
+    remainder as one tail chunk; in WKV_DTYPE[x.dtype], the whole mix for
+    an fp32 x, the WKV for a bf16 x (see the module docstring).
 
     `tp` (the model dim's Axis) runs the mix on this rank's heads, as
     layers.apply_mlp runs the MLP: x enters through ``comm.copy``, the
     token-shift mixing is computed whole, ``w_r``/``w_k``/``w_v``/``w_g``
     are column-parallel on its heads (contiguous, so aligned), the decay,
     bonus, scan and group norm run on its heads (`_local`), and ``w_o`` is
-    row-parallel, the partial outputs summed (``comm.reduce``). The state
-    in and out is then this rank's heads (B, H/tp, P, P)."""
+    row-parallel, the partial outputs summed (``comm.reduce``) in x's
+    dtype. The state in and out is then this rank's heads (B, H/tp, P,
+    P)."""
     B, S, D = x.shape
     P_ = cfg.head_dim
     H, rng = heads(D, cfg, tp)
     params = _local(params, cfg, rng, tp)
     x = comm.copy(x, (tp,))
-    f32 = torch.float32
-    xw, xk, xv, xr, xg = _ddlerp(params, x, _shift(x, shift_prev))
-    r = (xr @ params["w_r"]).reshape(B, S, H, P_).to(f32)
-    k = (xk @ params["w_k"]).reshape(B, S, H, P_).to(f32)
-    v = (xv @ params["w_v"]).reshape(B, S, H, P_).to(f32)
+    f32, wd, xm = torch.float32, WKV_DTYPE[x.dtype], x
+    if x.dtype != torch.bfloat16:       # an fp32 model's whole mix in wd
+        params, xm = _widen(params, wd), x.to(wd)
+    xw, xk, xv, xr, xg = _ddlerp(params, xm, _shift(xm, shift_prev))
+    r, k, v = ((a @ params[w]).reshape(B, S, H, P_).to(wd)
+               for a, w in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
     g = Fn.silu(xg @ params["w_g"])
-    lw = _log_decay(params, xw).reshape(B, S, H, P_)
-    u = params["bonus_u"].reshape(H, P_).to(f32)
+    lw = _log_decay(params, xw, wd).reshape(B, S, H, P_)
+    u = params["bonus_u"].reshape(H, P_).to(wd)
 
     Lc = min(cfg.chunk_size, MAX_CHUNK)
     n_full = (S // Lc) * Lc
-    h = wkv_state.to(f32)
+    h = wkv_state.to(wd)
     ys = []
     for lo, hi, chunk in ((0, n_full, Lc), (n_full, S, S - n_full)):
         if hi > lo:
@@ -224,8 +259,10 @@ def time_mix(params: Dict, x: torch.Tensor, cfg: RWKVConfig,
                                lw[:, lo:hi], u, h, chunk)
             ys.append(y)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
-    out = _group_norm(params["ln_x"], y, H).to(x.dtype) * g
-    return comm.reduce(out @ params["w_o"], (tp,)), x[:, -1], h
+    y = y.to(torch.promote_types(xm.dtype, f32))
+    out = _group_norm(params["ln_x"], y, H).to(xm.dtype) * g
+    return comm.reduce((out @ params["w_o"]).to(x.dtype), (tp,)), \
+        x[:, -1], h.to(f32)
 
 
 def channel_mix(params: Dict, x: torch.Tensor, shift_prev: torch.Tensor,

@@ -31,6 +31,9 @@ them whole.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib
+import types
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -40,6 +43,41 @@ from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as r6
 from repro_torch.models import transformer as T
 from repro_torch.parallel import sharding as shd
+
+
+# the modules of this family's forward and loss that name torch.float32
+_FP32_MODULES = ("repro_torch.models.rwkv6", "repro_torch.models.rwkv_model",
+                 "repro_torch.models.model", "repro_torch.models.transformer",
+                 "repro_torch.models.layers")
+
+
+_TORCH = torch      # float64_reference replaces this module's `torch` too
+
+
+class _Torch64(types.ModuleType):
+    """`torch` with float32 read as float64."""
+
+    def __getattr__(self, name):
+        return _TORCH.float64 if name == "float32" else getattr(_TORCH, name)
+
+
+@contextlib.contextmanager
+def float64_reference():
+    """Within it, this family's forward and loss read every
+    `torch.float32` they name as float64: with float64 weights, the same
+    code end to end in fp64 (the time mix takes WKV_DTYPE[float64]). The
+    oracle the fp32 gradients are held to
+    (tests/test_torch_rwkv_precision.py, chip_smoke's [train-ssm-parity]);
+    it patches module globals, so run nothing else meanwhile."""
+    mods = [importlib.import_module(m) for m in _FP32_MODULES]
+    saved = [m.torch for m in mods]
+    for m in mods:
+        m.torch = _Torch64("torch64")
+    try:
+        yield
+    finally:
+        for m, t in zip(mods, saved):
+            m.torch = t
 
 
 def param_spec(cfg: ModelConfig) -> T.Spec:

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of src/repro_torch/ and not
-chip_smoke.py imports jax, jaxlib or the JAX package `repro`."""
+"""The PyTorch port stands alone: no module of src/repro_torch/ or
+examples_torch/ and not chip_smoke.py imports jax, jaxlib or the JAX
+package `repro`."""
 import ast
 import os
 
@@ -11,11 +12,12 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for dirpath, dirnames, filenames in os.walk(
-            os.path.join(ROOT, "src", "repro_torch")):
-        dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
-        files += [os.path.join(dirpath, f) for f in sorted(filenames)
-                  if f.endswith(".py")]
+    for top in (os.path.join(ROOT, "src", "repro_torch"),
+                os.path.join(ROOT, "examples_torch")):
+        for dirpath, dirnames, filenames in os.walk(top):
+            dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
+            files += [os.path.join(dirpath, f) for f in sorted(filenames)
+                      if f.endswith(".py")]
     return files
 
 
@@ -41,6 +43,10 @@ def test_port_files_exist():
     files = _port_files()
     assert os.path.exists(files[0])
     assert len(files) > 20
+    examples = {os.path.basename(f) for f in files
+                if os.path.basename(os.path.dirname(f)) == "examples_torch"}
+    assert {"quickstart.py", "serve_batched.py", "long_context_decode.py",
+            "train_mlm.py"} <= examples
 
 
 @pytest.mark.parametrize("path", _port_files(),
